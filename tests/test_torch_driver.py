@@ -1,0 +1,159 @@
+"""The port's driver and command line against the JAX package's, on the
+CPU: the same fixture through ``solve`` of both packages, the same argv
+through both CLIs, and the port's refusals of what later slices bring."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_jordan import driver as jdriver
+from tpu_jordan import io as jio
+from tpu_jordan.__main__ import main as jmain
+from tpu_jordan.tuning.tuner import auto_select
+
+from tpu_jordan_torch import driver as tdriver
+from tpu_jordan_torch.__main__ import main as tmain
+from tpu_jordan_torch.config import default_block_size
+from tpu_jordan_torch.errors import (
+    DeviceUnavailableError,
+    SingularMatrixError,
+    UsageError,
+)
+
+
+def _gate(res, eps, n):
+    """The residual gate of bench.py: rel_residual < min(3·eps·n·κ∞/‖A‖∞,
+    0.5)."""
+    return min(3.0 * eps * n * res.kappa / res._norm_a, 0.5)
+
+
+@pytest.mark.parametrize("n,m,gen,np_dt", [
+    (48, 8, "absdiff", np.float64),
+    (64, 16, "rand", np.float32),
+])
+def test_solve_matches_jax(n, m, gen, np_dt):
+    """Same engine chosen; both pass the residual gate; κ∞ agrees within
+    10·eps·n·κ∞ (relative), the inverses' own tolerance."""
+    ref = jdriver.solve(n, m, generator=gen, dtype=np_dt)
+    got = tdriver.solve(n, m, generator=gen, dtype=np_dt, device="cpu")
+    eps = float(np.finfo(np_dt).eps)
+    assert got.engine == ref.engine == "inplace"
+    assert got.rel_residual < _gate(got, eps, n)
+    assert ref.rel_residual < _gate(ref, eps, n)
+    assert abs(got.kappa - ref.kappa) / ref.kappa <= 10 * eps * n * ref.kappa
+    assert got.inverse.dtype == getattr(torch, np.dtype(np_dt).name)
+    assert got.device == "cpu" and got.gflops > 0
+
+
+def test_solve_from_file_matches_jax(tmp_path):
+    a = np.random.default_rng(5).standard_normal((16, 16))
+    path = str(tmp_path / "a.txt")
+    jio.write_matrix_file(path, a)
+    ref = jdriver.solve(16, 8, file=path, dtype=np.float64)
+    got = tdriver.solve(16, 8, file=path, dtype="float64", device="cpu")
+    np.testing.assert_allclose(got.inverse.numpy(), np.asarray(ref.inverse),
+                               rtol=0, atol=1e-10 * np.abs(
+                                   np.asarray(ref.inverse)).max())
+
+
+@pytest.mark.parametrize("n", [512, 4096, 8192, 16384])
+def test_auto_engine_matches_jax_cost_rule(n):
+    """The port's written-out rule against the JAX tuner's cost-only pick
+    for a single-device fp32 solve at the default block size."""
+    engine, group, _ = auto_select(n, default_block_size(n), np.float32, 1,
+                                   True)
+    assert tdriver.resolve_engine("auto", 0, n) == (engine, group)
+
+
+@pytest.mark.parametrize("engine,group,expect", [
+    ("grouped", 0, ("grouped", 2)),
+    ("grouped", 3, ("grouped", 3)),
+    ("auto", 4, ("grouped", 4)),
+    ("inplace", 0, ("inplace", 0)),
+])
+def test_resolve_engine_matches_jax(engine, group, expect):
+    assert jdriver.resolve_engine(engine, group) == expect
+    assert tdriver.resolve_engine(engine, group) == expect
+
+
+def _write(tmp_path, name, text):
+    path = tmp_path / name
+    path.write_text(text)
+    return str(path)
+
+
+@pytest.mark.parametrize("case", [
+    "ok", "zero_n", "missing_m", "missing_file", "singular_file",
+    "unreadable_file", "group_one", "unknown_engine",
+])
+def test_cli_exit_codes_match_jax(tmp_path, case):
+    argv = {
+        "ok": ["8", "4"],
+        "zero_n": ["0", "4"],
+        "missing_m": ["8"],
+        "missing_file": ["8", "4", str(tmp_path / "nope.txt")],
+        "singular_file": ["8", "4", _write(tmp_path, "z", "0 " * 64)],
+        "unreadable_file": ["8", "4", _write(tmp_path, "b", "1 x " * 32)],
+        "group_one": ["8", "4", "--group", "1"],
+        "unknown_engine": ["8", "4", "--engine", "nope"],
+    }[case]
+    expected = {"ok": 0, "zero_n": 1, "missing_m": 1, "missing_file": 2,
+                "singular_file": 2, "unreadable_file": 2, "group_one": 1,
+                "unknown_engine": 1}[case]
+    assert jmain(argv + ["--quiet"]) == expected
+    assert tmain(argv + ["--device", "cpu"]) == expected
+
+
+def test_cli_verbose_prints_corners(capsys):
+    assert tmain(["6", "2", "--device", "cpu", "-v", "--dtype",
+                  "float64"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("A\n") and "inverse matrix:" in out
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import sys, tpu_jordan_torch, tpu_jordan_torch.__main__; "
+            "import tpu_jordan_torch.ops.gj_probe, tpu_jordan_torch._build; "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib')) or m == 'tpu_jordan' "
+            "or m.startswith('tpu_jordan.')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_gpu_raises_instead_of_running_on_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceUnavailableError):
+        tdriver.solve(8, 4)
+    assert tmain(["8", "4"]) == 2
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"workers": 2},
+    {"workers": (2, 4)},
+    {"gather": False},
+    {"telemetry": object()},
+    {"policy": object()},
+    {"numerics": "summary"},
+    {"tune": True},
+    {"plan_cache": "plans.json"},
+    {"precision": "high"},
+    {"precision": "mixed"},
+    {"engine": "augmented"},
+    {"engine": "grouped_pallas"},
+    {"dtype": "complex64"},
+])
+def test_later_slice_options_are_refused(kwargs):
+    with pytest.raises(UsageError):
+        tdriver.solve(8, 4, device="cpu", **kwargs)
+
+
+def test_singular_solve_raises(tmp_path):
+    path = _write(tmp_path, "ones", "1 " * 64)
+    with pytest.raises(SingularMatrixError):
+        tdriver.solve(8, 4, file=path, device="cpu")

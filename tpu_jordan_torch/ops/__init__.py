@@ -1,0 +1,38 @@
+"""Operations of the single-device inversion path."""
+
+from .block_inverse import (
+    batched_block_inverse,
+    gauss_jordan_inverse,
+    probe_blocks,
+)
+from .generators import GENERATORS, generate
+from .jordan_inplace import (
+    apply_col_perm,
+    block_jordan_invert_inplace,
+    block_jordan_invert_inplace_grouped,
+    compose_swap_perm,
+)
+from .norms import block_inf_norms, condition_inf, inf_norm
+from .padding import pad_with_identity, unpad
+from .refine import newton_schulz, resolve_precision
+from .residual import residual_inf_norm
+
+__all__ = [
+    "GENERATORS",
+    "apply_col_perm",
+    "batched_block_inverse",
+    "block_inf_norms",
+    "block_jordan_invert_inplace",
+    "block_jordan_invert_inplace_grouped",
+    "compose_swap_perm",
+    "condition_inf",
+    "gauss_jordan_inverse",
+    "generate",
+    "inf_norm",
+    "newton_schulz",
+    "pad_with_identity",
+    "probe_blocks",
+    "residual_inf_norm",
+    "resolve_precision",
+    "unpad",
+]

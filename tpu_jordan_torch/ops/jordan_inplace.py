@@ -1,0 +1,293 @@
+"""In-place blocked Gauss–Jordan inversion: the single-device engines.
+
+The condition-based block pivoting of the reference's ``Jordan``
+(main.cpp:953-1204) on the N×N working matrix alone:
+
+  * at step t the eliminated column block is *replaced* by the
+    inverse-building column (``V[:,t] ← −E·H``, ``V[t,t] ← H``), so no
+    augmented B half exists: ~2N³ flops;
+  * the probe at step t inverts only the ``Nr − t`` live candidate blocks of
+    column t (the reference's window, main.cpp:1039); the pivot is the
+    candidate whose inverse has the smallest ‖·‖∞, lowest row on ties;
+  * row pivoting is physical block-row swaps; the final inverse replays the
+    swap history as one composed block-column permutation.
+
+Every step is eager PyTorch.  The pivot index stays on the device (a 0-d
+tensor driving ``index_select``/``index_copy_``), so the host never waits
+for the probe; the swap history is read back once, after the last step.
+The working matrix is updated in place; the caller's ``a`` is not touched.
+Products are ``torch.matmul``/``addmm_`` (cuBLAS on the card, in full fp32:
+the driver keeps TF32 off); the probe is ``block_inverse.probe_blocks``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import default_block_size, eps_for
+from .block_inverse import probe_blocks
+from .norms import block_inf_norms
+from .padding import pad_with_identity, unpad
+from .refine import newton_schulz
+
+_SUB_FP32 = (torch.float16, torch.bfloat16)
+
+
+class _StepStats:
+    """Per-superstep health record of an engine run with
+    ``collect_stats=True``: the chosen pivot block, the ∞-norm of its
+    inverse (the step's key minimum), the worst finite candidate norm, the
+    probe's singular-candidate count, and the running element-growth
+    watermark ``max|V|``.  Same keys as the JAX package's record."""
+
+    def __init__(self):
+        self.pivot_block, self.pivot_inv_norm = [], []
+        self.cand_norm_max, self.singular_candidates = [], []
+        self.growth = []
+        self._watermark = None
+
+    def probe(self, piv, key, sing):
+        finite = torch.isfinite(key)
+        self.pivot_block.append(piv.to(torch.int32))
+        self.pivot_inv_norm.append(key.min())
+        self.cand_norm_max.append(
+            torch.where(finite, key, float("-inf")).max())
+        self.singular_candidates.append(sing.sum().to(torch.int32))
+
+    @staticmethod
+    def _max_abs(arrays):
+        return torch.stack([x.abs().max() for x in arrays]).max()
+
+    def sample_growth(self, *arrays):
+        """One per-step watermark sample over the live working state (the
+        grouped engine passes V and the pending panel U)."""
+        w = self._max_abs(arrays)
+        self._watermark = (w if self._watermark is None
+                           else torch.maximum(self._watermark, w))
+        self.growth.append(self._watermark)
+
+    def refresh(self, *arrays):
+        """Fold a group-end state into the last recorded step's watermark."""
+        self._watermark = torch.maximum(self._watermark,
+                                        self._max_abs(arrays))
+        self.growth[-1] = self._watermark
+
+    def stacked(self) -> dict:
+        return {
+            "pivot_block": torch.stack(self.pivot_block),
+            "pivot_inv_norm": torch.stack(self.pivot_inv_norm),
+            "cand_norm_max": torch.stack(self.cand_norm_max),
+            "singular_candidates": torch.stack(self.singular_candidates),
+            "growth": torch.stack(self.growth),
+        }
+
+
+def compose_swap_perm(swaps, Nr: int) -> list[int]:
+    """Fold the row-swap history into ONE block-column permutation: the
+    reversed transpositions simulated on an index vector.  Output
+    block-column j is input block-column ``cols[j]``."""
+    cols = list(range(Nr))
+    for t in reversed(range(Nr)):
+        p = int(swaps[t])
+        cols[t], cols[p] = cols[p], cols[t]
+    return cols
+
+
+def apply_col_perm(V: torch.Tensor, cols, m: int) -> torch.Tensor:
+    """Apply a block-column permutation to the last axis with one blocked
+    gather: out[..., j·m:(j+1)·m] = V[..., cols[j]·m:(cols[j]+1)·m]."""
+    N = V.shape[-1]
+    lead = V.shape[:-1]
+    idx = torch.as_tensor(cols, dtype=torch.long, device=V.device)
+    out = V.reshape(lead + (N // m, m)).index_select(len(lead), idx)
+    return out.reshape(lead + (N,))
+
+
+def _setup(a, block_size, eps):
+    n = a.shape[-1]
+    if block_size is None:
+        block_size = default_block_size(n)
+    m = min(block_size, n)
+    if eps is None:
+        eps = eps_for(a.dtype)
+    Nr = -(-n // m)
+    N = Nr * m
+    V = pad_with_identity(a, N)
+    if V is a:
+        V = a.clone()
+    return n, m, eps, Nr, N, V
+
+
+def _select(invs, sing, t):
+    """The step's pivot decision: key = ‖inv‖∞ (inf where singular),
+    argmin with ties to the lowest row.  Returns (H, piv, key)."""
+    key = torch.where(sing, float("inf"), block_inf_norms(invs))
+    rel = torch.argmin(key)
+    H = invs.index_select(0, rel.view(1))[0]
+    return H, rel + t, key
+
+
+def _swap_rows(Xb, t: int, piv):
+    """Swap-by-copy of block rows t <-> piv in the (Nr, m, ·) view ``Xb``;
+    returns the old block row piv.  Row t is left for the caller."""
+    pv = piv.view(1)
+    rows_t = Xb[t].clone()
+    rows_p = Xb.index_select(0, pv)[0]
+    Xb.index_copy_(0, pv, rows_t.unsqueeze(0))
+    return rows_p
+
+
+def _finish(V, rswaps, Nr, n, m, a, refine, stats, singular):
+    V = apply_col_perm(V, compose_swap_perm(torch.stack(rswaps).tolist(),
+                                            Nr), m)
+    x = newton_schulz(a, unpad(V, n).contiguous(), refine)
+    if stats is not None:
+        return x, singular, stats.stacked()
+    return x, singular
+
+
+def _upcast_call(engine, a, *args):
+    """Sub-fp32 policy: fp32 compute, one final rounding back."""
+    out = engine(a.float(), *args)
+    return (out[0].to(a.dtype),) + tuple(out[1:])
+
+
+def block_jordan_invert_inplace(
+    a: torch.Tensor,
+    block_size: int | None = None,
+    eps: float | None = None,
+    refine: int = 0,
+    collect_stats: bool = False,
+    probe=probe_blocks,
+):
+    """Invert ``a`` by in-place blocked Gauss–Jordan with condition-based
+    pivoting.  Returns ``(x, singular)``, or ``(x, singular, stats)`` with
+    ``collect_stats=True`` (:class:`_StepStats`).  ``singular`` is a bool
+    tensor on ``a``'s device.  ``probe(cands, eps)`` inverts the candidate
+    stack (default :func:`probe_blocks`; ``chip_smoke.py`` passes the plain
+    version to hold the kernel's run against it).  Counterpart of the JAX package's
+    ``block_jordan_invert_inplace`` and its ``_fori`` twin (eager PyTorch
+    needs no split)."""
+    if a.dtype in _SUB_FP32:
+        return _upcast_call(block_jordan_invert_inplace, a, block_size, eps,
+                            refine, collect_stats, probe)
+    n, m, eps, Nr, N, V = _setup(a, block_size, eps)
+    Vb = V.view(Nr, m, N)
+    singular = torch.zeros((), dtype=torch.bool, device=a.device)
+    stats = _StepStats() if collect_stats else None
+    rswaps = []
+    for t in range(Nr):
+        s = slice(t * m, (t + 1) * m)
+        # --- PROBE the live candidate blocks of column t (main.cpp:1039).
+        cands = V[t * m:, s].reshape(Nr - t, m, m).contiguous()
+        invs, sing = probe(cands, eps)
+        H, piv, key = _select(invs, sing, t)
+        singular |= sing.all()
+        if stats is not None:
+            stats.probe(piv, key, sing)
+
+        # --- SWAP block rows t <-> piv (main.cpp:1093-1131).
+        rows_p = _swap_rows(Vb, t, piv)
+
+        # --- NORMALIZE + ELIMINATE, in place: prow's t-block is H and V's
+        # t-column is zeroed first, so the one product leaves −E·H there.
+        prow = H @ rows_p                                     # (m, N)
+        prow[:, s] = H
+        E = V[:, s].clone()                                   # (N, m)
+        E[s] = 0
+        V[:, s] = 0
+        V.addmm_(E, prow, alpha=-1)
+        V[s] = prow
+        rswaps.append(piv)
+        if stats is not None:
+            stats.sample_growth(V)
+    return _finish(V, rswaps, Nr, n, m, a, refine, stats, singular)
+
+
+def block_jordan_invert_inplace_grouped(
+    a: torch.Tensor,
+    block_size: int | None = None,
+    eps: float | None = None,
+    refine: int = 0,
+    group: int = 4,
+    collect_stats: bool = False,
+    probe=probe_blocks,
+):
+    """In-place blocked Gauss–Jordan with DELAYED GROUP UPDATES: ``group=k``
+    consecutive elimination panels are accumulated into U (N, k·m) and
+    P (k·m, N) and applied as one (N, k·m)×(k·m, N) product per group, while
+    the probed column and the pivot row are brought up to date eagerly with
+    the pending panels, so the pivot choice is the plain engine's.
+
+    Bookkeeping invariants (why the eager formulas are exact):
+      * V's group columns are zeroed at their elimination step, so the
+        eager value of any group column is V − U·P;
+      * a finalized pivot row is written into V at once and its U row
+        zeroed, so the group-end subtract leaves it alone;
+      * row swaps move U rows with V rows.
+    ``probe`` is as in :func:`block_jordan_invert_inplace`.  Counterpart
+    of the JAX package's ``block_jordan_invert_inplace_grouped`` and its
+    ``_grouped_fori`` twin."""
+    if a.dtype in _SUB_FP32:
+        return _upcast_call(block_jordan_invert_inplace_grouped, a,
+                            block_size, eps, refine, group, collect_stats,
+                            probe)
+    n, m, eps, Nr, N, V = _setup(a, block_size, eps)
+    k = max(1, min(group, Nr))
+    Vb = V.view(Nr, m, N)
+    singular = torch.zeros((), dtype=torch.bool, device=a.device)
+    stats = _StepStats() if collect_stats else None
+    rswaps = []
+    for t0 in range(0, Nr, k):
+        kg = min(k, Nr - t0)                   # this group's width
+        U = V.new_zeros((N, kg * m))
+        P = V.new_zeros((kg * m, N))
+        Ub = U.view(Nr, m, kg * m)
+        for j in range(kg):
+            t = t0 + j
+            s = slice(t * m, (t + 1) * m)
+            # --- EAGER CANDIDATE COLUMN: V[:, t] minus pending panels.
+            col = V[:, s].clone()
+            if j:
+                col.addmm_(U[:, :j * m], P[:j * m, s], alpha=-1)
+            # --- PROBE the live window (main.cpp:1039).
+            invs, sing = probe(col[t * m:].view(Nr - t, m, m), eps)
+            H, piv, key = _select(invs, sing, t)
+            singular |= sing.all()
+            if stats is not None:
+                stats.probe(piv, key, sing)
+
+            # --- SWAP rows t <-> piv in V and U (pending panel
+            # contributions follow the physical row).
+            rows_p = _swap_rows(Vb, t, piv)
+            u_p = _swap_rows(Ub, t, piv)
+
+            # --- EAGER PIVOT ROW: old piv row minus pending panels.
+            if j:
+                rows_p.addmm_(u_p[:, :j * m], P[:j * m], alpha=-1)
+            prow = H @ rows_p                                 # (m, N)
+            prow[:, s] = H
+
+            # --- RECORD the panel: E = eager column, blocks t/piv
+            # exchanged, pivot-row block zeroed.
+            colb = col.view(Nr, m, m)
+            colb.index_copy_(0, piv.view(1), colb[t:t + 1].clone())
+            colb[t] = 0
+            # --- BOOKKEEPING WRITES (the invariants above).  Zeroing V's
+            # column t also cancels the pending panels' contributions.
+            V[:, s] = 0
+            if j:
+                P[:j * m, s] = 0
+            V[s] = prow
+            U[s] = 0
+            U[:, j * m:(j + 1) * m] = col
+            P[j * m:(j + 1) * m] = prow
+            rswaps.append(piv)
+            if stats is not None:
+                stats.sample_growth(V, U)
+
+        # --- GROUP-END TRAILING UPDATE: one fat product.
+        V.addmm_(U, P, alpha=-1)
+        if stats is not None:
+            stats.refresh(V)
+    return _finish(V, rswaps, Nr, n, m, a, refine, stats, singular)

@@ -1,0 +1,113 @@
+"""Where a solve's device time goes: one traced engine call per row.
+
+    python -m tpu_jordan_torch.profile_solve [--rows 4096:128:absdiff:float32,...]
+
+For each row (n:m:generator:dtype) the matrix is generated on the card, and
+the engine that ``driver.solve`` picks on ``auto`` runs once to warm up, then
+once untraced and once under ``torch.profiler``, each between CUDA events.  Prints
+one JSON line a row: both wall times, the device time of the probe kernel,
+of the GEMMs and of everything else, and the idle share of the traced wall
+(the part during which no kernel ran; tracing slows the host, so this share
+is an upper bound for the untraced run).  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import torch
+
+from .driver import invert, resolve_engine
+from .ops import generate
+
+DEFAULT_ROWS = ("4096:128:absdiff:float32,8192:384:absdiff:float64,"
+                "8192:384:rand:float32,16384:128:rand:float32")
+
+
+def _kind(name: str) -> str:
+    low = name.lower()
+    if "gj_probe" in low:
+        return "probe"
+    if "gemm" in low or "cutlass" in low or "xmma" in low:
+        return "gemm"
+    return "other"
+
+
+def _union_us(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total
+
+
+def profile_row(n: int, m: int, gen: str, dtype: torch.dtype) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    engine, group = resolve_engine("auto", 0, n)
+    a = generate(gen, (n, n), dtype, device="cuda")
+
+    def run():
+        return invert(a, engine, group, m)
+
+    run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    stop.record()
+    stop.synchronize()
+    untraced_ms = start.elapsed_time(stop)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        run()
+        stop.record()
+        stop.synchronize()
+    wall_ms = start.elapsed_time(stop)
+    by_kind = {"probe": 0.0, "gemm": 0.0, "other": 0.0}
+    launches = {"probe": 0, "gemm": 0, "other": 0}
+    spans = []
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t0, t1 = evt.time_range.start, evt.time_range.end
+        kind = _kind(evt.name)
+        by_kind[kind] += (t1 - t0) / 1e3
+        launches[kind] += 1
+        spans.append((t0, t1))
+    busy_ms = _union_us(spans) / 1e3
+    return {"n": n, "m": m, "generator": gen, "dtype": str(dtype)[6:],
+            "engine": engine, "group": group, "wall_ms": wall_ms,
+            "untraced_wall_ms": untraced_ms,
+            "probe_ms": by_kind["probe"], "gemm_ms": by_kind["gemm"],
+            "other_ms": by_kind["other"], "kernels": launches,
+            "busy_ms": busy_ms,
+            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "device": torch.cuda.get_device_name(0)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rows", default=DEFAULT_ROWS,
+                    help="comma-separated n:m:generator:dtype rows")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_solve: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for row in args.rows.split(","):
+        n, m, gen, dname = row.split(":")
+        print(json.dumps(profile_row(int(n), int(m), gen,
+                                     getattr(torch, dname))), flush=True)
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
