@@ -10,28 +10,41 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    name and power limit; builds every kernel under ``tpu_jordan_torch/csrc``
    (one ``nvcc`` per source, started together) with ``-Xptxas -v``.
 2. ``kernel_vs_plain``: each kernel against its plain PyTorch version on the
-   card, on stacks that mix random blocks with a zero, a rank-deficient and a
-   NaN block: flags equal; on each regular block the kernel's residual
-   ‖B·inv − I‖∞ within 10× the plain version's plus eps·m, and the relative
-   ∞-norm difference of the inverses below REL_LIMIT of the dtype.  It
-   prints the kernel's, the plain version's and ``torch.linalg.inv_ex``'s
-   times (the last is a yardstick only; the port never calls it).
-3. ``reference``: solves on the card with the kernel against the same
-   solves with the plain probe (the engines' ``probe`` argument), at
-   512/m64 fp32 (W in shared memory) and at the main path's 8192/m384
-   fp64 (W in global memory): equal pivot sequences, neither singular,
-   inverses within min(eps·n·κ∞, 0.05) of each other.  At 8192/m384 fp32
-   the two runs part by rounding (eps32·κ∞ ≈ 0.3 there), so the kernel's
-   run is checked step by step instead: on every superstep's candidate
-   stack the plain probe must pick the kernel's pivot.
-4. ``solve``: the main path, ``driver.solve(engine="auto")`` at
-   4096/m128/absdiff fp32, 8192/m384/absdiff fp64, 8192/m384/rand fp32 and
-   16384/m128/rand fp32, each timed on a warm run, held to the residual gate
-   ``rel_residual < min(3·eps·n·κ∞/‖A‖∞, 0.5)`` (eps of the dtype), and
-   required to launch the probe kernel once per superstep.  absdiff at
-   8192 runs in fp64: in fp32 it sits on the knife edge the JAX package
-   records (benchmarks/PHASES.md), and on this card it lands on the
-   singular side with the kernel and with the plain probe alike.
+   card.  The probe, on stacks that mix random blocks with a zero, a
+   rank-deficient and a NaN block: flags equal; on each regular block the
+   kernel's residual ‖B·inv − I‖∞ within 10× the plain version's plus
+   eps·m, and the relative ∞-norm difference of the inverses below
+   REL_LIMIT of the dtype.  The fused update, at every UPDATE_CASES shape,
+   t in {0, mid, last} and j in {0, k−1}, in both modes: the H block
+   exact, and elsewhere max|kernel − plain| / (KM·max|U|·max|P_eff|) below
+   UPDATE_LIMIT.  Each row prints the kernel's, the plain version's and a
+   PyTorch call's times (``inv_ex``; ``addmm``, or a bf16 ``matmul``),
+   the last a yardstick only that the port never calls.
+3. ``reference``: solves on the card with the kernels against the same
+   solves with the plain versions (the engines' ``probe`` and ``update``
+   arguments).  The probe at 512/m64 fp32 (W in shared memory) and at
+   8192/m384 fp64 (W in global memory); the update through
+   ``grouped_pallas`` at 512/m64 and 1024/m128 fp32: equal pivot
+   sequences, neither singular, inverses within min(eps·n·κ∞, 0.05).  At
+   the full width, where fp32 runs part by rounding, the kernel's run is
+   checked step by step instead: at 8192/m384 fp32 the plain probe must pick
+   the kernel's pivot on every superstep's candidate stack; at 8192/m128,
+   in both modes, every group close of the fused update must agree with the
+   plain update on the same operands.
+4. ``solve``: the main path through ``driver.solve``, each row timed on a
+   warm run with both kernels' launch counts set to 0 just before it and
+   read just after: ``engine="auto"`` at 4096/m128/absdiff fp32,
+   8192/m384/absdiff fp64, 8192/m384/rand fp32 and 16384/m128/rand fp32
+   (probe launches = Nr, no update launch); ``grouped_pallas`` at
+   4096/m128 and 8192/m128 rand fp32 and ``grouped_pallas_bf16`` at
+   8192/m128 kms and rand (probe launches = Nr and update launches =
+   ceil(Nr/k) per engine run).  fp32 and fp64 rows are held to the gate
+   ``rel_residual < min(3·eps·n·κ∞/‖A‖∞, 0.5)``; the bf16 rows to the
+   driver's own residual gate, kms with no ladder rung and rand ending on a
+   passed rung.  absdiff at 8192 runs in fp64: in fp32 it sits on the
+   knife edge the JAX package records (benchmarks/PHASES.md), and on this
+   card it lands on the singular side with the kernel and with the plain
+   probe alike.
 5. ``kernels``: every ported kernel with its launches on the main path.
 
 ``--phases knife_edge`` (not run by default) records that fp32 absdiff
@@ -90,17 +103,55 @@ REFERENCE_ROWS = ((512, 64, "rand", "float32", "inplace"),
 # (n, m, generator, dtype): the kernel's run checked step by step.
 STEPWISE_ROW = (8192, 384, "rand", "float32")
 
-# (n, m, generator, dtype): the main path on engine="auto".
-SOLVE_ROWS = ((4096, 128, "absdiff", "float32"),
-              (8192, 384, "absdiff", "float64"),
-              (8192, 384, "rand", "float32"),
-              (16384, 128, "rand", "float32"))
+# (n, m, generator): grouped_pallas (fp32, k=2) with the fused update kernel
+# held against the same engine with the plain update.
+PALLAS_REFERENCE_ROWS = ((512, 64, "rand"), (1024, 128, "rand"))
+# (n, m, generator): the fused update kernel checked at every group close of
+# a grouped_pallas run, in both modes.
+PALLAS_STEPWISE_ROW = (8192, 128, "rand")
+
+# (n, m, generator, dtype, engine): the main path through driver.solve.
+# "auto" rows are the paper's program; the fused-update rows are the repo's
+# own bench rows for those engines (bench.py:948-958).
+SOLVE_ROWS = ((4096, 128, "absdiff", "float32", "auto"),
+              (8192, 384, "absdiff", "float64", "auto"),
+              (8192, 384, "rand", "float32", "auto"),
+              (16384, 128, "rand", "float32", "auto"),
+              (4096, 128, "rand", "float32", "grouped_pallas"),
+              (8192, 128, "rand", "float32", "grouped_pallas"),
+              (8192, 128, "kms", "float32", "grouped_pallas_bf16"),
+              (8192, 128, "rand", "float32", "grouped_pallas_bf16"))
+# What the bf16 rows' residual-gate ladder must do: kms (κ∞ ≈ 2.8) passes
+# the gate at bf16 eps with no rung; rand (κ·eps_bf16 ≫ 1) must walk the
+# ladder and end on a passed rung.
+LADDER_EXPECT = {"kms": "no_rungs", "rand": "recovered"}
+
+# (N, m, k): the fused update's shapes.  N = 8192 and 4096 at m=128, k=2
+# are the grouped_pallas solve rows; KM = k·m = 1536 at (1536, 384, 4); N =
+# 240 is not a multiple of the kernel's 128-wide tile.  Each runs at
+# t in {0, mid, last} and j in {0, k-1}, in both modes.
+UPDATE_CASES = ((8192, 128, 2), (4096, 128, 2), (1536, 384, 4),
+                (240, 48, 2))
+
+# Largest max|kernel − plain| / (KM·max|U|·max|P_eff|) the fused update may
+# read against its plain version of the same mode, outside the H block
+# (which must be exact).
+UPDATE_LIMIT = 1e-6
+
+# Peak rate for the fused update's bound: fp32 outside the tensor cores,
+# and the bf16 tensor-core rate for bf16 operands (data sheet, dense).
+UPDATE_PEAK = {"fp32": 67e12, "bf16": 989e12}
 
 KERNELS = {
     "gj_probe": {
         "route": "cuda",
         "source": "tpu_jordan_torch/csrc/gj_probe.cu",
         "replaces": "tpu_jordan/ops/pallas_block_inverse.py:689",
+    },
+    "fused_update": {
+        "route": "cuda",
+        "source": "tpu_jordan_torch/csrc/fused_update.cu",
+        "replaces": "tpu_jordan/ops/pallas_update.py:86",
     },
 }
 
@@ -216,6 +267,114 @@ def phase_kernel_vs_plain(torch):
     return rows
 
 
+def update_operands(torch, N: int, m: int, k: int, t: int, j: int,
+                    seed: int):
+    """Random operands to the caller contract of the fused update, as
+    ``tests/test_pallas_update.py::_operands`` builds them: U's pivot rows
+    zero, P's slot j zero, P's earlier pivot-column block zero."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    KM = k * m
+    V, U, P = randn(N, N), randn(N, KM), randn(KM, N)
+    U[t * m:(t + 1) * m] = 0
+    P[j * m:(j + 1) * m] = 0
+    P[:j * m, t * m:(t + 1) * m] = 0
+    return V, U, P, randn(m, m), randn(m, N)
+
+
+def compare_update(torch, out_k, out_p, U, P, H, t: int, j: int, m: int):
+    """The kernel's output against the plain version's: the H block
+    exact in both, and the max abs difference elsewhere scaled by
+    KM·max|U|·max|P_eff|.  Returns (h_exact, scaled, max_abs)."""
+    s = slice(t * m, (t + 1) * m)
+    h_exact = bool(torch.equal(out_k[s, s], H)
+                   and torch.equal(out_p[s, s], H))
+    p_eff = P.clone()
+    p_eff[j * m:(j + 1) * m] = out_p[s]
+    scale = U.shape[1] * U.abs().max() * p_eff.abs().max()
+    max_abs = float((out_k - out_p).abs().max())
+    return h_exact, max_abs / float(scale), max_abs
+
+
+def update_bound(N: int, KM: int, m: int, mode: str):
+    """(bound_ms, bound_by) of one group close: prow and the update's
+    flops at the mode's peak, against V read and written once and U, P,
+    H and rows_p read once."""
+    t_ops = (2.0 * N * N * KM + 2.0 * m * m * N) / UPDATE_PEAK[mode]
+    t_bytes = 4.0 * (2 * N * N + 2 * N * KM + m * m + m * N) / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_update_vs_plain(torch):
+    """The fused update kernel against its plain version of the same mode
+    at every UPDATE_CASES shape and (t, j); times at t = mid, j = k-1.
+    Emits one line per shape and mode, then fails if any disagreed."""
+    from tpu_jordan_torch.ops import (fused_normalize_eliminate,
+                                      fused_normalize_eliminate_plain)
+
+    rows, bad = [], []
+    for i, (N, m, k) in enumerate(UPDATE_CASES):
+        Nr, KM = N // m, k * m
+        for mode in ("fp32", "bf16"):
+            readings = []
+            for t in sorted({0, Nr // 2, Nr - 1}):
+                for j in sorted({0, k - 1}):
+                    V, U, P, H, rows_p = update_operands(
+                        torch, N, m, k, t, j, seed=1000 * i + 10 * t + j)
+                    kw = {"t": t, "j": j, "m": m, "mode": mode}
+                    out_k = fused_normalize_eliminate(V.clone(), U, P, H,
+                                                      rows_p, **kw)
+                    out_p = fused_normalize_eliminate_plain(V.clone(), U, P,
+                                                            H, rows_p, **kw)
+                    torch.cuda.synchronize()
+                    readings.append((t, j) + compare_update(
+                        torch, out_k, out_p, U, P, H, t, j, m))
+                    del out_k, out_p
+            # Times at the middle pivot row, closing slot (the engine's j).
+            t, j = Nr // 2, k - 1
+            V, U, P, H, rows_p = update_operands(torch, N, m, k, t, j,
+                                                 seed=7)
+            kw = {"t": t, "j": j, "m": m, "mode": mode}
+            ms = cuda_ms(torch, lambda: fused_normalize_eliminate(
+                V, U, P, H, rows_p, **kw), 20)
+            plain_ms = cuda_ms(torch, lambda: fused_normalize_eliminate_plain(
+                V, U, P, H, rows_p, **kw), 3)
+            p_eff = P.clone()
+            p_eff[j * m:(j + 1) * m] = V[t * m:(t + 1) * m]
+            if mode == "fp32":
+                lib_ms = cuda_ms(torch, lambda: torch.addmm(
+                    V, U, p_eff, alpha=-1), 20)
+            else:
+                ub, pb = U.bfloat16(), p_eff.bfloat16()
+                lib_ms = cuda_ms(torch, lambda: torch.matmul(ub, pb), 20)
+            bound_ms, bound_by = update_bound(N, KM, m, mode)
+            row = {"phase": "kernel_vs_plain", "kernel": "fused_update",
+                   "N": N, "m": m, "k": k, "KM": KM, "mode": mode,
+                   "tj": [[r[0], r[1]] for r in readings],
+                   "h_exact": all(r[2] for r in readings),
+                   "max_scaled_err": max(r[3] for r in readings),
+                   "limit": UPDATE_LIMIT,
+                   "max_abs_err": max(r[4] for r in readings),
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "tflops": (2.0 * N * N * KM + 2.0 * m * m * N)
+                   / ms / 1e9}
+            emit(row)
+            rows.append(row)
+            if not (row["h_exact"] and row["max_scaled_err"] <= UPDATE_LIMIT):
+                bad.append(row)
+            del V, U, P, H, rows_p, p_eff
+            torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"fused_update disagrees with the plain "
+                             f"version: {bad}")
+    return rows
+
+
 def _w_in_smem(m: int, elem: int) -> bool:
     from tpu_jordan_torch.ops.gj_probe import _lib
 
@@ -287,49 +446,153 @@ def phase_reference(torch):
     if not (row["pivots_equal"] and row["steps"] == -(-n // m)
             and not row["singular"]):
         raise AssertionError(f"kernel and plain probe disagree: {row}")
+    phase_reference_update(torch)
+
+
+def recording_probe(pivots):
+    """The default probe, recording each step's pivot block by the
+    engines' own key argmin (the call index is the step)."""
+    from tpu_jordan_torch.ops import probe_blocks
+    from tpu_jordan_torch.ops.jordan_inplace import _select as select
+
+    def probe(cands, eps):
+        invs, sing = probe_blocks(cands, eps)
+        pivots.append(int(select(invs, sing, len(pivots))[1]))
+        return invs, sing
+    return probe
+
+
+def phase_reference_update(torch):
+    """grouped_pallas on the card with the fused update kernel against
+    the same engine with the plain update: equal pivot sequences, neither
+    singular, inverses within min(eps·n·κ∞, 0.05).  At the path's full
+    width the runs may part by rounding, so there every group close of
+    the kernel's run is held against the plain update on the same
+    operands instead, in both modes, within UPDATE_LIMIT."""
+    from tpu_jordan_torch.ops import (
+        block_jordan_invert_inplace_grouped_pallas as engine,
+        condition_inf, fused_normalize_eliminate,
+        fused_normalize_eliminate_plain, generate, inf_norm)
+
+    for n, m, gen in PALLAS_REFERENCE_ROWS:
+        a = generate(gen, (n, n), torch.float32, device="cuda")
+        piv_k, piv_p = [], []
+        x_k, s_k = engine(a, block_size=m, group=2,
+                          probe=recording_probe(piv_k))
+        x_p, s_p = engine(a, block_size=m, group=2,
+                          probe=recording_probe(piv_p),
+                          update=fused_normalize_eliminate_plain)
+        kappa = float(condition_inf(a, x_p))
+        rel = float(inf_norm(x_k - x_p) / inf_norm(x_p))
+        limit = min(torch.finfo(torch.float32).eps * n * kappa, 0.05)
+        row = {"phase": "reference", "engine": "grouped_pallas", "n": n,
+               "m": m, "generator": gen, "dtype": "float32",
+               "pivots_equal": piv_k == piv_p, "steps": len(piv_k),
+               "singular": [bool(s_k), bool(s_p)], "kappa_inf": kappa,
+               "rel_diff": rel, "limit": limit}
+        emit(row)
+        del x_k, x_p, a
+        torch.cuda.empty_cache()
+        if not (row["pivots_equal"] and row["steps"] == n // m
+                and rel <= limit and not (s_k or s_p)):
+            raise AssertionError(f"kernel and plain update disagree: {row}")
+
+    n, m, gen = PALLAS_STEPWISE_ROW
+    a = generate(gen, (n, n), torch.float32, device="cuda")
+    for mode in ("fp32", "bf16"):
+        readings = []
+
+        def checked(V, U, P, H, rows_p, *, t, j, m, mode):
+            ref = fused_normalize_eliminate_plain(V.clone(), U, P, H, rows_p,
+                                                  t=t, j=j, m=m, mode=mode)
+            out = fused_normalize_eliminate(V, U, P, H, rows_p, t=t, j=j,
+                                            m=m, mode=mode)
+            readings.append(compare_update(torch, out, ref, U, P, H, t, j,
+                                           m))
+            return out
+
+        _, singular = engine(a, block_size=m, group=2, mode=mode,
+                             update=checked)
+        row = {"phase": "reference", "engine": "grouped_pallas", "n": n,
+               "m": m, "generator": gen, "dtype": "float32", "mode": mode,
+               "stepwise": True, "closes": len(readings),
+               "h_exact": all(r[0] for r in readings),
+               "max_scaled_err": max(r[1] for r in readings),
+               "limit": UPDATE_LIMIT, "singular": bool(singular)}
+        emit(row)
+        torch.cuda.empty_cache()
+        if not (row["closes"] == -(-(n // m) // 2) and row["h_exact"]
+                and row["max_scaled_err"] <= UPDATE_LIMIT
+                and not row["singular"]):
+            raise AssertionError(f"kernel and plain update disagree: {row}")
+    del a
+    torch.cuda.empty_cache()
 
 
 def phase_solve(torch):
-    from tpu_jordan_torch.driver import solve
+    """The main path: every SOLVE_ROWS row through driver.solve, warm.
+    Each row runs with both kernels' counts set to 0 just before it and
+    read just after; returns the counts summed over the rows."""
+    from tpu_jordan_torch.driver import PALLAS_ENGINES, solve
+    from tpu_jordan_torch.ops import fused_update as update_mod
     from tpu_jordan_torch.ops import gj_probe as probe_mod
+    from tpu_jordan_torch.resilience import DEFAULT_POLICY, gate_threshold
 
-    # Warm runs first (kernel loading, cuBLAS handles, the allocator);
-    # then the counts go to 0 and the main path runs once more, timed.
-    for n, m, gen, dname in SOLVE_ROWS:
-        solve(n, m, generator=gen, dtype=dname, engine="auto",
+    # Warm runs first (kernel loading, cuBLAS handles, the allocator).
+    for n, m, gen, dname, engine in SOLVE_ROWS:
+        solve(n, m, generator=gen, dtype=dname, engine=engine,
               device="cuda")
         torch.cuda.empty_cache()
-    probe_mod.reset_launches()
-    total = 0
-    for n, m, gen, dname in SOLVE_ROWS:
+    totals = {"gj_probe": 0, "fused_update": 0}
+    for n, m, gen, dname, engine in SOLVE_ROWS:
         eps = float(torch.finfo(getattr(torch, dname)).eps)
-        before = probe_mod.launches
+        probe_mod.reset_launches()
+        update_mod.reset_launches()
         wall0 = time.perf_counter()
-        res = solve(n, m, generator=gen, dtype=dname, engine="auto",
+        res = solve(n, m, generator=gen, dtype=dname, engine=engine,
                     device="cuda")
         wall = time.perf_counter() - wall0
-        launches = probe_mod.launches - before
+        launches = {"gj_probe": probe_mod.launches,
+                    "fused_update": update_mod.launches}
+        # The engine ran once, and once more for a re-solve rung.
+        runs = 1 + sum(r["rung"] == "resolve" for r in res.recovery)
         nr = -(-n // m)
-        predicted = eps * n * res.kappa / res._norm_a
-        gate = min(3.0 * predicted, 0.5)
+        expected = {"gj_probe": nr * runs,
+                    "fused_update": (-(-nr // res.group) * runs
+                                     if engine in PALLAS_ENGINES else 0)}
+        if engine == "grouped_pallas_bf16":
+            # The driver's own gate: bf16 eps for the bf16 result, fp32
+            # for a refined or re-solved one.
+            gate = gate_threshold(DEFAULT_POLICY, n, res.kappa,
+                                  "float32" if res.recovery else "bfloat16")
+            expect = LADDER_EXPECT[gen]
+            ladder_ok = (res.recovery == () if expect == "no_rungs"
+                         else bool(res.recovery)
+                         and res.recovery[-1]["passed"])
+        else:
+            gate = min(3.0 * eps * n * res.kappa / res._norm_a, 0.5)
+            expect, ladder_ok = "no_rungs", res.recovery == ()
         row = {"phase": "solve", "n": n, "m": m, "generator": gen,
                "dtype": dname, "engine": res.engine,
                "group": res.group, "seconds": res.elapsed,
                "gflops": res.gflops, "wall_s": wall,
                "rel_residual": res.rel_residual, "kappa_inf": res.kappa,
-               "gate": gate, "probe_launches": launches, "supersteps": nr,
+               "gate": gate, "recovery": list(res.recovery),
+               "ladder_expected": expect, "supersteps": nr,
+               "probe_launches": launches["gj_probe"],
+               "update_launches": launches["fused_update"],
+               "expected_launches": expected,
                "finite": bool(torch.isfinite(res.inverse).all()),
                "shape": list(res.inverse.shape)}
         emit(row)
         del res
         torch.cuda.empty_cache()
-        if not (row["rel_residual"] < gate and launches == nr
-                and row["finite"] and row["shape"] == [n, n]):
+        if not (row["rel_residual"] < gate and launches == expected
+                and ladder_ok and row["finite"] and row["shape"] == [n, n]):
             raise AssertionError(f"solve failed its checks: {row}")
-        total += launches
-    if probe_mod.launches != total:
-        raise AssertionError("probe launches outside the solves")
-    return {"gj_probe": probe_mod.launches}
+        for name in totals:
+            totals[name] += launches[name]
+    return totals
 
 
 def phase_knife_edge(torch):
@@ -387,25 +650,32 @@ def main(argv=None) -> int:
     phase_toolchain(torch)
     probe_rows = (phase_kernel_vs_plain(torch)
                   if "kernel_vs_plain" in phases else [])
+    update_rows = (phase_update_vs_plain(torch)
+                   if "kernel_vs_plain" in phases else [])
     if "reference" in phases:
         phase_reference(torch)
     launches = phase_solve(torch) if "solve" in phases else {}
     if "knife_edge" in phases:
         phase_knife_edge(torch)
 
+    # Each kernel's representative row: the probe at 4096/m128's first
+    # superstep, the update at 8192/m128 fp32 (the full width of its path).
+    rows = {"gj_probe": probe_rows, "fused_update": update_rows}
     kernels = []
     for name, info in KERNELS.items():
-        rep = probe_rows[0] if probe_rows else {}
+        rep = rows[name][0] if rows[name] else {}
+        shape = ([rep.get("nc"), rep.get("m"), rep.get("m")]
+                 if name == "gj_probe"
+                 else [rep.get("N"), rep.get("KM"), rep.get("m")])
         kernels.append({
             "name": name, **info, "launches": launches.get(name),
-            "max_abs_err": max((r["max_abs_err"] for r in probe_rows),
+            "max_abs_err": max((r["max_abs_err"] for r in rows[name]),
                                default=None),
             "ms": rep.get("ms"), "plain_ms": rep.get("plain_ms"),
             "bound_ms": rep.get("bound_ms"),
             "bound_by": rep.get("bound_by"),
             "library_ms": rep.get("library_ms"),
-            "shape": [rep.get("nc"), rep.get("m"), rep.get("m")],
-            "dtype": rep.get("dtype")})
+            "shape": shape, "dtype": rep.get("dtype", rep.get("mode"))})
     print(smi(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -73,10 +73,46 @@ def test_auto_engine_matches_jax_cost_rule(n):
     ("grouped", 3, ("grouped", 3)),
     ("auto", 4, ("grouped", 4)),
     ("inplace", 0, ("inplace", 0)),
+    ("grouped_pallas", 0, ("grouped_pallas", 2)),
+    ("grouped_pallas", 4, ("grouped_pallas", 4)),
+    ("grouped_pallas_bf16", 0, ("grouped_pallas_bf16", 2)),
+    ("grouped_pallas_bf16", 4, ("grouped_pallas_bf16", 4)),
 ])
 def test_resolve_engine_matches_jax(engine, group, expect):
     assert jdriver.resolve_engine(engine, group) == expect
     assert tdriver.resolve_engine(engine, group) == expect
+
+
+@pytest.mark.parametrize("n", [512, 8192, 16384])
+def test_auto_never_picks_the_fused_update_engines(n):
+    assert tdriver.resolve_engine("auto", 0, n)[0] not in (
+        tdriver.PALLAS_ENGINES)
+
+
+def test_grouped_pallas_solve_matches_jax():
+    """The fp32 fused-update engine through both packages' solve: same
+    engine and group, both within the residual gate, κ∞ agreeing as in
+    test_solve_matches_jax."""
+    ref = jdriver.solve(64, 16, generator="rand", dtype=np.float32,
+                        engine="grouped_pallas")
+    got = tdriver.solve(64, 16, generator="rand", dtype=np.float32,
+                        engine="grouped_pallas", device="cpu")
+    eps = float(np.finfo(np.float32).eps)
+    assert (got.engine, got.group) == (ref.engine, ref.group) == (
+        "grouped_pallas", 2)
+    assert got.rel_residual < _gate(got, eps, 64)
+    assert ref.rel_residual < _gate(ref, eps, 64)
+    assert abs(got.kappa - ref.kappa) / ref.kappa <= 10 * eps * 64 * ref.kappa
+    assert got.recovery == () == ref.recovery
+
+
+@pytest.mark.parametrize("engine", ["grouped_pallas", "grouped_pallas_bf16"])
+def test_unrolled_only_limit_matches_jax(engine):
+    """Nr = 65 > MAX_UNROLL_NR = 64 is refused by both packages."""
+    with pytest.raises(jdriver.UsageError, match="unrolled-only"):
+        jdriver.solve(520, 8, generator="rand", engine=engine)
+    with pytest.raises(UsageError, match="unrolled-only"):
+        tdriver.solve(520, 8, generator="rand", engine=engine, device="cpu")
 
 
 def _write(tmp_path, name, text):
@@ -87,7 +123,8 @@ def _write(tmp_path, name, text):
 
 @pytest.mark.parametrize("case", [
     "ok", "zero_n", "missing_m", "missing_file", "singular_file",
-    "unreadable_file", "group_one", "unknown_engine",
+    "unreadable_file", "group_one", "unknown_engine", "grouped_pallas",
+    "pallas_group_one",
 ])
 def test_cli_exit_codes_match_jax(tmp_path, case):
     argv = {
@@ -99,10 +136,14 @@ def test_cli_exit_codes_match_jax(tmp_path, case):
         "unreadable_file": ["8", "4", _write(tmp_path, "b", "1 x " * 32)],
         "group_one": ["8", "4", "--group", "1"],
         "unknown_engine": ["8", "4", "--engine", "nope"],
+        "grouped_pallas": ["64", "16", "--engine", "grouped_pallas"],
+        "pallas_group_one": ["8", "4", "--engine", "grouped_pallas",
+                             "--group", "1"],
     }[case]
     expected = {"ok": 0, "zero_n": 1, "missing_m": 1, "missing_file": 2,
                 "singular_file": 2, "unreadable_file": 2, "group_one": 1,
-                "unknown_engine": 1}[case]
+                "unknown_engine": 1, "grouped_pallas": 0,
+                "pallas_group_one": 1}[case]
     assert jmain(argv + ["--quiet"]) == expected
     assert tmain(argv + ["--device", "cpu"]) == expected
 
@@ -117,6 +158,8 @@ def test_cli_verbose_prints_corners(capsys):
 def test_import_pulls_in_no_jax():
     code = ("import sys, tpu_jordan_torch, tpu_jordan_torch.__main__; "
             "import tpu_jordan_torch.ops.gj_probe, tpu_jordan_torch._build; "
+            "import tpu_jordan_torch.ops.fused_update; "
+            "import tpu_jordan_torch.resilience; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'tpu_jordan' "
             "or m.startswith('tpu_jordan.')]; "
@@ -145,12 +188,20 @@ def test_no_gpu_raises_instead_of_running_on_cpu(monkeypatch):
     {"precision": "high"},
     {"precision": "mixed"},
     {"engine": "augmented"},
-    {"engine": "grouped_pallas"},
+    {"engine": "lookahead"},
     {"dtype": "complex64"},
 ])
 def test_later_slice_options_are_refused(kwargs):
     with pytest.raises(UsageError):
         tdriver.solve(8, 4, device="cpu", **kwargs)
+
+
+def test_port_policy_is_accepted():
+    from tpu_jordan_torch.resilience import ResiliencePolicy
+
+    r = tdriver.solve(16, 8, generator="rand", device="cpu",
+                      policy=ResiliencePolicy())
+    assert r.recovery == ()
 
 
 def test_singular_solve_raises(tmp_path):

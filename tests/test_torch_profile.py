@@ -1,5 +1,5 @@
 """The solve profiler's bookkeeping, on the CPU: kernel names sorted into
-probe, GEMM and other, the busy time as a union of device intervals, and a
+probe, fused update, GEMM and other, the busy time as a union of device intervals, and a
 refusal to run without a card (it never measures the CPU in its place)."""
 
 import pytest
@@ -13,6 +13,8 @@ from tpu_jordan_torch import profile_solve
     ("sm90_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128x128x8", "gemm"),
     ("void cutlass::Kernel2<cutlass_80_simt_sgemm_128x64_8x5_nn_align1>",
      "gemm"),
+    ("void (anonymous namespace)::fused_update_tile<1, false>(Args)",
+     "update"),
     ("void at::native::index_elementwise_kernel<128, 4>", "other"),
 ])
 def test_kernel_kinds(name, kind):

@@ -2,7 +2,8 @@
 
 Mirrors the reference's ``argv = n m [file]`` surface (main.cpp:66-127) and
 the JAX package's exit codes: 0 ok, 1 usage, 2 runtime error (missing or
-unreadable file, singular matrix, no CUDA device).
+unreadable file, singular matrix, an exhausted residual-gate ladder, no
+CUDA device).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import sys
 
 from .errors import DeviceUnavailableError, SingularMatrixError, UsageError
 from .io import MatrixReadError
+from .resilience.policy import ResidualGateError
 
 _USAGE = "usage: python -m tpu_jordan_torch n m [<file>]"
 
@@ -32,9 +34,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--refine", type=int, default=0,
                     help="Newton-Schulz refinement steps")
     ap.add_argument("--engine", default="auto",
-                    help="auto | inplace | grouped")
+                    help="auto | inplace | grouped | grouped_pallas | "
+                         "grouped_pallas_bf16")
     ap.add_argument("--group", type=int, default=0,
-                    help="delayed-group size for engine=grouped (default 2)")
+                    help="delayed-group size for the grouped engines "
+                         "(default 2)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("-v", "--verbose", action="store_true",
                     help="print the corners of A and of its inverse")
@@ -73,6 +77,9 @@ def main(argv=None) -> int:
         return 2
     except SingularMatrixError:
         print("singular matrix")
+        return 2
+    except ResidualGateError as e:
+        print(e, file=sys.stderr)
         return 2
     except DeviceUnavailableError as e:
         print(e, file=sys.stderr)

@@ -5,11 +5,16 @@ from .block_inverse import (
     gauss_jordan_inverse,
     probe_blocks,
 )
+from .fused_update import (
+    fused_normalize_eliminate,
+    fused_normalize_eliminate_plain,
+)
 from .generators import GENERATORS, generate
 from .jordan_inplace import (
     apply_col_perm,
     block_jordan_invert_inplace,
     block_jordan_invert_inplace_grouped,
+    block_jordan_invert_inplace_grouped_pallas,
     compose_swap_perm,
 )
 from .norms import block_inf_norms, condition_inf, inf_norm
@@ -24,8 +29,11 @@ __all__ = [
     "block_inf_norms",
     "block_jordan_invert_inplace",
     "block_jordan_invert_inplace_grouped",
+    "block_jordan_invert_inplace_grouped_pallas",
     "compose_swap_perm",
     "condition_inf",
+    "fused_normalize_eliminate",
+    "fused_normalize_eliminate_plain",
     "gauss_jordan_inverse",
     "generate",
     "inf_norm",

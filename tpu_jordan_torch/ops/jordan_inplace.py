@@ -17,7 +17,10 @@ tensor driving ``index_select``/``index_copy_``), so the host never waits
 for the probe; the swap history is read back once, after the last step.
 The working matrix is updated in place; the caller's ``a`` is not touched.
 Products are ``torch.matmul``/``addmm_`` (cuBLAS on the card, in full fp32:
-the driver keeps TF32 off); the probe is ``block_inverse.probe_blocks``.
+the driver keeps TF32 off); the probe is ``block_inverse.probe_blocks``.  The
+``grouped_pallas`` engine closes each group with one call of
+``fused_update.fused_normalize_eliminate`` (a CUDA kernel on the card)
+instead of the group-end ``addmm_``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 from ..config import default_block_size, eps_for
 from .block_inverse import probe_blocks
+from .fused_update import MODES, fused_normalize_eliminate
 from .norms import block_inf_norms
 from .padding import pad_with_identity, unpad
 from .refine import newton_schulz
@@ -232,11 +236,64 @@ def block_jordan_invert_inplace_grouped(
         return _upcast_call(block_jordan_invert_inplace_grouped, a,
                             block_size, eps, refine, group, collect_stats,
                             probe)
+    stats = _StepStats() if collect_stats else None
+    return _grouped(a, block_size, eps, refine, group, probe, stats, None)
+
+
+def block_jordan_invert_inplace_grouped_pallas(
+    a: torch.Tensor,
+    block_size: int | None = None,
+    eps: float | None = None,
+    refine: int = 0,
+    group: int = 4,
+    mode: str = "fp32",
+    probe=probe_blocks,
+    update=fused_normalize_eliminate,
+):
+    """The delayed-group-update engine with its group-closing step (the
+    pivot-row normalize, the pivot-column zeroing, the pivot-row write-back
+    and the group-end ``V − U·P``) done by one call of ``update``, by
+    default :func:`fused_update.fused_normalize_eliminate` (the CUDA kernel
+    on the card).  The probe, swaps, eager column and row and the
+    non-closing steps are :func:`block_jordan_invert_inplace_grouped`'s own
+    code, so the pivot choices are that engine's.
+
+    ``mode="bf16"`` rounds the update's operands to bf16 with fp32
+    accumulation; the probe and the eager side-updates stay fp32.  A bf16
+    inverse is bf16-grade: ``driver.solve`` guards this engine with the
+    residual-gate ladder.  ``update(V, U, P, H, rows_p, *, t, j, m, mode)``
+    must update V in place (``chip_smoke.py`` passes the plain version to
+    hold the kernel's run against it).  Computes in fp32: sub-fp32 input is
+    upcast, float64 is refused.  Counterpart of the JAX package's
+    ``block_jordan_invert_inplace_grouped_pallas``."""
+    if a.dtype in _SUB_FP32:
+        return _upcast_call(block_jordan_invert_inplace_grouped_pallas, a,
+                            block_size, eps, refine, group, mode, probe,
+                            update)
+    if a.dtype != torch.float32:
+        raise ValueError(
+            f"the grouped_pallas engines compute in fp32 (the fused update "
+            f"kernel is fp32-only), got {a.dtype}; use engine='grouped' "
+            f"for float64")
+    if mode not in MODES:
+        raise ValueError(f"unknown kernel precision mode {mode!r}")
+
+    def close(V, U, P, H, rows_p, t, j, m):
+        update(V, U, P, H, rows_p, t=t, j=j, m=m, mode=mode)
+
+    return _grouped(a, block_size, eps, refine, group, probe, None, close)
+
+
+def _grouped(a, block_size, eps, refine, group, probe, stats, close):
+    """The delayed-group-update loop of both grouped engines.  ``close``
+    is None for the plain engine (the closing step is an ordinary step
+    and the group ends with one ``addmm_``), else the group-closing update
+    ``close(V, U, P, H, rows_p, t, j, m)``, called with P's slot j zero
+    and V's pivot column and pivot row not yet written."""
     n, m, eps, Nr, N, V = _setup(a, block_size, eps)
     k = max(1, min(group, Nr))
     Vb = V.view(Nr, m, N)
     singular = torch.zeros((), dtype=torch.bool, device=a.device)
-    stats = _StepStats() if collect_stats else None
     rswaps = []
     for t0 in range(0, Nr, k):
         kg = min(k, Nr - t0)                   # this group's width
@@ -265,8 +322,6 @@ def block_jordan_invert_inplace_grouped(
             # --- EAGER PIVOT ROW: old piv row minus pending panels.
             if j:
                 rows_p.addmm_(u_p[:, :j * m], P[:j * m], alpha=-1)
-            prow = H @ rows_p                                 # (m, N)
-            prow[:, s] = H
 
             # --- RECORD the panel: E = eager column, blocks t/piv
             # exchanged, pivot-row block zeroed.
@@ -275,19 +330,27 @@ def block_jordan_invert_inplace_grouped(
             colb[t] = 0
             # --- BOOKKEEPING WRITES (the invariants above).  Zeroing V's
             # column t also cancels the pending panels' contributions.
-            V[:, s] = 0
             if j:
                 P[:j * m, s] = 0
-            V[s] = prow
             U[s] = 0
             U[:, j * m:(j + 1) * m] = col
-            P[j * m:(j + 1) * m] = prow
             rswaps.append(piv)
+            if close is not None and j == kg - 1:
+                # --- GROUP-CLOSING STEP: normalize, zero the pivot
+                # column, write the pivot row and retire the group.
+                close(V, U, P, H, rows_p, t, j, m)
+                continue
+            prow = H @ rows_p                                 # (m, N)
+            prow[:, s] = H
+            V[:, s] = 0
+            V[s] = prow
+            P[j * m:(j + 1) * m] = prow
             if stats is not None:
                 stats.sample_growth(V, U)
 
-        # --- GROUP-END TRAILING UPDATE: one fat product.
-        V.addmm_(U, P, alpha=-1)
-        if stats is not None:
-            stats.refresh(V)
+        if close is None:
+            # --- GROUP-END TRAILING UPDATE: one fat product.
+            V.addmm_(U, P, alpha=-1)
+            if stats is not None:
+                stats.refresh(V)
     return _finish(V, rswaps, Nr, n, m, a, refine, stats, singular)

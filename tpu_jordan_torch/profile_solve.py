@@ -1,14 +1,17 @@
 """Where a solve's device time goes: one traced engine call per row.
 
     python -m tpu_jordan_torch.profile_solve [--rows 4096:128:absdiff:float32,...]
+        [--engine auto|inplace|grouped|grouped_pallas|grouped_pallas_bf16]
 
 For each row (n:m:generator:dtype) the matrix is generated on the card, and
-the engine that ``driver.solve`` picks on ``auto`` runs once to warm up, then
-once untraced and once under ``torch.profiler``, each between CUDA events.  Prints
-one JSON line a row: both wall times, the device time of the probe kernel,
-of the GEMMs and of everything else, and the idle share of the traced wall
-(the part during which no kernel ran; tracing slows the host, so this share
-is an upper bound for the untraced run).  Needs a CUDA device.
+the engine (the one ``driver.solve`` picks for ``--engine``, by default
+``auto``) runs once to warm up, then once untraced and once under
+``torch.profiler``, each between CUDA events.  Prints one JSON line a row:
+both wall times, the device time of the probe kernel, of the fused update
+kernel, of the GEMMs and of everything else, and the idle share of the
+traced wall (the part during which no kernel ran; tracing slows the host,
+so this share is an upper bound for the untraced run).  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -19,17 +22,21 @@ import sys
 
 import torch
 
-from .driver import invert, resolve_engine
+from .driver import ENGINES, invert, resolve_engine
 from .ops import generate
 
 DEFAULT_ROWS = ("4096:128:absdiff:float32,8192:384:absdiff:float64,"
                 "8192:384:rand:float32,16384:128:rand:float32")
+# Device-time buckets: the two hand-written kernels, cuBLAS, the rest.
+KINDS = ("probe", "update", "gemm", "other")
 
 
 def _kind(name: str) -> str:
     low = name.lower()
     if "gj_probe" in low:
         return "probe"
+    if "fused_update" in low:
+        return "update"
     if "gemm" in low or "cutlass" in low or "xmma" in low:
         return "gemm"
     return "other"
@@ -45,10 +52,11 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profile_row(n: int, m: int, gen: str, dtype: torch.dtype) -> dict:
+def profile_row(n: int, m: int, gen: str, dtype: torch.dtype,
+                engine: str = "auto") -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    engine, group = resolve_engine("auto", 0, n)
+    engine, group = resolve_engine(engine, 0, n)
     a = generate(gen, (n, n), dtype, device="cuda")
 
     def run():
@@ -70,8 +78,8 @@ def profile_row(n: int, m: int, gen: str, dtype: torch.dtype) -> dict:
         stop.record()
         stop.synchronize()
     wall_ms = start.elapsed_time(stop)
-    by_kind = {"probe": 0.0, "gemm": 0.0, "other": 0.0}
-    launches = {"probe": 0, "gemm": 0, "other": 0}
+    by_kind = dict.fromkeys(KINDS, 0.0)
+    launches = dict.fromkeys(KINDS, 0)
     spans = []
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -85,8 +93,8 @@ def profile_row(n: int, m: int, gen: str, dtype: torch.dtype) -> dict:
     return {"n": n, "m": m, "generator": gen, "dtype": str(dtype)[6:],
             "engine": engine, "group": group, "wall_ms": wall_ms,
             "untraced_wall_ms": untraced_ms,
-            "probe_ms": by_kind["probe"], "gemm_ms": by_kind["gemm"],
-            "other_ms": by_kind["other"], "kernels": launches,
+            **{f"{kind}_ms": by_kind[kind] for kind in KINDS},
+            "kernels": launches,
             "busy_ms": busy_ms,
             "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "device": torch.cuda.get_device_name(0)}
@@ -96,6 +104,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", default=DEFAULT_ROWS,
                     help="comma-separated n:m:generator:dtype rows")
+    ap.add_argument("--engine", default="auto", choices=ENGINES,
+                    help="the engine of every row (default auto)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_solve: no CUDA device", file=sys.stderr)
@@ -104,7 +114,8 @@ def main(argv=None) -> int:
     for row in args.rows.split(","):
         n, m, gen, dname = row.split(":")
         print(json.dumps(profile_row(int(n), int(m), gen,
-                                     getattr(torch, dname))), flush=True)
+                                     getattr(torch, dname), args.engine)),
+              flush=True)
         torch.cuda.empty_cache()
     return 0
 

@@ -1,0 +1,127 @@
+"""The numerical degradation ladder of the JAX package's
+``resilience/degrade.py``: the residual gate
+
+    rel_residual <= gate_tol * eps * n * kappa_inf   (capped at 0.5)
+
+(eps of ``policy.gate_dtype`` when set, else of the dtype the caller
+names; a NaN rel_residual always fails) and, on failure, the recovery
+rungs:
+
+  1. **refine**: Newton–Schulz refinement (``ops/refine.newton_schulz``) in
+     at least fp32, on the inverse in hand.  Needs the initial residual
+     below 1 to converge: a bf16-grade miss on an ill-conditioned matrix
+     diverges here and falls through.
+  2. **resolve**: a full re-solve at escalated precision (the caller's
+     ``resolve``; the driver promotes sub-fp32 storage to fp32 and the bf16
+     fused-update engine to its fp32 sibling).
+
+Each rung is recorded on the returned ``recovery`` tuple with the JAX
+package's keys.  A ladder that exhausts without passing raises
+:class:`~.policy.ResidualGateError`, never a silent wrong answer.  The JAX
+package's spans, counters and flight-recorder events around the ladder wait
+for the observability layer (ROADMAP.md Queue A item 12).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..interop import resolve_dtype
+from .policy import ResidualGateError, ResiliencePolicy
+
+
+def gate_eps(dtype) -> float:
+    """Machine epsilon of the gate's reference dtype (a torch dtype, a
+    numpy dtype or a name such as ``"bfloat16"``)."""
+    return float(torch.finfo(resolve_dtype(dtype)).eps)
+
+
+def gate_threshold(policy: ResiliencePolicy, n: int, kappa: float,
+                   dtype) -> float:
+    """``gate_tol * eps * n * kappa``, with κ floored at 1 and capped at
+    0.5: a rel residual ≥ 0.5 means ‖I−AX‖ ≈ ‖I‖, no inverse at all,
+    whatever κ claims (the cap keeps the gate from passing a
+    bf16-computed non-inverse).  A non-finite κ (corrupt inverse) yields
+    NaN, which fails the gate."""
+    eps = gate_eps(policy.gate_dtype if policy.gate_dtype is not None
+                   else dtype)
+    if not math.isfinite(kappa):
+        return float("nan")
+    return min(policy.gate_tol * eps * max(1, n) * max(1.0, kappa), 0.5)
+
+
+def gate_passes(rel_residual: float, threshold: float) -> bool:
+    """NaN-hostile comparison: any NaN (residual or threshold) fails."""
+    return bool(rel_residual <= threshold) and math.isfinite(rel_residual)
+
+
+def maybe_recover(policy: ResiliencePolicy, *, a_fresh, inv,
+                  residual: float, norm_a: float, kappa: float, n: int,
+                  dtype, resolve):
+    """The driver's post-residual hook: run the gate and, on failure, the
+    ladder.
+
+    ``a_fresh`` is the freshly re-loaded A the residual was verified
+    against; ``resolve`` is a zero-argument callable that runs the
+    escalated re-solve and returns a ``SolveResult``.  Returns ``(inv,
+    residual, norm_a, kappa, recovery)``; ``recovery`` is empty when the
+    gate passed outright.  A refined or re-solved inverse is returned at
+    the precision that produced it (fp32 after a refine of a bf16 solve).
+    """
+    rel = residual / norm_a if norm_a else residual
+    threshold = gate_threshold(policy, n, kappa, dtype)
+    if gate_passes(rel, threshold):
+        return inv, residual, norm_a, kappa, ()
+
+    recovery = []
+    if policy.refine_steps > 0:
+        inv2, res2, norm2, kap2 = _refine(a_fresh, inv, policy.refine_steps)
+        rel2 = res2 / norm2 if norm2 else res2
+        # Judged at the refine work dtype (>= fp32, never below the request)
+        # unless the policy pins a gate_dtype.
+        passed = gate_passes(rel2, gate_threshold(policy, n, kap2,
+                                                  inv2.dtype))
+        recovery.append({
+            "rung": "refine", "steps": policy.refine_steps,
+            "rel_residual_before": float(rel),
+            "rel_residual_after": float(rel2), "passed": passed,
+        })
+        if passed:
+            return inv2, res2, norm2, kap2, tuple(recovery)
+
+    if policy.escalate:
+        res = resolve()
+        rel3 = res.rel_residual
+        passed = gate_passes(rel3, gate_threshold(policy, n, res.kappa,
+                                                  res.inverse.dtype))
+        recovery.append({
+            "rung": "resolve", "dtype": str(res.inverse.dtype)[6:],
+            "rel_residual_before": float(rel),
+            "rel_residual_after": float(rel3), "passed": passed,
+        })
+        if passed:
+            return (res.inverse, res.residual, res._norm_a, res.kappa,
+                    tuple(recovery))
+
+    raise ResidualGateError(
+        f"residual gate failed (rel {rel:.3e} > {threshold:.3e}) and "
+        f"the recovery ladder exhausted "
+        f"({' -> '.join(r['rung'] for r in recovery) or 'no rungs'})",
+        recovery=tuple(recovery))
+
+
+def _refine(a_fresh, inv, steps: int):
+    """Newton–Schulz in the solve's working dtype, at least fp32 and never
+    below the request; returns the refreshed (inv, residual, norm_a,
+    kappa) at that dtype."""
+    from ..ops import inf_norm, newton_schulz, residual_inf_norm
+
+    work = torch.promote_types(a_fresh.dtype, torch.float32)
+    aw = a_fresh.to(work)
+    xw = newton_schulz(aw, inv.to(work), steps)
+    residual = float(residual_inf_norm(aw, xw))
+    norm_a = float(inf_norm(aw))
+    kappa = norm_a * float(inf_norm(xw))
+    return xw, residual, norm_a, kappa
