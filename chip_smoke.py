@@ -19,7 +19,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    exact, and elsewhere max|kernel − plain| / (KM·max|U|·max|P_eff|) below
    UPDATE_LIMIT.  Each row prints the kernel's, the plain version's and a
    PyTorch call's times (``inv_ex``; ``addmm``, or a bf16 ``matmul``),
-   the last a yardstick only that the port never calls.
+   the last a yardstick only that the port never calls.  The probe
+   variants, each against its own plain twin by the probe's rules, at
+   every fp32 PROBE_CASES stack and at m=48 (a 16-wide panel); each row
+   also times ``gj_probe`` on the same stack, and the panel rows split one
+   traced call's device time over the panel probe's three kernels.
 3. ``reference``: solves on the card with the kernels against the same
    solves with the plain versions (the engines' ``probe`` and ``update``
    arguments).  The probe at 512/m64 fp32 (W in shared memory) and at
@@ -30,7 +34,15 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    checked step by step instead: at 8192/m384 fp32 the plain probe must pick
    the kernel's pivot on every superstep's candidate stack; at 8192/m128,
    in both modes, every group close of the fused update must agree with the
-   plain update on the same operands.
+   plain update on the same operands.  The probe variants (v3
+   ``gj_probe_inplace``, v2 ``gj_probe_panel``) run inside the engines
+   through ``probe=``: the inplace engine at 4096/m128 and the grouped one
+   at 8192/m384, rand fp32.  On every superstep's candidate stack the
+   variant's plain twin must give equal flags and pick the same pivot; the
+   run must pass the solve gate with probe launches = Nr; its warm time is
+   printed beside the same engine's with ``gj_probe``.  Those runs, with
+   the variants' counts set to 0 just before each and read just after,
+   are the variants' path.
 4. ``solve``: the main path through ``driver.solve``, each row timed on a
    warm run with both kernels' launch counts set to 0 just before it and
    read just after: ``engine="auto"`` at 4096/m128/absdiff fp32,
@@ -45,7 +57,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    knife edge the JAX package records (benchmarks/PHASES.md), and on this
    card it lands on the singular side with the kernel and with the plain
    probe alike.
-5. ``kernels``: every ported kernel with its launches on the main path.
+5. ``kernels``: every ported kernel with its launches on its path (the
+   solve rows; the variants' engine runs of ``reference``).
 
 ``--phases knife_edge`` (not run by default) records that fp32 absdiff
 8192/m384 elimination through the grouped engine, with the kernel and with
@@ -93,6 +106,17 @@ PROBE_CASES = (
     (128, 32, "float64"),
     (384, 22, "float64"),
 )
+
+# (m, nc, dtype): the probe variants' stacks: every fp32 PROBE_CASES stack
+# (the same seeded stack as its gj_probe row) and m=48, whose panel is 16
+# wide.
+VARIANT_CASES = tuple(c for c in PROBE_CASES if c[2] == "float32") + (
+    (48, 16, "float32"),)
+
+# (n, m, generator, dtype, engine): the probe variants inside the engines
+# (probe=), checked step by step against their plain twins.
+VARIANT_ENGINE_ROWS = ((4096, 128, "rand", "float32", "inplace"),
+                       (8192, 384, "rand", "float32", "grouped"))
 
 # (n, m, generator, dtype, engine): the kernel's solves held against the
 # plain probe's.  8192/m384 is the main path's grouped row, W in global
@@ -153,7 +177,22 @@ KERNELS = {
         "source": "tpu_jordan_torch/csrc/fused_update.cu",
         "replaces": "tpu_jordan/ops/pallas_update.py:86",
     },
+    "gj_probe_inplace": {
+        "route": "cuda",
+        "source": "tpu_jordan_torch/csrc/gj_probe.cu",
+        "replaces": "tpu_jordan/ops/pallas_block_inverse.py:159",
+    },
+    "gj_probe_panel": {
+        "route": "cuda",
+        "source": "tpu_jordan_torch/csrc/gj_probe_panel.cu",
+        "replaces": "tpu_jordan/ops/pallas_block_inverse.py:250",
+    },
 }
+
+# The probe variants: (kernel launch counter key, wrapper, plain twin).
+VARIANTS = {"gj_probe_inplace": ("inplace", "gj_probe_inplace",
+                                 "gj_inplace_plain"),
+            "gj_probe_panel": ("panel", "gj_probe_panel", "gj_panel_plain")}
 
 
 def emit(obj) -> None:
@@ -194,7 +233,8 @@ def phase_toolchain(torch):
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for text in logs.values()
              for ln in text.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln
+             or "entry function" in ln]
     emit({"phase": "toolchain", "python": sys.version.split()[0],
           "torch": torch.__version__, "torch_cuda": torch.version.cuda,
           "nvcc": nvcc.splitlines()[-1], "gpu": smi(),
@@ -214,56 +254,144 @@ def make_stack(torch, nc: int, m: int, dtype, seed: int):
     return torch.from_numpy(b).to(device="cuda", dtype=dtype)
 
 
+def compare_probe(torch, blocks, out_k, out_p, dname: str):
+    """A probe kernel's (inv, sing) against its plain version's on a
+    make_stack stack: flags equal and as expected; on each regular block
+    the kernel's residual within 10x the plain one's plus eps·m, and the
+    relative ∞-norm difference within REL_LIMIT.  Returns (readings,
+    within)."""
+    from tpu_jordan_torch.ops import block_inf_norms
+
+    (inv_k, sing_k), (inv_p, sing_p) = out_k, out_p
+    torch.cuda.synchronize()
+    nc, m, _ = blocks.shape
+    expected = torch.zeros(nc, dtype=torch.bool, device="cuda")
+    expected[1:4] = True
+    ok = ~sing_p
+    eps = torch.finfo(inv_k.dtype).eps
+    b_ok = blocks[ok].to(inv_k.dtype)
+    eye = torch.eye(m, dtype=inv_k.dtype, device="cuda")
+    res_k = block_inf_norms(b_ok @ inv_k[ok] - eye)
+    res_p = block_inf_norms(b_ok @ inv_p[ok] - eye)
+    rel = (block_inf_norms(inv_k[ok] - inv_p[ok])
+           / block_inf_norms(inv_p[ok]))
+    readings = {"flags_equal": bool(torch.equal(sing_k, sing_p)),
+                "flags_expected": bool(torch.equal(sing_k, expected)),
+                "max_rel_err": float(rel.max()),
+                "rel_limit": REL_LIMIT[dname],
+                "max_residual": [float(res_k.max()), float(res_p.max())],
+                "max_residual_ratio": float((res_k / res_p).max()),
+                "max_abs_err": float((inv_k[ok] - inv_p[ok]).abs().max())}
+    within = bool((res_k <= 10 * res_p + eps * m).all()
+                  and (rel <= REL_LIMIT[dname]).all())
+    return readings, (readings["flags_equal"] and readings["flags_expected"]
+                      and within)
+
+
+def probe_bound(m: int, nc: int, dname: str, elem: int):
+    """(bound_ms, bound_by) of inverting an (nc, m, m) stack: 2m³ flops a
+    block at the dtype's peak, against the stack read and the inverses and
+    flags written once."""
+    t_ops = 2.0 * m**3 * nc / PEAK_FLOPS[dname]
+    t_bytes = (2.0 * nc * m * m * elem + nc) / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def phase_kernel_vs_plain(torch):
-    from tpu_jordan_torch.ops import batched_block_inverse, block_inf_norms
+    from tpu_jordan_torch.ops import batched_block_inverse
     from tpu_jordan_torch.ops.gj_probe import gj_probe
 
     rows = []
     for i, (m, nc, dname) in enumerate(PROBE_CASES):
         dtype = getattr(torch, dname)
         blocks = make_stack(torch, nc, m, dtype, seed=i)
-        inv_k, sing_k = gj_probe(blocks)
-        inv_p, sing_p = batched_block_inverse(blocks)
-        torch.cuda.synchronize()
-        flags_equal = bool(torch.equal(sing_k, sing_p))
-        expected = torch.zeros(nc, dtype=torch.bool, device="cuda")
-        expected[1:4] = True
-        ok = ~sing_p
-        eps = torch.finfo(dtype).eps
-        b_ok = blocks[ok]
-        eye = torch.eye(m, dtype=dtype, device="cuda")
-        res_k = block_inf_norms(b_ok @ inv_k[ok] - eye)
-        res_p = block_inf_norms(b_ok @ inv_p[ok] - eye)
-        rel = (block_inf_norms(inv_k[ok] - inv_p[ok])
-               / block_inf_norms(inv_p[ok]))
-        within = bool((res_k <= 10 * res_p + eps * m).all()
-                      and (rel <= REL_LIMIT[dname]).all())
-        max_abs = float((inv_k[ok] - inv_p[ok]).abs().max())
+        readings, ok = compare_probe(torch, blocks, gj_probe(blocks),
+                                     batched_block_inverse(blocks), dname)
         reps_k = 20 if m <= 256 else 5
         ms = cuda_ms(torch, lambda: gj_probe(blocks), reps_k)
         plain_ms = cuda_ms(torch, lambda: batched_block_inverse(blocks), 2)
         lib_ms = cuda_ms(torch, lambda: torch.linalg.inv_ex(blocks), 20)
         elem = blocks.element_size()
-        t_ops = 2.0 * m**3 * nc / PEAK_FLOPS[dname]
-        t_bytes = (2.0 * nc * m * m * elem + nc) / PEAK_BYTES
+        bound_ms, bound_by = probe_bound(m, nc, dname, elem)
         row = {"phase": "kernel_vs_plain", "kernel": "gj_probe", "m": m,
                "nc": nc, "dtype": dname,
                "w_in": "shared" if _w_in_smem(m, elem) else "global",
-               "flags_equal": flags_equal,
-               "flags_expected": bool(torch.equal(sing_k, expected)),
-               "max_rel_err": float(rel.max()),
-               "rel_limit": REL_LIMIT[dname],
-               "max_residual": [float(res_k.max()), float(res_p.max())],
-               "max_residual_ratio": float((res_k / res_p).max()),
-               "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms,
-               "bound_ms": 1e3 * max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+               **readings, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
         emit(row)
-        if not (flags_equal and row["flags_expected"] and within):
+        if not ok:
             raise AssertionError(f"gj_probe disagrees with the plain "
                                  f"version: {row}")
         rows.append(row)
+    return rows
+
+
+def panel_split_ms(torch, fn):
+    """Device ms of one warm call of ``fn`` under ``torch.profiler``,
+    summed over the panel probe's three kernels by name (init, micro,
+    update), with their launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for part in ("init", "micro", "update"):
+            if f"gj_probe_panel_{part}" in evt.name:
+                ms, n = split.get(part, (0.0, 0))
+                split[part] = (ms + (evt.time_range.end
+                                     - evt.time_range.start) / 1e3, n + 1)
+    return {part: {"ms": ms, "launches": n}
+            for part, (ms, n) in split.items()}
+
+
+def phase_variants_vs_plain(torch):
+    """Each probe variant's kernel against its own plain twin at every
+    VARIANT_CASES stack, by compare_probe's rules; each row also times
+    ``inv_ex`` and the dispatch probe ``gj_probe`` on the same stack (the
+    probe kernel shootout of benchmarks/PHASES.md, taken on this card).
+    Returns {kernel name: rows}."""
+    from tpu_jordan_torch import ops
+    from tpu_jordan_torch.ops.gj_probe import gj_probe
+
+    eps = 5e-7  # eps_for(float32): the wrappers' default
+    rows = {name: [] for name in VARIANTS}
+    for i, case in enumerate(VARIANT_CASES):
+        m, nc, dname = case
+        # The gj_probe row's own stack where there is one.
+        seed = PROBE_CASES.index(case) if case in PROBE_CASES else 100 + i
+        blocks = make_stack(torch, nc, m, getattr(torch, dname), seed=seed)
+        lib_ms = cuda_ms(torch, lambda: torch.linalg.inv_ex(blocks), 20)
+        probe_ms = cuda_ms(torch, lambda: gj_probe(blocks),
+                           20 if m <= 256 else 5)
+        bound_ms, bound_by = probe_bound(m, nc, dname, 4)
+        for name, (_, wrapper, twin) in VARIANTS.items():
+            kernel, plain = getattr(ops, wrapper), getattr(ops, twin)
+            readings, ok = compare_probe(torch, blocks, kernel(blocks),
+                                         plain(blocks, eps), dname)
+            row = {"phase": "kernel_vs_plain", "kernel": name, "m": m,
+                   "nc": nc, "dtype": dname,
+                   "panel_width": ops.panel_width(m), **readings,
+                   "ms": cuda_ms(torch, lambda: kernel(blocks),
+                                 20 if m <= 256 else 5),
+                   "plain_ms": cuda_ms(torch, lambda: plain(blocks, eps), 2),
+                   "library_ms": lib_ms, "gj_probe_ms": probe_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            if name == "gj_probe_panel":
+                row["split_ms"] = panel_split_ms(torch, lambda: kernel(blocks))
+            emit(row)
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"twin: {row}")
+            rows[name].append(row)
     return rows
 
 
@@ -529,6 +657,76 @@ def phase_reference_update(torch):
     torch.cuda.empty_cache()
 
 
+def phase_reference_variants(torch):
+    """Each probe variant inside the engines through ``probe=`` at every
+    VARIANT_ENGINE_ROWS row.  On every superstep's candidate stack of the
+    variant's run its plain twin must give equal flags and pick the same
+    pivot; the run must not be singular, must pass the solve gate
+    rel_residual < min(3·eps·n·κ∞/‖A‖∞, 0.5) and launch the variant's
+    kernel Nr times.  The warm engine time is printed beside the same
+    engine's with ``gj_probe``.  Each checked run is the variant's path:
+    its count is set to 0 just before the run and read just after.
+    Returns the counts summed over the rows."""
+    from tpu_jordan_torch import ops
+    from tpu_jordan_torch.ops import probe_variants as pv
+    from tpu_jordan_torch.ops.jordan_inplace import _select as select
+
+    engines = {"inplace": ops.block_jordan_invert_inplace,
+               "grouped": ops.block_jordan_invert_inplace_grouped}
+    totals = {name: 0 for name in VARIANTS}
+    for n, m, gen, dname, engine in VARIANT_ENGINE_ROWS:
+        dtype = getattr(torch, dname)
+        a = ops.generate(gen, (n, n), dtype, device="cuda")
+        eng = engines[engine]
+        kw = {"group": 2} if engine == "grouped" else {}
+        nr = -(-n // m)
+        norm_a = float(ops.inf_norm(a))
+        base_ms = cuda_ms(torch, lambda: eng(a, block_size=m, **kw), 1)
+        for name, (key, wrapper, twin) in VARIANTS.items():
+            kernel, plain = getattr(ops, wrapper), getattr(ops, twin)
+            steps = []
+
+            def checked(cands, eps):
+                out = kernel(cands, eps)
+                inv_t, sing_t = plain(cands, eps)
+                steps.append((bool(torch.equal(out[1], sing_t)),
+                              int(select(*out, 0)[1]),
+                              int(select(inv_t, sing_t, 0)[1])))
+                return out
+
+            pv.reset_launches()
+            x, singular = eng(a, block_size=m, probe=checked, **kw)
+            torch.cuda.synchronize()
+            launches = pv.launches[key]
+            totals[name] += launches
+            kappa = float(ops.condition_inf(a, x))
+            rel = float(ops.residual_inf_norm(a, x)) / norm_a
+            gate = min(3.0 * torch.finfo(dtype).eps * n * kappa / norm_a,
+                       0.5)
+            del x
+            ms = cuda_ms(torch, lambda: eng(a, block_size=m, probe=kernel,
+                                            **kw), 1)
+            row = {"phase": "reference", "engine": engine, "probe": name,
+                   "n": n, "m": m, "generator": gen, "dtype": dname,
+                   "stepwise": True, "steps": len(steps),
+                   "flags_equal": all(f for f, _, _ in steps),
+                   "pivots_equal": all(k == p for _, k, p in steps),
+                   "singular": bool(singular), "kappa_inf": kappa,
+                   "rel_residual": rel, "gate": gate,
+                   "probe_launches": launches, "expected_launches": nr,
+                   "ms": ms, "gj_probe_ms": base_ms}
+            emit(row)
+            torch.cuda.empty_cache()
+            if not (row["flags_equal"] and row["pivots_equal"]
+                    and row["steps"] == nr and not row["singular"]
+                    and rel < gate and launches == nr):
+                raise AssertionError(f"{name} inside the {engine} engine "
+                                     f"failed its checks: {row}")
+        del a
+        torch.cuda.empty_cache()
+    return totals
+
+
 def phase_solve(torch):
     """The main path: every SOLVE_ROWS row through driver.solve, warm.
     Each row runs with both kernels' counts set to 0 just before it and
@@ -648,25 +846,28 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     phase_toolchain(torch)
-    probe_rows = (phase_kernel_vs_plain(torch)
-                  if "kernel_vs_plain" in phases else [])
-    update_rows = (phase_update_vs_plain(torch)
-                   if "kernel_vs_plain" in phases else [])
+    rows = {name: [] for name in KERNELS}
+    if "kernel_vs_plain" in phases:
+        rows["gj_probe"] = phase_kernel_vs_plain(torch)
+        rows["fused_update"] = phase_update_vs_plain(torch)
+        rows.update(phase_variants_vs_plain(torch))
+    launches = {}
     if "reference" in phases:
         phase_reference(torch)
-    launches = phase_solve(torch) if "solve" in phases else {}
+        launches.update(phase_reference_variants(torch))
+    if "solve" in phases:
+        launches.update(phase_solve(torch))
     if "knife_edge" in phases:
         phase_knife_edge(torch)
 
-    # Each kernel's representative row: the probe at 4096/m128's first
+    # Each kernel's representative row: the probes at 4096/m128's first
     # superstep, the update at 8192/m128 fp32 (the full width of its path).
-    rows = {"gj_probe": probe_rows, "fused_update": update_rows}
     kernels = []
     for name, info in KERNELS.items():
         rep = rows[name][0] if rows[name] else {}
-        shape = ([rep.get("nc"), rep.get("m"), rep.get("m")]
-                 if name == "gj_probe"
-                 else [rep.get("N"), rep.get("KM"), rep.get("m")])
+        shape = ([rep.get("N"), rep.get("KM"), rep.get("m")]
+                 if name == "fused_update"
+                 else [rep.get("nc"), rep.get("m"), rep.get("m")])
         kernels.append({
             "name": name, **info, "launches": launches.get(name),
             "max_abs_err": max((r["max_abs_err"] for r in rows[name]),

@@ -19,6 +19,13 @@ from .jordan_inplace import (
 )
 from .norms import block_inf_norms, condition_inf, inf_norm
 from .padding import pad_with_identity, unpad
+from .probe_variants import (
+    gj_inplace_plain,
+    gj_panel_plain,
+    gj_probe_inplace,
+    gj_probe_panel,
+    panel_width,
+)
 from .refine import newton_schulz, resolve_precision
 from .residual import residual_inf_norm
 
@@ -36,9 +43,14 @@ __all__ = [
     "fused_normalize_eliminate_plain",
     "gauss_jordan_inverse",
     "generate",
+    "gj_inplace_plain",
+    "gj_panel_plain",
+    "gj_probe_inplace",
+    "gj_probe_panel",
     "inf_norm",
     "newton_schulz",
     "pad_with_identity",
+    "panel_width",
     "probe_blocks",
     "residual_inf_norm",
     "resolve_precision",

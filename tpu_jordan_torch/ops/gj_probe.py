@@ -73,10 +73,24 @@ def gj_probe(blocks: torch.Tensor, eps: float | None = None):
         eps = eps_for(blocks.dtype)
     if blocks.device.type == "cpu":
         return batched_block_inverse(blocks, None, eps)
+    inv, sing = launch_kernel(blocks, eps)
+    global launches
+    launches += 1
+    return inv, sing
+
+
+def check_cuda_stack(blocks: torch.Tensor) -> None:
+    """Raise unless ``blocks`` is a contiguous stack on a CUDA device."""
     if blocks.device.type != "cuda":
         raise ValueError(f"unsupported device {blocks.device}")
     if not blocks.is_contiguous():
-        raise ValueError("the probe kernel takes a contiguous stack")
+        raise ValueError("the probe kernels take a contiguous stack")
+
+
+def launch_kernel(blocks: torch.Tensor, eps: float):
+    """Launch ``csrc/gj_probe.cu`` on a CUDA stack of fp32 or fp64 blocks
+    and return (inverses, singular_flags); counts nothing."""
+    check_cuda_stack(blocks)
     nc, m, _ = blocks.shape
     inv = torch.empty_like(blocks)
     sing = torch.empty(nc, dtype=torch.uint8, device=blocks.device)
@@ -95,6 +109,4 @@ def gj_probe(blocks: torch.Tensor, eps: float | None = None):
         raise KernelLaunchError(
             f"gj_probe launch failed with CUDA error {err} "
             f"(nc={nc}, m={m}, {blocks.dtype})")
-    global launches
-    launches += 1
     return inv, sing.bool()
