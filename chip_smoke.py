@@ -10,20 +10,27 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    name and power limit; builds every kernel under ``tpu_jordan_torch/csrc``
    (one ``nvcc`` per source, started together) with ``-Xptxas -v``.
 2. ``kernel_vs_plain``: each kernel against its plain PyTorch version on the
-   card.  The probe, on stacks that mix random blocks with a zero, a
-   rank-deficient and a NaN block: flags equal; on each regular block the
-   kernel's residual ‖B·inv − I‖∞ within 10× the plain version's plus
-   eps·m, and the relative ∞-norm difference of the inverses below
-   REL_LIMIT of the dtype.  The fused update, at every UPDATE_CASES shape,
-   t in {0, mid, last} and j in {0, k−1}, in both modes: the H block
-   exact, and elsewhere max|kernel − plain| / (KM·max|U|·max|P_eff|) below
-   UPDATE_LIMIT.  Each row prints the kernel's, the plain version's and a
-   PyTorch call's times (``inv_ex``; ``addmm``, or a bf16 ``matmul``),
-   the last a yardstick only that the port never calls.  The probe
-   variants, each against its own plain twin by the probe's rules, at
-   every fp32 PROBE_CASES stack and at m=48 (a 16-wide panel); each row
-   also times ``gj_probe`` on the same stack, and the panel rows split one
-   traced call's device time over the panel probe's three kernels.
+   card.  Both bodies of the dispatch probe, each through its own entry
+   (``gj_probe.cu``, and ``gj_probe_fused_panel.cu`` at every m with a
+   panel width), on stacks that mix random blocks with a zero, a
+   rank-deficient and a NaN block, against ``batched_block_inverse``:
+   flags equal; on each regular block the kernel's residual ‖B·inv − I‖∞
+   within 10× the plain version's plus eps·m, and the relative ∞-norm
+   difference of the inverses below REL_LIMIT of the dtype.  The panel
+   body is also held against its twin ``gj_fused_panel_plain`` by the same
+   rules, and its residual on every regular block to RESIDUAL_RATIO_LIMIT
+   times that of ``gj_probe.cu`` on the same stack; its rows split one
+   traced call's device time over its three kernels.  The fused update, at
+   every UPDATE_CASES shape, t in {0, mid, last} and j in {0, k−1}, in both
+   modes: the H block exact, and elsewhere max|kernel − plain| /
+   (KM·max|U|·max|P_eff|) below UPDATE_LIMIT.  Each row prints the
+   kernel's, the plain version's and a PyTorch call's times (``inv_ex``;
+   ``addmm``, in bf16 mode with bf16 operands and an fp32 output), the last
+   a yardstick only that the port never calls.  The probe variants, each
+   against its own plain twin by the probe's rules, at every fp32
+   PROBE_CASES stack and at m=48 (a 16-wide panel); each row also times
+   both probe bodies on the same stack, and the v2 rows split one traced
+   call's device time over v2's three kernels.
 3. ``reference``: solves on the card with the kernels against the same
    solves with the plain versions (the engines' ``probe`` and ``update``
    arguments).  The probe at 512/m64 fp32 (W in shared memory) and at
@@ -44,13 +51,15 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    the variants' counts set to 0 just before each and read just after,
    are the variants' path.
 4. ``solve``: the main path through ``driver.solve``, each row timed on a
-   warm run with both kernels' launch counts set to 0 just before it and
-   read just after: ``engine="auto"`` at 4096/m128/absdiff fp32,
-   8192/m384/absdiff fp64, 8192/m384/rand fp32 and 16384/m128/rand fp32
-   (probe launches = Nr, no update launch); ``grouped_pallas`` at
-   4096/m128 and 8192/m128 rand fp32 and ``grouped_pallas_bf16`` at
-   8192/m128 kms and rand (probe launches = Nr and update launches =
-   ceil(Nr/k) per engine run).  fp32 and fp64 rows are held to the gate
+   warm run with the three kernels' launch counts set to 0 just before it
+   and read just after: ``engine="auto"`` at 4096/m128/absdiff fp32,
+   8192/m384/absdiff fp64, 8192/m384/rand fp32, 16384/m128/rand fp32 and
+   1000/m50/rand fp32 (probe launches = Nr, of the body the route picks:
+   ``gj_probe_fused_panel`` where m has a panel width, ``gj_probe`` at
+   m=50; no update launch); ``grouped_pallas`` at 4096/m128 and 8192/m128
+   rand fp32 and ``grouped_pallas_bf16`` at 8192/m128 kms and rand (probe
+   launches = Nr and update launches = ceil(Nr/k) per engine run).  fp32
+   and fp64 rows are held to the gate
    ``rel_residual < min(3·eps·n·κ∞/‖A‖∞, 0.5)``; the bf16 rows to the
    driver's own residual gate, kms with no ladder rung and rand ending on a
    passed rung.  absdiff at 8192 runs in fp64: in fp32 it sits on the
@@ -87,6 +96,10 @@ EXTRA_PHASES = ("knife_edge",)
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 PEAK_BYTES = 3.35e12
 
+# Largest ratio, on any regular block, of the panel body's residual
+# ‖B·inv − I‖∞ to that of gj_probe.cu on the same stack.
+RESIDUAL_RATIO_LIMIT = 1.5
+
 # Largest relative ∞-norm difference between the kernel's and the plain
 # version's inverse of one regular block.  The readings on these stacks
 # stay below 3e-3 (fp32) and 1e-12 (fp64); any inverse of the wrong values
@@ -95,7 +108,8 @@ REL_LIMIT = {"float32": 1e-2, "float64": 1e-9}
 
 # (m, nc, dtype): every m the probe meets, at the main path's stack sizes
 # (nc = Nr at the first superstep: 32 at 4096/m128, 22 at 8192/m384 in fp32
-# and fp64, 128 at 16384/m128).  The first case is the representative for the kernels line.
+# and fp64, 128 at 16384/m128).  The first case is the representative for
+# the kernels line.
 PROBE_CASES = (
     (128, 32, "float32"),
     (64, 16, "float32"),
@@ -105,12 +119,18 @@ PROBE_CASES = (
     (512, 8, "float32"),
     (128, 32, "float64"),
     (384, 22, "float64"),
+    (50, 20, "float32"),
 )
+# The stack of the one main-path row whose m has no panel width
+# (1000/m50: Nr = 20), where the probe is gj_probe.cu; the representative
+# of that kernel for the kernels line.
+RANK1_CASE = PROBE_CASES[-1]
 
 # (m, nc, dtype): the probe variants' stacks: every fp32 PROBE_CASES stack
 # (the same seeded stack as its gj_probe row) and m=48, whose panel is 16
 # wide.
-VARIANT_CASES = tuple(c for c in PROBE_CASES if c[2] == "float32") + (
+VARIANT_CASES = tuple(c for c in PROBE_CASES
+                      if c[2] == "float32" and c != RANK1_CASE) + (
     (48, 16, "float32"),)
 
 # (n, m, generator, dtype, engine): the probe variants inside the engines
@@ -137,10 +157,12 @@ PALLAS_STEPWISE_ROW = (8192, 128, "rand")
 # (n, m, generator, dtype, engine): the main path through driver.solve.
 # "auto" rows are the paper's program; the fused-update rows are the repo's
 # own bench rows for those engines (bench.py:948-958).
+# m=50 has no panel width, so its probe is gj_probe.cu.
 SOLVE_ROWS = ((4096, 128, "absdiff", "float32", "auto"),
               (8192, 384, "absdiff", "float64", "auto"),
               (8192, 384, "rand", "float32", "auto"),
               (16384, 128, "rand", "float32", "auto"),
+              (1000, 50, "rand", "float32", "auto"),
               (4096, 128, "rand", "float32", "grouped_pallas"),
               (8192, 128, "rand", "float32", "grouped_pallas"),
               (8192, 128, "kms", "float32", "grouped_pallas_bf16"),
@@ -152,10 +174,12 @@ LADDER_EXPECT = {"kms": "no_rungs", "rand": "recovered"}
 
 # (N, m, k): the fused update's shapes.  N = 8192 and 4096 at m=128, k=2
 # are the grouped_pallas solve rows; KM = k·m = 1536 at (1536, 384, 4); N =
-# 240 is not a multiple of the kernel's 128-wide tile.  Each runs at
-# t in {0, mid, last} and j in {0, k-1}, in both modes.
+# 240 is not a multiple of the kernel's 128-wide tile; N = 250 is not a
+# multiple of 4, so the kernel reads V, U and P one value at a time (as in
+# a solve at n = 150, m = 50).  Each runs at t in {0, mid, last} and j in
+# {0, k-1}, in both modes.
 UPDATE_CASES = ((8192, 128, 2), (4096, 128, 2), (1536, 384, 4),
-                (240, 48, 2))
+                (240, 48, 2), (250, 50, 2))
 
 # Largest max|kernel − plain| / (KM·max|U|·max|P_eff|) the fused update may
 # read against its plain version of the same mode, outside the H block
@@ -167,10 +191,15 @@ UPDATE_LIMIT = 1e-6
 UPDATE_PEAK = {"fp32": 67e12, "bf16": 989e12}
 
 KERNELS = {
+    "gj_probe_fused_panel": {
+        "route": "cuda",
+        "source": "tpu_jordan_torch/csrc/gj_probe_fused_panel.cu",
+        "replaces": "tpu_jordan/ops/pallas_block_inverse.py:363",
+    },
     "gj_probe": {
         "route": "cuda",
         "source": "tpu_jordan_torch/csrc/gj_probe.cu",
-        "replaces": "tpu_jordan/ops/pallas_block_inverse.py:689",
+        "replaces": "tpu_jordan/ops/pallas_block_inverse.py:74",
     },
     "fused_update": {
         "route": "cuda",
@@ -254,6 +283,14 @@ def make_stack(torch, nc: int, m: int, dtype, seed: int):
     return torch.from_numpy(b).to(device="cuda", dtype=dtype)
 
 
+def block_residuals(torch, blocks, inv, ok):
+    """‖B·inv − I‖∞ of each block selected by ``ok``."""
+    from tpu_jordan_torch.ops import block_inf_norms
+
+    eye = torch.eye(blocks.shape[-1], dtype=inv.dtype, device="cuda")
+    return block_inf_norms(blocks[ok].to(inv.dtype) @ inv[ok] - eye)
+
+
 def compare_probe(torch, blocks, out_k, out_p, dname: str):
     """A probe kernel's (inv, sing) against its plain version's on a
     make_stack stack: flags equal and as expected; on each regular block
@@ -269,10 +306,8 @@ def compare_probe(torch, blocks, out_k, out_p, dname: str):
     expected[1:4] = True
     ok = ~sing_p
     eps = torch.finfo(inv_k.dtype).eps
-    b_ok = blocks[ok].to(inv_k.dtype)
-    eye = torch.eye(m, dtype=inv_k.dtype, device="cuda")
-    res_k = block_inf_norms(b_ok @ inv_k[ok] - eye)
-    res_p = block_inf_norms(b_ok @ inv_p[ok] - eye)
+    res_k = block_residuals(torch, blocks, inv_k, ok)
+    res_p = block_residuals(torch, blocks, inv_p, ok)
     rel = (block_inf_norms(inv_k[ok] - inv_p[ok])
            / block_inf_norms(inv_p[ok]))
     readings = {"flags_equal": bool(torch.equal(sing_k, sing_p)),
@@ -299,39 +334,97 @@ def probe_bound(m: int, nc: int, dname: str, elem: int):
 
 
 def phase_kernel_vs_plain(torch):
+    """Both bodies of the dispatch probe, each through its own entry, at
+    every PROBE_CASES stack (module docstring).  Emits every row, then fails
+    if any check failed.  Returns {kernel name: rows}."""
+    from tpu_jordan_torch.config import eps_for
     from tpu_jordan_torch.ops import batched_block_inverse
-    from tpu_jordan_torch.ops.gj_probe import gj_probe
+    from tpu_jordan_torch.ops import gj_fused_panel_plain
+    from tpu_jordan_torch.ops.gj_fused_panel import launch_fused_panel
+    from tpu_jordan_torch.ops.gj_fused_panel import takes_panel_body
+    from tpu_jordan_torch.ops.gj_probe import launch_kernel
 
-    rows = []
+    # The library yardstick first: one run of this phase aborted inside
+    # inv_ex (magma_queue::setup_ptrArray) when its first call came after
+    # the kernels had run.
+    torch.linalg.inv_ex(torch.eye(128, device="cuda").expand(32, 128, 128)
+                        .contiguous())
+    torch.cuda.synchronize()
+    rows = {"gj_probe_fused_panel": [], "gj_probe": []}
+    bad = []
     for i, (m, nc, dname) in enumerate(PROBE_CASES):
         dtype = getattr(torch, dname)
+        eps = eps_for(dtype)
         blocks = make_stack(torch, nc, m, dtype, seed=i)
-        readings, ok = compare_probe(torch, blocks, gj_probe(blocks),
-                                     batched_block_inverse(blocks), dname)
-        reps_k = 20 if m <= 256 else 5
-        ms = cuda_ms(torch, lambda: gj_probe(blocks), reps_k)
-        plain_ms = cuda_ms(torch, lambda: batched_block_inverse(blocks), 2)
-        lib_ms = cuda_ms(torch, lambda: torch.linalg.inv_ex(blocks), 20)
+        plain = batched_block_inverse(blocks)
+        out_r = launch_kernel(blocks, eps)
+        reps = 20 if m <= 256 else 5
         elem = blocks.element_size()
         bound_ms, bound_by = probe_bound(m, nc, dname, elem)
-        row = {"phase": "kernel_vs_plain", "kernel": "gj_probe", "m": m,
-               "nc": nc, "dtype": dname,
+        common = {"phase": "kernel_vs_plain", "m": m, "nc": nc,
+                  "dtype": dname,
+                  "plain_ms": cuda_ms(torch,
+                                      lambda: batched_block_inverse(blocks),
+                                      2),
+                  "library_ms": cuda_ms(torch,
+                                        lambda: torch.linalg.inv_ex(blocks),
+                                        20),
+                  "bound_ms": bound_ms, "bound_by": bound_by}
+        readings, ok = compare_probe(torch, blocks, out_r, plain, dname)
+        rank1_ms = cuda_ms(torch, lambda: launch_kernel(blocks, eps), reps)
+        row = {"kernel": "gj_probe", **common,
                "w_in": "shared" if _w_in_smem(m, elem) else "global",
-               **readings, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+               **readings, "ms": rank1_ms}
         emit(row)
+        rows["gj_probe"].append(row)
         if not ok:
-            raise AssertionError(f"gj_probe disagrees with the plain "
-                                 f"version: {row}")
-        rows.append(row)
+            bad.append(row)
+        if not takes_panel_body(m):
+            continue
+        out_f = launch_fused_panel(blocks, eps)
+        twin = gj_fused_panel_plain(blocks, eps)
+        readings, ok = compare_probe(torch, blocks, out_f, plain, dname)
+        twin_readings, twin_ok = compare_probe(torch, blocks, out_f, twin,
+                                               dname)
+        regular = ~plain[1]
+        ratio = (block_residuals(torch, blocks, out_f[0], regular)
+                 / block_residuals(torch, blocks, out_r[0], regular))
+        twin_ratio = (block_residuals(torch, blocks, twin[0], regular)
+                      / block_residuals(torch, blocks, out_r[0], regular))
+        row = {"kernel": "gj_probe_fused_panel", **common, **readings,
+               "ms": cuda_ms(torch, lambda: launch_fused_panel(blocks, eps),
+                             reps),
+               "gj_probe_ms": rank1_ms,
+               "plain_ms": cuda_ms(torch,
+                                   lambda: gj_fused_panel_plain(blocks, eps),
+                                   1),
+               "batched_block_inverse_ms": common["plain_ms"],
+               "vs_twin": twin_readings,
+               "residual_ratio_vs_gj_probe": {
+                   "max": float(ratio.max()), "mean": float(ratio.mean()),
+                   "limit": RESIDUAL_RATIO_LIMIT},
+               "twin_residual_ratio_vs_gj_probe": {
+                   "max": float(twin_ratio.max()),
+                   "mean": float(twin_ratio.mean())},
+               "split_ms": split_ms(torch, lambda: launch_fused_panel(
+                   blocks, eps), "gj_probe_fused_panel_",
+                   ("micro", "update", "store"))}
+        emit(row)
+        rows["gj_probe_fused_panel"].append(row)
+        if not (ok and twin_ok
+                and float(ratio.max()) <= RESIDUAL_RATIO_LIMIT):
+            bad.append(row)
+        del out_f, twin
+    if bad:
+        raise AssertionError(f"a probe body disagrees with its plain "
+                             f"version: {bad}")
     return rows
 
 
-def panel_split_ms(torch, fn):
+def split_ms(torch, fn, prefix: str, parts):
     """Device ms of one warm call of ``fn`` under ``torch.profiler``,
-    summed over the panel probe's three kernels by name (init, micro,
-    update), with their launch counts."""
+    summed over the kernels named ``prefix + part`` for each of ``parts``,
+    with their launch counts."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -344,8 +437,8 @@ def panel_split_ms(torch, fn):
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        for part in ("init", "micro", "update"):
-            if f"gj_probe_panel_{part}" in evt.name:
+        for part in parts:
+            if prefix + part in evt.name:
                 ms, n = split.get(part, (0.0, 0))
                 split[part] = (ms + (evt.time_range.end
                                      - evt.time_range.start) / 1e3, n + 1)
@@ -356,11 +449,12 @@ def panel_split_ms(torch, fn):
 def phase_variants_vs_plain(torch):
     """Each probe variant's kernel against its own plain twin at every
     VARIANT_CASES stack, by compare_probe's rules; each row also times
-    ``inv_ex`` and the dispatch probe ``gj_probe`` on the same stack (the
+    ``inv_ex`` and both bodies of the dispatch probe on the same stack (the
     probe kernel shootout of benchmarks/PHASES.md, taken on this card).
     Returns {kernel name: rows}."""
     from tpu_jordan_torch import ops
-    from tpu_jordan_torch.ops.gj_probe import gj_probe
+    from tpu_jordan_torch.ops.gj_fused_panel import launch_fused_panel
+    from tpu_jordan_torch.ops.gj_probe import launch_kernel
 
     eps = 5e-7  # eps_for(float32): the wrappers' default
     rows = {name: [] for name in VARIANTS}
@@ -370,8 +464,10 @@ def phase_variants_vs_plain(torch):
         seed = PROBE_CASES.index(case) if case in PROBE_CASES else 100 + i
         blocks = make_stack(torch, nc, m, getattr(torch, dname), seed=seed)
         lib_ms = cuda_ms(torch, lambda: torch.linalg.inv_ex(blocks), 20)
-        probe_ms = cuda_ms(torch, lambda: gj_probe(blocks),
-                           20 if m <= 256 else 5)
+        reps = 20 if m <= 256 else 5
+        probe_ms = cuda_ms(torch, lambda: launch_kernel(blocks, eps), reps)
+        panel_ms = cuda_ms(torch, lambda: launch_fused_panel(blocks, eps),
+                           reps)
         bound_ms, bound_by = probe_bound(m, nc, dname, 4)
         for name, (_, wrapper, twin) in VARIANTS.items():
             kernel, plain = getattr(ops, wrapper), getattr(ops, twin)
@@ -384,9 +480,12 @@ def phase_variants_vs_plain(torch):
                                  20 if m <= 256 else 5),
                    "plain_ms": cuda_ms(torch, lambda: plain(blocks, eps), 2),
                    "library_ms": lib_ms, "gj_probe_ms": probe_ms,
+                   "gj_probe_fused_panel_ms": panel_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by}
             if name == "gj_probe_panel":
-                row["split_ms"] = panel_split_ms(torch, lambda: kernel(blocks))
+                row["split_ms"] = split_ms(torch, lambda: kernel(blocks),
+                                           "gj_probe_panel_",
+                                           ("init", "micro", "update"))
             emit(row)
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain "
@@ -473,12 +572,21 @@ def phase_update_vs_plain(torch):
                 V, U, P, H, rows_p, **kw), 3)
             p_eff = P.clone()
             p_eff[j * m:(j + 1) * m] = V[t * m:(t + 1) * m]
+            lib_note = "torch.addmm(V, U, P_eff, alpha=-1)"
             if mode == "fp32":
                 lib_ms = cuda_ms(torch, lambda: torch.addmm(
                     V, U, p_eff, alpha=-1), 20)
             else:
+                # The same work: bf16 operands, V read and written in fp32.
                 ub, pb = U.bfloat16(), p_eff.bfloat16()
-                lib_ms = cuda_ms(torch, lambda: torch.matmul(ub, pb), 20)
+                lib_note = ("torch.addmm(V, bf16 U, bf16 P_eff, alpha=-1, "
+                            "out_dtype=torch.float32)")
+                try:
+                    lib_ms = cuda_ms(torch, lambda: torch.addmm(
+                        V, ub, pb, alpha=-1, out_dtype=torch.float32), 20)
+                except (RuntimeError, TypeError, NotImplementedError) as exc:
+                    lib_ms, lib_note = None, (f"{lib_note} is not available "
+                                              f"in this torch: {exc}")[:300]
             bound_ms, bound_by = update_bound(N, KM, m, mode)
             row = {"phase": "kernel_vs_plain", "kernel": "fused_update",
                    "N": N, "m": m, "k": k, "KM": KM, "mode": mode,
@@ -488,9 +596,14 @@ def phase_update_vs_plain(torch):
                    "limit": UPDATE_LIMIT,
                    "max_abs_err": max(r[4] for r in readings),
                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "library_call": lib_note,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "tflops": (2.0 * N * N * KM + 2.0 * m * m * N)
-                   / ms / 1e9}
+                   / ms / 1e9,
+                   "split_ms": split_ms(
+                       torch, lambda: fused_normalize_eliminate(
+                           V, U, P, H, rows_p, **kw), "fused_update_",
+                       ("prow", "to_bf16", "bf16", "fp32"))}
             emit(row)
             rows.append(row)
             if not (row["h_exact"] and row["max_scaled_err"] <= UPDATE_LIMIT):
@@ -733,6 +846,7 @@ def phase_solve(torch):
     read just after; returns the counts summed over the rows."""
     from tpu_jordan_torch.driver import PALLAS_ENGINES, solve
     from tpu_jordan_torch.ops import fused_update as update_mod
+    from tpu_jordan_torch.ops import gj_fused_panel as panel_mod
     from tpu_jordan_torch.ops import gj_probe as probe_mod
     from tpu_jordan_torch.resilience import DEFAULT_POLICY, gate_threshold
 
@@ -741,23 +855,25 @@ def phase_solve(torch):
         solve(n, m, generator=gen, dtype=dname, engine=engine,
               device="cuda")
         torch.cuda.empty_cache()
-    totals = {"gj_probe": 0, "fused_update": 0}
+    counters = {"gj_probe_fused_panel": panel_mod, "gj_probe": probe_mod,
+                "fused_update": update_mod}
+    totals = dict.fromkeys(counters, 0)
     for n, m, gen, dname, engine in SOLVE_ROWS:
         eps = float(torch.finfo(getattr(torch, dname)).eps)
-        probe_mod.reset_launches()
-        update_mod.reset_launches()
+        for mod in counters.values():
+            mod.reset_launches()
         wall0 = time.perf_counter()
         res = solve(n, m, generator=gen, dtype=dname, engine=engine,
                     device="cuda")
         wall = time.perf_counter() - wall0
-        launches = {"gj_probe": probe_mod.launches,
-                    "fused_update": update_mod.launches}
+        launches = {name: mod.launches for name, mod in counters.items()}
         # The engine ran once, and once more for a re-solve rung.
         runs = 1 + sum(r["rung"] == "resolve" for r in res.recovery)
         nr = -(-n // m)
-        expected = {"gj_probe": nr * runs,
+        expected = {"gj_probe_fused_panel": 0, "gj_probe": 0,
                     "fused_update": (-(-nr // res.group) * runs
                                      if engine in PALLAS_ENGINES else 0)}
+        expected[probe_mod.probe_body(m)] = nr * runs
         if engine == "grouped_pallas_bf16":
             # The driver's own gate: bf16 eps for the bf16 result, fp32
             # for a refined or re-solved one.
@@ -777,9 +893,7 @@ def phase_solve(torch):
                "rel_residual": res.rel_residual, "kappa_inf": res.kappa,
                "gate": gate, "recovery": list(res.recovery),
                "ladder_expected": expect, "supersteps": nr,
-               "probe_launches": launches["gj_probe"],
-               "update_launches": launches["fused_update"],
-               "expected_launches": expected,
+               "launches": launches, "expected_launches": expected,
                "finite": bool(torch.isfinite(res.inverse).all()),
                "shape": list(res.inverse.shape)}
         emit(row)
@@ -848,7 +962,7 @@ def main(argv=None) -> int:
     phase_toolchain(torch)
     rows = {name: [] for name in KERNELS}
     if "kernel_vs_plain" in phases:
-        rows["gj_probe"] = phase_kernel_vs_plain(torch)
+        rows.update(phase_kernel_vs_plain(torch))
         rows["fused_update"] = phase_update_vs_plain(torch)
         rows.update(phase_variants_vs_plain(torch))
     launches = {}
@@ -861,10 +975,13 @@ def main(argv=None) -> int:
         phase_knife_edge(torch)
 
     # Each kernel's representative row: the probes at 4096/m128's first
-    # superstep, the update at 8192/m128 fp32 (the full width of its path).
+    # superstep (gj_probe.cu at 1000/m50's), the update at 8192/m128 fp32
+    # (the full width of its path).
     kernels = []
     for name, info in KERNELS.items():
-        rep = rows[name][0] if rows[name] else {}
+        own = [r for r in rows[name] if name != "gj_probe"
+               or (r["m"], r["nc"], r["dtype"]) == RANK1_CASE]
+        rep = own[0] if own else {}
         shape = ([rep.get("N"), rep.get("KM"), rep.get("m")]
                  if name == "fused_update"
                  else [rep.get("nc"), rep.get("m"), rep.get("m")])

@@ -16,3 +16,7 @@ class SingularMatrixError(ArithmeticError):
 
 class DeviceUnavailableError(RuntimeError):
     """The requested device (by default the CUDA card) is not present."""
+
+
+class KernelLaunchError(RuntimeError):
+    """The CUDA runtime refused or failed a kernel launch."""

@@ -10,6 +10,7 @@ from .fused_update import (
     fused_normalize_eliminate_plain,
 )
 from .generators import GENERATORS, generate
+from .gj_fused_panel import gj_fused_panel_plain
 from .jordan_inplace import (
     apply_col_perm,
     block_jordan_invert_inplace,
@@ -43,6 +44,7 @@ __all__ = [
     "fused_normalize_eliminate_plain",
     "gauss_jordan_inverse",
     "generate",
+    "gj_fused_panel_plain",
     "gj_inplace_plain",
     "gj_panel_plain",
     "gj_probe_inplace",

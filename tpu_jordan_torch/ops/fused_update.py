@@ -15,9 +15,9 @@ assembled P) to bf16 and accumulates in fp32, the mixed-precision recipe of
 the JAX package; the H insertion and the stored values stay fp32.
 
 It is almost all of a grouped solve's 2n³ flops.  fp32 runs outside the
-tensor cores, so the kernel is bound by operations; this first kernel is a
-SIMT tiled product (the source says more), and a tensor-core version is later
-work.
+tensor cores (no TF32), on SIMT FMAs, and is bound by operations; bf16 mode
+runs the product on the tensor cores (``mma.sync``) from bf16 copies of the
+operands, and is bound by V's bytes.  The source says more.
 
 On a CPU tensor the wrapper runs the plain version
 (:func:`fused_normalize_eliminate_plain`); on a CUDA tensor it launches the
@@ -34,7 +34,7 @@ import functools
 
 import torch
 
-from .gj_probe import KernelLaunchError
+from ..errors import KernelLaunchError
 
 MODES = ("fp32", "bf16")
 
@@ -51,10 +51,12 @@ def _lib():
     from .._build import load
 
     lib = load("fused_update")
-    lib.fused_update_f32.argtypes = ([ctypes.c_void_p] * 6
+    lib.fused_update_f32.argtypes = ([ctypes.c_void_p] * 7
                                      + [ctypes.c_int] * 6
                                      + [ctypes.c_void_p])
     lib.fused_update_f32.restype = ctypes.c_int
+    lib.fused_update_work_bytes.argtypes = [ctypes.c_int] * 3
+    lib.fused_update_work_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -140,11 +142,19 @@ def fused_normalize_eliminate(V, U, P, H, rows_p, *, t: int, j: int, m: int,
     if not all(x.is_contiguous() for x in (V, U, P, H, rows_p)):
         raise ValueError("the fused update kernel takes contiguous operands")
     prow = torch.empty_like(rows_p)
+    bf16 = int(mode == "bf16")
+    lib = _lib()
     with torch.cuda.device(V.device):
-        err = _lib().fused_update_f32(
+        # The bf16 operands (bf16 mode): rounded once, read by the tensor
+        # cores.
+        size = lib.fused_update_work_bytes(N, KM, bf16)
+        work = (torch.empty(size, dtype=torch.uint8, device=V.device)
+                if size else None)
+        err = lib.fused_update_f32(
             V.data_ptr(), U.data_ptr(), P.data_ptr(), H.data_ptr(),
-            rows_p.data_ptr(), prow.data_ptr(), N, KM, m, t, j,
-            int(mode == "bf16"), torch.cuda.current_stream().cuda_stream)
+            rows_p.data_ptr(), prow.data_ptr(),
+            None if work is None else work.data_ptr(), N, KM, m, t, j,
+            bf16, torch.cuda.current_stream().cuda_stream)
     if err:
         raise KernelLaunchError(
             f"fused_update launch failed with CUDA error {err} (N={N}, "

@@ -1,20 +1,24 @@
-"""The pivot-candidate probe on the card: wrapper of ``csrc/gj_probe.cu``.
+"""The pivot-candidate probe on the card: the dispatch of
+``tpu_jordan/ops/pallas_block_inverse.py::pallas_batched_block_inverse``.
 
-Replaces ``tpu_jordan/ops/pallas_block_inverse.py::
-pallas_batched_block_inverse`` (its ``_gj_fused_panel_kernel`` and
-``_gj_probe_kernel`` bodies) with one hand-written CUDA kernel for every m:
-for a (nc, m, m) stack, each block's inverse and a singular flag.
+For a (nc, m, m) stack it returns each block's inverse and a singular flag,
+from one of two hand-written CUDA bodies, as the JAX dispatch picks one of
+its two Pallas bodies:
 
-The kernel is latency-bound: a block needs ≈ 2m³ flops, but its m
-elimination steps run one after another inside one thread block, each closed
-by barriers, and only nc ≤ Nr blocks exist, so few SMs work.  The design keeps
-a block's working copy in shared memory where it fits (in an L2-resident
-global scratch where it does not, m > ~232 in fp32) so that no step leaves
-the SM; the source says more.
+- every m with a panel width (``gj_fused_panel.takes_panel_body``: m = 16,
+  48, 64, 128, 384, 512, ...) runs ``csrc/gj_probe_fused_panel.cu``, the
+  port of ``_gj_fused_panel_kernel`` (``ops/gj_fused_panel.py`` says more);
+- every other m (8, 50, ...) runs ``csrc/gj_probe.cu``, the port of
+  ``_gj_probe_kernel``: one thread block per candidate runs the m
+  normalized rank-1 steps, with the block's working copy in shared memory
+  where it fits (in an L2-resident global scratch where it does not,
+  m > ~232 in fp32); the source says more.
 
 On a CPU tensor the wrapper runs the plain version
-(``block_inverse.batched_block_inverse``); on a CUDA tensor it launches the
-kernel or raises.  ``launches`` counts the kernel launches and nothing else.
+(``block_inverse.batched_block_inverse``); on a CUDA tensor it launches one
+of the kernels or raises.  ``launches`` counts the launches of
+``csrc/gj_probe.cu`` made here, ``gj_fused_panel.launches`` those of the
+panel body, and nothing else counts in either.
 """
 
 from __future__ import annotations
@@ -25,13 +29,12 @@ import functools
 import torch
 
 from ..config import eps_for
+from ..errors import KernelLaunchError
 from .block_inverse import batched_block_inverse
+from .gj_fused_panel import (check_cuda_stack, launch_fused_panel,
+                             takes_panel_body)
 
 launches = 0
-
-
-class KernelLaunchError(RuntimeError):
-    """The CUDA runtime refused or failed a kernel launch."""
 
 
 def reset_launches() -> None:
@@ -57,6 +60,11 @@ def _lib():
     return lib
 
 
+def probe_body(m: int) -> str:
+    """The kernel ``gj_probe`` launches on the card for block size m."""
+    return "gj_probe_fused_panel" if takes_panel_body(m) else "gj_probe"
+
+
 def gj_probe(blocks: torch.Tensor, eps: float | None = None):
     """Invert an (nc, m, m) stack; returns (inverses, singular_flags).
 
@@ -73,18 +81,12 @@ def gj_probe(blocks: torch.Tensor, eps: float | None = None):
         eps = eps_for(blocks.dtype)
     if blocks.device.type == "cpu":
         return batched_block_inverse(blocks, None, eps)
+    if takes_panel_body(blocks.shape[1]):
+        return launch_fused_panel(blocks, eps)
     inv, sing = launch_kernel(blocks, eps)
     global launches
     launches += 1
     return inv, sing
-
-
-def check_cuda_stack(blocks: torch.Tensor) -> None:
-    """Raise unless ``blocks`` is a contiguous stack on a CUDA device."""
-    if blocks.device.type != "cuda":
-        raise ValueError(f"unsupported device {blocks.device}")
-    if not blocks.is_contiguous():
-        raise ValueError("the probe kernels take a contiguous stack")
 
 
 def launch_kernel(blocks: torch.Tensor, eps: float):

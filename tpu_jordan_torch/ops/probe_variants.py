@@ -59,7 +59,10 @@ import functools
 import torch
 
 from ..config import eps_for
-from .gj_probe import KernelLaunchError, check_cuda_stack, launch_kernel
+from ..errors import KernelLaunchError
+from .gj_fused_panel import (check_cuda_stack, panel_width,
+                             require_panel_width)
+from .gj_probe import launch_kernel
 from .norms import block_inf_norms
 
 launches = {"inplace": 0, "panel": 0}
@@ -68,22 +71,6 @@ launches = {"inplace": 0, "panel": 0}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
-
-
-def panel_width(m: int) -> int | None:
-    """Largest panel width b in (32, 16, 8) with m % b == 0 and m > b, else
-    None (no panel split)."""
-    for b in (32, 16, 8):
-        if m % b == 0 and m > b:
-            return b
-    return None
-
-
-def _require_panel_width(m: int) -> int:
-    b = panel_width(m)
-    if b is None:
-        raise ValueError(f"no panel width divides m={m}")
-    return b
 
 
 def _start(blocks: torch.Tensor, eps: float):
@@ -147,7 +134,7 @@ def gj_panel_plain(blocks: torch.Tensor, eps: float):
     the stack's dtype.  Returns (inverses, singular_flags); raises
     ValueError when no panel width divides m."""
     nc, m, _ = blocks.shape
-    b = _require_panel_width(m)
+    b = require_panel_width(m)
     thresh, sing, used = _start(blocks, eps)
     rows = torch.arange(nc, device=blocks.device)
     perm = torch.empty((nc, m), dtype=torch.long, device=blocks.device)
@@ -221,7 +208,7 @@ def gj_probe_panel(blocks: torch.Tensor, eps: float | None = None):
     CUDA tensor: ``csrc/gj_probe_panel.cu``."""
     blocks, eps = _prepare(blocks, eps)
     nc, m, _ = blocks.shape
-    b = _require_panel_width(m)
+    b = require_panel_width(m)
     if blocks.device.type == "cpu":
         return gj_panel_plain(blocks, eps)
     check_cuda_stack(blocks)
