@@ -11,8 +11,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    (one ``nvcc`` per source, started together) with ``-Xptxas -v``.
 2. ``kernel_vs_plain``: each kernel against its plain PyTorch version on the
    card.  Both bodies of the dispatch probe, each through its own entry
-   (``gj_probe.cu``, and ``gj_probe_fused_panel.cu`` at every m with a
-   panel width), on stacks that mix random blocks with a zero, a
+   (``gj_probe.cu`` on the schedule ``probe_schedule`` picks: block, cluster
+   and global all run, at m = 300 and 1100 among others; and
+   ``gj_probe_fused_panel.cu`` at every m with a panel width), on stacks
+   that mix random blocks with a zero, a
    rank-deficient and a NaN block, against ``batched_block_inverse``:
    flags equal; on each regular block the kernel's residual ‖B·inv − I‖∞
    within 10× the plain version's plus eps·m, and the relative ∞-norm
@@ -28,13 +30,14 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    ``addmm``, in bf16 mode with bf16 operands and an fp32 output), the last
    a yardstick only that the port never calls.  The probe variants, each
    against its own plain twin by the probe's rules, at every fp32
-   PROBE_CASES stack and at m=48 (a 16-wide panel); each row also times
-   both probe bodies on the same stack, and the v2 rows split one traced
-   call's device time over v2's three kernels.
+   PROBE_CASES stack with a panel width, at m=48 (a 16-wide panel) and at
+   m=768 (v2's l2 schedule; the others run its cluster schedule); each row
+   also times both probe bodies on the same stack, and the v2 rows split
+   one traced call's device time over v2's kernels.
 3. ``reference``: solves on the card with the kernels against the same
    solves with the plain versions (the engines' ``probe`` and ``update``
-   arguments).  The probe at 512/m64 fp32 (W in shared memory) and at
-   8192/m384 fp64 (W in global memory); the update through
+   arguments).  The probe at 512/m64 fp32, at 8192/m384 fp64 and at
+   3000/m300 fp64 (``gj_probe.cu``'s cluster schedule); the update through
    ``grouped_pallas`` at 512/m64 and 1024/m128 fp32: equal pivot
    sequences, neither singular, inverses within min(eps·n·κ∞, 0.05).  At
    the full width, where fp32 runs part by rounding, the kernel's run is
@@ -53,10 +56,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 4. ``solve``: the main path through ``driver.solve``, each row timed on a
    warm run with the three kernels' launch counts set to 0 just before it
    and read just after: ``engine="auto"`` at 4096/m128/absdiff fp32,
-   8192/m384/absdiff fp64, 8192/m384/rand fp32, 16384/m128/rand fp32 and
-   1000/m50/rand fp32 (probe launches = Nr, of the body the route picks:
-   ``gj_probe_fused_panel`` where m has a panel width, ``gj_probe`` at
-   m=50; no update launch); ``grouped_pallas`` at 4096/m128 and 8192/m128
+   8192/m384/absdiff fp64, 8192/m384/rand fp32, 16384/m128/rand fp32,
+   1000/m50/rand fp32 and 6000/m300/rand fp32 (probe launches = Nr, of the
+   body the route picks: ``gj_probe_fused_panel`` where m has a panel
+   width, ``gj_probe`` at m=50 and m=300; no update launch); ``grouped_pallas`` at 4096/m128 and 8192/m128
    rand fp32 and ``grouped_pallas_bf16`` at 8192/m128 kms and rand (probe
    launches = Nr and update launches = ceil(Nr/k) per engine run).  fp32
    and fp64 rows are held to the gate
@@ -69,9 +72,12 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 5. ``kernels``: every ported kernel with its launches on its path (the
    solve rows; the variants' engine runs of ``reference``).
 
-``--phases knife_edge`` (not run by default) records that fp32 absdiff
+Not run by default: ``--phases knife_edge`` records that fp32 absdiff
 8192/m384 elimination through the grouped engine, with the kernel and with
 the plain probe: which side of the knife edge each lands on.
+``--phases cluster_sweep`` times ``gj_probe.cu`` on every schedule that
+fits each SWEEP_CASES stack (and v2 on every cluster size), with the
+outputs' bits held to the default schedule's.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits 1 and prints no result.
@@ -88,7 +94,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("toolchain", "kernel_vs_plain", "reference", "solve")
-EXTRA_PHASES = ("knife_edge",)
+EXTRA_PHASES = ("knife_edge", "cluster_sweep")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
 # fp32 outside the tensor cores, fp64 through the tensor cores (the
@@ -120,18 +126,23 @@ PROBE_CASES = (
     (128, 32, "float64"),
     (384, 22, "float64"),
     (50, 20, "float32"),
+    (300, 20, "float32"),
+    (300, 20, "float64"),
+    (1100, 4, "float32"),
 )
-# The stack of the one main-path row whose m has no panel width
-# (1000/m50: Nr = 20), where the probe is gj_probe.cu; the representative
-# of that kernel for the kernels line.
-RANK1_CASE = PROBE_CASES[-1]
+# The stack of the main-path row 1000/m50 (Nr = 20), whose m has no panel
+# width, so the probe is gj_probe.cu: the representative of that kernel for
+# the kernels line.  m = 300 (6000/m300 and 3000/m300) is its cluster
+# schedule, m = 1100 its global one.
+RANK1_CASE = (50, 20, "float32")
 
 # (m, nc, dtype): the probe variants' stacks: every fp32 PROBE_CASES stack
-# (the same seeded stack as its gj_probe row) and m=48, whose panel is 16
-# wide.
+# with a panel width (the same seeded stack as its gj_probe row), m=48,
+# whose panel is 16 wide, and m=768, beyond v2's cluster schedule.
 VARIANT_CASES = tuple(c for c in PROBE_CASES
-                      if c[2] == "float32" and c != RANK1_CASE) + (
-    (48, 16, "float32"),)
+                      if c[2] == "float32" and c[0] % 8 == 0
+                      and c[0] > 8) + (
+    (48, 16, "float32"), (768, 4, "float32"))
 
 # (n, m, generator, dtype, engine): the probe variants inside the engines
 # (probe=), checked step by step against their plain twins.
@@ -139,11 +150,12 @@ VARIANT_ENGINE_ROWS = ((4096, 128, "rand", "float32", "inplace"),
                        (8192, 384, "rand", "float32", "grouped"))
 
 # (n, m, generator, dtype, engine): the kernel's solves held against the
-# plain probe's.  8192/m384 is the main path's grouped row, W in global
-# memory; 512/m64 keeps W in shared memory.
+# plain probe's.  8192/m384 is the main path's grouped row; 3000/m300 fp64
+# runs gj_probe.cu's cluster schedule.
 REFERENCE_ROWS = ((512, 64, "rand", "float32", "inplace"),
                   (512, 64, "rand", "float32", "grouped"),
-                  (8192, 384, "absdiff", "float64", "grouped"))
+                  (8192, 384, "absdiff", "float64", "grouped"),
+                  (3000, 300, "rand", "float64", "inplace"))
 # (n, m, generator, dtype): the kernel's run checked step by step.
 STEPWISE_ROW = (8192, 384, "rand", "float32")
 
@@ -157,12 +169,14 @@ PALLAS_STEPWISE_ROW = (8192, 128, "rand")
 # (n, m, generator, dtype, engine): the main path through driver.solve.
 # "auto" rows are the paper's program; the fused-update rows are the repo's
 # own bench rows for those engines (bench.py:948-958).
-# m=50 has no panel width, so its probe is gj_probe.cu.
+# m=50 and m=300 have no panel width, so their probe is gj_probe.cu (on its
+# block and cluster schedules).
 SOLVE_ROWS = ((4096, 128, "absdiff", "float32", "auto"),
               (8192, 384, "absdiff", "float64", "auto"),
               (8192, 384, "rand", "float32", "auto"),
               (16384, 128, "rand", "float32", "auto"),
               (1000, 50, "rand", "float32", "auto"),
+              (6000, 300, "rand", "float32", "auto"),
               (4096, 128, "rand", "float32", "grouped_pallas"),
               (8192, 128, "rand", "float32", "grouped_pallas"),
               (8192, 128, "kms", "float32", "grouped_pallas_bf16"),
@@ -271,14 +285,24 @@ def phase_toolchain(torch):
           "ptxas": ptxas})
 
 
+# Stacks whose rank-deficient block is a zero row, not a duplicated one:
+# at (300, 20) in fp32 the rounding of a duplicated row leaves its last
+# pivot above eps·‖block‖∞, and the plain probe and the kernels alike
+# invert it to values of order 1e6.
+ZERO_ROW_STACKS = {(300, 20, "float32")}
+
+
 def make_stack(torch, nc: int, m: int, dtype, seed: int):
     """Random blocks with a zero block (1), a duplicated row (2, rank
-    m-1) and a NaN (3) mixed in; made with numpy from ``seed``."""
+    m-1; a zero row at ZERO_ROW_STACKS) and a NaN (3) mixed in; made with
+    numpy from ``seed``."""
     import numpy as np
 
     b = np.random.default_rng(seed).standard_normal((nc, m, m))
     b[1] = 0.0
     b[2, m - 1] = b[2, 0]
+    if (m, nc, str(dtype).split(".")[-1]) in ZERO_ROW_STACKS:
+        b[2, m - 1] = 0.0
     b[3, m // 2, m // 3] = np.nan
     return torch.from_numpy(b).to(device="cuda", dtype=dtype)
 
@@ -342,7 +366,7 @@ def phase_kernel_vs_plain(torch):
     from tpu_jordan_torch.ops import gj_fused_panel_plain
     from tpu_jordan_torch.ops.gj_fused_panel import launch_fused_panel
     from tpu_jordan_torch.ops.gj_fused_panel import takes_panel_body
-    from tpu_jordan_torch.ops.gj_probe import launch_kernel
+    from tpu_jordan_torch.ops.gj_probe import launch_kernel, schedule_for
 
     # The library yardstick first: one run of this phase aborted inside
     # inv_ex (magma_queue::setup_ptrArray) when its first call came after
@@ -373,7 +397,7 @@ def phase_kernel_vs_plain(torch):
         readings, ok = compare_probe(torch, blocks, out_r, plain, dname)
         rank1_ms = cuda_ms(torch, lambda: launch_kernel(blocks, eps), reps)
         row = {"kernel": "gj_probe", **common,
-               "w_in": "shared" if _w_in_smem(m, elem) else "global",
+               "schedule": list(schedule_for(blocks)),
                **readings, "ms": rank1_ms}
         emit(row)
         rows["gj_probe"].append(row)
@@ -418,6 +442,10 @@ def phase_kernel_vs_plain(torch):
     if bad:
         raise AssertionError(f"a probe body disagrees with its plain "
                              f"version: {bad}")
+    served = {r["schedule"][0] for r in rows["gj_probe"]}
+    if served != {"block", "cluster", "global"}:
+        raise AssertionError(f"gj_probe.cu ran only the schedules "
+                             f"{sorted(served)}")
     return rows
 
 
@@ -483,14 +511,19 @@ def phase_variants_vs_plain(torch):
                    "gj_probe_fused_panel_ms": panel_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by}
             if name == "gj_probe_panel":
-                row["split_ms"] = split_ms(torch, lambda: kernel(blocks),
-                                           "gj_probe_panel_",
-                                           ("init", "micro", "update"))
+                row["schedule"] = list(ops.probe_variants.panel_schedule(m))
+                row["split_ms"] = split_ms(
+                    torch, lambda: kernel(blocks), "gj_probe_panel_",
+                    ("init", "micro", "update", "cluster"))
             emit(row)
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"twin: {row}")
             rows[name].append(row)
+    served = {r["schedule"][0] for r in rows["gj_probe_panel"]}
+    if served != {"cluster", "l2"}:
+        raise AssertionError(f"gj_probe_panel.cu ran only the schedules "
+                             f"{sorted(served)}")
     return rows
 
 
@@ -614,12 +647,6 @@ def phase_update_vs_plain(torch):
         raise AssertionError(f"fused_update disagrees with the plain "
                              f"version: {bad}")
     return rows
-
-
-def _w_in_smem(m: int, elem: int) -> bool:
-    from tpu_jordan_torch.ops.gj_probe import _lib
-
-    return bool(_lib().gj_probe_w_in_smem(m, elem))
 
 
 def phase_reference(torch):
@@ -935,6 +962,82 @@ def phase_knife_edge(torch):
                                  for v in stats["pivot_inv_norm"]]})
 
 
+def bits_equal(torch, x, y) -> bool:
+    """Whether two float tensors hold the same bits (NaNs included)."""
+    ints = {4: torch.int32, 8: torch.int64}[x.element_size()]
+    return bool(torch.equal(x.view(ints), y.view(ints)))
+
+
+# (m, nc, dtype): the stacks at which cluster_sweep times every schedule.
+# (300, 80) fp32 and (384, 44) fp64 run in no wave of clusters that hold W
+# (the card holds 66 clusters of 2 blocks, 17 of 6), so probe_schedule
+# takes the fewest waves there: Nr at n = 24000 and at n = 16896.
+SWEEP_CASES = ((50, 20, "float32"), (128, 32, "float32"),
+               (256, 16, "float32"), (300, 20, "float32"),
+               (300, 20, "float64"), (384, 22, "float32"),
+               (384, 22, "float64"), (512, 8, "float32"),
+               (1100, 4, "float32"), (300, 80, "float32"),
+               (384, 44, "float64"))
+
+
+def phase_cluster_sweep(torch):
+    """gj_probe.cu on every schedule that fits each SWEEP_CASES stack (the
+    block one where it fits, every cluster size 2..16 whose shared memory
+    holds W, and the global one over 2, 4, 5, 8 and 16 blocks where part of
+    W spills to L2) and v2 on every
+    cluster size that fits each VARIANT_CASES stack: the time, the clusters
+    the card holds at once, and whether the outputs' bits equal those of
+    the default schedule (the per-element arithmetic is the same on every
+    schedule)."""
+    from tpu_jordan_torch.config import eps_for
+    from tpu_jordan_torch.ops import gj_probe_panel, probe_variants
+    from tpu_jordan_torch.ops import gj_probe as gp
+
+    lib = gp._lib()
+    for m, nc, dname in SWEEP_CASES:
+        dtype = getattr(torch, dname)
+        eps = eps_for(dtype)
+        elem = torch.finfo(dtype).bits // 8
+        blocks = make_stack(torch, nc, m, dtype, seed=500 + m)
+        ref = gp.launch_kernel(blocks, eps)
+        default = gp.schedule_for(blocks)
+        options = [("block", 1)] if m <= gp.REG_MAX_M else []
+        options += [("cluster", c) for c in range(2, gp.MAX_CLUSTER + 1)
+                    if gp.probe_smem_bytes(m, elem, c, -(-m // c))
+                    <= gp.SMEM_LIMIT]
+        if m >= 300:
+            options += [("global", c) for c in (2, 4, 5, 8, 16)
+                        if 0 < gp.smem_rows(m, elem, c) < -(-m // c)]
+        for sched in options:
+            active = lib.gj_probe_active_clusters(
+                m, elem, gp.SCHEDULES[sched[0]], sched[1])
+            row = {"phase": "cluster_sweep", "kernel": "gj_probe", "m": m,
+                   "nc": nc, "dtype": dname, "schedule": list(sched),
+                   "default": list(default), "active_clusters": active}
+            if sched[1] > 1 and active == 0:
+                emit(row)
+                continue
+            out = gp.launch_kernel(blocks, eps, sched)
+            torch.cuda.synchronize()
+            emit({**row, "bits_equal": bits_equal(torch, out[0], ref[0])
+                  and bool(torch.equal(out[1], ref[1])),
+                  "ms": cuda_ms(torch, lambda: gp.launch_kernel(
+                      blocks, eps, sched), 20 if m <= 256 else 5)})
+    for m, nc, dname in VARIANT_CASES:
+        blocks = make_stack(torch, nc, m, torch.float32, seed=600 + m)
+        b = probe_variants.panel_width(m)
+        for c in (1, 2, 4, 8, 12, 16):
+            if (probe_variants.panel_smem_bytes(m, b, c) > gp.SMEM_LIMIT
+                    or m > 640 or c > m):
+                continue
+            sched = ("cluster", c)
+            emit({"phase": "cluster_sweep", "kernel": "gj_probe_panel",
+                  "m": m, "nc": nc, "dtype": dname, "schedule": list(sched),
+                  "default": list(probe_variants.panel_schedule(m)),
+                  "ms": cuda_ms(torch, lambda: gj_probe_panel(
+                      blocks, schedule=sched), 20 if m <= 256 else 5)})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -973,6 +1076,8 @@ def main(argv=None) -> int:
         launches.update(phase_solve(torch))
     if "knife_edge" in phases:
         phase_knife_edge(torch)
+    if "cluster_sweep" in phases:
+        phase_cluster_sweep(torch)
 
     # Each kernel's representative row: the probes at 4096/m128's first
     # superstep (gj_probe.cu at 1000/m50's), the update at 8192/m128 fp32

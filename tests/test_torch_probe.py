@@ -1,9 +1,11 @@
 """The port's plain probe against the JAX package's probes, on the CPU.
 
 ``batched_block_inverse`` (plain PyTorch) is held against the JAX plain
-version and against the Pallas probe run in interpret mode: m in {8, 16,
-32} reaches the rank-1 body (``_gj_probe_kernel``), m = 128 the fused-panel
-body (``_gj_fused_panel_kernel``).  Each stack mixes random blocks with a
+version and against the Pallas probe run in interpret mode: m in {8, 12,
+16, 32, 50} reaches the rank-1 body (``_gj_probe_kernel``), m = 128 the
+fused-panel body (``_gj_fused_panel_kernel``).  The schedule that
+``csrc/gj_probe.cu`` runs for an m is a plain function, held here on either
+side of each of its limits.  Each stack mixes random blocks with a
 zero block, a rank-deficient block (a duplicated row) and non-finite ones.
 Flags must be equal; inverses of the regular blocks agree within 1e-10
 (fp64, relative ∞-norm) or min(eps32·m·κ∞(block), 1e-3) (fp32).  The fp32
@@ -54,7 +56,7 @@ def _tol(dtype):
                                    1e-3)
 
 
-@pytest.mark.parametrize("m", [8, 16, 32, 128])
+@pytest.mark.parametrize("m", [8, 12, 16, 32, 50, 128])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_plain_probe_matches_jax_plain(m, dtype):
     nc = 6 if m < 128 else 5
@@ -65,7 +67,7 @@ def test_plain_probe_matches_jax_plain(m, dtype):
            sing.numpy(), _tol(dtype))
 
 
-@pytest.mark.parametrize("m", [8, 16, 32, 128])
+@pytest.mark.parametrize("m", [8, 12, 16, 32, 50, 128])
 def test_plain_probe_matches_pallas_interpret(m):
     nc = 6 if m < 128 else 5
     b = _stack(nc, m, np.float32, seed=100 + m)
@@ -122,3 +124,98 @@ def test_sub_fp32_stack_is_probed_in_fp32():
 def test_probe_rejects_bad_shapes(shape):
     with pytest.raises(ValueError):
         probe_mod.gj_probe(torch.zeros(shape))
+
+
+# A card that holds 132 // C clusters of C blocks, and a stack of 1000
+# candidates: no schedule runs it in one wave, and the fewest waves are
+# those of the fewest blocks that hold W.
+def _packed(kind, c):
+    return 132 // c
+
+
+# (m, element bytes, schedule) on that card: either side of the block
+# schedule's register limit (m = 128) and of what a 16-block cluster's
+# shared memory holds (fp32 896/897, fp64 609/610), and the main path's
+# m = 50, 300, 384 and 1100.
+SCHEDULE_CASES = [
+    (8, 4, ("block", 1)), (50, 4, ("block", 1)), (128, 4, ("block", 1)),
+    (129, 4, ("cluster", 2)), (300, 4, ("cluster", 2)),
+    (384, 4, ("cluster", 3)), (512, 4, ("cluster", 5)),
+    (896, 4, ("cluster", 16)), (897, 4, ("global", 16)),
+    (1100, 4, ("global", 16)),
+    (50, 8, ("block", 1)), (128, 8, ("block", 1)), (129, 8, ("cluster", 2)),
+    (300, 8, ("cluster", 4)), (384, 8, ("cluster", 6)),
+    (609, 8, ("cluster", 16)), (610, 8, ("global", 16)),
+    (1100, 8, ("global", 16)),
+]
+
+
+@pytest.mark.parametrize("m,elem,expected", SCHEDULE_CASES)
+def test_probe_schedule_by_shape(m, elem, expected):
+    name, c = probe_mod.probe_schedule(m, elem, 1000, _packed)
+    assert (name, c) == expected
+    smem = probe_mod.probe_smem_bytes
+    limit = probe_mod.SMEM_LIMIT
+    if name == "cluster":
+        assert smem(m, elem, c, -(-m // c)) <= limit
+        assert c == 2 or smem(m, elem, c - 1, -(-m // (c - 1))) > limit
+    if name == "global":
+        assert smem(m, elem, 16, -(-m // 16)) > limit
+        rows = probe_mod.smem_rows(m, elem, c)
+        assert 0 < rows < -(-m // c)
+        assert smem(m, elem, c, rows) <= limit < smem(m, elem, c, rows + 1)
+
+
+# Clusters of C blocks the card holds at once (as an H100 answered for the
+# cluster schedule at m = 384 in fp32, and the same for the global one),
+# and the schedule picked for a stack of nc candidates: the cluster one
+# with the most blocks that run them in one wave, else the global one that
+# does with three quarters of its rows in shared memory, else the cluster
+# one in the fewest waves with the most blocks among those.
+ACTIVE = {2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15, 9: 9,
+          10: 7, 11: 7, 12: 7, 13: 7, 14: 7, 15: 7, 16: 7}
+
+
+@pytest.mark.parametrize("m,elem,nc,expected", [
+    (256, 4, 16, ("cluster", 6)), (300, 4, 20, ("cluster", 5)),
+    (384, 4, 22, ("cluster", 5)), (384, 8, 22, ("global", 5)),
+    (512, 4, 8, ("cluster", 9)), (300, 4, 1, ("cluster", 16)),
+    (896, 4, 22, ("cluster", 16)), (1100, 4, 4, ("global", 16)),
+    (384, 8, 40, ("cluster", 8)), (300, 4, 40, ("cluster", 2)),
+    (300, 4, 80, ("cluster", 2)), (300, 4, 200, ("cluster", 2))])
+def test_probe_schedule_by_occupancy(m, elem, nc, expected):
+    assert probe_mod.probe_schedule(
+        m, elem, nc, lambda kind, c: ACTIVE.get(c, 132)) == expected
+
+
+@pytest.mark.parametrize("m,limit,expected", [
+    (300, 10**6, ("cluster", 2)), (300, 100_000, ("cluster", 4)),
+    (300, 20_000, ("global", 14)), (1100, 10**6, ("cluster", 5)),
+    (1100, 30_000, ("global", 10)), (1100, 25_000, ("global", 5))])
+def test_probe_schedule_takes_the_smem_limit(m, limit, expected):
+    assert probe_mod.probe_schedule(m, 4, 1000, _packed,
+                                    smem_limit=limit) == expected
+
+
+def test_probe_schedule_refuses_what_fits_nowhere():
+    with pytest.raises(ValueError, match="no gj_probe schedule fits"):
+        probe_mod.probe_schedule(300, 4, 1, _packed, smem_limit=1000)
+
+
+def test_probe_smem_of_w_falls_with_the_cluster():
+    """W's rows dominate a cluster block's shared memory and shrink as C
+    grows; without them (block and global) a block takes tens of KB."""
+    sizes = [probe_mod.probe_smem_bytes(300, 8, c, -(-300 // c))
+             for c in (2, 4, 8, 16)]
+    assert sizes == sorted(sizes, reverse=True)
+    assert probe_mod.probe_smem_bytes(1100, 8, 16) < 64_000
+
+
+@pytest.mark.parametrize("m", [8, 12, 50, 100, 300, 1100, 1536])
+def test_probe_body_routes_to_gj_probe(m):
+    assert probe_mod.probe_body(m) == "gj_probe"
+
+
+def test_forced_schedule_needs_a_card():
+    with pytest.raises(ValueError, match="unsupported device"):
+        probe_mod.launch_kernel(torch.eye(8)[None], 1e-7, ("block", 1))

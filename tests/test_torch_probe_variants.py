@@ -147,3 +147,29 @@ def test_engine_with_variant_matches_jax(variant, engine, gen, n, m):
     eps = np.finfo(np.float32).eps
     kappa = _inf(a) * _inf(xj)
     assert _inf(xt.numpy() - xj) / _inf(xj) <= min(100 * eps * kappa, 0.1)
+
+
+@pytest.mark.parametrize("m,expected", [
+    (16, ("cluster", 1)), (128, ("cluster", 1)), (256, ("cluster", 4)),
+    (384, ("cluster", 8)), (512, ("cluster", 16)), (600, ("cluster", 16)),
+    (768, ("l2", 1)), (1536, ("l2", 1))])
+def test_panel_schedule_by_shape(m, expected):
+    assert pv.panel_schedule(m) == expected
+    b = panel_width(m)
+    if expected[0] == "cluster":
+        c = expected[1]
+        assert pv.panel_smem_bytes(m, b, c) <= probe_mod.SMEM_LIMIT
+        assert c == 1 or pv.panel_smem_bytes(m, b, c // 2) > \
+            probe_mod.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("limit,expected", [
+    (10**6, ("cluster", 1)), (200_000, ("cluster", 4)),
+    (100_000, ("cluster", 16)), (60_000, ("l2", 1))])
+def test_panel_schedule_takes_the_smem_limit(limit, expected):
+    assert pv.panel_schedule(256, smem_limit=limit) == expected
+
+
+def test_panel_schedule_needs_a_width():
+    with pytest.raises(ValueError, match="no panel width divides m=300"):
+        pv.panel_schedule(300)

@@ -1,213 +1,638 @@
 // Batched Gauss–Jordan inverse of a pivot-candidate stack: the probe of the
-// block Jordan elimination, as a hand-written kernel for Hopper (sm_90a).
+// block Jordan elimination for every block size without a panel width (and
+// v3, the width-m in-place probe), as a hand-written kernel for Hopper
+// (sm_90a).
 //
-// Replaces tpu_jordan/ops/pallas_block_inverse.py::pallas_batched_block_inverse
-// and the two kernel bodies it dispatches to, _gj_fused_panel_kernel (m % 128
-// == 0) and _gj_probe_kernel (every other m).  Both compute one function: for
-// each m x m block of a contiguous (nc, m, m) stack, its inverse and a
-// singular flag.  The flag is raised when the input holds a non-finite value,
-// when ‖block‖∞ < eps, or when any pivot has |piv| < eps·‖block‖∞ — the rule
-// of the plain version, tpu_jordan_torch/ops/block_inverse.py.
+// Replaces tpu_jordan/ops/pallas_block_inverse.py::_gj_probe_kernel (the
+// dispatch body for m without a panel width) and _gj_inplace_kernel (v3).
+// Both compute one function: for each m x m block of a contiguous (nc, m, m)
+// stack, its inverse and a singular flag.  The flag is raised when the input
+// holds a non-finite value, when ‖block‖∞ < eps, or when any pivot has
+// |piv| < eps·‖block‖∞ — the rule of the plain version,
+// tpu_jordan_torch/ops/block_inverse.py.
 //
-// Design.  One thread block per candidate.  Gauss–Jordan with implicit
-// partial pivoting and the width-m in-place algebra: at step k the pivot is
-// the unused row r with the largest |W[r,k]| (lowest row on ties, found by a
-// warp-shuffle argmax and a pass over the warps' winners), its row is divided
-// by the pivot, and every other row takes a rank-1 update; column k then holds
-// column perm[k] of the permuted inverse, so the [A | I] right half is never
-// stored.  No row is moved during the sweep: the store gathers
-// inv[a][b] = W[perm[a]][pinv[b]], writing rows of the output contiguously.
-// The flag goes straight into a uint8 output.
+// Algebra.  Gauss–Jordan with implicit partial pivoting and the width-m
+// in-place step: at step k the pivot is the unused row r with the largest
+// |W[r,k]| (lowest row on ties, NaN highest), its row is divided by the
+// pivot (one IEEE division an element; its column-k entry becomes 1/piv),
+// and every other row takes w − f·prow with f = W[i,k] and column k taken
+// as 0, so column k ends as column perm[k] of the permuted inverse and the
+// [A | I] right half is never stored.  No row moves during the sweep: the
+// store gathers inv[a][b] = W[perm[a]][pinv[b]].  The flag goes straight
+// into a uint8 output.
 //
-// Memory.  W lives in dynamic shared memory when it fits the card's opt-in
-// limit (227 KB on an H100: fp32 up to m ≈ 232, fp64 up to m ≈ 164), and
-// otherwise in a global scratch that the wrapper allocates, where the L2
-// cache holds it (at n = 8192, m = 384 the whole stack is 22 x 576 KB).  One
-// kernel body serves both cases through the pointer W.
+// Design.  Every step is the same chain: find the pivot, form the pivot
+// row, update.  Rows are owned: a warp owns a set of rows, its lanes the
+// columns j ≡ lane (mod 32).  The update of step k computes each row's new
+// column k+1, so the lane that holds it also takes the warp's candidate
+// for step k+1 (|v|, row, v).  A step is then:
+//   barrier X; every warp reduces the slots itself (redux.sync over the
+//   key bits: no serial pass by one thread); the owner of row r divides it
+//   into the prow buffer;
+//   barrier Y; every warp updates its rows and publishes its candidate.
+// Two barriers a step; the slots and prow are double-buffered by step
+// parity.  Three schedules, picked by ops/gj_probe.py::probe_schedule and
+// refused here when they do not fit:
+//   block    m ≤ 128: one block of 16 warps per candidate, W in its
+//            registers: lane l of warp w holds W at rows w + 16·t and
+//            columns l + 32·u in v[t][u] (at most 8 x 4 values).  A step
+//            loads prow once a thread and costs an element an FMA and a
+//            select; the factor W[i, k] of a row comes by a shuffle from
+//            the lane that holds column k;
+//   cluster  a thread-block cluster of C blocks of 32 warps per candidate
+//            (2 ≤ C ≤ 16), each holding ⌈m/C⌉ rows of W in its shared
+//            memory (fp32 to m = 896, fp64 to m = 609).  The warps'
+//            candidates meet in their block first; warp 0 pushes the
+//            block's winner, and the owner of row r pushes prow, into
+//            every block's shared memory over distributed shared memory
+//            (map_shared_rank stores).  X and Y are cluster barriers
+//            (barrier.cluster arrive.release / wait.acquire); the last X
+//            comes after the last remote store, so no block exits while
+//            another may still write to it.  The update runs over column
+//            batches: a lane loads prow at 8 of its columns once, then,
+//            row by row, W there before it stores any;
+//   global   the cluster schedule's code with each block's rows split: as
+//            many as its shared memory holds stay there, the rest live in
+//            a global scratch that the wrapper allocates and the L2 cache
+//            holds.  It serves every m beyond a 16-block cluster (m = 1100
+//            over 16 blocks), and a stack that no cluster holding all of W
+//            runs in one wave (fp64 (22, 384) over 5 blocks, 8 of 77 rows
+//            each in L2, against two waves of 8-block clusters).
+// C is picked with the card's answer how many clusters it holds at once
+// (cudaOccupancyMaxActiveClusters): the most blocks a candidate that
+// still run all nc candidates in one wave, else those in the fewest waves.
+// The answer and the kernel's attributes are asked once per shape
+// (`prepare`), not at every launch.
+// Measured on the card (PERF.md): with W in shared memory the block
+// schedule was bound by instruction issue (a load and a store of W, a load
+// of prow and the bookkeeping an element), and registers took (32, 128)
+// from 0.53 to 0.33 ms; the cluster schedule's blocks hold more rows than
+// their registers can, and there shared memory was the faster.
 //
-// What bounds it.  A block needs ≈ 2m³ flops but runs m sequential steps,
-// each closed by block-wide barriers, and there are only nc ≤ Nr blocks (32 at
-// n = 4096, m = 128), so most SMs idle and each step's cost is barrier and
-// shared-memory latency rather than arithmetic: the kernel is latency-bound,
-// far above its bytes-or-flops bound.  The design keeps every step inside one
-// SM (no global round trip when W fits shared memory) and takes three barriers
-// per step; spreading a block over a cluster, or deferring updates in panels,
-// is left to later work.
+// What bounds it.  A candidate needs ≈ 2m³ flops but runs m serial steps,
+// each closed by two barriers, with nc ≤ Nr candidates: latency and
+// instruction issue, far above the bytes-or-flops bound.  A cluster cuts
+// the work of a step by spreading W over C SMs; its barriers and remote
+// stores cost more than a block's.
 //
 // Built by tpu_jordan_torch/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 // and no fast-math: the divisions by the pivots are exact IEEE divisions.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <mutex>
+#include <vector>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kMaxThreads = 1024;
-constexpr size_t kHeaderBytes = 64;
+constexpr int kMaxWarps = 32;     // global: warps a block
+constexpr int kRegWarps = 16;     // block and cluster: warps a block
+constexpr int kMaxCluster = 16;
+enum Schedule { kBlock = 0, kCluster = 1, kGlobal = 2 };
 
-template <typename T>
-struct Header {
-  T norm;   // ‖block‖∞
-  T piv;    // this step's raw pivot
-  int row;  // this step's pivot row
-  int bad;  // singular flag
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) & ~size_t(15);
+}
+
+// Rows of W a block of a C-block cluster owns.
+__host__ __device__ inline int rows_per_block(int m, int C) {
+  return (m + C - 1) / C;
+}
+
+// The dynamic shared memory of one block, region by region (the slots are
+// sized for 32 warps a block): w_rows rows of W (all the block's rows on
+// the cluster schedule, as many as fit on the global one, none on the
+// block one), then
+// prow, the factors, the slots, the warps' slots, the flags and the
+// permutation.
+// ops/gj_probe.py::probe_smem_bytes mirrors it.
+struct Layout {
+  size_t W, prow, fcol, key, raw, row, wkey, wraw, wrow, nsum, nfin, used,
+      perm, pinv, total;
 };
 
-// (v, i) <- the better of (v, i) and (ov, oi): larger value, lower row on
-// ties.  A total order, so the warp butterfly gives every lane one winner.
+__host__ __device__ inline Layout layout(int m, int C, int elem,
+                                         int w_rows) {
+  const size_t R = rows_per_block(m, C), S = size_t(kMaxWarps) * C;
+  const size_t sizes[14] = {size_t(w_rows) * m * elem,
+                            2 * size_t(m) * elem,
+                            R * elem,
+                            2 * S * elem,
+                            2 * S * elem,
+                            2 * S * 4,
+                            size_t(kMaxWarps) * elem,
+                            size_t(kMaxWarps) * elem,
+                            size_t(kMaxWarps) * 4,
+                            S * elem,
+                            S * 4,
+                            R * 4,
+                            size_t(m) * 4,
+                            size_t(m) * 4};
+  size_t off[15];
+  off[0] = 0;
+  for (int i = 0; i < 14; ++i) off[i + 1] = off[i] + align16(sizes[i]);
+  return Layout{off[0], off[1], off[2],  off[3],  off[4],
+                off[5], off[6], off[7],  off[8],  off[9],
+                off[10], off[11], off[12], off[13], off[14]};
+}
+
+// Columns a lane of the cluster and global schedules updates between its
+// loads and its stores.
+constexpr int kBatch = 8;
+
+// (v, i, x) <- the better of it and (ov, oi, ox): larger key, lower row on
+// ties.  A total order, so every reduction gives every lane one winner.
 template <typename T>
-__device__ __forceinline__ void take_better(T& v, int& i, T ov, int oi) {
+__device__ __forceinline__ void take_better(T& v, int& i, T& x, T ov, int oi,
+                                            T ox) {
   if (ov > v || (ov == v && oi < i)) {
     v = ov;
     i = oi;
+    x = ox;
   }
 }
 
+// The pivot key of a value: |v|, NaN highest (as in argmax).  Keys are
+// never negative, so their bits order as unsigned integers.  An empty
+// candidate is (key 0, row INT_MAX), and any row beats it.
 template <typename T>
-__host__ __device__ size_t smem_bytes(int m, bool w_in_smem) {
-  return kHeaderBytes + (w_in_smem ? size_t(m) * m * sizeof(T) : 0) +
-         2 * size_t(m) * sizeof(T) + 32 * sizeof(T) + 32 * sizeof(int) +
-         3 * size_t(m) * sizeof(int);
+__device__ __forceinline__ T key_of(T v) {
+  const T a = fabs(v);
+  return isnan(a) ? T(INFINITY) : a;
 }
 
+// Whether this lane holds the largest key of the warp: hardware reductions
+// over the key bits (high, then low word for fp64).
+__device__ __forceinline__ bool holds_max(float key) {
+  const unsigned b = __float_as_uint(key);
+  return b == __reduce_max_sync(kFullMask, b);
+}
+__device__ __forceinline__ bool holds_max(double key) {
+  const unsigned long long b = __double_as_longlong(key);
+  const unsigned hi = unsigned(b >> 32), lo = unsigned(b);
+  const unsigned mh = __reduce_max_sync(kFullMask, hi);
+  const unsigned ml = __reduce_max_sync(kFullMask, hi == mh ? lo : 0u);
+  return hi == mh && lo == ml;
+}
+
+// The warp's best row by take_better's order (the lowest row among the
+// lanes that hold the largest key), in every lane, and its raw value.
 template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-    gj_probe_kernel(const T* __restrict__ blocks, T* __restrict__ inv,
-                    uint8_t* __restrict__ sing, T* scratch, int m, T eps) {
+__device__ __forceinline__ int warp_best(T key, int row, T& raw) {
+  const bool win = holds_max(key);
+  const int r = int(__reduce_min_sync(
+      kFullMask, win ? unsigned(row) : unsigned(INT_MAX)));
+  const unsigned from = __ballot_sync(kFullMask, win && row == r);
+  raw = __shfl_sync(kFullMask, raw, __ffs(from) - 1);
+  return r;
+}
+
+template <bool kClustered>
+struct Sync {
+  __device__ __forceinline__ static void all() {
+    if constexpr (kClustered)
+      cg::this_cluster().sync();
+    else
+      __syncthreads();
+  }
+  // The address of `p` in the shared memory of cluster rank q.
+  template <typename P>
+  __device__ __forceinline__ static P* at(P* p, int q) {
+    if constexpr (kClustered)
+      return cg::this_cluster().map_shared_rank(p, q);
+    else
+      return p;
+  }
+};
+
+// What every schedule shares: the cluster shape, the shared regions, the
+// slots, the flag and the threshold.
+template <typename T, bool kClustered>
+struct Frame {
+  using Sy = Sync<kClustered>;
+  int C, rank, tid, nt, lane, warp, nwarps, S, R, r0, nloc, slot;
+  T* W;       // [w_rows][m], the first own rows (cluster, global)
+  T* prow;    // [2][m]
+  T* fcol;    // [R], own rows (cluster, global)
+  T* s_key;   // [2][S]
+  T* s_raw;   // [2][S]
+  int* s_row; // [2][S]
+  T* w_key;   // [32], the block's warps (cluster, global)
+  T* w_raw;
+  int* w_row;
+  T* s_nsum;  // [S], rank 0's
+  int* s_nfin;
+  int* used;  // [R], own rows (cluster, global)
+  int* perm;  // [m]
+  int* pinv;  // [m]
+
+  __device__ Frame(unsigned char* smem, int m, int w_rows = 0) {
+    C = 1;
+    rank = 0;
+    if constexpr (kClustered) {
+      C = int(cg::this_cluster().num_blocks());
+      rank = int(cg::this_cluster().block_rank());
+    }
+    tid = threadIdx.x;
+    nt = blockDim.x;
+    lane = tid & 31;
+    warp = tid >> 5;
+    nwarps = nt >> 5;
+    S = C * nwarps;
+    R = rows_per_block(m, C);
+    r0 = rank * R;
+    nloc = max(0, min(R, m - r0));
+    slot = rank * nwarps + warp;
+    const Layout L = layout(m, C, sizeof(T), w_rows);
+    W = reinterpret_cast<T*>(smem + L.W);
+    prow = reinterpret_cast<T*>(smem + L.prow);
+    fcol = reinterpret_cast<T*>(smem + L.fcol);
+    s_key = reinterpret_cast<T*>(smem + L.key);
+    s_raw = reinterpret_cast<T*>(smem + L.raw);
+    s_row = reinterpret_cast<int*>(smem + L.row);
+    w_key = reinterpret_cast<T*>(smem + L.wkey);
+    w_raw = reinterpret_cast<T*>(smem + L.wraw);
+    w_row = reinterpret_cast<int*>(smem + L.wrow);
+    s_nsum = reinterpret_cast<T*>(smem + L.nsum);
+    s_nfin = reinterpret_cast<int*>(smem + L.nfin);
+    used = reinterpret_cast<int*>(smem + L.used);
+    perm = reinterpret_cast<int*>(smem + L.perm);
+    pinv = reinterpret_cast<int*>(smem + L.pinv);
+  }
+
+  // The warp's candidate (held by lane q) into its slot of parity par in
+  // every block of the cluster: lanes 0..C-1 push one each.
+  __device__ void publish(int par, int q, T best, int bi, T bx) const {
+    best = __shfl_sync(kFullMask, best, q);
+    bi = __shfl_sync(kFullMask, bi, q);
+    bx = __shfl_sync(kFullMask, bx, q);
+    if (lane < C) {
+      const int at = par * S + slot;
+      *Sy::at(s_key + at, lane) = best;
+      *Sy::at(s_raw + at, lane) = bx;
+      *Sy::at(s_row + at, lane) = bi;
+    }
+  }
+
+  // The block's candidate into slot `rank` of parity par in every block of
+  // the cluster: each warp's candidate (held by lane q) to the block's
+  // warp slots, a block barrier, then warp 0 reduces them and its lanes
+  // 0..C-1 push the winner, one remote store each.
+  __device__ void publish_block(int par, int q, T best, int bi, T bx) const {
+    best = __shfl_sync(kFullMask, best, q);
+    bi = __shfl_sync(kFullMask, bi, q);
+    bx = __shfl_sync(kFullMask, bx, q);
+    if (lane == 0) {
+      w_key[warp] = best;
+      w_raw[warp] = bx;
+      w_row[warp] = bi;
+    }
+    __syncthreads();
+    if (warp != 0) return;
+    T kb = T(0), xb = T(0);
+    int rb = INT_MAX;
+    if (lane < nwarps) {
+      kb = w_key[lane];
+      xb = w_raw[lane];
+      rb = w_row[lane];
+    }
+    rb = warp_best(kb, rb, xb);
+    if (lane < C) {
+      const int at = par * C + rank;
+      *Sy::at(s_key + at, lane) = rb == INT_MAX ? T(0) : key_of(xb);
+      *Sy::at(s_raw + at, lane) = xb;
+      *Sy::at(s_row + at, lane) = rb;
+    }
+  }
+
+  // The warp's largest own-row sum and non-finite flag to rank 0.
+  __device__ void publish_norm(T row_max, int nonfinite) const {
+    nonfinite = __any_sync(kFullMask, nonfinite);
+    if (lane == 0) {
+      *Sy::at(s_nsum + slot, 0) = row_max;
+      *Sy::at(s_nfin + slot, 0) = nonfinite;
+    }
+  }
+
+  // Rank 0's thread 0: the flag so far and the threshold eps·‖block‖∞.
+  __device__ void start_flag(T eps, int& bad, T& thresh) const {
+    bad = 0;
+    thresh = T(0);
+    if (rank == 0 && tid == 0) {
+      T norm = T(0);
+      for (int w = 0; w < S; ++w) {
+        norm = fmax(norm, s_nsum[w]);
+        bad |= s_nfin[w];
+      }
+      bad = bad || norm < eps;
+      thresh = eps * norm;
+    }
+  }
+
+  // Every warp reduces the n slots of parity par (n = S, or C after
+  // publish_block): the pivot row of step k and its raw value; thread 0
+  // records it.
+  __device__ int pick(int par, int k, T& piv, int& bad, T thresh,
+                      int n) const {
+    T best = T(0);
+    piv = T(0);
+    int r = INT_MAX;
+    for (int w = lane; w < n; w += 32)
+      take_better(best, r, piv, s_key[par * n + w], s_row[par * n + w],
+                  s_raw[par * n + w]);
+    r = warp_best(best, r, piv);
+    if (tid == 0) {
+      perm[k] = r;
+      pinv[r] = k;
+      if (rank == 0 && fabs(piv) < thresh) bad = 1;
+    }
+    return r;
+  }
+};
+
+// Block and cluster schedules: W lives in the registers of its blocks.
+// Warp w of a block owns its local rows w + kRegWarps·t (t < RM), lane l
+// the columns l + 32·u (u < CM); thread (w, l) holds W at those rows and
+// columns in v[t][u].  A step loads prow once a thread (CM values) and
+// updates its RM·CM values in place; the factor W[i, k] of a row comes
+// from the lane that holds column k by a shuffle.
+template <typename T, int CM, int RM>
+__global__ void __launch_bounds__(kRegWarps * 32)
+    gj_probe_reg_kernel(const T* __restrict__ blocks, T* __restrict__ inv,
+                        uint8_t* __restrict__ sing, int m, T eps) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = nt >> 5;
+  const Frame<T, false> F(smem, m);
+  using Sy = Sync<false>;
+  const int lane = F.lane, warp = F.warp;
   const size_t mm = size_t(m) * m;
-  const T* a = blocks + blockIdx.x * mm;
-  T* out = inv + blockIdx.x * mm;
+  const size_t cand = blockIdx.x / F.C;
+  const T* a = blocks + cand * mm;
 
-  Header<T>* hd = reinterpret_cast<Header<T>*>(smem);
-  unsigned char* p = smem + kHeaderBytes;
-  T* W;
-  if (scratch != nullptr) {
-    W = scratch + blockIdx.x * mm;
-  } else {
-    W = reinterpret_cast<T*>(p);
-    p += mm * sizeof(T);
-  }
-  T* prow = reinterpret_cast<T*>(p);
-  p += m * sizeof(T);
-  T* fcol = reinterpret_cast<T*>(p);
-  p += m * sizeof(T);
-  T* red_val = reinterpret_cast<T*>(p);
-  p += 32 * sizeof(T);
-  int* red_idx = reinterpret_cast<int*>(p);
-  p += 32 * sizeof(int);
-  int* perm = reinterpret_cast<int*>(p);
-  p += m * sizeof(int);
-  int* pinv = reinterpret_cast<int*>(p);
-  p += m * sizeof(int);
-  int* used = reinterpret_cast<int*>(p);
+  // Row t of this thread is local row warp + kRegWarps·t, column u is
+  // lane + 32·u; has_row and has_col mark those that exist.
+  auto row_of = [&](int t) { return warp + kRegWarps * t; };
+  auto has_row = [&](int t) { return row_of(t) < F.nloc; };
+  auto has_col = [&](int u) { return lane + 32 * u < m; };
 
-  // 1. Load the block into W, check that it is finite, take ‖block‖∞
-  //    (one warp per row, a butterfly sum over the lanes).
+  // 1. Load the own rows, check that they are finite, take their largest
+  //    row sum (for ‖block‖∞, on rank 0), and column 0's candidate.
+  T v[RM][CM];
   int nonfinite = 0;
-  T row_max = T(0);
-  for (int i = warp; i < m; i += nwarps) {
+  T row_max = T(0), best = T(0), bx = T(0);
+  int bi = INT_MAX;
+#pragma unroll
+  for (int t = 0; t < RM; ++t) {
+    const bool rt = has_row(t);
+    const T* ai = a + size_t(F.r0 + row_of(t)) * m;
     T s = T(0);
-    for (int j = lane; j < m; j += 32) {
-      const T x = a[size_t(i) * m + j];
-      W[size_t(i) * m + j] = x;
+#pragma unroll
+    for (int u = 0; u < CM; ++u) {
+      const int j = lane + 32 * u;
+      const T x = rt && has_col(u) ? ai[j] : T(0);
+      v[t][u] = x;
       nonfinite |= !isfinite(x);
       s += fabs(x);
     }
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFullMask, s, o);
     row_max = fmax(row_max, s);
+    if (rt && lane == 0)
+      take_better(best, bi, bx, key_of(v[t][0]), F.r0 + row_of(t), v[t][0]);
   }
-  for (int i = tid; i < m; i += nt) used[i] = 0;
-  if (lane == 0) red_val[warp] = row_max;
-  nonfinite = __syncthreads_or(nonfinite);
-  if (tid == 0) {
-    T norm = T(0);
-    for (int w = 0; w < nwarps; ++w) norm = fmax(norm, red_val[w]);
-    hd->norm = norm;
-    hd->bad = nonfinite || norm < eps;
-  }
-  __syncthreads();
-  const T thresh = eps * hd->norm;
+  F.publish_norm(row_max, nonfinite);
+  F.publish(0, 0, best, bi, bx);
+  Sy::all();  // X_0
+
+  int bad;
+  T thresh;
+  F.start_flag(eps, bad, thresh);
+  unsigned used = 0;  // bit t: own row t was a pivot
 
   for (int k = 0; k < m; ++k) {
-    // 2a. Pivot: the unused row with the largest |W[r,k]|, lowest row on
-    //     ties; NaN ranks highest, as in argmax.
-    T best = T(-1);
-    int bi = m;
-    for (int r = tid; r < m; r += nt) {
-      if (!used[r]) {
-        T v = fabs(W[size_t(r) * m + k]);
-        if (isnan(v)) v = T(INFINITY);
-        take_better(best, bi, v, r);
-      }
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      const T ov = __shfl_xor_sync(kFullMask, best, o);
-      const int oi = __shfl_xor_sync(kFullMask, bi, o);
-      take_better(best, bi, ov, oi);
-    }
-    if (lane == 0) {
-      red_val[warp] = best;
-      red_idx[warp] = bi;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      for (int w = 1; w < nwarps; ++w)
-        take_better(best, bi, red_val[w], red_idx[w]);
-      const T piv = W[size_t(bi) * m + k];
-      hd->row = bi;
-      hd->piv = piv;
-      used[bi] = 1;
-      perm[k] = bi;
-      pinv[bi] = k;
-      if (fabs(piv) < thresh) hd->bad = 1;
-    }
-    __syncthreads();
-
-    // 2b. The pivot row divided by the pivot (its column-k entry becomes
-    //     1/piv, the inverse's column), and the factor column.
-    const int r = hd->row;
-    const T piv = hd->piv;
-    const T safe = piv == T(0) ? T(1) : piv;
-    for (int j = tid; j < m; j += nt) {
-      prow[j] = j == k ? T(1) / safe : W[size_t(r) * m + j] / safe;
-      fcol[j] = j == r ? T(0) : W[size_t(j) * m + k];
-    }
-    __syncthreads();
-
-    // 2c. Rank-1 update of every other row; column k of those rows starts
-    //     from 0, so it becomes -f/piv.
-    for (int i = warp; i < m; i += nwarps) {
-      T* wi = W + size_t(i) * m;
-      if (i == r) {
-        for (int j = lane; j < m; j += 32) wi[j] = prow[j];
-      } else {
-        const T f = fcol[i];
-        for (int j = lane; j < m; j += 32) {
-          const T w = j == k ? T(0) : wi[j];
-          wi[j] = w - f * prow[j];
+    const int par = k & 1;
+    // 2a. The pivot row r and its raw value.
+    T piv;
+    const int r = F.pick(par, k, piv, bad, thresh, F.S);
+    // 2b. The warp that holds row r divides it by the pivot into every
+    //     block's prow (its column-k entry becomes 1/piv, the inverse's
+    //     column).
+    T* pr = F.prow + par * m;
+    const int lr = r - F.r0;
+    if (lr >= 0 && lr < F.nloc && lr % kRegWarps == warp) {
+      const int tr = lr / kRegWarps;
+      const T safe = piv == T(0) ? T(1) : piv;
+#pragma unroll
+      for (int u = 0; u < CM; ++u) {
+        T x = T(0);
+#pragma unroll
+        for (int t = 0; t < RM; ++t)
+          if (t == tr) x = v[t][u];
+        const int j = lane + 32 * u;
+        if (has_col(u)) {
+          const T y = j == k ? T(1) / safe : x / safe;
+          for (int q = 0; q < F.C; ++q) *Sy::at(pr + j, q) = y;
         }
       }
     }
-    __syncthreads();
+    Sy::all();  // Y_k
+
+    // 2c. Rank-1 update of every other own row (column k of those rows
+    //     starts from 0, so it becomes -f/piv); row r takes prow.  The lane
+    //     of column k+1 takes the warp's candidate for the next step.
+    const int lk = k & 31, uk = k >> 5;
+    const int kn = k + 1, lkn = kn & 31, ukn = kn >> 5;
+    T p[CM];
+    bool zero[CM];
+#pragma unroll
+    for (int u = 0; u < CM; ++u) {
+      p[u] = has_col(u) ? pr[lane + 32 * u] : T(0);
+      zero[u] = u == uk && lane == lk;
+    }
+    T nb = T(0), nx = T(0);
+    int ni = INT_MAX;
+#pragma unroll
+    for (int t = 0; t < RM; ++t) {
+      if (!has_row(t)) continue;
+      const int g = F.r0 + row_of(t);
+      if (g == r) {
+#pragma unroll
+        for (int u = 0; u < CM; ++u) v[t][u] = p[u];
+        used |= 1u << t;
+        continue;
+      }
+      T f = T(0);
+#pragma unroll
+      for (int u = 0; u < CM; ++u)
+        if (u == uk) f = v[t][u];
+      f = __shfl_sync(kFullMask, f, lk);
+      T y = T(0);
+#pragma unroll
+      for (int u = 0; u < CM; ++u) {
+        const T w = zero[u] ? T(0) : v[t][u];
+        v[t][u] = w - f * p[u];
+        if (u == ukn) y = v[t][u];
+      }
+      if (lane == lkn && !(used >> t & 1u))
+        take_better(nb, ni, nx, key_of(y), g, y);
+    }
+    if (kn < m) F.publish(par ^ 1, lkn, nb, ni, nx);
+    Sy::all();  // X_{k+1}
   }
 
-  // 3. Unscramble in the store: inv[a][b] = W[perm[a]][pinv[b]].
-  if (tid == 0) sing[blockIdx.x] = hd->bad ? 1 : 0;
-  for (int i = warp; i < m; i += nwarps) {
-    const T* wr = W + size_t(perm[i]) * m;
-    for (int j = lane; j < m; j += 32) out[size_t(i) * m + j] = wr[pinv[j]];
+  // 3. Unscramble in the store: inv[a][b] = W[perm[a]][pinv[b]], so
+  //    W[g][j] goes to inv[pinv[g]][perm[j]].
+  if (F.rank == 0 && F.tid == 0) sing[cand] = bad ? 1 : 0;
+  T* out = inv + cand * mm;
+#pragma unroll
+  for (int t = 0; t < RM; ++t) {
+    if (!has_row(t)) continue;
+    T* o = out + size_t(F.pinv[F.r0 + row_of(t)]) * m;
+#pragma unroll
+    for (int u = 0; u < CM; ++u)
+      if (has_col(u)) o[F.perm[lane + 32 * u]] = v[t][u];
   }
 }
+
+// Cluster and global schedules: W's rows split over the blocks of a
+// cluster (2 ≤ C ≤ 16), all in their shared memory (kGlobalW false), or
+// the first w_rows of each block's there and the rest in a global scratch
+// that the L2 cache holds (kGlobalW true); warp w owns the local rows
+// w + nwarps·t.  The update runs over column batches: a lane loads prow
+// at kBatch of its columns once, then, row by row, W at those columns
+// before it stores any.  The warps' candidates meet in the block first,
+// so each block pushes one slot a step to the others.
+template <typename T, bool kGlobalW>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    gj_probe_kernel(const T* __restrict__ blocks, T* __restrict__ inv,
+                    uint8_t* __restrict__ sing, T* __restrict__ scratch,
+                    int m, T eps, int w_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Frame<T, true> F(smem, m, w_rows);
+  using Sy = Sync<true>;
+  const int tid = F.tid, nt = F.nt, lane = F.lane, warp = F.warp;
+  const int nwarps = F.nwarps, nloc = F.nloc, r0 = F.r0;
+  const size_t mm = size_t(m) * m;
+  const size_t cand = blockIdx.x / F.C;
+  const T* a = blocks + cand * mm + size_t(r0) * m;
+  T* G = scratch + cand * mm + size_t(r0) * m;  // own rows (global)
+  auto row = [&](int i) {
+    return kGlobalW && i >= w_rows ? G + size_t(i) * m : F.W + size_t(i) * m;
+  };
+
+  // 1. Load the own rows into W, check that they are finite, take their
+  //    largest row sum (for ‖block‖∞, on rank 0), and column 0's candidate.
+  {
+    int nonfinite = 0;
+    T row_max = T(0), best = T(0), bx = T(0);
+    int bi = INT_MAX;
+    for (int i = warp; i < nloc; i += nwarps) {
+      const T* ai = a + size_t(i) * m;
+      T* wi = row(i);
+      T s = T(0);
+      for (int j = lane; j < m; j += 32) {
+        const T x = ai[j];
+        wi[j] = x;
+        nonfinite |= !isfinite(x);
+        s += fabs(x);
+        if (j == 0) take_better(best, bi, bx, key_of(x), r0 + i, x);
+      }
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFullMask, s, o);
+      row_max = fmax(row_max, s);
+    }
+    for (int i = tid; i < nloc; i += nt) F.used[i] = 0;
+    F.publish_norm(row_max, nonfinite);
+    F.publish_block(0, 0, best, bi, bx);
+  }
+  Sy::all();  // X_0
+
+  int bad;
+  T thresh;
+  F.start_flag(eps, bad, thresh);
+
+  for (int k = 0; k < m; ++k) {
+    const int par = k & 1;
+    // 2a. The pivot row r and its raw value.
+    T piv;
+    const int r = F.pick(par, k, piv, bad, thresh, F.C);
+    // 2b. The factors f = W[i, k] of the own rows, and the owner of row r
+    //     divides it by the pivot into every block's prow.
+    for (int i = tid; i < nloc; i += nt) F.fcol[i] = row(i)[k];
+    T* pr = F.prow + par * m;
+    if (r >= r0 && r < r0 + nloc) {
+      const T safe = piv == T(0) ? T(1) : piv;
+      const T* wr = row(r - r0);
+      for (int j = tid; j < m; j += nt) {
+        const T y = j == k ? T(1) / safe : wr[j] / safe;
+        for (int q = 0; q < F.C; ++q) *Sy::at(pr + j, q) = y;
+      }
+    }
+    Sy::all();  // Y_k
+
+    // 2c. Rank-1 update of every other own row (column k of those rows
+    //     starts from 0, so it becomes -f/piv); row r takes prow.  The lane
+    //     of column k+1 takes the warp's candidate for the next step.
+    const int kn = k + 1;
+    T nb = T(0), nx = T(0);
+    int ni = INT_MAX;
+    for (int j0 = lane; j0 < m; j0 += 32 * kBatch) {
+      T p[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int j = j0 + 32 * u;
+        p[u] = j < m ? pr[j] : T(0);
+      }
+      for (int i = warp; i < nloc; i += nwarps) {
+        T* wi = row(i);
+        const int g = r0 + i;
+        const bool pivot = g == r;
+        const T f = F.fcol[i];
+        const bool open = !F.used[i] && !pivot;
+        T x[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int j = j0 + 32 * u;
+          x[u] = j < m && !pivot ? wi[j] : T(0);
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int j = j0 + 32 * u;
+          if (j < m) {
+            const T w = j == k ? T(0) : x[u];
+            const T y = pivot ? p[u] : w - f * p[u];
+            wi[j] = y;
+            if (j == kn && open) take_better(nb, ni, nx, key_of(y), g, y);
+          }
+        }
+      }
+    }
+    if (r >= r0 && r < r0 + nloc && tid == 0) F.used[r - r0] = 1;
+    if (kn < m) F.publish_block(par ^ 1, kn & 31, nb, ni, nx);
+    Sy::all();  // X_{k+1}
+  }
+
+  // 3. Unscramble in the store: inv[pinv[g]][b] = W[g][pinv[b]] for the
+  //    own rows g.
+  if (F.rank == 0 && tid == 0) sing[cand] = bad ? 1 : 0;
+  T* out = inv + cand * mm;
+  for (int i = warp; i < nloc; i += nwarps) {
+    const T* wi = row(i);
+    T* o = out + size_t(F.pinv[r0 + i]) * m;
+    for (int j = lane; j < m; j += 32) o[j] = wi[F.pinv[j]];
+  }
+}
+
+// Returned when a schedule does not fit (or the card cannot schedule its
+// cluster); CUDA's own codes stay below 1000.
+constexpr int kRefused = 1000;
 
 int max_optin_smem() {
   int dev = 0, bytes = 0;
@@ -218,46 +643,182 @@ int max_optin_smem() {
   return bytes;
 }
 
+// The block schedule's register classes: (CM, RM), the columns a lane and
+// the rows a warp hold; (2, 4) to m = 64, (4, 8) to m = 128
+// (ops/gj_probe.py::REG_MAX_M).
+constexpr int kRegMaxM = 128;
+
+// What a launch needs from the runtime, asked once per (device, kernel,
+// block size, shared memory, cluster size) and kept: the kernel's
+// shared-memory limit raised to what the launch takes, and how many of its
+// clusters the card holds at once.  A later launch of the same key costs
+// the host a lookup, not attribute calls and an occupancy query.
+struct Prepared {
+  int dev;
+  const void* kernel;
+  unsigned threads;
+  size_t smem;
+  int C;         // blocks a cluster; 0: no cluster
+  int clusters;  // clusters the card holds at once; 1 with no cluster
+};
+std::mutex prepared_mu;
+std::vector<Prepared> prepared;  // guarded by prepared_mu
+
+void set_cluster(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int C) {
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+}
+
+// How many clusters of C blocks (C = 0: a launch without a cluster, and
+// the answer 1) of `kernel` by `cfg` the card holds at once, or -(CUDA
+// error); the first call for a key sets the kernel's attributes.
+int prepare(const void* kernel, cudaLaunchConfig_t cfg, int C) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -int(err);
+  std::lock_guard<std::mutex> lock(prepared_mu);
+  size_t top = 0;  // the kernel's shared-memory limit as set so far
+  for (const Prepared& p : prepared) {
+    if (p.dev != dev || p.kernel != kernel) continue;
+    if (p.threads == cfg.blockDim.x && p.smem == cfg.dynamicSmemBytes &&
+        p.C == C)
+      return p.clusters;
+    top = std::max(top, p.smem);
+  }
+  if (cfg.dynamicSmemBytes > top) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(cfg.dynamicSmemBytes));
+    if (err != cudaSuccess) return -int(err);
+  }
+  int n = 1;
+  if (C > 0) {
+    if (C > 8) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return -int(err);
+    }
+    cudaLaunchAttribute attr[1];
+    set_cluster(cfg, attr, C);
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    if (err != cudaSuccess) return -int(err);
+  }
+  prepared.push_back(
+      {dev, kernel, cfg.blockDim.x, cfg.dynamicSmemBytes, C, n});
+  return n;
+}
+
+// Launch `kernel` by `cfg` in clusters of C blocks (C = 1: no cluster), or
+// refuse when the card cannot hold one.  `clusters` (if not null) gets the
+// card's answer how many it holds at once instead of a launch (0 for
+// C = 1).
+template <typename K, typename... Args>
+int run(K kernel, cudaLaunchConfig_t cfg, int C, int* clusters,
+        Args... args) {
+  const int cdim = C > 1 ? C : 0;
+  const int n = prepare((const void*)kernel, cfg, cdim);
+  if (n < 0) return -n;
+  if (clusters != nullptr) {
+    *clusters = cdim ? n : 0;
+    return 0;
+  }
+  if (n < 1) return kRefused;
+  cudaLaunchAttribute attr[1];
+  if (cdim) set_cluster(cfg, attr, cdim);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return int(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// Launch (or, with `clusters`, ask how many clusters the card holds).
 template <typename T>
 int launch(const void* blocks, void* inv, void* sing, void* scratch, int nc,
-           int m, T eps, void* stream) {
+           int m, T eps, int schedule, int C, void* stream,
+           int* clusters = nullptr) {
   if (nc <= 0 || m <= 0) return int(cudaErrorInvalidValue);
-  const int threads = m <= 64 ? 256 : (m <= 256 ? 512 : kMaxThreads);
-  const size_t smem = smem_bytes<T>(m, scratch == nullptr);
-  cudaError_t err = cudaFuncSetAttribute(
-      gj_probe_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return int(err);
-  gj_probe_kernel<T><<<nc, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(blocks), static_cast<T*>(inv),
-      static_cast<uint8_t*>(sing), static_cast<T*>(scratch), m, eps);
-  return int(cudaGetLastError());
+  const bool global = schedule == kGlobal;
+  if (C < 1 || C > kMaxCluster || C > m || schedule < kBlock ||
+      schedule > kGlobal || (schedule == kBlock && C != 1) ||
+      (schedule != kBlock && C < 2))
+    return kRefused;
+  if (clusters == nullptr && global != (scratch != nullptr)) return kRefused;
+  if (schedule == kBlock && m > kRegMaxM) return kRefused;
+  const size_t optin = size_t(max_optin_smem());
+  const int R = rows_per_block(m, C);
+  int w_rows = schedule == kCluster ? R : 0;
+  if (schedule == kGlobal) {
+    // As many of the block's rows as its shared memory holds.
+    const size_t base = layout(m, C, sizeof(T), 0).total;
+    const size_t fit =
+        optin > base ? (optin - base) / (size_t(m) * sizeof(T)) : 0;
+    w_rows = int(fit < size_t(R) ? fit : size_t(R));
+    while (w_rows > 0 && layout(m, C, sizeof(T), w_rows).total > optin)
+      --w_rows;
+  }
+  const size_t smem = layout(m, C, sizeof(T), w_rows).total;
+  if (smem > optin) return kRefused;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(nc) * C);
+  cfg.blockDim = dim3(32 * (schedule == kBlock ? kRegWarps : kMaxWarps));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  const T* in = static_cast<const T*>(blocks);
+  T* o = static_cast<T*>(inv);
+  uint8_t* flags = static_cast<uint8_t*>(sing);
+  T* w = static_cast<T*>(scratch);
+  if (schedule == kBlock)
+    return m <= 64 ? run(gj_probe_reg_kernel<T, 2, 4>, cfg, 1, clusters, in, o,
+                         flags, m, eps)
+                   : run(gj_probe_reg_kernel<T, 4, 8>, cfg, 1, clusters, in, o,
+                         flags, m, eps);
+  if (schedule == kCluster)
+    return run(gj_probe_kernel<T, false>, cfg, C, clusters, in, o, flags, w,
+               m, eps, w_rows);
+  return run(gj_probe_kernel<T, true>, cfg, C, clusters, in, o, flags, w, m,
+             eps, w_rows);
 }
 
 }  // namespace
 
 extern "C" {
 
-// 1 when an m x m block of elem_bytes-wide values fits the card's shared
-// memory (the wrapper then passes no scratch), 0 when it must live in a
-// global scratch of nc*m*m values.
-int gj_probe_w_in_smem(int m, int elem_bytes) {
-  const size_t need = elem_bytes == 8 ? smem_bytes<double>(m, true)
-                                      : smem_bytes<float>(m, true);
-  return need <= size_t(max_optin_smem()) ? 1 : 0;
+// How many clusters of the schedule the card holds at once at block size
+// m (0 for one block a candidate, or when it cannot hold one).
+int gj_probe_active_clusters(int m, int elem_bytes, int schedule,
+                             int cluster) {
+  int n = 0;
+  const int err =
+      elem_bytes == 8
+          ? launch<double>(nullptr, nullptr, nullptr, nullptr, 1, m, 0.0,
+                           schedule, cluster, nullptr, &n)
+          : launch<float>(nullptr, nullptr, nullptr, nullptr, 1, m, 0.f,
+                          schedule, cluster, nullptr, &n);
+  return err ? 0 : n;
 }
 
 // Launch the probe on `stream`: blocks and inv are contiguous (nc, m, m),
-// sing is (nc,) uint8, scratch is null or (nc, m, m).  Returns the CUDA
-// error code of the launch (0 on success).
+// sing is (nc,) uint8.  schedule 0 (block: W in the registers of one block
+// a candidate, cluster 1, m ≤ 128), 1 (cluster: W's rows in the shared
+// memory of `cluster` blocks a candidate, 2..16) or 2 (global: W in
+// scratch, (nc, m, m), its rows over `cluster` blocks, 2..16); scratch is
+// null unless global.
+// Returns 0, a CUDA error code, or 1000 when the schedule does not fit
+// this card.
 int gj_probe_f32(const void* blocks, void* inv, void* sing, void* scratch,
-                 int nc, int m, float eps, void* stream) {
-  return launch<float>(blocks, inv, sing, scratch, nc, m, eps, stream);
+                 int nc, int m, float eps, int schedule, int cluster,
+                 void* stream) {
+  return launch<float>(blocks, inv, sing, scratch, nc, m, eps, schedule,
+                       cluster, stream);
 }
 
 int gj_probe_f64(const void* blocks, void* inv, void* sing, void* scratch,
-                 int nc, int m, double eps, void* stream) {
-  return launch<double>(blocks, inv, sing, scratch, nc, m, eps, stream);
+                 int nc, int m, double eps, int schedule, int cluster,
+                 void* stream) {
+  return launch<double>(blocks, inv, sing, scratch, nc, m, eps, schedule,
+                        cluster, stream);
 }
 
 }  // extern "C"

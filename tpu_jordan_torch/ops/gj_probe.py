@@ -8,11 +8,16 @@ its two Pallas bodies:
 - every m with a panel width (``gj_fused_panel.takes_panel_body``: m = 16,
   48, 64, 128, 384, 512, ...) runs ``csrc/gj_probe_fused_panel.cu``, the
   port of ``_gj_fused_panel_kernel`` (``ops/gj_fused_panel.py`` says more);
-- every other m (8, 50, ...) runs ``csrc/gj_probe.cu``, the port of
-  ``_gj_probe_kernel``: one thread block per candidate runs the m
-  normalized rank-1 steps, with the block's working copy in shared memory
-  where it fits (in an L2-resident global scratch where it does not,
-  m > ~232 in fp32); the source says more.
+- every other m (8, 12, 50, 100, 300, 1100, 1536, ...) runs
+  ``csrc/gj_probe.cu``, the port of ``_gj_probe_kernel``: the m normalized
+  rank-1 steps at two barriers a step, on one of three schedules that
+  :func:`probe_schedule` picks by (m, dtype) and, for C, by the stack's
+  size and the card's occupancy: ``block`` (m ≤ 128: one thread block a
+  candidate, W in its registers), ``cluster`` (a cluster of C blocks a
+  candidate, each holding ⌈m/C⌉ rows of W in its shared memory) or
+  ``global`` (the same with each block's rows split: as many as its shared
+  memory holds stay there, the rest in an L2-resident global scratch).
+  The source says more.
 
 On a CPU tensor the wrapper runs the plain version
 (``block_inverse.batched_block_inverse``); on a CUDA tensor it launches one
@@ -42,6 +47,19 @@ def reset_launches() -> None:
     launches = 0
 
 
+# Shared memory one block may take on an H100 (the opt-in limit, 227 KB).
+SMEM_LIMIT = 232448
+# Largest cluster the card schedules (16 with the non-portable opt-in).
+MAX_CLUSTER = 16
+# Codes of the kernel's schedule argument.
+SCHEDULES = {"block": 0, "cluster": 1, "global": 2}
+# The kernel's answer when a schedule does not fit the card.
+REFUSED = 1000
+# Largest block size whose W the registers of one block hold (the block
+# schedule).
+REG_MAX_M = 128
+
+
 @functools.cache
 def _lib():
     from .._build import load
@@ -49,15 +67,109 @@ def _lib():
     lib = load("gj_probe")
     ptrs = [ctypes.c_void_p] * 4
     tail = [ctypes.c_int, ctypes.c_int]
-    lib.gj_probe_f32.argtypes = ptrs + tail + [ctypes.c_float,
-                                               ctypes.c_void_p]
-    lib.gj_probe_f64.argtypes = ptrs + tail + [ctypes.c_double,
-                                               ctypes.c_void_p]
+    sched = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.gj_probe_f32.argtypes = ptrs + tail + [ctypes.c_float] + sched
+    lib.gj_probe_f64.argtypes = ptrs + tail + [ctypes.c_double] + sched
     lib.gj_probe_f32.restype = ctypes.c_int
     lib.gj_probe_f64.restype = ctypes.c_int
-    lib.gj_probe_w_in_smem.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.gj_probe_w_in_smem.restype = ctypes.c_int
+    lib.gj_probe_active_clusters.argtypes = [ctypes.c_int] * 4
+    lib.gj_probe_active_clusters.restype = ctypes.c_int
     return lib
+
+
+def probe_smem_bytes(m: int, elem_bytes: int, cluster: int = 1,
+                     w_rows: int = 0) -> int:
+    """Dynamic shared memory of one block of ``csrc/gj_probe.cu`` with
+    ``w_rows`` rows of W in it: those rows, the pivot row and the slots,
+    both double-buffered, the warps' slots, the rows' factors and flags,
+    the permutation.  Mirrors ``layout`` in the source."""
+    rows, slots = -(-m // cluster), 32 * cluster
+    sizes = (w_rows * m * elem_bytes, 2 * m * elem_bytes,
+             rows * elem_bytes, 2 * slots * elem_bytes,
+             2 * slots * elem_bytes, 2 * slots * 4, 32 * elem_bytes,
+             32 * elem_bytes, 32 * 4, slots * elem_bytes, slots * 4,
+             rows * 4, m * 4, m * 4)
+    return sum(-(-s // 16) * 16 for s in sizes)
+
+
+def smem_rows(m: int, elem_bytes: int, cluster: int,
+              smem_limit: int = SMEM_LIMIT) -> int:
+    """How many of a block's ⌈m/cluster⌉ rows of W its shared memory holds
+    beside the rest (the global schedule keeps those there)."""
+    rows = -(-m // cluster)
+    base = probe_smem_bytes(m, elem_bytes, cluster)
+    n = min(rows, max(0, smem_limit - base) // (m * elem_bytes))
+    while n > 0 and probe_smem_bytes(m, elem_bytes, cluster, n) > smem_limit:
+        n -= 1
+    return n
+
+
+def probe_schedule(m: int, elem_bytes: int, nc: int, active,
+                   smem_limit: int = SMEM_LIMIT) -> tuple[str, int]:
+    """The schedule of ``csrc/gj_probe.cu`` for an (nc, m, m) stack, where
+    ``active(kind, C)`` is how many clusters of C blocks of that schedule
+    the card holds at once:
+
+    - ("block", 1) up to m = REG_MAX_M: W in one block's registers;
+    - ("cluster", C): W's rows in the shared memory of C blocks
+      (2 ≤ C ≤ 16);
+    - ("global", C): W's rows over C blocks (2 ≤ C ≤ 16), as many as their
+      shared memory holds there and the rest in an L2-resident scratch.
+
+    Where clusters of C blocks hold W, C is the most blocks that run all nc
+    candidates in one wave.  Where none does, the global schedule with the
+    most blocks that do and keep three quarters of their rows in shared
+    memory; else the cluster schedule in the fewest waves, with the most
+    blocks among those.  Where no cluster holds W, the global schedule over
+    the most blocks.  Raises ValueError when no schedule fits
+    ``smem_limit``."""
+    if m <= REG_MAX_M and probe_smem_bytes(m, elem_bytes) <= smem_limit:
+        return "block", 1
+    cand = [c for c in range(2, MAX_CLUSTER + 1) if c <= m]
+    fits = [c for c in cand if probe_smem_bytes(
+        m, elem_bytes, c, -(-m // c)) <= smem_limit]
+    spill = [c for c in cand
+             if probe_smem_bytes(m, elem_bytes, c) <= smem_limit]
+    waves = {c: -(-nc // n) if (n := active("cluster", c)) > 0 else nc + 1
+             for c in fits}
+    if fits and min(waves.values()) == 1:
+        return "cluster", max(c for c in fits if waves[c] == 1)
+    # A global schedule in one wave, if shared memory still holds at least
+    # three quarters of each block's rows.
+    one_wave = [c for c in spill if active("global", c) >= nc
+                and 4 * smem_rows(m, elem_bytes, c, smem_limit)
+                >= 3 * -(-m // c)]
+    if one_wave:
+        return "global", one_wave[-1]
+    if fits:
+        fewest = min(waves.values())
+        return "cluster", max(c for c in fits if waves[c] == fewest)
+    if spill:
+        return "global", spill[-1]
+    raise ValueError(f"no gj_probe schedule fits m={m} in {smem_limit} "
+                     f"bytes of shared memory")
+
+
+@functools.cache
+def active_clusters(m: int, elem_bytes: int, kind: str, cluster: int) -> int:
+    """How many clusters of ``cluster`` blocks of the ``kind`` schedule at
+    block size m the card holds at once (the CUDA occupancy answer for
+    their shared memory)."""
+    return _lib().gj_probe_active_clusters(m, elem_bytes, SCHEDULES[kind],
+                                           cluster)
+
+
+@functools.cache
+def _card_schedule(nc: int, m: int, elem_bytes: int) -> tuple[str, int]:
+    return probe_schedule(m, elem_bytes, nc, lambda kind, c: active_clusters(
+        m, elem_bytes, kind, c))
+
+
+def schedule_for(blocks: torch.Tensor) -> tuple[str, int]:
+    """:func:`probe_schedule` for a CUDA stack, with its nc and the card's
+    occupancy answers (worked out once per shape)."""
+    nc, m, _ = blocks.shape
+    return _card_schedule(nc, m, blocks.element_size())
 
 
 def probe_body(m: int) -> str:
@@ -89,26 +201,35 @@ def gj_probe(blocks: torch.Tensor, eps: float | None = None):
     return inv, sing
 
 
-def launch_kernel(blocks: torch.Tensor, eps: float):
+def launch_kernel(blocks: torch.Tensor, eps: float,
+                  schedule: tuple[str, int] | None = None):
     """Launch ``csrc/gj_probe.cu`` on a CUDA stack of fp32 or fp64 blocks
-    and return (inverses, singular_flags); counts nothing."""
+    and return (inverses, singular_flags); counts nothing.  ``schedule``
+    forces a (name, cluster size) in place of :func:`probe_schedule`'s, for
+    checks and measurements; the kernel refuses one that does not fit
+    (:class:`KernelLaunchError`)."""
     check_cuda_stack(blocks)
     nc, m, _ = blocks.shape
     inv = torch.empty_like(blocks)
     sing = torch.empty(nc, dtype=torch.uint8, device=blocks.device)
     if nc == 0:
         return inv, sing.bool()
-    lib = _lib()
     f64 = blocks.dtype == torch.float64
+    name, cluster = schedule or schedule_for(blocks)
+    if name not in SCHEDULES:
+        raise ValueError(f"unknown schedule {name!r}")
+    lib = _lib()
     with torch.cuda.device(blocks.device):
-        scratch = (None if lib.gj_probe_w_in_smem(m, 8 if f64 else 4)
-                   else torch.empty_like(blocks))
+        scratch = torch.empty_like(blocks) if name == "global" else None
         fn = lib.gj_probe_f64 if f64 else lib.gj_probe_f32
         err = fn(blocks.data_ptr(), inv.data_ptr(), sing.data_ptr(),
                  None if scratch is None else scratch.data_ptr(),
-                 nc, m, eps, torch.cuda.current_stream().cuda_stream)
+                 nc, m, eps, SCHEDULES[name], cluster,
+                 torch.cuda.current_stream().cuda_stream)
     if err:
+        what = ("the schedule does not fit this card" if err == REFUSED
+                else f"CUDA error {err}")
         raise KernelLaunchError(
-            f"gj_probe launch failed with CUDA error {err} "
-            f"(nc={nc}, m={m}, {blocks.dtype})")
+            f"gj_probe launch failed: {what} (nc={nc}, m={m}, "
+            f"{blocks.dtype}, schedule={name}, cluster={cluster})")
     return inv, sing.bool()

@@ -37,11 +37,17 @@ it as follows:
 So ``gj_probe_inplace`` launches that kernel; it is one kernel for rows 1–3
 of the kernel table, and the twin holds it to v3's own arithmetic.
 
-**v2 on the card is ``csrc/gj_probe_panel.cu``**: per panel of b columns, b
-serial micro-steps on the (m, b) strip and its transform U in shared memory,
-one block per candidate; then one deferred rank-b update W += U·P of the
-(m, 2m) state by blocks over (candidate, column tile, row chunk).  The
-source says more.
+**v2 on the card is ``csrc/gj_probe_panel.cu``**, on one of two schedules
+that :func:`panel_schedule` picks by m.  ``cluster`` where the (m, 2m)
+state fits the shared memory of a cluster of C ≤ 16 blocks (m ≤ ~600): one
+launch a call, each block owning ⌈m/C⌉ rows; per panel the leader block
+gathers the (m, b) strip over distributed shared memory and runs the b
+micro-steps at one barrier each, then every block applies the deferred
+W += U·P to its own rows from pivot-row chunks copied out of their owners'
+shared memory.  ``l2`` beyond that: per panel b micro-steps one block per
+candidate, then the deferred update by blocks over (candidate, column tile,
+row chunk), with W in an L2-resident global scratch (1 + 2·m/b launches).
+The source says more.
 
 Launch counts: ``launches["inplace"]`` and ``launches["panel"]`` count the
 wrappers' kernel launches and nothing else (``gj_probe.launches`` keeps
@@ -62,7 +68,7 @@ from ..config import eps_for
 from ..errors import KernelLaunchError
 from .gj_fused_panel import (check_cuda_stack, panel_width,
                              require_panel_width)
-from .gj_probe import launch_kernel
+from .gj_probe import MAX_CLUSTER, REFUSED, SMEM_LIMIT, launch_kernel
 from .norms import block_inf_norms
 
 launches = {"inplace": 0, "panel": 0}
@@ -186,6 +192,10 @@ def gj_probe_inplace(blocks: torch.Tensor, eps: float | None = None):
     return out
 
 
+# Codes of the panel kernel's schedule argument.
+PANEL_SCHEDULES = {"l2": 0, "cluster": 1}
+
+
 @functools.cache
 def _panel_lib():
     from .._build import load
@@ -193,19 +203,51 @@ def _panel_lib():
     lib = load("gj_probe_panel")
     lib.gj_probe_panel_f32.argtypes = ([ctypes.c_void_p] * 4
                                        + [ctypes.c_int] * 3
-                                       + [ctypes.c_float, ctypes.c_void_p])
+                                       + [ctypes.c_float, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_void_p])
     lib.gj_probe_panel_f32.restype = ctypes.c_int
     lib.gj_probe_panel_work_words.argtypes = [ctypes.c_int] * 3
     lib.gj_probe_panel_work_words.restype = ctypes.c_size_t
     return lib
 
 
-def gj_probe_panel(blocks: torch.Tensor, eps: float | None = None):
+def panel_smem_bytes(m: int, b: int, cluster: int) -> int:
+    """Dynamic shared memory of one block of v2's cluster schedule: W's
+    ⌈m/cluster⌉ rows of width 2m, their rows of U, two pivot-row chunks of
+    128 columns, perm, the leader's slots.  Mirrors ``cluster_layout`` in
+    the source."""
+    rows, slots = -(-m // cluster), 32 * cluster
+    sizes = (rows * 2 * m * 4, rows * b * 4, 2 * b * 128 * 4, m * 4,
+             rows * 4, 2 * 32 * b * 4, 2 * 32 * 4, 2 * 32 * 4, slots * 4,
+             slots * 4)
+    return sum(-(-s // 16) * 16 for s in sizes)
+
+
+@functools.cache
+def panel_schedule(m: int, smem_limit: int = SMEM_LIMIT) -> tuple[str, int]:
+    """The schedule of ``csrc/gj_probe_panel.cu`` for block size m:
+    ("cluster", C) with C the smallest power of two up to 16 whose blocks
+    hold the (m, 2m) state (one thread a row, at most 640), else
+    ("l2", 1).
+    Raises ValueError when no panel width divides m."""
+    b = require_panel_width(m)
+    if m <= 640:
+        for c in (1, 2, 4, 8, MAX_CLUSTER):
+            if panel_smem_bytes(m, b, c) <= smem_limit:
+                return "cluster", c
+    return "l2", 1
+
+
+def gj_probe_panel(blocks: torch.Tensor, eps: float | None = None,
+                   schedule: tuple[str, int] | None = None):
     """v2, the panel probe: (inverses fp32, singular_flags).  Any float
     input is cast to fp32, as the JAX entry point does; eps defaults to
     ``eps_for(torch.float32)``; raises ValueError when no panel width
     divides m.  On a CPU tensor: the twin :func:`gj_panel_plain`; on a
-    CUDA tensor: ``csrc/gj_probe_panel.cu``."""
+    CUDA tensor: ``csrc/gj_probe_panel.cu`` on :func:`panel_schedule`'s
+    schedule, or on ``schedule`` (name, cluster size) where one is forced
+    for a check; the kernel refuses one that does not fit
+    (:class:`KernelLaunchError`)."""
     blocks, eps = _prepare(blocks, eps)
     nc, m, _ = blocks.shape
     b = require_panel_width(m)
@@ -216,17 +258,24 @@ def gj_probe_panel(blocks: torch.Tensor, eps: float | None = None):
     sing = torch.empty(nc, dtype=torch.uint8, device=blocks.device)
     if nc == 0:
         return inv, sing.bool()
+    name, cluster = schedule or panel_schedule(m)
+    if name not in PANEL_SCHEDULES:
+        raise ValueError(f"unknown schedule {name!r}")
     lib = _panel_lib()
     with torch.cuda.device(blocks.device):
-        work = torch.empty(lib.gj_probe_panel_work_words(nc, m, b),
-                           dtype=torch.float32, device=blocks.device)
+        work = (torch.empty(lib.gj_probe_panel_work_words(nc, m, b),
+                            dtype=torch.float32, device=blocks.device)
+                if name == "l2" else None)
         err = lib.gj_probe_panel_f32(
             blocks.data_ptr(), inv.data_ptr(), sing.data_ptr(),
-            work.data_ptr(), nc, m, b, eps,
+            None if work is None else work.data_ptr(), nc, m, b, eps,
+            PANEL_SCHEDULES[name], cluster,
             torch.cuda.current_stream().cuda_stream)
     if err:
+        what = ("the schedule does not fit this card" if err == REFUSED
+                else f"CUDA error {err}")
         raise KernelLaunchError(
-            f"gj_probe_panel launch failed with CUDA error {err} "
-            f"(nc={nc}, m={m}, b={b})")
+            f"gj_probe_panel launch failed: {what} (nc={nc}, m={m}, b={b}, "
+            f"schedule={name}, cluster={cluster})")
     launches["panel"] += 1
     return inv, sing.bool()
