@@ -33,7 +33,12 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    PROBE_CASES stack with a panel width, at m=48 (a 16-wide panel) and at
    m=768 (v2's l2 schedule; the others run its cluster schedule); each row
    also times both probe bodies on the same stack, and the v2 rows split
-   one traced call's device time over v2's kernels.
+   one traced call's device time over v2's kernels.  ``gj_probe.cu`` with a
+   global singularity scale (the augmented engine's probe) on the
+   SCALED_CASES stacks, one for each of its schedules, against
+   ``batched_block_inverse(blocks, scale, eps)`` by the probe's rules, with
+   one more block, scaled down, that the global threshold flags and the
+   block's own does not.
 3. ``reference``: solves on the card with the kernels against the same
    solves with the plain versions (the engines' ``probe`` and ``update``
    arguments).  The probe at 512/m64 fp32, at 8192/m384 fp64 and at
@@ -52,7 +57,12 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    run must pass the solve gate with probe launches = Nr; its warm time is
    printed beside the same engine's with ``gj_probe``.  Those runs, with
    the variants' counts set to 0 just before each and read just after,
-   are the variants' path.
+   are the variants' path.  The augmented engine (global scale) with the
+   kernel against the plain probe at 512/m64 absdiff and 3000/m300 rand
+   fp64 (equal pivots, neither singular, inverses within min(eps·n·κ∞,
+   0.05)); the batched engine with the kernel against the plain probe at
+   B=8, 512², m=64 rand fp32 (per-element pivots equal), and against the
+   single in-place engine element by element at B=8, 512², m=128.
 4. ``solve``: the main path through ``driver.solve``, each row timed on a
    warm run with the three kernels' launch counts set to 0 just before it
    and read just after: ``engine="auto"`` at 4096/m128/absdiff fp32,
@@ -65,7 +75,15 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    and fp64 rows are held to the gate
    ``rel_residual < min(3·eps·n·κ∞/‖A‖∞, 0.5)``; the bf16 rows to the
    driver's own residual gate, kms with no ladder rung and rand ending on a
-   passed rung.  absdiff at 8192 runs in fp64: in fp32 it sits on the
+   passed rung.  ``engine="augmented"`` at 4096/m128 and 8192/m384 absdiff
+   fp64: ``gj_probe`` launches = Nr (the global scale runs ``gj_probe.cu``
+   whatever m is), no panel launch.  The batch path, ``driver.solve_batch``
+   at 512 × 512² and 512 × 2048², m=128, rand (bench.py's batched tiers,
+   in fp64: BATCH_SOLVE_ROWS says why): one probe call a superstep for the
+   whole batch (``gj_probe_fused_panel`` launches = Nr); every element's
+   rel_residual, from ``batch_metrics`` over the regenerated stack, is held
+   to the gate, and an element over it must take the single in-place
+   engine's pivots.  absdiff at 8192 runs in fp64: in fp32 it sits on the
    knife edge the JAX package records (benchmarks/PHASES.md), and on this
    card it lands on the singular side with the kernel and with the plain
    probe alike.
@@ -75,6 +93,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 Not run by default: ``--phases knife_edge`` records that fp32 absdiff
 8192/m384 elimination through the grouped engine, with the kernel and with
 the plain probe: which side of the knife edge each lands on.
+``--phases batch_fp32`` runs the batch tiers in fp32 and records the
+elements flagged singular and those over the gate.
 ``--phases cluster_sweep`` times ``gj_probe.cu`` on every schedule that
 fits each SWEEP_CASES stack (and v2 on every cluster size), with the
 outputs' bits held to the default schedule's.
@@ -94,7 +114,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("toolchain", "kernel_vs_plain", "reference", "solve")
-EXTRA_PHASES = ("knife_edge", "cluster_sweep")
+EXTRA_PHASES = ("knife_edge", "cluster_sweep", "batch_fp32")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
 # fp32 outside the tensor cores, fp64 through the tensor cores (the
@@ -159,6 +179,30 @@ REFERENCE_ROWS = ((512, 64, "rand", "float32", "inplace"),
 # (n, m, generator, dtype): the kernel's run checked step by step.
 STEPWISE_ROW = (8192, 384, "rand", "float32")
 
+# (m, nc, dtype): gj_probe.cu with a global singularity scale, on the
+# PROBE_CASES stacks (the same seeds) that reach its block, cluster and
+# global schedules, with one more block: a copy of block 0 scaled down by
+# SCALE_DOWN.  The scale GLOBAL_SCALE puts the threshold eps·scale (1e-8 in
+# fp64, 1e-2 in fp32) above every pivot of that block (≤ 5e-10 and 5e-4:
+# its entries are at most 5·SCALE_DOWN) and below every pivot of the
+# regular ones (≥ 0.06 and 0.39 on these stacks), so the global threshold
+# flags it and each block's own does not.
+SCALED_CASES = ((128, 32, "float64"), (384, 22, "float32"),
+                (1100, 4, "float32"))
+SCALE_DOWN = {"float64": 1e-10, "float32": 1e-4}
+GLOBAL_SCALE = {"float64": 1e7, "float32": 2e4}
+
+# (n, m, generator, dtype): the augmented engine (global scale) with the
+# kernel held against the same engine with the plain probe; 3000/m300 runs
+# gj_probe.cu's cluster schedule.
+AUGMENTED_REFERENCE_ROWS = ((512, 64, "absdiff", "float64"),
+                            (3000, 300, "rand", "float64"))
+# (B, n, m, generator, dtype): the batched engine with the kernel against
+# the plain probe (per-element pivots), and against the single in-place
+# engine element by element.
+BATCHED_REFERENCE_ROW = (8, 512, 64, "rand", "float32")
+BATCHED_VS_SINGLE_ROW = (8, 512, 128, "rand", "float32")
+
 # (n, m, generator): grouped_pallas (fp32, k=2) with the fused update kernel
 # held against the same engine with the plain update.
 PALLAS_REFERENCE_ROWS = ((512, 64, "rand"), (1024, 128, "rand"))
@@ -170,7 +214,8 @@ PALLAS_STEPWISE_ROW = (8192, 128, "rand")
 # "auto" rows are the paper's program; the fused-update rows are the repo's
 # own bench rows for those engines (bench.py:948-958).
 # m=50 and m=300 have no panel width, so their probe is gj_probe.cu (on its
-# block and cluster schedules).
+# block and cluster schedules).  The augmented reference-parity engine runs
+# gj_probe.cu with the global scale at every superstep, whatever m is.
 SOLVE_ROWS = ((4096, 128, "absdiff", "float32", "auto"),
               (8192, 384, "absdiff", "float64", "auto"),
               (8192, 384, "rand", "float32", "auto"),
@@ -180,7 +225,23 @@ SOLVE_ROWS = ((4096, 128, "absdiff", "float32", "auto"),
               (4096, 128, "rand", "float32", "grouped_pallas"),
               (8192, 128, "rand", "float32", "grouped_pallas"),
               (8192, 128, "kms", "float32", "grouped_pallas_bf16"),
-              (8192, 128, "rand", "float32", "grouped_pallas_bf16"))
+              (8192, 128, "rand", "float32", "grouped_pallas_bf16"),
+              (4096, 128, "absdiff", "float64", "augmented"),
+              (8192, 384, "absdiff", "float64", "augmented"))
+# (B, n, m, generator, dtype): driver.solve_batch, bench.py's two batched
+# tiers (bench.py:403-425; BASELINE.md's batch north star), one probe call
+# a superstep for the whole batch.  They run in fp64: in fp32 the rand
+# windows of these tiers hold elements that fp32 cannot carry (κ∞·eps of
+# order 1), and whether one is flagged singular, which makes solve_batch
+# refuse the whole batch as the JAX one does, is a knife edge: on the CPU
+# each package flags an element of the 512² tier, not the same one, and
+# the card flags none.  ``--phases batch_fp32`` records the fp32 tiers on
+# the card.
+BATCH_SOLVE_ROWS = ((512, 512, 128, "rand", "float64"),
+                    (512, 2048, 128, "rand", "float64"))
+# Elements a batch_metrics call takes (bounds the verification's memory).
+METRICS_CHUNK = 64
+
 # What the bf16 rows' residual-gate ladder must do: kms (κ∞ ≈ 2.8) passes
 # the gate at bf16 eps with no rung; rand (κ·eps_bf16 ≫ 1) must walk the
 # ladder and end on a passed rung.
@@ -315,19 +376,19 @@ def block_residuals(torch, blocks, inv, ok):
     return block_inf_norms(blocks[ok].to(inv.dtype) @ inv[ok] - eye)
 
 
-def compare_probe(torch, blocks, out_k, out_p, dname: str):
+def compare_probe(torch, blocks, out_k, out_p, dname: str, flagged=(1, 2, 3)):
     """A probe kernel's (inv, sing) against its plain version's on a
-    make_stack stack: flags equal and as expected; on each regular block
-    the kernel's residual within 10x the plain one's plus eps·m, and the
-    relative ∞-norm difference within REL_LIMIT.  Returns (readings,
-    within)."""
+    make_stack stack: flags equal and raised on the blocks ``flagged``
+    only; on each regular block the kernel's residual within 10x the plain
+    one's plus eps·m, and the relative ∞-norm difference within REL_LIMIT.
+    Returns (readings, within)."""
     from tpu_jordan_torch.ops import block_inf_norms
 
     (inv_k, sing_k), (inv_p, sing_p) = out_k, out_p
     torch.cuda.synchronize()
     nc, m, _ = blocks.shape
     expected = torch.zeros(nc, dtype=torch.bool, device="cuda")
-    expected[1:4] = True
+    expected[list(flagged)] = True
     ok = ~sing_p
     eps = torch.finfo(inv_k.dtype).eps
     res_k = block_residuals(torch, blocks, inv_k, ok)
@@ -446,6 +507,61 @@ def phase_kernel_vs_plain(torch):
     if served != {"block", "cluster", "global"}:
         raise AssertionError(f"gj_probe.cu ran only the schedules "
                              f"{sorted(served)}")
+    return rows
+
+
+def phase_scaled_vs_plain(torch):
+    """gj_probe.cu with a global scale at every SCALED_CASES stack against
+    ``batched_block_inverse(blocks, scale, eps)`` by compare_probe's rules,
+    the scaled-down last block flagged by both and not by the kernel
+    without the scale.  Emits every row, then fails if any check failed or
+    the rows did not run all three schedules.  Returns the rows."""
+    from tpu_jordan_torch.config import eps_for
+    from tpu_jordan_torch.ops import batched_block_inverse
+    from tpu_jordan_torch.ops.gj_probe import launch_kernel, schedule_for
+
+    rows, bad = [], []
+    for case in SCALED_CASES:
+        m, nc, dname = case
+        dtype = getattr(torch, dname)
+        eps = eps_for(dtype)
+        stack = make_stack(torch, nc, m, dtype, seed=PROBE_CASES.index(case))
+        blocks = torch.cat([stack, stack[:1] * SCALE_DOWN[dname]])
+        scale = torch.tensor(GLOBAL_SCALE[dname], dtype=dtype, device="cuda")
+        plain = batched_block_inverse(blocks, scale, eps)
+        out = launch_kernel(blocks, eps, scale=scale)
+        readings, ok = compare_probe(torch, blocks, out, plain, dname,
+                                     flagged=(1, 2, 3, nc))
+        own = launch_kernel(blocks, eps)[1]
+        reps = 20 if m <= 256 else 5
+        bound_ms, bound_by = probe_bound(m, nc + 1, dname,
+                                         blocks.element_size())
+        row = {"phase": "kernel_vs_plain", "kernel": "gj_probe",
+               "m": m, "nc": nc + 1, "dtype": dname,
+               "global_scale": GLOBAL_SCALE[dname],
+               "scale_down": SCALE_DOWN[dname],
+               "schedule": list(schedule_for(blocks)), **readings,
+               "scaled_block_flagged": [bool(out[1][nc]),
+                                        bool(plain[1][nc])],
+               "scaled_block_flagged_by_own_norm": bool(own[nc]),
+               "ms": cuda_ms(torch, lambda: launch_kernel(
+                   blocks, eps, scale=scale), reps),
+               "plain_ms": cuda_ms(torch, lambda: batched_block_inverse(
+                   blocks, scale, eps), 2),
+               "library_ms": cuda_ms(torch,
+                                     lambda: torch.linalg.inv_ex(blocks), 20),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        emit(row)
+        rows.append(row)
+        if not ok or row["scaled_block_flagged_by_own_norm"]:
+            bad.append(row)
+    if bad:
+        raise AssertionError(f"gj_probe.cu with a global scale disagrees "
+                             f"with the plain version: {bad}")
+    served = {r["schedule"][0] for r in rows}
+    if served != {"block", "cluster", "global"}:
+        raise AssertionError(f"gj_probe.cu with a global scale ran only "
+                             f"the schedules {sorted(served)}")
     return rows
 
 
@@ -717,17 +833,118 @@ def phase_reference(torch):
     phase_reference_update(torch)
 
 
-def recording_probe(pivots):
-    """The default probe, recording each step's pivot block by the
-    engines' own key argmin (the call index is the step)."""
+def recording_probe(pivots, inner=None):
+    """``inner`` (default the engines' probe), recording each step's pivot
+    block by the engines' own key argmin (the call index is the step)."""
     from tpu_jordan_torch.ops import probe_blocks
     from tpu_jordan_torch.ops.jordan_inplace import _select as select
 
-    def probe(cands, eps):
-        invs, sing = probe_blocks(cands, eps)
+    inner = inner or probe_blocks
+
+    def probe(cands, eps, **kw):
+        invs, sing = inner(cands, eps, **kw)
         pivots.append(int(select(invs, sing, len(pivots))[1]))
         return invs, sing
     return probe
+
+
+def batch_recording_probe(B, steps, inner=None):
+    """``inner`` (default the engines' probe) on the batched engine's folded
+    (B·nc, m, m) stack, recording each element's pivot block per superstep
+    in ``steps`` (one list of B a call)."""
+    from tpu_jordan_torch.ops import block_inf_norms, probe_blocks
+
+    inner = inner or probe_blocks
+
+    def probe(cands, eps):
+        invs, sing = inner(cands, eps)
+        key = block_inf_norms(invs).masked_fill(sing, float("inf"))
+        steps.append((key.view(B, -1).argmin(dim=1) + len(steps)).tolist())
+        return invs, sing
+    return probe
+
+
+def phase_reference_engines(torch):
+    """The engines this slice brings, on the card: the augmented engine
+    (global scale) with the kernel against itself with the plain probe at
+    every AUGMENTED_REFERENCE_ROWS row (equal pivot sequences, neither
+    singular, inverses within min(eps·n·κ∞, 0.05)); the batched engine with
+    the kernel against itself with the plain probe (per-element pivot
+    sequences equal, no element singular) and against the single in-place
+    engine element by element (pivot sequences equal)."""
+    from tpu_jordan_torch.ops import (
+        batched_block_inverse, batched_jordan_invert, block_jordan_invert,
+        block_jordan_invert_inplace, condition_inf, generate, generate_batch,
+        inf_norm)
+
+    def plain(cands, eps, scale=None):
+        return batched_block_inverse(cands, scale, eps)
+
+    for n, m, gen, dname in AUGMENTED_REFERENCE_ROWS:
+        dtype = getattr(torch, dname)
+        a = generate(gen, (n, n), dtype, device="cuda")
+        piv_k, piv_p = [], []
+        x_k, s_k = block_jordan_invert(a, block_size=m, global_scale=True,
+                                       probe=recording_probe(piv_k))
+        x_p, s_p = block_jordan_invert(a, block_size=m, global_scale=True,
+                                       probe=recording_probe(piv_p, plain))
+        kappa = float(condition_inf(a, x_p))
+        rel = float(inf_norm(x_k - x_p) / inf_norm(x_p))
+        limit = min(torch.finfo(dtype).eps * n * kappa, 0.05)
+        row = {"phase": "reference", "engine": "augmented",
+               "global_scale": True, "n": n, "m": m, "generator": gen,
+               "dtype": dname, "pivots_equal": piv_k == piv_p,
+               "steps": len(piv_k), "singular": [bool(s_k), bool(s_p)],
+               "kappa_inf": kappa, "rel_diff": rel, "limit": limit}
+        emit(row)
+        del x_k, x_p, a
+        torch.cuda.empty_cache()
+        if not (row["pivots_equal"] and row["steps"] == -(-n // m)
+                and rel <= limit and not (s_k or s_p)):
+            raise AssertionError(f"kernel and plain probe disagree in the "
+                                 f"augmented engine: {row}")
+
+    B, n, m, gen, dname = BATCHED_REFERENCE_ROW
+    a = generate_batch(gen, n, B, getattr(torch, dname), device="cuda")
+    steps_k, steps_p = [], []
+    _, s_k = batched_jordan_invert(a, block_size=m,
+                                   probe=batch_recording_probe(B, steps_k))
+    _, s_p = batched_jordan_invert(
+        a, block_size=m, probe=batch_recording_probe(B, steps_p, plain))
+    row = {"phase": "reference", "engine": "batched", "batch": B, "n": n,
+           "m": m, "generator": gen, "dtype": dname,
+           "steps": len(steps_k), "pivots_equal": steps_k == steps_p,
+           "singular": [int(s_k.sum()), int(s_p.sum())]}
+    emit(row)
+    if not (row["pivots_equal"] and row["steps"] == -(-n // m)
+            and row["singular"] == [0, 0]):
+        raise AssertionError(f"kernel and plain probe disagree in the "
+                             f"batched engine: {row}")
+
+    B, n, m, gen, dname = BATCHED_VS_SINGLE_ROW
+    a = generate_batch(gen, n, B, getattr(torch, dname), device="cuda")
+    steps = []
+    x_b, s_b = batched_jordan_invert(a, block_size=m,
+                                     probe=batch_recording_probe(B, steps))
+    single, rel = [], []
+    for b in range(B):
+        x_s, s_s, stats = block_jordan_invert_inplace(a[b], block_size=m,
+                                                      collect_stats=True)
+        single.append((stats["pivot_block"].tolist(), bool(s_s)))
+        rel.append(float(inf_norm(x_b[b] - x_s) / inf_norm(x_s)))
+    per_elem = [[s[b] for s in steps] for b in range(B)]
+    row = {"phase": "reference", "engine": "batched", "against": "inplace",
+           "batch": B, "n": n, "m": m, "generator": gen, "dtype": dname,
+           "pivots_equal": all(per_elem[b] == single[b][0]
+                               for b in range(B)),
+           "singular": [int(s_b.sum()), sum(s for _, s in single)],
+           "max_rel_diff": max(rel)}
+    emit(row)
+    del a, x_b
+    torch.cuda.empty_cache()
+    if not (row["pivots_equal"] and row["singular"] == [0, 0]):
+        raise AssertionError(f"the batched engine disagrees with the "
+                             f"in-place engine: {row}")
 
 
 def phase_reference_update(torch):
@@ -900,7 +1117,9 @@ def phase_solve(torch):
         expected = {"gj_probe_fused_panel": 0, "gj_probe": 0,
                     "fused_update": (-(-nr // res.group) * runs
                                      if engine in PALLAS_ENGINES else 0)}
-        expected[probe_mod.probe_body(m)] = nr * runs
+        body = ("gj_probe" if engine == "augmented"
+                else probe_mod.probe_body(m))
+        expected[body] = nr * runs
         if engine == "grouped_pallas_bf16":
             # The driver's own gate: bf16 eps for the bf16 result, fp32
             # for a refined or re-solved one.
@@ -931,7 +1150,135 @@ def phase_solve(torch):
             raise AssertionError(f"solve failed its checks: {row}")
         for name in totals:
             totals[name] += launches[name]
+    for name, count in phase_solve_batch(torch, counters).items():
+        totals[name] += count
     return totals
+
+
+def stack_metrics(torch, a, x):
+    """batch_metrics of the (B, n, n) stacks a and x, METRICS_CHUNK
+    elements a call, concatenated."""
+    from tpu_jordan_torch.driver import batch_metrics
+
+    parts = [batch_metrics(a[c:c + METRICS_CHUNK], x[c:c + METRICS_CHUNK])
+             for c in range(0, a.shape[0], METRICS_CHUNK)]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def batch_gate(torch, met, n: int, eps: float):
+    """The solve rows' gate min(3·eps·n·κ∞/‖A‖∞, 0.5), per element."""
+    return (3.0 * eps * n * met["norm_x"]).clamp(max=0.5)
+
+
+def phase_solve_batch(torch, counters):
+    """The batch path: every BATCH_SOLVE_ROWS row through
+    driver.solve_batch, warm, with the kernels' counts set to 0 just before
+    the timed run and read just after.  One probe call a superstep for the
+    whole batch: gj_probe_fused_panel launches = Nr.  Every element's
+    rel_residual, from batch_metrics over the regenerated stack, is held to
+    the gate min(3·eps·n·κ∞/‖A‖∞, 0.5).  The reference algorithm misses
+    that gate on some rand elements (the JAX package's in-place engine
+    too, on the CPU: PERF.md), so an element over it must be the main
+    path's result: the single in-place engine on that element must take
+    the same pivots, and is printed beside it.  Returns the counts summed
+    over the rows."""
+    from tpu_jordan_torch.driver import solve_batch
+    from tpu_jordan_torch.ops import (batched_jordan_invert,
+                                      block_jordan_invert_inplace,
+                                      generate_batch, inf_norm,
+                                      residual_inf_norm)
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+
+    totals = dict.fromkeys(counters, 0)
+    for B, n, m, gen, dname in BATCH_SOLVE_ROWS:
+        dtype = getattr(torch, dname)
+        eps = float(torch.finfo(dtype).eps)
+        solve_batch(n, m, batch=B, generator=gen, dtype=dname,
+                    device="cuda")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in counters.values():
+            mod.reset_launches()
+        wall0 = time.perf_counter()
+        res = solve_batch(n, m, batch=B, generator=gen, dtype=dname,
+                          device="cuda")
+        wall = time.perf_counter() - wall0
+        launches = {name: mod.launches for name, mod in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        nr = -(-n // m)
+        expected = {"gj_probe_fused_panel": 0, "gj_probe": 0,
+                    "fused_update": 0}
+        expected[probe_mod.probe_body(m)] = nr
+        inv = res.inverse
+        a = generate_batch(gen, n, B, dtype, device="cuda")
+        met = stack_metrics(torch, a, inv)
+        gate = batch_gate(torch, met, n, eps)
+        ratio = met["rel_residual"] / gate
+        over = []
+        for b in (ratio >= 1).nonzero().flatten().tolist():
+            steps = []
+            batched_jordan_invert(a[b:b + 1], block_size=m,
+                                  probe=batch_recording_probe(1, steps))
+            x_s, s_s, stats = block_jordan_invert_inplace(
+                a[b], block_size=m, collect_stats=True)
+            over.append({
+                "element": b, "rel_residual": float(met["rel_residual"][b]),
+                "gate": float(gate[b]), "kappa_inf": float(met["kappa"][b]),
+                "single_rel_residual": float(residual_inf_norm(a[b], x_s)
+                                             / inf_norm(a[b])),
+                "single_singular": bool(s_s),
+                "pivots_equal": ([p[0] for p in steps]
+                                 == stats["pivot_block"].tolist())})
+        del a
+        row = {"phase": "solve", "engine": "batched", "batch": B, "n": n,
+               "m": m, "generator": gen, "dtype": dname,
+               "seconds": res.elapsed, "gflops": res.gflops, "wall_s": wall,
+               "peak_gb": peak_gb,
+               "elements_under_gate": int((ratio < 1).sum()),
+               "max_rel_residual": float(met["rel_residual"].max()),
+               "max_rel_residual_over_gate": float(ratio.max()),
+               "max_kappa_inf": float(met["kappa"].max()),
+               "over_gate": over,
+               "supersteps": nr, "launches": launches,
+               "expected_launches": expected,
+               "finite": bool(torch.isfinite(inv).all()),
+               "shape": list(inv.shape)}
+        emit(row)
+        del res, inv, met
+        torch.cuda.empty_cache()
+        if not (launches == expected and row["finite"]
+                and row["shape"] == [B, n, n]
+                and all(o["pivots_equal"] and not o["single_singular"]
+                        for o in over)):
+            raise AssertionError(f"solve_batch failed its checks: {row}")
+        totals = {name: totals[name] + launches[name] for name in totals}
+    return totals
+
+
+def phase_batch_fp32(torch):
+    """bench.py's batched tiers in fp32 (BATCH_SOLVE_ROWS' shapes) through
+    the batched engine: how many elements are flagged singular and how
+    many miss the gate, with their κ∞ (solve_batch refuses a batch with a
+    flagged element, so the engine is called directly)."""
+    from tpu_jordan_torch.ops import batched_jordan_invert, generate_batch
+
+    for B, n, m, gen, _ in BATCH_SOLVE_ROWS:
+        a = generate_batch(gen, n, B, torch.float32, device="cuda")
+        inv, singular = batched_jordan_invert(a, block_size=m)
+        met = stack_metrics(torch, a, inv)
+        ratio = met["rel_residual"] / batch_gate(
+            torch, met, n, float(torch.finfo(torch.float32).eps))
+        over = (ratio >= 1).nonzero().flatten().tolist()
+        emit({"phase": "batch_fp32", "batch": B, "n": n, "m": m,
+              "generator": gen, "dtype": "float32",
+              "singular": singular.nonzero().flatten().tolist(),
+              "singular_kappa_inf": met["kappa"][singular].tolist(),
+              "over_gate": over,
+              "over_gate_ratio": ratio[over].tolist(),
+              "over_gate_kappa_inf": met["kappa"][over].tolist(),
+              "max_kappa_inf": float(met["kappa"].max())})
+        del a, inv, met
+        torch.cuda.empty_cache()
 
 
 def phase_knife_edge(torch):
@@ -1066,11 +1413,13 @@ def main(argv=None) -> int:
     rows = {name: [] for name in KERNELS}
     if "kernel_vs_plain" in phases:
         rows.update(phase_kernel_vs_plain(torch))
+        rows["gj_probe"] += phase_scaled_vs_plain(torch)
         rows["fused_update"] = phase_update_vs_plain(torch)
         rows.update(phase_variants_vs_plain(torch))
     launches = {}
     if "reference" in phases:
         phase_reference(torch)
+        phase_reference_engines(torch)
         launches.update(phase_reference_variants(torch))
     if "solve" in phases:
         launches.update(phase_solve(torch))
@@ -1078,6 +1427,8 @@ def main(argv=None) -> int:
         phase_knife_edge(torch)
     if "cluster_sweep" in phases:
         phase_cluster_sweep(torch)
+    if "batch_fp32" in phases:
+        phase_batch_fp32(torch)
 
     # Each kernel's representative row: the probes at 4096/m128's first
     # superstep (gj_probe.cu at 1000/m50's), the update at 8192/m128 fp32

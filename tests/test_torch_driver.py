@@ -11,6 +11,7 @@ import torch
 
 from tpu_jordan import driver as jdriver
 from tpu_jordan import io as jio
+from tpu_jordan.ops import generate as jgenerate
 from tpu_jordan.__main__ import main as jmain
 from tpu_jordan.tuning.tuner import auto_select
 
@@ -22,6 +23,10 @@ from tpu_jordan_torch.errors import (
     SingularMatrixError,
     UsageError,
 )
+
+
+def _inf(x):
+    return np.abs(x).sum(axis=-1).max()
 
 
 def _gate(res, eps, n):
@@ -77,6 +82,7 @@ def test_auto_engine_matches_jax_cost_rule(n):
     ("grouped_pallas", 4, ("grouped_pallas", 4)),
     ("grouped_pallas_bf16", 0, ("grouped_pallas_bf16", 2)),
     ("grouped_pallas_bf16", 4, ("grouped_pallas_bf16", 4)),
+    ("augmented", 0, ("augmented", 0)),
 ])
 def test_resolve_engine_matches_jax(engine, group, expect):
     assert jdriver.resolve_engine(engine, group) == expect
@@ -106,6 +112,72 @@ def test_grouped_pallas_solve_matches_jax():
     assert got.recovery == () == ref.recovery
 
 
+@pytest.mark.parametrize("gen,np_dt", [("absdiff", np.float64),
+                                        ("rand", np.float32)])
+def test_augmented_solve_matches_jax(gen, np_dt):
+    """The reference-parity engine (global singularity scale) through both
+    packages' solve: same engine, both within the residual gate, κ∞
+    agreeing as in test_solve_matches_jax."""
+    ref = jdriver.solve(64, 16, generator=gen, dtype=np_dt,
+                        engine="augmented")
+    got = tdriver.solve(64, 16, generator=gen, dtype=np_dt,
+                        engine="augmented", device="cpu")
+    eps = float(np.finfo(np_dt).eps)
+    assert got.engine == ref.engine == "augmented"
+    assert got.rel_residual < _gate(got, eps, 64)
+    assert ref.rel_residual < _gate(ref, eps, 64)
+    assert abs(got.kappa - ref.kappa) / ref.kappa <= 10 * eps * 64 * ref.kappa
+
+
+@pytest.mark.parametrize("n,m,batch,gen,np_dt", [
+    (64, 16, 4, "rand", np.float32),
+    (96, 32, 3, "absdiff", np.float64),
+    (128, 32, 2, "rand", np.float64),
+])
+def test_solve_batch_matches_jax(n, m, batch, gen, np_dt):
+    """Both packages' solve_batch: element 0's residual within the gate on
+    both sides, κ∞ agreeing as in test_solve_matches_jax, and every
+    element's inverse within min(100·eps·κ∞, 0.1) of the JAX one."""
+    ref = jdriver.solve_batch(n, m, batch=batch, generator=gen, dtype=np_dt)
+    got = tdriver.solve_batch(n, m, batch=batch, generator=gen, dtype=np_dt,
+                              device="cpu")
+    eps = float(np.finfo(np_dt).eps)
+    assert got.rel_residual < _gate(got, eps, n)
+    assert ref.rel_residual < _gate(ref, eps, n)
+    assert abs(got.kappa - ref.kappa) / ref.kappa <= 10 * eps * n * ref.kappa
+    assert got.engine == "batched" and got.device == "cpu"
+    assert got.inverse.shape == (batch, n, n) and got.gflops > 0
+    xj = np.asarray(ref.inverse)
+    xt = got.inverse.numpy()
+    a = np.stack([np.asarray(jgenerate(gen, (n, n), np_dt, row_offset=b * n,
+                                       col_offset=b * n))
+                  for b in range(batch)])
+    for b in range(batch):
+        kappa = _inf(a[b]) * _inf(xj[b])
+        assert _inf(xt[b] - xj[b]) / _inf(xj[b]) <= min(100 * eps * kappa,
+                                                        0.1)
+
+
+@pytest.mark.parametrize("n,m,batch", [(12, 6, 3), (8, 8, 4), (16, 16, 3)])
+def test_solve_batch_singular_count_matches_jax(n, m, batch):
+    """Hilbert windows: the JAX package's count of flagged elements."""
+    with pytest.raises(jdriver.SingularMatrixError) as ref:
+        jdriver.solve_batch(n, m, batch=batch, generator="hilbert",
+                            dtype=np.float64)
+    with pytest.raises(SingularMatrixError) as got:
+        tdriver.solve_batch(n, m, batch=batch, generator="hilbert",
+                            dtype=np.float64, device="cpu")
+    assert str(got.value) == str(ref.value)
+
+
+def test_solve_batch_refuses_telemetry_and_needs_a_card(monkeypatch):
+    with pytest.raises(UsageError):
+        tdriver.solve_batch(8, 4, batch=2, device="cpu", telemetry=object())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceUnavailableError):
+        tdriver.solve_batch(8, 4, batch=2)
+
+
 @pytest.mark.parametrize("engine", ["grouped_pallas", "grouped_pallas_bf16"])
 def test_unrolled_only_limit_matches_jax(engine):
     """Nr = 65 > MAX_UNROLL_NR = 64 is refused by both packages."""
@@ -124,7 +196,8 @@ def _write(tmp_path, name, text):
 @pytest.mark.parametrize("case", [
     "ok", "zero_n", "missing_m", "missing_file", "singular_file",
     "unreadable_file", "group_one", "unknown_engine", "grouped_pallas",
-    "pallas_group_one",
+    "pallas_group_one", "augmented", "augmented_group", "batch",
+    "batch_file", "batch_engine",
 ])
 def test_cli_exit_codes_match_jax(tmp_path, case):
     argv = {
@@ -139,11 +212,19 @@ def test_cli_exit_codes_match_jax(tmp_path, case):
         "grouped_pallas": ["64", "16", "--engine", "grouped_pallas"],
         "pallas_group_one": ["8", "4", "--engine", "grouped_pallas",
                              "--group", "1"],
+        "augmented": ["96", "16", "--engine", "augmented"],
+        "augmented_group": ["8", "4", "--engine", "augmented", "--group",
+                            "2"],
+        "batch": ["64", "16", "--batch", "4"],
+        "batch_file": ["8", "4", _write(tmp_path, "r", "1 " * 64),
+                       "--batch", "4"],
+        "batch_engine": ["64", "16", "--batch", "4", "--engine", "grouped"],
     }[case]
     expected = {"ok": 0, "zero_n": 1, "missing_m": 1, "missing_file": 2,
                 "singular_file": 2, "unreadable_file": 2, "group_one": 1,
                 "unknown_engine": 1, "grouped_pallas": 0,
-                "pallas_group_one": 1}[case]
+                "pallas_group_one": 1, "augmented": 0, "augmented_group": 1,
+                "batch": 0, "batch_file": 1, "batch_engine": 1}[case]
     assert jmain(argv + ["--quiet"]) == expected
     assert tmain(argv + ["--device", "cpu"]) == expected
 
@@ -187,7 +268,7 @@ def test_no_gpu_raises_instead_of_running_on_cpu(monkeypatch):
     {"plan_cache": "plans.json"},
     {"precision": "high"},
     {"precision": "mixed"},
-    {"engine": "augmented"},
+    {"engine": "augmented", "group": 2},
     {"engine": "lookahead"},
     {"dtype": "complex64"},
 ])

@@ -34,11 +34,15 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--refine", type=int, default=0,
                     help="Newton-Schulz refinement steps")
     ap.add_argument("--engine", default="auto",
-                    help="auto | inplace | grouped | grouped_pallas | "
-                         "grouped_pallas_bf16")
+                    help="auto | inplace | grouped | augmented | "
+                         "grouped_pallas | grouped_pallas_bf16")
     ap.add_argument("--group", type=int, default=0,
                     help="delayed-group size for the grouped engines "
                          "(default 2)")
+    ap.add_argument("--batch", type=int, default=1,
+                    help="invert a batch of B generated matrices through "
+                         "the batched engine (generator input only; "
+                         "element b at index offset b*n)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("-v", "--verbose", action="store_true",
                     help="print the corners of A and of its inverse")
@@ -61,14 +65,25 @@ def main(argv=None) -> int:
         print(_USAGE, file=sys.stderr)
         return 1
 
-    from .driver import solve
+    from .driver import solve, solve_batch
 
     try:
-        result = solve(n=args.n, block_size=args.m, file=args.file,
-                       generator=args.generator, dtype=args.dtype,
-                       refine=args.refine, device=args.device,
-                       verbose=args.verbose, engine=args.engine,
-                       group=args.group)
+        if args.batch > 1:
+            if args.file is not None:
+                raise UsageError("--batch requires generator input")
+            if args.engine != "auto" or args.group != 0:
+                raise UsageError("--batch uses the batched engine; "
+                                 "--engine/--group do not apply")
+            result = solve_batch(n=args.n, block_size=args.m,
+                                 batch=args.batch, generator=args.generator,
+                                 dtype=args.dtype, refine=args.refine,
+                                 verbose=args.verbose, device=args.device)
+        else:
+            result = solve(n=args.n, block_size=args.m, file=args.file,
+                           generator=args.generator, dtype=args.dtype,
+                           refine=args.refine, device=args.device,
+                           verbose=args.verbose, engine=args.engine,
+                           group=args.group)
     except FileNotFoundError:
         print(f"cannot open {args.file}")
         return 2

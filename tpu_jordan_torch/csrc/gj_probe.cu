@@ -7,9 +7,11 @@
 // dispatch body for m without a panel width) and _gj_inplace_kernel (v3).
 // Both compute one function: for each m x m block of a contiguous (nc, m, m)
 // stack, its inverse and a singular flag.  The flag is raised when the input
-// holds a non-finite value, when ‖block‖∞ < eps, or when any pivot has
-// |piv| < eps·‖block‖∞ — the rule of the plain version,
-// tpu_jordan_torch/ops/block_inverse.py.
+// holds a non-finite value, when s < eps, or when any pivot has
+// |piv| < eps·s, where the scale s is ‖block‖∞, or |scale[0]| when the
+// caller passes a one-element device scale (the augmented engine's global
+// scale ‖A‖∞, main.cpp:782/972; a pointer, so the host never reads it) —
+// the rule of the plain version, tpu_jordan_torch/ops/block_inverse.py.
 //
 // Algebra.  Gauss–Jordan with implicit partial pivoting and the width-m
 // in-place step: at step k the pivot is the unused row r with the largest
@@ -324,8 +326,10 @@ struct Frame {
     }
   }
 
-  // Rank 0's thread 0: the flag so far and the threshold eps·‖block‖∞.
-  __device__ void start_flag(T eps, int& bad, T& thresh) const {
+  // Rank 0's thread 0: the flag so far and the threshold eps·s, with s
+  // the caller's |scale[0]| if given, else ‖block‖∞.
+  __device__ void start_flag(T eps, const T* scale, int& bad,
+                             T& thresh) const {
     bad = 0;
     thresh = T(0);
     if (rank == 0 && tid == 0) {
@@ -334,6 +338,7 @@ struct Frame {
         norm = fmax(norm, s_nsum[w]);
         bad |= s_nfin[w];
       }
+      if (scale != nullptr) norm = fabs(*scale);
       bad = bad || norm < eps;
       thresh = eps * norm;
     }
@@ -369,7 +374,8 @@ struct Frame {
 template <typename T, int CM, int RM>
 __global__ void __launch_bounds__(kRegWarps * 32)
     gj_probe_reg_kernel(const T* __restrict__ blocks, T* __restrict__ inv,
-                        uint8_t* __restrict__ sing, int m, T eps) {
+                        uint8_t* __restrict__ sing, int m, T eps,
+                        const T* __restrict__ scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Frame<T, false> F(smem, m);
   using Sy = Sync<false>;
@@ -414,7 +420,7 @@ __global__ void __launch_bounds__(kRegWarps * 32)
 
   int bad;
   T thresh;
-  F.start_flag(eps, bad, thresh);
+  F.start_flag(eps, scale, bad, thresh);
   unsigned used = 0;  // bit t: own row t was a pivot
 
   for (int k = 0; k < m; ++k) {
@@ -514,7 +520,8 @@ template <typename T, bool kGlobalW>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     gj_probe_kernel(const T* __restrict__ blocks, T* __restrict__ inv,
                     uint8_t* __restrict__ sing, T* __restrict__ scratch,
-                    int m, T eps, int w_rows) {
+                    int m, T eps, const T* __restrict__ scale,
+                    int w_rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Frame<T, true> F(smem, m, w_rows);
   using Sy = Sync<true>;
@@ -556,7 +563,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 
   int bad;
   T thresh;
-  F.start_flag(eps, bad, thresh);
+  F.start_flag(eps, scale, bad, thresh);
 
   for (int k = 0; k < m; ++k) {
     const int par = k & 1;
@@ -736,8 +743,8 @@ int run(K kernel, cudaLaunchConfig_t cfg, int C, int* clusters,
 // Launch (or, with `clusters`, ask how many clusters the card holds).
 template <typename T>
 int launch(const void* blocks, void* inv, void* sing, void* scratch, int nc,
-           int m, T eps, int schedule, int C, void* stream,
-           int* clusters = nullptr) {
+           int m, T eps, const void* scale, int schedule, int C,
+           void* stream, int* clusters = nullptr) {
   if (nc <= 0 || m <= 0) return int(cudaErrorInvalidValue);
   const bool global = schedule == kGlobal;
   if (C < 1 || C > kMaxCluster || C > m || schedule < kBlock ||
@@ -769,16 +776,17 @@ int launch(const void* blocks, void* inv, void* sing, void* scratch, int nc,
   T* o = static_cast<T*>(inv);
   uint8_t* flags = static_cast<uint8_t*>(sing);
   T* w = static_cast<T*>(scratch);
+  const T* sc = static_cast<const T*>(scale);
   if (schedule == kBlock)
     return m <= 64 ? run(gj_probe_reg_kernel<T, 2, 4>, cfg, 1, clusters, in, o,
-                         flags, m, eps)
+                         flags, m, eps, sc)
                    : run(gj_probe_reg_kernel<T, 4, 8>, cfg, 1, clusters, in, o,
-                         flags, m, eps);
+                         flags, m, eps, sc);
   if (schedule == kCluster)
     return run(gj_probe_kernel<T, false>, cfg, C, clusters, in, o, flags, w,
-               m, eps, w_rows);
+               m, eps, sc, w_rows);
   return run(gj_probe_kernel<T, true>, cfg, C, clusters, in, o, flags, w, m,
-             eps, w_rows);
+             eps, sc, w_rows);
 }
 
 }  // namespace
@@ -793,9 +801,9 @@ int gj_probe_active_clusters(int m, int elem_bytes, int schedule,
   const int err =
       elem_bytes == 8
           ? launch<double>(nullptr, nullptr, nullptr, nullptr, 1, m, 0.0,
-                           schedule, cluster, nullptr, &n)
+                           nullptr, schedule, cluster, nullptr, &n)
           : launch<float>(nullptr, nullptr, nullptr, nullptr, 1, m, 0.f,
-                          schedule, cluster, nullptr, &n);
+                          nullptr, schedule, cluster, nullptr, &n);
   return err ? 0 : n;
 }
 
@@ -804,21 +812,23 @@ int gj_probe_active_clusters(int m, int elem_bytes, int schedule,
 // a candidate, cluster 1, m ≤ 128), 1 (cluster: W's rows in the shared
 // memory of `cluster` blocks a candidate, 2..16) or 2 (global: W in
 // scratch, (nc, m, m), its rows over `cluster` blocks, 2..16); scratch is
-// null unless global.
+// null unless global.  scale is null (each block's threshold scale is its
+// own ‖block‖∞) or one device value of the blocks' type, the scale of
+// every block.
 // Returns 0, a CUDA error code, or 1000 when the schedule does not fit
 // this card.
 int gj_probe_f32(const void* blocks, void* inv, void* sing, void* scratch,
-                 int nc, int m, float eps, int schedule, int cluster,
-                 void* stream) {
-  return launch<float>(blocks, inv, sing, scratch, nc, m, eps, schedule,
-                       cluster, stream);
+                 int nc, int m, float eps, const void* scale, int schedule,
+                 int cluster, void* stream) {
+  return launch<float>(blocks, inv, sing, scratch, nc, m, eps, scale,
+                       schedule, cluster, stream);
 }
 
 int gj_probe_f64(const void* blocks, void* inv, void* sing, void* scratch,
-                 int nc, int m, double eps, int schedule, int cluster,
-                 void* stream) {
-  return launch<double>(blocks, inv, sing, scratch, nc, m, eps, schedule,
-                        cluster, stream);
+                 int nc, int m, double eps, const void* scale, int schedule,
+                 int cluster, void* stream) {
+  return launch<double>(blocks, inv, sing, scratch, nc, m, eps, scale,
+                        schedule, cluster, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
 """End-to-end solve driver: the single-device core of the JAX package's
-``driver.solve``.
+``driver.solve``, and its ``solve_batch``.
 
 Rebuild of ``solve`` (main.cpp:343-519): generate or read A, time the
 inversion, then verify independently with the residual ‖A·A⁻¹ − I‖∞ on a
@@ -31,10 +31,13 @@ from .errors import SingularMatrixError, UsageError
 from .interop import from_numpy, resolve_device, resolve_dtype
 from .io import read_matrix_file
 from .ops import (
+    batched_jordan_invert,
+    block_jordan_invert,
     block_jordan_invert_inplace,
     block_jordan_invert_inplace_grouped,
     block_jordan_invert_inplace_grouped_pallas,
     generate,
+    generate_batch,
     inf_norm,
     residual_inf_norm,
 )
@@ -44,16 +47,16 @@ from .resilience.policy import DEFAULT_POLICY, ResiliencePolicy
 
 __all__ = ["ENGINES", "GROUPED_MIN_SINGLE_CHIP_N", "MAX_UNROLL_NR",
            "PALLAS_ENGINES", "SingularMatrixError", "SolveResult",
-           "UsageError", "invert", "resolve_engine", "solve"]
+           "UsageError", "batch_metrics", "invert", "resolve_engine",
+           "solve", "solve_batch"]
 
 # The fused-update engines: grouped engines whose group-closing step is the
 # fused_update kernel, in fp32 or with bf16 operands.
 PALLAS_ENGINES = ("grouped_pallas", "grouped_pallas_bf16")
 # The engines ported so far.  The JAX package's other engines arrive with
 # later slices of the port (ROADMAP.md, Queue A).
-ENGINES = ("auto", "inplace", "grouped") + PALLAS_ENGINES
+ENGINES = ("auto", "inplace", "grouped", "augmented") + PALLAS_ENGINES
 _LATER_ENGINES = {
-    "augmented": "Queue A item 6",
     "lookahead": "Queue A item 8",
     "swapfree": "Queue A item 15",
 }
@@ -114,6 +117,9 @@ def resolve_engine(engine: str, group: int, n: int | None = None):
                          "engine='inplace' (or group >= 2)")
     if group > 1 and engine == "inplace":
         raise UsageError("group > 1 requires engine='grouped' (or 'auto')")
+    if group > 1 and engine == "augmented":
+        raise UsageError("the augmented reference-parity engine has no "
+                         "grouped variant")
     if engine in PALLAS_ENGINES:
         return engine, (group if group > 1 else 2)
     if engine == "grouped" or (engine == "auto" and group > 1):
@@ -145,6 +151,11 @@ def invert(a: torch.Tensor, engine: str, group: int, block_size: int,
     if engine == "grouped":
         return block_jordan_invert_inplace_grouped(
             a, block_size=block_size, refine=refine, group=group)
+    if engine == "augmented":
+        # The reference's exact rule: every inner pivot thresholded
+        # against eps·‖A‖∞ of the whole matrix (main.cpp:972/1046).
+        return block_jordan_invert(a, block_size=block_size, refine=refine,
+                                   global_scale=True)
     return block_jordan_invert_inplace(a, block_size=block_size,
                                        refine=refine)
 
@@ -177,6 +188,23 @@ def _refuse_later_options(workers, gather, telemetry, policy, numerics,
                          "Queue A item 7)")
 
 
+def _timed(dev, fn):
+    """Run ``fn()``; returns (its result, seconds): CUDA events around it on
+    the card, the host clock on the CPU."""
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            stop.record()
+            stop.synchronize()
+            return out, start.elapsed_time(stop) / 1e3
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
 def solve(
     n: int,
     block_size: int | None = None,
@@ -201,11 +229,12 @@ def solve(
 
     Runs on the CUDA card unless ``device="cpu"``; without a card it
     raises DeviceUnavailableError.  ``engine``: "auto" | "inplace" |
-    "grouped" | "grouped_pallas" | "grouped_pallas_bf16" (see
-    resolve_engine).  ``policy`` (a ``resilience.ResiliencePolicy``)
-    retries the engine call per ``policy.retry`` and guards the result
-    with the residual gate and its ladder (rungs on
-    ``SolveResult.recovery``; an exhausted ladder raises
+    "grouped" | "augmented" | "grouped_pallas" | "grouped_pallas_bf16"
+    (see resolve_engine; "augmented" is the ~4N³ reference-parity engine
+    with the global singularity scale).  ``policy`` (a
+    ``resilience.ResiliencePolicy``) retries the engine call per
+    ``policy.retry`` and guards the result with the residual gate and its
+    ladder (rungs on ``SolveResult.recovery``; an exhausted ladder raises
     ResidualGateError).  ``grouped_pallas_bf16`` never runs without one:
     it attaches ``DEFAULT_POLICY`` when none is given and judges the gate
     at bf16 eps, escalating its re-solve to ``grouped_pallas``.  Raises
@@ -242,18 +271,9 @@ def solve(
         print_corner(a)
 
     def execute():
-        if dev.type == "cuda":
-            with torch.cuda.device(dev):
-                start = torch.cuda.Event(enable_timing=True)
-                stop = torch.cuda.Event(enable_timing=True)
-                start.record()
-                inv, singular = invert(a, engine, group, block_size, refine)
-                stop.record()
-                stop.synchronize()
-                return inv, singular, start.elapsed_time(stop) / 1e3
-        t0 = time.perf_counter()
-        inv, singular = invert(a, engine, group, block_size, refine)
-        return inv, singular, time.perf_counter() - t0
+        (inv, singular), elapsed = _timed(dev, lambda: invert(
+            a, engine, group, block_size, refine))
+        return inv, singular, elapsed
 
     def reload(_exc, _attempt):
         # A retry starts from a fresh load, as the JAX package's does.
@@ -316,4 +336,105 @@ def solve(
         device=str(inv.device),
         _norm_a=norm_a,
         recovery=recovery,
+    )
+
+
+def batch_metrics(a: torch.Tensor, x: torch.Tensor, n_real=None) -> dict:
+    """Per-element accuracy of a (B, N, N) stack ``x`` of inverses of
+    ``a``: a dict of (B,) tensors ``residual`` ‖A·X−I‖∞, ``norm_a`` ‖A‖∞,
+    ``norm_x`` ‖X‖∞, ``kappa`` = ‖A‖∞‖X‖∞ and ``rel_residual`` =
+    residual/‖A‖∞, the conventions of ``SolveResult``.
+
+    ``n_real`` ((B,) ints) masks the norms to each element's real rows
+    when the stack is identity-padded: pad rows abs-sum to exactly 1 and
+    would cap a small true norm.  The residual needs no mask (a pad row of
+    A·X−I is zero).  An all-masked element (n_real = 0) reports 0, not NaN.
+    Counterpart of the JAX package's ``batch_metrics``."""
+    N = a.shape[-1]
+    r = a @ x
+    r.diagonal(dim1=-2, dim2=-1).sub_(1)
+    r_sums = r.abs().sum(dim=-1)
+    a_sums = a.abs().sum(dim=-1)
+    x_sums = x.abs().sum(dim=-1)
+    if n_real is not None:
+        rows = torch.arange(N, device=a.device)
+        mask = rows[None, :] < torch.as_tensor(n_real,
+                                               device=a.device)[:, None]
+        r_sums = torch.where(mask, r_sums, 0)
+        a_sums = torch.where(mask, a_sums, 0)
+        x_sums = torch.where(mask, x_sums, 0)
+    residual = r_sums.amax(dim=-1)
+    norm_a = a_sums.amax(dim=-1)
+    norm_x = x_sums.amax(dim=-1)
+    positive = norm_a > 0
+    return {
+        "residual": residual,
+        "norm_a": norm_a,
+        "norm_x": norm_x,
+        "kappa": norm_a * norm_x,
+        "rel_residual": torch.where(
+            positive, residual / torch.where(positive, norm_a, 1), residual),
+    }
+
+
+def solve_batch(
+    n: int,
+    block_size: int | None = None,
+    batch: int = 1,
+    generator: str = "absdiff",
+    dtype=torch.float32,
+    refine: int = 0,
+    precision: str = "highest",
+    verbose: bool = False,
+    device=None,
+    telemetry=None,
+) -> SolveResult:
+    """Invert ``batch`` generated n×n matrices through the batched engine
+    (``ops/batched.py``; one device), on the CUDA card unless
+    ``device="cpu"``.
+
+    Element b is the generator's window at offset b·n on both axes
+    (``generate_batch``): distinct matrices for ``rand``, copies for
+    translation-invariant generators like ``absdiff``.  The engine call is
+    timed as ``solve`` times it; ``gflops`` counts 2n³·batch.  Raises
+    SingularMatrixError naming how many elements were flagged.
+    ``residual``, ``kappa`` and ``rel_residual`` are element 0's, on a
+    freshly generated copy of it.  Counterpart of the JAX package's
+    ``solve_batch``."""
+    if telemetry is not None:
+        raise UsageError("telemetry is not ported yet (ROADMAP.md Queue A "
+                         "item 12)")
+    dev = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    if block_size is None:
+        block_size = default_block_size(n)
+    _, refine = resolve_precision(precision, refine)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    a = generate_batch(generator, n, batch, dtype, device=dev)
+    (inv, singular), elapsed = _timed(dev, lambda: batched_jordan_invert(
+        a, block_size=block_size, refine=refine))
+    del a
+    nsing = int(singular.sum())
+    if nsing:
+        raise SingularMatrixError(
+            f"singular matrix ({nsing}/{batch} elements flagged)")
+    a0 = generate(generator, (n, n), dtype, device=dev)
+    met = batch_metrics(a0[None], inv[:1])
+    residual = float(met["residual"][0])
+    if verbose:
+        print(f"glob_time: {elapsed:.2f} ({batch} matrices)")
+        print(f"residual[0]: {residual:e}")
+    return SolveResult(
+        inverse=inv,
+        elapsed=elapsed,
+        residual=residual,
+        n=n,
+        block_size=block_size,
+        gflops=((2.0 * n**3 * batch / elapsed / 1e9)
+                if elapsed > 0 else 0.0),
+        kappa=float(met["kappa"][0]),
+        engine="batched",
+        device=str(inv.device),
+        _norm_a=float(met["norm_a"][0]),
     )

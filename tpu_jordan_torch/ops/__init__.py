@@ -1,5 +1,6 @@
 """Operations of the single-device inversion path."""
 
+from .batched import batched_jordan_invert
 from .block_inverse import (
     batched_block_inverse,
     gauss_jordan_inverse,
@@ -9,8 +10,9 @@ from .fused_update import (
     fused_normalize_eliminate,
     fused_normalize_eliminate_plain,
 )
-from .generators import GENERATORS, generate
+from .generators import GENERATORS, generate, generate_batch
 from .gj_fused_panel import gj_fused_panel_plain
+from .jordan import block_jordan_invert
 from .jordan_inplace import (
     apply_col_perm,
     block_jordan_invert_inplace,
@@ -34,7 +36,9 @@ __all__ = [
     "GENERATORS",
     "apply_col_perm",
     "batched_block_inverse",
+    "batched_jordan_invert",
     "block_inf_norms",
+    "block_jordan_invert",
     "block_jordan_invert_inplace",
     "block_jordan_invert_inplace_grouped",
     "block_jordan_invert_inplace_grouped_pallas",
@@ -44,6 +48,7 @@ __all__ = [
     "fused_normalize_eliminate_plain",
     "gauss_jordan_inverse",
     "generate",
+    "generate_batch",
     "gj_fused_panel_plain",
     "gj_inplace_plain",
     "gj_panel_plain",

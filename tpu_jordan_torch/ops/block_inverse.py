@@ -80,10 +80,13 @@ def batched_block_inverse(
     return inv, singular.reshape(batch_shape)
 
 
-def probe_blocks(cands: torch.Tensor, eps: float | None = None):
+def probe_blocks(cands: torch.Tensor, eps: float | None = None,
+                 scale=None):
     """The pivot-candidate probe shared by the elimination engines: the
     CUDA kernel on a card, the plain version on the CPU (the wrapper
-    decides by the tensor's device).  Returns (inverses, singular_flags)."""
+    decides by the tensor's device).  ``scale``: the singularity scale of
+    every block in place of its own ‖block‖∞ (the augmented engine's
+    global scale).  Returns (inverses, singular_flags)."""
     from .gj_probe import gj_probe
 
-    return gj_probe(cands, eps)
+    return gj_probe(cands, eps, scale)

@@ -92,3 +92,21 @@ def generate(
     jj = col_offset + torch.arange(w, dtype=torch.int32, device=device)
     ii, jj = torch.meshgrid(ii, jj, indexing="ij")
     return fn(ii, jj).to(dtype)
+
+
+def generate_batch(
+    fn: GeneratorFn | str,
+    n: int,
+    batch: int,
+    dtype: torch.dtype = torch.float32,
+    *,
+    device: torch.device | str = "cpu",
+) -> torch.Tensor:
+    """A (batch, n, n) stack whose element b is ``fn``'s window at offset
+    b·n on both axes (the JAX package's ``solve_batch`` inputs).  Made one
+    element at a time, so the index grids' temporaries stay n×n."""
+    out = torch.empty((batch, n, n), dtype=dtype, device=device)
+    for b in range(batch):
+        out[b] = generate(fn, (n, n), dtype, row_offset=b * n,
+                          col_offset=b * n, device=device)
+    return out

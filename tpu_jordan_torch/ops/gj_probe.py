@@ -19,6 +19,12 @@ its two Pallas bodies:
   memory holds stay there, the rest in an L2-resident global scratch).
   The source says more.
 
+With a global ``scale`` (the augmented engine's ‖A‖∞, the JAX package's
+``batched_block_inverse(blocks, scale_norm, eps)``) every m runs
+``csrc/gj_probe.cu``, whose C entries take the scale as a pointer to one
+device value: the JAX engine's ``global_scale`` probe is that rank-1
+algebra, never the panel body's.
+
 On a CPU tensor the wrapper runs the plain version
 (``block_inverse.batched_block_inverse``); on a CUDA tensor it launches one
 of the kernels or raises.  ``launches`` counts the launches of
@@ -67,7 +73,7 @@ def _lib():
     lib = load("gj_probe")
     ptrs = [ctypes.c_void_p] * 4
     tail = [ctypes.c_int, ctypes.c_int]
-    sched = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    sched = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.gj_probe_f32.argtypes = ptrs + tail + [ctypes.c_float] + sched
     lib.gj_probe_f64.argtypes = ptrs + tail + [ctypes.c_double] + sched
     lib.gj_probe_f32.restype = ctypes.c_int
@@ -177,11 +183,14 @@ def probe_body(m: int) -> str:
     return "gj_probe_fused_panel" if takes_panel_body(m) else "gj_probe"
 
 
-def gj_probe(blocks: torch.Tensor, eps: float | None = None):
+def gj_probe(blocks: torch.Tensor, eps: float | None = None, scale=None):
     """Invert an (nc, m, m) stack; returns (inverses, singular_flags).
 
     Sub-fp32 inputs are inverted in fp32 (the engines' policy).  ``eps``
-    defaults to the compute dtype's threshold (``config.eps_for``)."""
+    defaults to the compute dtype's threshold (``config.eps_for``).
+    ``scale`` (a number or a one-element tensor) replaces each block's
+    ‖block‖∞ as the singularity scale of every block; on the card it then
+    runs ``csrc/gj_probe.cu`` whatever m is."""
     if blocks.dim() != 3 or blocks.shape[1] != blocks.shape[2]:
         raise ValueError(f"expected an (nc, m, m) stack, got "
                          f"{tuple(blocks.shape)}")
@@ -192,24 +201,29 @@ def gj_probe(blocks: torch.Tensor, eps: float | None = None):
     if eps is None:
         eps = eps_for(blocks.dtype)
     if blocks.device.type == "cpu":
-        return batched_block_inverse(blocks, None, eps)
-    if takes_panel_body(blocks.shape[1]):
+        return batched_block_inverse(blocks, scale, eps)
+    if scale is None and takes_panel_body(blocks.shape[1]):
         return launch_fused_panel(blocks, eps)
-    inv, sing = launch_kernel(blocks, eps)
+    inv, sing = launch_kernel(blocks, eps, scale=scale)
     global launches
     launches += 1
     return inv, sing
 
 
 def launch_kernel(blocks: torch.Tensor, eps: float,
-                  schedule: tuple[str, int] | None = None):
+                  schedule: tuple[str, int] | None = None, scale=None):
     """Launch ``csrc/gj_probe.cu`` on a CUDA stack of fp32 or fp64 blocks
     and return (inverses, singular_flags); counts nothing.  ``schedule``
     forces a (name, cluster size) in place of :func:`probe_schedule`'s, for
     checks and measurements; the kernel refuses one that does not fit
-    (:class:`KernelLaunchError`)."""
+    (:class:`KernelLaunchError`).  ``scale`` (a number or a one-element
+    tensor) is the singularity scale of every block; it goes to the kernel
+    as a device value, so a CUDA tensor is never read by the host."""
     check_cuda_stack(blocks)
     nc, m, _ = blocks.shape
+    if scale is not None:
+        scale = torch.as_tensor(scale).to(device=blocks.device,
+                                          dtype=blocks.dtype).reshape(1)
     inv = torch.empty_like(blocks)
     sing = torch.empty(nc, dtype=torch.uint8, device=blocks.device)
     if nc == 0:
@@ -224,7 +238,8 @@ def launch_kernel(blocks: torch.Tensor, eps: float,
         fn = lib.gj_probe_f64 if f64 else lib.gj_probe_f32
         err = fn(blocks.data_ptr(), inv.data_ptr(), sing.data_ptr(),
                  None if scratch is None else scratch.data_ptr(),
-                 nc, m, eps, SCHEDULES[name], cluster,
+                 nc, m, eps, None if scale is None else scale.data_ptr(),
+                 SCHEDULES[name], cluster,
                  torch.cuda.current_stream().cuda_stream)
     if err:
         what = ("the schedule does not fit this card" if err == REFUSED

@@ -17,15 +17,16 @@ import torch
 
 
 def pad_with_identity(a: torch.Tensor, N: int) -> torch.Tensor:
-    """Embed (n, n) ``a`` into an (N, N) identity-padded matrix.  Returns
-    ``a`` itself when no padding is needed."""
+    """Embed (..., n, n) ``a`` into an (..., N, N) identity-padded stack.
+    Returns ``a`` itself when no padding is needed."""
     n = a.shape[-1]
     if N == n:
         return a
     if N < n:
         raise ValueError(f"cannot pad {n} down to {N}")
-    out = torch.eye(N, dtype=a.dtype, device=a.device)
-    out[:n, :n] = a
+    out = torch.eye(N, dtype=a.dtype, device=a.device).expand(
+        a.shape[:-2] + (N, N)).clone()
+    out[..., :n, :n] = a
     return out
 
 

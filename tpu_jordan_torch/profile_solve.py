@@ -1,11 +1,14 @@
 """Where a solve's device time goes: one traced engine call per row.
 
     python -m tpu_jordan_torch.profile_solve [--rows 4096:128:absdiff:float32,...]
-        [--engine auto|inplace|grouped|grouped_pallas|grouped_pallas_bf16]
+        [--engine auto|inplace|grouped|augmented|grouped_pallas|
+                  grouped_pallas_bf16] [--batch B]
 
 For each row (n:m:generator:dtype) the matrix is generated on the card, and
 the engine (the one ``driver.solve`` picks for ``--engine``, by default
-``auto``) runs once to warm up, then once untraced and once under
+``auto``; with ``--batch B`` > 1, the batched engine on the stack of B
+matrices that ``driver.solve_batch`` inverts) runs once to warm up, then
+once untraced and once under
 ``torch.profiler``, each between CUDA events.  Prints one JSON line a row:
 both wall times, the device time of the probe kernel, of the fused update
 kernel, of the GEMMs and of everything else, and the idle share of the
@@ -23,7 +26,7 @@ import sys
 import torch
 
 from .driver import ENGINES, invert, resolve_engine
-from .ops import generate
+from .ops import batched_jordan_invert, generate, generate_batch
 
 DEFAULT_ROWS = ("4096:128:absdiff:float32,8192:384:absdiff:float64,"
                 "8192:384:rand:float32,16384:128:rand:float32")
@@ -53,14 +56,21 @@ def _union_us(intervals) -> float:
 
 
 def profile_row(n: int, m: int, gen: str, dtype: torch.dtype,
-                engine: str = "auto") -> dict:
+                engine: str = "auto", batch: int = 1) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    engine, group = resolve_engine(engine, 0, n)
-    a = generate(gen, (n, n), dtype, device="cuda")
+    if batch > 1:
+        engine, group = "batched", 0
+        a = generate_batch(gen, n, batch, dtype, device="cuda")
 
-    def run():
-        return invert(a, engine, group, m)
+        def run():
+            return batched_jordan_invert(a, block_size=m)
+    else:
+        engine, group = resolve_engine(engine, 0, n)
+        a = generate(gen, (n, n), dtype, device="cuda")
+
+        def run():
+            return invert(a, engine, group, m)
 
     run()
     torch.cuda.synchronize()
@@ -91,7 +101,8 @@ def profile_row(n: int, m: int, gen: str, dtype: torch.dtype,
         spans.append((t0, t1))
     busy_ms = _union_us(spans) / 1e3
     return {"n": n, "m": m, "generator": gen, "dtype": str(dtype)[6:],
-            "engine": engine, "group": group, "wall_ms": wall_ms,
+            "engine": engine, "group": group, "batch": batch,
+            "wall_ms": wall_ms,
             "untraced_wall_ms": untraced_ms,
             **{f"{kind}_ms": by_kind[kind] for kind in KINDS},
             "kernels": launches,
@@ -106,6 +117,9 @@ def main(argv=None) -> int:
                     help="comma-separated n:m:generator:dtype rows")
     ap.add_argument("--engine", default="auto", choices=ENGINES,
                     help="the engine of every row (default auto)")
+    ap.add_argument("--batch", type=int, default=1,
+                    help="invert a stack of B matrices a row through the "
+                         "batched engine (--engine does not apply)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_solve: no CUDA device", file=sys.stderr)
@@ -114,7 +128,8 @@ def main(argv=None) -> int:
     for row in args.rows.split(","):
         n, m, gen, dname = row.split(":")
         print(json.dumps(profile_row(int(n), int(m), gen,
-                                     getattr(torch, dname), args.engine)),
+                                     getattr(torch, dname), args.engine,
+                                     args.batch)),
               flush=True)
         torch.cuda.empty_cache()
     return 0
