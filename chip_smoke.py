@@ -62,7 +62,15 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    fp64 (equal pivots, neither singular, inverses within min(eps·n·κ∞,
    0.05)); the batched engine with the kernel against the plain probe at
    B=8, 512², m=64 rand fp32 (per-element pivots equal), and against the
-   single in-place engine element by element at B=8, 512², m=128.
+   single in-place engine element by element at B=8, 512², m=128.  The
+   lookahead engines (LOOKAHEAD_ROWS) against the engines they reorder,
+   both with the kernels: fp64 pivots equal, inverses within min(eps·n·κ∞,
+   0.05), and the lookahead run with the kernels against itself with the
+   plain probe; fp32 every step's pivot held to the plain probe's on the
+   same stack.  The solve engines on WORKLOAD_ROWS' systems with the
+   kernels against the plain probe: fp64 pivots equal, X within
+   min(eps·n·κ∞, 0.05), and on the pivoting rows the pivot sequence equal
+   to the in-place invert engine's; fp32 step by step.
 4. ``solve``: the main path through ``driver.solve``, each row timed on a
    warm run with the three kernels' launch counts set to 0 just before it
    and read just after: ``engine="auto"`` at 4096/m128/absdiff fp32,
@@ -86,8 +94,15 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    engine's pivots.  absdiff at 8192 runs in fp64: in fp32 it sits on the
    knife edge the JAX package records (benchmarks/PHASES.md), and on this
    card it lands on the singular side with the kernel and with the plain
-   probe alike.
-5. ``kernels``: every ported kernel with its launches on its path (the
+   probe alike.  The lookahead path: ``driver.solve(engine="lookahead")``
+   at every LOOKAHEAD_ROWS row (probe launches = Nr of the routed body,
+   the auto rows' gate).  The solve workloads' path: ``linalg.solve_system``
+   and ``linalg.lstsq`` with engine="auto" at every WORKLOAD_ROWS row (the
+   row's engine, probe launches = Nr of the solved system,
+   the backward error under ``solve_gate_threshold``, no ladder rung).
+5. ``overlap``: ``profile_solve``'s device-time split of OVERLAP_ROWS: the
+   lookahead twins must overlap their probe with a GEMM (> 0 ms).
+6. ``kernels``: every ported kernel with its launches on its path (the
    solve rows; the variants' engine runs of ``reference``).
 
 Not run by default: ``--phases knife_edge`` records that fp32 absdiff
@@ -113,7 +128,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("toolchain", "kernel_vs_plain", "reference", "solve")
+PHASES = ("toolchain", "kernel_vs_plain", "reference", "solve", "overlap")
 EXTRA_PHASES = ("knife_edge", "cluster_sweep", "batch_fp32")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
@@ -228,6 +243,31 @@ SOLVE_ROWS = ((4096, 128, "absdiff", "float32", "auto"),
               (8192, 128, "rand", "float32", "grouped_pallas_bf16"),
               (4096, 128, "absdiff", "float64", "augmented"),
               (8192, 384, "absdiff", "float64", "augmented"))
+# (n, m, generator, dtype, group): the probe-ahead engines through
+# driver.solve(engine="lookahead"): the in-place twin at the README's size
+# on the paper's fixture, the grouped twin (k=2) at the 8192 rows of the
+# auto engine.  Probe launches = Nr a run, of the routed body.
+LOOKAHEAD_ROWS = ((4096, 128, "absdiff", "float32", 0),
+                  (8192, 384, "rand", "float32", 2),
+                  (8192, 384, "absdiff", "float64", 2))
+# (n, m, generator, dtype, workload, K, engine): the solve workloads
+# through linalg.solve_system ("solve"; "spd" under assume="spd") and
+# linalg.lstsq on the CLI's inputs (B = the rand window of n × K at row
+# offset n; lstsq's A is n × n//2, so its Gram system is 4096² at m=128),
+# with the engine linalg's auto rule must pick: 16384/m128 has Nr = 128 >
+# MAX_UNROLL_NR, so solve_fori.  Probe launches = Nr of the solved system a
+# run.
+WORKLOAD_ROWS = ((8192, 384, "rand", "float32", "solve", 1, "solve_aug"),
+                 (8192, 384, "rand", "float64", "solve", 512, "solve_aug"),
+                 (16384, 128, "rand", "float32", "solve", 16, "solve_fori"),
+                 (8192, 384, "kms", "float64", "spd", 1, "solve_spd"),
+                 (8192, 128, "rand", "float64", "lstsq", 1, "solve_spd"))
+# (n, m, generator, dtype, engine, group): the rows whose device time
+# profile_solve splits for the overlap check: the lookahead twins and the
+# grouped engine they reorder, at 8192/m384 rand fp32.
+OVERLAP_ROWS = ((8192, 384, "rand", "float32", "lookahead", 0),
+                (8192, 384, "rand", "float32", "lookahead", 2),
+                (8192, 384, "rand", "float32", "grouped", 2))
 # (B, n, m, generator, dtype): driver.solve_batch, bench.py's two batched
 # tiers (bench.py:403-425; BASELINE.md's batch north star), one probe call
 # a superstep for the whole batch.  They run in fp64: in fp32 the rand
@@ -1084,6 +1124,154 @@ def phase_reference_variants(torch):
     return totals
 
 
+def stepwise_probe(torch, picks):
+    """The engines' probe, recording on each call whether the plain probe
+    on the same stack picks the kernel's pivot block (the call index is the
+    step)."""
+    from tpu_jordan_torch.ops import batched_block_inverse, probe_blocks
+    from tpu_jordan_torch.ops.jordan_inplace import _select as select
+
+    def probe(cands, eps):
+        invs, sing = probe_blocks(cands, eps)
+        t = len(picks)
+        picks.append(int(select(invs, sing, t)[1])
+                     == int(select(*batched_block_inverse(cands, None, eps),
+                                   t)[1]))
+        return invs, sing
+    return probe
+
+
+def plain_probe(cands, eps):
+    from tpu_jordan_torch.ops import batched_block_inverse
+
+    return batched_block_inverse(cands, None, eps)
+
+
+def phase_reference_lookahead(torch):
+    """The lookahead engines on the card (LOOKAHEAD_ROWS) against the
+    engines they reorder, run with the kernels: in fp64 equal pivot
+    sequences and inverses within min(eps·n·κ∞, 0.05), and the lookahead
+    run with the kernels against itself with the plain probe by the same
+    rules; in fp32, where a column-sliced GEMM may round a knife-edge step
+    the other way, every step's pivot is held to the plain probe's on the
+    same stack, and the pivots and difference from the reordered engine
+    are printed (held to the same rules where the pivots are equal)."""
+    from tpu_jordan_torch import ops
+
+    for n, m, gen, dname, group in LOOKAHEAD_ROWS:
+        dtype = getattr(torch, dname)
+        a = ops.generate(gen, (n, n), dtype, device="cuda")
+        kw = {"group": group} if group else {}
+        twin = (ops.block_jordan_invert_inplace_grouped if group
+                else ops.block_jordan_invert_inplace)
+        la = (ops.block_jordan_invert_inplace_grouped_lookahead if group
+              else ops.block_jordan_invert_inplace_lookahead)
+        x_t, s_t, st_t = twin(a, block_size=m, collect_stats=True, **kw)
+        x_l, s_l, st_l = la(a, block_size=m, collect_stats=True, **kw)
+        nr = -(-n // m)
+        kappa = float(ops.condition_inf(a, x_t))
+        limit = min(torch.finfo(dtype).eps * n * kappa, 0.05)
+        pivots_equal = bool(torch.equal(st_t["pivot_block"],
+                                        st_l["pivot_block"]))
+        rel = float(ops.inf_norm(x_l - x_t) / ops.inf_norm(x_t))
+        row = {"phase": "reference", "engine": "lookahead", "group": group,
+               "n": n, "m": m, "generator": gen, "dtype": dname,
+               "pivots_equal_to_reordered": pivots_equal,
+               "singular": [bool(s_l), bool(s_t)], "kappa_inf": kappa,
+               "rel_diff_to_reordered": rel, "limit": limit}
+        ok = not (row["singular"][0] or row["singular"][1])
+        if dname == "float64":
+            x_p, s_p, st_p = la(a, block_size=m, collect_stats=True,
+                                probe=plain_probe, **kw)
+            row["plain_pivots_equal"] = bool(torch.equal(
+                st_l["pivot_block"], st_p["pivot_block"]))
+            row["plain_rel_diff"] = float(ops.inf_norm(x_l - x_p)
+                                          / ops.inf_norm(x_p))
+            ok = (ok and pivots_equal and rel <= limit and not bool(s_p)
+                  and row["plain_pivots_equal"]
+                  and row["plain_rel_diff"] <= limit)
+            del x_p
+        else:
+            picks = []
+            la(a, block_size=m, probe=stepwise_probe(torch, picks), **kw)
+            row["stepwise_steps"] = len(picks)
+            row["stepwise_pivots_equal"] = all(picks)
+            ok = (ok and all(picks) and len(picks) == nr
+                  and (rel <= limit or not pivots_equal))
+        emit(row)
+        del a, x_t, x_l
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"the lookahead engine failed its "
+                                 f"checks: {row}")
+
+
+def workload_inputs(torch, n: int, gen: str, dtype, workload: str, k: int):
+    """(A, B) of a WORKLOAD_ROWS row on the card, as the CLI makes them;
+    for lstsq, the (A, B) of its full-column-rank n × n//2 fit."""
+    from tpu_jordan_torch.ops import generate
+
+    b = generate("rand", (n, k), dtype, row_offset=n, device="cuda")
+    cols = n // 2 if workload == "lstsq" else n
+    return generate(gen, (n, cols), dtype, device="cuda"), b
+
+
+def phase_reference_workloads(torch):
+    """The solve engines on the card (WORKLOAD_ROWS' systems; lstsq's Gram
+    system) with the kernels against the plain probe.  fp64: equal pivot
+    sequences, neither singular, X within min(eps·n·κ∞, 0.05) (κ∞ from the
+    in-place invert engine's inverse), and on the pivoting rows the pivot
+    sequence equal to the in-place invert engine's.  fp32: every step's
+    pivot held to the plain probe's on the same stack."""
+    from tpu_jordan_torch import ops
+    from tpu_jordan_torch.linalg.api import solve_engine_fn
+
+    for n, m, gen, dname, workload, k, engine in WORKLOAD_ROWS:
+        dtype = getattr(torch, dname)
+        a, b = workload_inputs(torch, n, gen, dtype, workload, k)
+        if workload == "lstsq":
+            a, b = a.T @ a, a.T @ b
+        size = a.shape[0]
+        nr = -(-size // m)
+        solve = solve_engine_fn(engine, m)
+        row = {"phase": "reference", "workload": workload, "engine": engine,
+               "n": size, "m": m, "k": k, "generator": gen, "dtype": dname}
+        if dname == "float64":
+            piv_k, piv_p = [], []
+            x_k, s_k = solve(a, b, probe=recording_probe(piv_k))
+            x_p, s_p = solve(a, b, probe=recording_probe(piv_p, plain_probe))
+            x_i, s_i, st_i = ops.block_jordan_invert_inplace(
+                a, block_size=m, collect_stats=True)
+            kappa = float(ops.condition_inf(a, x_i))
+            limit = min(torch.finfo(dtype).eps * size * kappa, 0.05)
+            row.update({
+                "pivots_equal": piv_k == piv_p, "steps": len(piv_k),
+                "singular": [bool(s_k), bool(s_p)], "kappa_inf": kappa,
+                "rel_diff": float(ops.inf_norm(x_k - x_p)
+                                  / ops.inf_norm(x_p)),
+                "limit": limit})
+            ok = (row["pivots_equal"] and len(piv_k) == nr
+                  and row["rel_diff"] <= limit and not (s_k or s_p))
+            if engine != "solve_spd":
+                row["pivots_equal_to_invert"] = (
+                    piv_k == st_i["pivot_block"].tolist())
+                ok = ok and row["pivots_equal_to_invert"] and not bool(s_i)
+            del x_k, x_p, x_i
+        else:
+            picks = []
+            _, singular = solve(a, b, probe=stepwise_probe(torch, picks))
+            row.update({"stepwise": True, "steps": len(picks),
+                        "pivots_equal": all(picks),
+                        "singular": bool(singular)})
+            ok = all(picks) and len(picks) == nr and not bool(singular)
+        emit(row)
+        del a, b
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"the {workload} engine disagrees with "
+                                 f"the plain probe: {row}")
+
+
 def phase_solve(torch):
     """The main path: every SOLVE_ROWS row through driver.solve, warm.
     Each row runs with both kernels' counts set to 0 just before it and
@@ -1150,9 +1338,137 @@ def phase_solve(torch):
             raise AssertionError(f"solve failed its checks: {row}")
         for name in totals:
             totals[name] += launches[name]
-    for name, count in phase_solve_batch(torch, counters).items():
-        totals[name] += count
+    for phase in (phase_solve_batch, phase_solve_lookahead,
+                  phase_solve_workloads):
+        for name, count in phase(torch, counters).items():
+            totals[name] += count
     return totals
+
+
+def phase_solve_lookahead(torch, counters):
+    """The lookahead engines' path: every LOOKAHEAD_ROWS row through
+    driver.solve(engine="lookahead"), warm, with the kernels' counts set to
+    0 just before the timed run and read just after: probe launches = Nr of
+    the routed body, no update launch, the gate min(3·eps·n·κ∞/‖A‖∞, 0.5)
+    of the auto rows.  Returns the counts summed over the rows."""
+    from tpu_jordan_torch.driver import solve
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+
+    totals = dict.fromkeys(counters, 0)
+    for n, m, gen, dname, group in LOOKAHEAD_ROWS:
+        eps = float(torch.finfo(getattr(torch, dname)).eps)
+        solve(n, m, generator=gen, dtype=dname, engine="lookahead",
+              group=group, device="cuda")
+        torch.cuda.empty_cache()
+        for mod in counters.values():
+            mod.reset_launches()
+        wall0 = time.perf_counter()
+        res = solve(n, m, generator=gen, dtype=dname, engine="lookahead",
+                    group=group, device="cuda")
+        wall = time.perf_counter() - wall0
+        launches = {name: mod.launches for name, mod in counters.items()}
+        nr = -(-n // m)
+        expected = dict.fromkeys(counters, 0)
+        expected[probe_mod.probe_body(m)] = nr
+        gate = min(3.0 * eps * n * res.kappa / res._norm_a, 0.5)
+        row = {"phase": "solve", "n": n, "m": m, "generator": gen,
+               "dtype": dname, "engine": res.engine, "group": res.group,
+               "seconds": res.elapsed, "gflops": res.gflops, "wall_s": wall,
+               "rel_residual": res.rel_residual, "kappa_inf": res.kappa,
+               "gate": gate, "supersteps": nr, "launches": launches,
+               "expected_launches": expected,
+               "finite": bool(torch.isfinite(res.inverse).all()),
+               "shape": list(res.inverse.shape)}
+        emit(row)
+        del res
+        torch.cuda.empty_cache()
+        if not (row["rel_residual"] < gate and launches == expected
+                and row["finite"] and row["shape"] == [n, n]
+                and row["engine"] == "lookahead" and row["group"] == group):
+            raise AssertionError(f"lookahead solve failed its checks: {row}")
+        totals = {name: totals[name] + launches[name] for name in totals}
+    return totals
+
+
+def phase_solve_workloads(torch, counters):
+    """The solve workloads' path: every WORKLOAD_ROWS row through
+    linalg.solve_system / linalg.lstsq with engine="auto", warm, with the
+    kernels' counts set to 0 just before the timed run and read just after:
+    the row's engine, probe launches = Nr of the solved
+    system (of the routed body; the spd path probes a stack of one), no
+    update launch, the backward error under
+    ``solve_gate_threshold(DEFAULT_POLICY, n, dtype)``, no ladder rung, X
+    finite of shape (n, K).  Returns the counts summed over the rows."""
+    from tpu_jordan_torch.linalg import lstsq, solve_system
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+    from tpu_jordan_torch.resilience import (DEFAULT_POLICY,
+                                             solve_gate_threshold)
+
+    totals = dict.fromkeys(counters, 0)
+    for n, m, gen, dname, workload, k, engine in WORKLOAD_ROWS:
+        dtype = getattr(torch, dname)
+        a, b = workload_inputs(torch, n, gen, dtype, workload, k)
+
+        def run():
+            if workload == "lstsq":
+                return lstsq(a, b, block_size=m, device="cuda")
+            return solve_system(a, b, block_size=m, device="cuda",
+                                assume="spd" if workload == "spd"
+                                else "general")
+        run()
+        torch.cuda.empty_cache()
+        for mod in counters.values():
+            mod.reset_launches()
+        wall0 = time.perf_counter()
+        out = run()
+        wall = time.perf_counter() - wall0
+        launches = {name: mod.launches for name, mod in counters.items()}
+        res = out.inner if workload == "lstsq" else out
+        nr = -(-res.n // m)
+        expected = dict.fromkeys(counters, 0)
+        expected[probe_mod.probe_body(m)] = nr
+        gate = solve_gate_threshold(DEFAULT_POLICY, res.n, dtype)
+        row = {"phase": "solve", "workload": workload, "n": n, "m": m,
+               "k": k, "generator": gen, "dtype": dname,
+               "engine": res.engine, "system_n": res.n,
+               "seconds": res.elapsed, "gflops": res.gflops, "wall_s": wall,
+               "rel_residual": res.rel_residual, "gate": gate,
+               "kappa_est": res.kappa_est, "recovery": list(res.recovery),
+               "supersteps": nr, "launches": launches,
+               "expected_launches": expected,
+               "finite": bool(torch.isfinite(out.x).all()),
+               "shape": list(out.x.shape)}
+        if workload == "lstsq":
+            row.update({"lstsq_residual": out.residual,
+                        "rank_deficient": out.rank_deficient})
+        emit(row)
+        del out, res, a, b
+        torch.cuda.empty_cache()
+        if not (row["rel_residual"] < gate and launches == expected
+                and row["engine"] == engine and row["recovery"] == []
+                and row["finite"] and row["shape"] == [row["system_n"], k]):
+            raise AssertionError(f"{workload} failed its checks: {row}")
+        totals = {name: totals[name] + launches[name] for name in totals}
+    return totals
+
+
+def phase_overlap(torch):
+    """profile_solve's device-time split of the OVERLAP_ROWS rows: the
+    probe, GEMM and other ms, the idle share and the overlap (the kernels'
+    summed time less the union of their intervals).  Fails unless each
+    lookahead row overlaps (> 0 ms)."""
+    from tpu_jordan_torch.profile_solve import profile_row
+
+    bad = []
+    for n, m, gen, dname, engine, group in OVERLAP_ROWS:
+        row = {"phase": "overlap", **profile_row(
+            n, m, gen, getattr(torch, dname), engine, group=group)}
+        emit(row)
+        torch.cuda.empty_cache()
+        if engine == "lookahead" and not row["overlap_ms"] > 0:
+            bad.append(row)
+    if bad:
+        raise AssertionError(f"no probe overlapped a GEMM: {bad}")
 
 
 def stack_metrics(torch, a, x):
@@ -1420,9 +1736,13 @@ def main(argv=None) -> int:
     if "reference" in phases:
         phase_reference(torch)
         phase_reference_engines(torch)
+        phase_reference_lookahead(torch)
+        phase_reference_workloads(torch)
         launches.update(phase_reference_variants(torch))
     if "solve" in phases:
         launches.update(phase_solve(torch))
+    if "overlap" in phases:
+        phase_overlap(torch)
     if "knife_edge" in phases:
         phase_knife_edge(torch)
     if "cluster_sweep" in phases:

@@ -269,7 +269,7 @@ def test_no_gpu_raises_instead_of_running_on_cpu(monkeypatch):
     {"precision": "high"},
     {"precision": "mixed"},
     {"engine": "augmented", "group": 2},
-    {"engine": "lookahead"},
+    {"engine": "swapfree"},
     {"dtype": "complex64"},
 ])
 def test_later_slice_options_are_refused(kwargs):

@@ -21,6 +21,13 @@ _EPS_BY_DTYPE = {
     torch.float16: 4e-3,
 }
 
+# The JAX package's limit on unrolled engines (parallel/sharded_inplace.py:
+# MAX_UNROLL_NR).  Its fused-update, lookahead and unrolled solve engines
+# take at most this many block rows; the port's eager engines have no
+# unroll, but keep the same limit so that both packages accept the same
+# solves.
+MAX_UNROLL_NR = 64
+
 # Matches MAX_P in the reference (main.cpp:6): pretty-printers show at most
 # this many rows/cols of a matrix corner.
 MAX_PRINT = 10

@@ -26,7 +26,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .config import default_block_size
+from .config import MAX_UNROLL_NR, default_block_size
 from .errors import SingularMatrixError, UsageError
 from .interop import from_numpy, resolve_device, resolve_dtype
 from .io import read_matrix_file
@@ -35,7 +35,9 @@ from .ops import (
     block_jordan_invert,
     block_jordan_invert_inplace,
     block_jordan_invert_inplace_grouped,
+    block_jordan_invert_inplace_grouped_lookahead,
     block_jordan_invert_inplace_grouped_pallas,
+    block_jordan_invert_inplace_lookahead,
     generate,
     generate_batch,
     inf_norm,
@@ -55,17 +57,11 @@ __all__ = ["ENGINES", "GROUPED_MIN_SINGLE_CHIP_N", "MAX_UNROLL_NR",
 PALLAS_ENGINES = ("grouped_pallas", "grouped_pallas_bf16")
 # The engines ported so far.  The JAX package's other engines arrive with
 # later slices of the port (ROADMAP.md, Queue A).
-ENGINES = ("auto", "inplace", "grouped", "augmented") + PALLAS_ENGINES
+ENGINES = (("auto", "inplace", "grouped", "augmented", "lookahead")
+           + PALLAS_ENGINES)
 _LATER_ENGINES = {
-    "lookahead": "Queue A item 8",
     "swapfree": "Queue A item 15",
 }
-
-# The JAX package's limit on unrolled engines (parallel/sharded_inplace.py:
-# MAX_UNROLL_NR).  Its fused-update engines are unrolled-only; the port's
-# eager engines have no unroll, but keep the same limit so that both
-# packages accept the same solves.
-MAX_UNROLL_NR = 64
 
 # The JAX package's registry cost rule (tuning/registry.py:38,243-246),
 # written out: the delayed-group-update engine with k=2 from n = 8192 on,
@@ -120,6 +116,9 @@ def resolve_engine(engine: str, group: int, n: int | None = None):
     if group > 1 and engine == "augmented":
         raise UsageError("the augmented reference-parity engine has no "
                          "grouped variant")
+    if engine == "lookahead":
+        # group >= 2 selects the grouped probe-ahead twin.
+        return "lookahead", (group if group > 1 else 0)
     if engine in PALLAS_ENGINES:
         return engine, (group if group > 1 else 2)
     if engine == "grouped" or (engine == "auto" and group > 1):
@@ -134,11 +133,23 @@ def resolve_engine(engine: str, group: int, n: int | None = None):
 def invert(a: torch.Tensor, engine: str, group: int, block_size: int,
            refine: int = 0):
     """Run the resolved engine (see resolve_engine) on ``a``; returns
-    ``(x, singular)``.  The fused-update engines take Nr <= MAX_UNROLL_NR
-    block rows, as in the JAX package."""
+    ``(x, singular)``.  The fused-update and lookahead engines take
+    Nr <= MAX_UNROLL_NR block rows, as in the JAX package."""
+    n = a.shape[-1]
+    Nr = -(-n // min(block_size, n))
+    if engine == "lookahead":
+        if Nr > MAX_UNROLL_NR:
+            raise UsageError(
+                f"engine='lookahead' is unrolled-only (the critical-panel "
+                f"split needs static column offsets) and Nr={Nr} exceeds "
+                f"MAX_UNROLL_NR={MAX_UNROLL_NR}; use engine='inplace' (its "
+                f"fori twin) or a larger block_size")
+        if group > 1:
+            return block_jordan_invert_inplace_grouped_lookahead(
+                a, block_size=block_size, refine=refine, group=group)
+        return block_jordan_invert_inplace_lookahead(
+            a, block_size=block_size, refine=refine)
     if engine in PALLAS_ENGINES:
-        n = a.shape[-1]
-        Nr = -(-n // min(block_size, n))
         if Nr > MAX_UNROLL_NR:
             raise UsageError(
                 f"engine={engine!r} is unrolled-only in the JAX package, "
@@ -160,8 +171,8 @@ def invert(a: torch.Tensor, engine: str, group: int, block_size: int,
                                        refine=refine)
 
 
-def _refuse_later_options(workers, gather, telemetry, policy, numerics,
-                          tune, plan_cache, dtype):
+def refuse_later_options(workers, gather, telemetry, policy, numerics,
+                         tune, plan_cache, dtype):
     """Options of the JAX package's solve that later slices bring: each
     is refused with the slice that brings it, never silently ignored."""
     if isinstance(workers, tuple) or workers != 1:
@@ -185,7 +196,7 @@ def _refuse_later_options(workers, gather, telemetry, policy, numerics,
                          "yet (ROADMAP.md Queue A item 11)")
     if "complex" in str(dtype):
         raise UsageError("complex dtypes are not ported yet (ROADMAP.md "
-                         "Queue A item 7)")
+                         "Queue A item 7b)")
 
 
 def _timed(dev, fn):
@@ -229,9 +240,11 @@ def solve(
 
     Runs on the CUDA card unless ``device="cpu"``; without a card it
     raises DeviceUnavailableError.  ``engine``: "auto" | "inplace" |
-    "grouped" | "augmented" | "grouped_pallas" | "grouped_pallas_bf16"
-    (see resolve_engine; "augmented" is the ~4N³ reference-parity engine
-    with the global singularity scale).  ``policy`` (a
+    "grouped" | "augmented" | "lookahead" | "grouped_pallas" |
+    "grouped_pallas_bf16" (see resolve_engine; "augmented" is the ~4N³
+    reference-parity engine with the global singularity scale;
+    "lookahead" the probe-ahead twin of "inplace", or of "grouped" with
+    group >= 2, Nr <= MAX_UNROLL_NR).  ``policy`` (a
     ``resilience.ResiliencePolicy``) retries the engine call per
     ``policy.retry`` and guards the result with the residual gate and its
     ladder (rungs on ``SolveResult.recovery``; an exhausted ladder raises
@@ -241,8 +254,8 @@ def solve(
     SingularMatrixError like the reference's -2 path (main.cpp:435-437);
     file errors propagate from read_matrix_file.
     """
-    _refuse_later_options(workers, gather, telemetry, policy, numerics,
-                          tune, plan_cache, dtype)
+    refuse_later_options(workers, gather, telemetry, policy, numerics,
+                         tune, plan_cache, dtype)
     dev = resolve_device(device)
     dtype = resolve_dtype(dtype)
     if block_size is None:

@@ -50,13 +50,14 @@ def resolve_dtype(dtype) -> torch.dtype:
 
 
 def from_numpy(arrays, device=None, dtype=None):
-    """Move a numpy array, or a tuple/list of them, onto ``device`` (the
-    card unless given) as tensors of ``dtype`` (the arrays' own unless
-    given).  Returns a tensor, or a tuple of tensors."""
+    """Move a numpy array (or a tensor), or a tuple/list of them, onto
+    ``device`` (the card unless given) as tensors of ``dtype`` (the arrays'
+    own unless given).  Returns a tensor, or a tuple of tensors."""
     dev = resolve_device(device)
 
     def one(x):
-        t = torch.from_numpy(np.ascontiguousarray(x))
+        t = (x if isinstance(x, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(x)))
         return t.to(device=dev,
                     dtype=None if dtype is None else resolve_dtype(dtype))
 

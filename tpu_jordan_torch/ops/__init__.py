@@ -17,7 +17,9 @@ from .jordan_inplace import (
     apply_col_perm,
     block_jordan_invert_inplace,
     block_jordan_invert_inplace_grouped,
+    block_jordan_invert_inplace_grouped_lookahead,
     block_jordan_invert_inplace_grouped_pallas,
+    block_jordan_invert_inplace_lookahead,
     compose_swap_perm,
 )
 from .norms import block_inf_norms, condition_inf, inf_norm
@@ -41,7 +43,9 @@ __all__ = [
     "block_jordan_invert",
     "block_jordan_invert_inplace",
     "block_jordan_invert_inplace_grouped",
+    "block_jordan_invert_inplace_grouped_lookahead",
     "block_jordan_invert_inplace_grouped_pallas",
+    "block_jordan_invert_inplace_lookahead",
     "compose_swap_perm",
     "condition_inf",
     "fused_normalize_eliminate",

@@ -1,20 +1,26 @@
 """Where a solve's device time goes: one traced engine call per row.
 
     python -m tpu_jordan_torch.profile_solve [--rows 4096:128:absdiff:float32,...]
-        [--engine auto|inplace|grouped|augmented|grouped_pallas|
-                  grouped_pallas_bf16] [--batch B]
+        [--engine auto|inplace|grouped|augmented|lookahead|grouped_pallas|
+                  grouped_pallas_bf16] [--group K] [--batch B]
+        [--workload invert|solve|spd|lstsq] [--rhs K]
 
 For each row (n:m:generator:dtype) the matrix is generated on the card, and
-the engine (the one ``driver.solve`` picks for ``--engine``, by default
-``auto``; with ``--batch B`` > 1, the batched engine on the stack of B
-matrices that ``driver.solve_batch`` inverts) runs once to warm up, then
-once untraced and once under
-``torch.profiler``, each between CUDA events.  Prints one JSON line a row:
-both wall times, the device time of the probe kernel, of the fused update
-kernel, of the GEMMs and of everything else, and the idle share of the
-traced wall (the part during which no kernel ran; tracing slows the host,
-so this share is an upper bound for the untraced run).  Needs a CUDA
-device.
+the engine (the one ``driver.solve`` picks for ``--engine`` and
+``--group``, by default ``auto``; with ``--batch B`` > 1, the batched
+engine on the stack of B matrices that ``driver.solve_batch`` inverts; with
+``--workload``, the engine ``linalg.solve_system`` picks for A·X = B with
+the CLI's B of K columns: ``spd`` under the assume="spd" promise,
+``lstsq`` the Gram product of the CLI's n × n//2 A and its solve) runs once
+to warm up, then once untraced and once under ``torch.profiler``, each
+between CUDA events.  Prints one JSON line a row: both wall times, the
+device time of the probe kernel, of the fused update kernel, of the GEMMs
+and of everything else, the idle share of the traced wall (the part during
+which no kernel ran; tracing slows the host, so this share is an upper
+bound for the untraced run) and the overlap (the sum of the kernels' times
+less the union of their intervals: the time kernels ran beside each other,
+as the lookahead engines' probe beside their GEMMs on another stream).
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,7 +32,11 @@ import sys
 import torch
 
 from .driver import ENGINES, invert, resolve_engine
+from .linalg import auto_solve_engine
+from .linalg.api import solve_engine_fn
 from .ops import batched_jordan_invert, generate, generate_batch
+
+WORKLOADS = ("invert", "solve", "spd", "lstsq")
 
 DEFAULT_ROWS = ("4096:128:absdiff:float32,8192:384:absdiff:float64,"
                 "8192:384:rand:float32,16384:128:rand:float32")
@@ -55,18 +65,39 @@ def _union_us(intervals) -> float:
     return total
 
 
+def _workload_run(n: int, m: int, gen: str, dtype, workload: str,
+                  rhs: int):
+    """(engine, run) of a solve workload row, on the CLI's inputs."""
+    b = generate("rand", (n, rhs), dtype, row_offset=n, device="cuda")
+    if workload == "lstsq":
+        a = generate(gen, (n, max(1, n // 2)), dtype, device="cuda")
+        cols = a.shape[1]
+        engine = auto_solve_engine(cols, min(m, cols), "solve_spd")
+        solve = solve_engine_fn(engine, m)
+        return engine, lambda: solve(a.T @ a, a.T @ b)
+    a = generate(gen, (n, n), dtype, device="cuda")
+    engine = auto_solve_engine(n, min(m, n), "solve_spd" if workload == "spd"
+                               else "solve")
+    solve = solve_engine_fn(engine, m)
+    return engine, lambda: solve(a, b)
+
+
 def profile_row(n: int, m: int, gen: str, dtype: torch.dtype,
-                engine: str = "auto", batch: int = 1) -> dict:
+                engine: str = "auto", batch: int = 1, group: int = 0,
+                workload: str = "invert", rhs: int = 1) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    if batch > 1:
+    if workload != "invert":
+        group = 0
+        engine, run = _workload_run(n, m, gen, dtype, workload, rhs)
+    elif batch > 1:
         engine, group = "batched", 0
         a = generate_batch(gen, n, batch, dtype, device="cuda")
 
         def run():
             return batched_jordan_invert(a, block_size=m)
     else:
-        engine, group = resolve_engine(engine, 0, n)
+        engine, group = resolve_engine(engine, group, n)
         a = generate(gen, (n, n), dtype, device="cuda")
 
         def run():
@@ -101,12 +132,14 @@ def profile_row(n: int, m: int, gen: str, dtype: torch.dtype,
         spans.append((t0, t1))
     busy_ms = _union_us(spans) / 1e3
     return {"n": n, "m": m, "generator": gen, "dtype": str(dtype)[6:],
+            "workload": workload, "rhs": rhs if workload != "invert" else 0,
             "engine": engine, "group": group, "batch": batch,
             "wall_ms": wall_ms,
             "untraced_wall_ms": untraced_ms,
             **{f"{kind}_ms": by_kind[kind] for kind in KINDS},
             "kernels": launches,
             "busy_ms": busy_ms,
+            "overlap_ms": sum(by_kind.values()) - busy_ms,
             "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "device": torch.cuda.get_device_name(0)}
 
@@ -117,9 +150,18 @@ def main(argv=None) -> int:
                     help="comma-separated n:m:generator:dtype rows")
     ap.add_argument("--engine", default="auto", choices=ENGINES,
                     help="the engine of every row (default auto)")
+    ap.add_argument("--group", type=int, default=0,
+                    help="the delayed-group size of the engine (the "
+                         "grouped lookahead twin from 2 on)")
     ap.add_argument("--batch", type=int, default=1,
                     help="invert a stack of B matrices a row through the "
                          "batched engine (--engine does not apply)")
+    ap.add_argument("--workload", default="invert", choices=WORKLOADS,
+                    help="solve A·X = B (spd: under the assume='spd' "
+                         "promise) or fit lstsq in place of inverting "
+                         "(--engine does not apply)")
+    ap.add_argument("--rhs", type=int, default=1,
+                    help="right-hand-side columns of a solve workload")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_solve: no CUDA device", file=sys.stderr)
@@ -129,7 +171,8 @@ def main(argv=None) -> int:
         n, m, gen, dname = row.split(":")
         print(json.dumps(profile_row(int(n), int(m), gen,
                                      getattr(torch, dname), args.engine,
-                                     args.batch)),
+                                     args.batch, args.group, args.workload,
+                                     args.rhs)),
               flush=True)
         torch.cuda.empty_cache()
     return 0

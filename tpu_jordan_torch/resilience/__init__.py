@@ -2,7 +2,15 @@
 solve path (the part of the JAX package's ``resilience/`` that a single
 solve uses)."""
 
-from .degrade import gate_eps, gate_passes, gate_threshold, maybe_recover
+from .degrade import (
+    backward_error,
+    gate_eps,
+    gate_passes,
+    gate_threshold,
+    maybe_recover,
+    solve_gate_threshold,
+    solve_recover,
+)
 from .policy import (
     DEFAULT_POLICY,
     ResidualGateError,
@@ -14,5 +22,7 @@ from .policy import (
 )
 
 __all__ = ["DEFAULT_POLICY", "ResidualGateError", "ResiliencePolicy",
-           "ResultCorruptionError", "RetryPolicy", "gate_eps", "gate_passes",
-           "gate_threshold", "is_transient", "maybe_recover", "retryable"]
+           "ResultCorruptionError", "RetryPolicy", "backward_error",
+           "gate_eps", "gate_passes", "gate_threshold", "is_transient",
+           "maybe_recover", "retryable", "solve_gate_threshold",
+           "solve_recover"]

@@ -15,6 +15,10 @@ rungs:
      ``resolve``; the driver promotes sub-fp32 storage to fp32 and the bf16
      fused-update engine to its fp32 sibling).
 
+The solve workloads (``linalg/``) have their own gate and ladder
+(:func:`solve_gate_threshold`, :func:`solve_recover`): the κ-free normwise
+backward error, then refine, repivot and resolve rungs.
+
 Each rung is recorded on the returned ``recovery`` tuple with the JAX
 package's keys.  A ladder that exhausts without passing raises
 :class:`~.policy.ResidualGateError`, never a silent wrong answer.  The JAX
@@ -55,6 +59,89 @@ def gate_threshold(policy: ResiliencePolicy, n: int, kappa: float,
 def gate_passes(rel_residual: float, threshold: float) -> bool:
     """NaN-hostile comparison: any NaN (residual or threshold) fails."""
     return bool(rel_residual <= threshold) and math.isfinite(rel_residual)
+
+
+def solve_gate_threshold(policy: ResiliencePolicy, n: int, dtype) -> float:
+    """The residual gate of the solve workloads, on the normwise backward
+    error ``‖A·X − B‖∞ / (‖A‖∞·‖X‖∞ + ‖B‖∞) <= gate_tol · eps · n``: κ-free
+    (a backward-stable solve has a small backward error whatever the
+    conditioning), with :func:`gate_threshold`'s 0.5 cap and
+    ``gate_dtype`` override."""
+    eps = gate_eps(policy.gate_dtype if policy.gate_dtype is not None
+                   else dtype)
+    return min(policy.gate_tol * eps * max(1, n), 0.5)
+
+
+def backward_error(residual: float, norm_a: float, norm_x: float,
+                   norm_b: float) -> float:
+    """``residual / (norm_a·norm_x + norm_b)``, the residual itself when
+    the denominator is 0."""
+    denom = norm_a * norm_x + norm_b
+    return residual / denom if denom else residual
+
+
+def solve_recover(policy: ResiliencePolicy, *, a, b, x, stats, n: int,
+                  dtype, spd: bool, rerun, fresh):
+    """The solve workloads' gate and ladder (the JAX package's
+    ``linalg/api.py::_solve_recover``).  ``stats`` is ``(residual, norm_a,
+    norm_x, norm_b)`` of ``x`` against the caller's ``a`` and ``b``;
+    ``rerun(a, r)`` runs the solve's own engine on a new right-hand side
+    and ``fresh(a, b, spd)`` a fresh solve, each returning ``(x,
+    singular)``.  The rungs:
+
+      1. **refine** (``policy.refine_steps > 0``): one pass of iterative
+         refinement, X += A⁻¹(B − A·X) with the residual in at least fp32,
+         through ``rerun``;
+      2. **repivot** (under the spd promise only): a fresh solve with the
+         condition-based pivoting (a broken promise is the one failure
+         refinement cannot fix);
+      3. **resolve** (``policy.escalate``, sub-fp32 storage only): a fresh
+         solve in fp32.
+
+    Every rung is judged at the gate of ``policy.gate_dtype`` or ``dtype``.
+    Returns ``(x, stats, recovery)``; raises ResidualGateError when the
+    ladder runs out."""
+    from ..ops.residual import solve_residual_stats
+
+    threshold = solve_gate_threshold(policy, n, dtype)
+    rel = backward_error(*stats)
+    if gate_passes(rel, threshold):
+        return x, stats, ()
+    recovery = []
+
+    def judge(x2, singular, rung, **extra):
+        stats2 = solve_residual_stats(a, x2, b)
+        rel2 = backward_error(*stats2)
+        passed = gate_passes(rel2, threshold)
+        recovery.append({"rung": rung, "rel_residual_before": float(rel),
+                         "rel_residual_after": float(rel2),
+                         "passed": passed, **extra})
+        return passed and not bool(singular), stats2
+
+    if policy.refine_steps > 0:
+        work = torch.promote_types(a.dtype, torch.float32)
+        xw = x.to(work)
+        r = b.to(work) - a.to(work) @ xw
+        d, dsing = rerun(a, r.to(a.dtype))
+        x2 = xw + d.to(work)
+        ok, stats2 = judge(x2, dsing, "refine")
+        if ok:
+            return x2, stats2, tuple(recovery)
+    if spd:
+        x3, sing3 = fresh(a, b, False)
+        ok, stats3 = judge(x3, sing3, "repivot")
+        if ok:
+            return x3, stats3, tuple(recovery)
+    if policy.escalate and a.dtype.itemsize < 4:
+        x4, sing4 = fresh(a.float(), b.float(), spd)
+        ok, stats4 = judge(x4, sing4, "resolve", dtype=str(x4.dtype)[6:])
+        if ok:
+            return x4, stats4, tuple(recovery)
+    raise ResidualGateError(
+        f"solve residual gate failed (rel {rel:.3e} > {threshold:.3e}) "
+        f"and the recovery ladder exhausted "
+        f"({' -> '.join(r['rung'] for r in recovery) or 'no rungs'})",
+        recovery=tuple(recovery))
 
 
 def maybe_recover(policy: ResiliencePolicy, *, a_fresh, inv,
