@@ -38,7 +38,13 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    SCALED_CASES stacks, one for each of its schedules, against
    ``batched_block_inverse(blocks, scale, eps)`` by the probe's rules, with
    one more block, scaled down, that the global threshold flags and the
-   block's own does not.
+   block's own does not.  ``gj_probe.cu``'s complex bodies (complex64 and
+   complex128) at the COMPLEX_CASES stacks against the plain probe by the
+   same rules (a zero block, a zero row and a NaN in each; (22, 384)
+   complex64 with a global scale and its scaled-down block), a forced
+   block schedule at complex128 m=128 refused, and a 4096² complex64
+   product with TF32 off held to fp32 accuracy (CGEMM_LIMIT, against
+   complex128; the reading with TF32 allowed is printed beside it).
 3. ``reference``: solves on the card with the kernels against the same
    solves with the plain versions (the engines' ``probe`` and ``update``
    arguments).  The probe at 512/m64 fp32, at 8192/m384 fp64 and at
@@ -70,7 +76,13 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    same stack.  The solve engines on WORKLOAD_ROWS' systems with the
    kernels against the plain probe: fp64 pivots equal, X within
    min(eps·n·κ∞, 0.05), and on the pivoting rows the pivot sequence equal
-   to the in-place invert engine's; fp32 step by step.
+   to the in-place invert engine's; fp32 step by step.  The complex
+   engines: the augmented engine at 512/m64 crand complex128 and
+   ``block_jordan_solve`` at the same size against the plain probe (pivots
+   equal, the solve's also equal to the augmented engine's), complex64
+   8192/m384 crand through the augmented engine step by step
+   (COMPLEX_STEPWISE_ROW), and the SMW update at 1024/m128 fp64, ranks 16
+   and 64, on the card against the same update on the CPU.
 4. ``solve``: the main path through ``driver.solve``, each row timed on a
    warm run with the three kernels' launch counts set to 0 just before it
    and read just after: ``engine="auto"`` at 4096/m128/absdiff fp32,
@@ -100,10 +112,22 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    and ``linalg.lstsq`` with engine="auto" at every WORKLOAD_ROWS row (the
    row's engine, probe launches = Nr of the solved system,
    the backward error under ``solve_gate_threshold``, no ladder rung).
+   The complex rows: ``driver.solve`` with crand complex64 at 4096/m128
+   (``engine="auto"``, which must run the augmented engine) and 8192/m384
+   and complex128 at 4096/m128, ``gj_probe[c64]`` or ``gj_probe[c128]``
+   launches = Nr; COMPLEX_WORKLOAD_ROWS (complex64 solve 8192/m384 K=1,
+   lstsq 8192 × 4096/m128).  The update path (UPDATE_ROW): the resident
+   inverse of 8192/m384 rand fp32 from the in-place engine, then
+   ``linalg.solve_update`` at ranks 16 and 64 (the capacitance probe
+   ``gj_probe`` at m=8, ``gj_probe_fused_panel`` at m=16, launches = its
+   Nr; rel_residual under the update gate; the update's time beside the
+   fresh invert's), then 8 chained rank-16 updates under the default
+   policy, their drift within the budget and no rung walked.
 5. ``overlap``: ``profile_solve``'s device-time split of OVERLAP_ROWS: the
    lookahead twins must overlap their probe with a GEMM (> 0 ms).
 6. ``kernels``: every ported kernel with its launches on its path (the
-   solve rows; the variants' engine runs of ``reference``).
+   solve rows; the variants' engine runs of ``reference``), the complex
+   bodies of ``gj_probe.cu`` as ``gj_probe[c64]`` and ``gj_probe[c128]``.
 
 Not run by default: ``--phases knife_edge`` records that fp32 absdiff
 8192/m384 elimination through the grouped engine, with the kernel and with
@@ -134,7 +158,8 @@ EXTRA_PHASES = ("knife_edge", "cluster_sweep", "batch_fp32")
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
 # fp32 outside the tensor cores, fp64 through the tensor cores (the
 # card's highest fp64 rate), and device memory.
-PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12, "complex64": 67e12,
+              "complex128": 67e12}
 PEAK_BYTES = 3.35e12
 
 # Largest ratio, on any regular block, of the panel body's residual
@@ -145,7 +170,8 @@ RESIDUAL_RATIO_LIMIT = 1.5
 # version's inverse of one regular block.  The readings on these stacks
 # stay below 3e-3 (fp32) and 1e-12 (fp64); any inverse of the wrong values
 # reads of order 1.
-REL_LIMIT = {"float32": 1e-2, "float64": 1e-9}
+REL_LIMIT = {"float32": 1e-2, "float64": 1e-9, "complex64": 1e-2,
+             "complex128": 1e-9}
 
 # (m, nc, dtype): every m the probe meets, at the main path's stack sizes
 # (nc = Nr at the first superstep: 32 at 4096/m128, 22 at 8192/m384 in fp32
@@ -207,11 +233,33 @@ SCALED_CASES = ((128, 32, "float64"), (384, 22, "float32"),
 SCALE_DOWN = {"float64": 1e-10, "float32": 1e-4}
 GLOBAL_SCALE = {"float64": 1e7, "float32": 2e4}
 
+# (m, nc, dtype, global scale): gj_probe.cu's complex bodies against the
+# plain probe on the card: (32, 128) complex64 on the block schedule and
+# complex128 beyond its register limit (m ≤ 64 in complex128), (20, 50)
+# complex64, (22, 384) complex64 with a global scale (the augmented
+# engine's first superstep at 8192/m384, with a copy of block 0 scaled
+# down by SCALE_DOWN["float32"] that only the global threshold flags) and
+# complex128.  Each stack holds a zero block, a zero row and a NaN
+# (make_stack).  The first stack of each dtype is its representative for
+# the kernels line.
+COMPLEX_CASES = ((128, 32, "complex64", None), (128, 32, "complex128", None),
+                 (50, 20, "complex64", None), (384, 22, "complex64", 2e4),
+                 (384, 22, "complex128", None))
+# Largest max |A·B (complex64, TF32 off) − A·B (complex128)|, over Σ|A||B|
+# of the entry, of a 4096² complex product: on the card fp32 products read
+# 3.7e-7 and with TF32 allowed 2.4e-5.
+CGEMM_LIMIT = 2e-6
+
 # (n, m, generator, dtype): the augmented engine (global scale) with the
 # kernel held against the same engine with the plain probe; 3000/m300 runs
 # gj_probe.cu's cluster schedule.
 AUGMENTED_REFERENCE_ROWS = ((512, 64, "absdiff", "float64"),
-                            (3000, 300, "rand", "float64"))
+                            (3000, 300, "rand", "float64"),
+                            (512, 64, "crand", "complex128"))
+# (n, m, generator, dtype): the complex augmented engine's run with the
+# kernels checked step by step against the plain probe (the complex64 twin
+# of STEPWISE_ROW: the main path's complex row).
+COMPLEX_STEPWISE_ROW = (8192, 384, "crand", "complex64")
 # (B, n, m, generator, dtype): the batched engine with the kernel against
 # the plain probe (per-element pivots), and against the single in-place
 # engine element by element.
@@ -242,7 +290,10 @@ SOLVE_ROWS = ((4096, 128, "absdiff", "float32", "auto"),
               (8192, 128, "kms", "float32", "grouped_pallas_bf16"),
               (8192, 128, "rand", "float32", "grouped_pallas_bf16"),
               (4096, 128, "absdiff", "float64", "augmented"),
-              (8192, 384, "absdiff", "float64", "augmented"))
+              (8192, 384, "absdiff", "float64", "augmented"),
+              (4096, 128, "crand", "complex64", "auto"),
+              (8192, 384, "crand", "complex64", "augmented"),
+              (4096, 128, "crand", "complex128", "augmented"))
 # (n, m, generator, dtype, group): the probe-ahead engines through
 # driver.solve(engine="lookahead"): the in-place twin at the README's size
 # on the paper's fixture, the grouped twin (k=2) at the 8192 rows of the
@@ -262,6 +313,27 @@ WORKLOAD_ROWS = ((8192, 384, "rand", "float32", "solve", 1, "solve_aug"),
                  (16384, 128, "rand", "float32", "solve", 16, "solve_fori"),
                  (8192, 384, "kms", "float64", "spd", 1, "solve_spd"),
                  (8192, 128, "rand", "float64", "lstsq", 1, "solve_spd"))
+# The complex workloads on the main path (the JAX CLI's --dtype complex64
+# --generator crand; B = the crand window): solve at 8192/m384, K=1, and
+# lstsq's 8192 × 4096 fit (its Gram system 4096² at m=128, Hermitian
+# positive definite).
+COMPLEX_WORKLOAD_ROWS = (
+    (8192, 384, "crand", "complex64", "solve", 1, "solve_aug"),
+    (8192, 128, "crand", "complex64", "lstsq", 1, "solve_spd"))
+# The complex solve engine held against the plain probe (pivots equal) and
+# against the complex augmented invert engine's pivots.
+COMPLEX_REFERENCE_WORKLOAD_ROWS = (
+    (512, 64, "crand", "complex128", "solve", 1, "solve_aug"),)
+# (n, m, generator, dtype, ranks, chained): the SMW update of a resident
+# inverse (linalg.solve_update): the in-place engine's inverse of the
+# 8192/m384 rand fp32 row, updated at rank 16 (capacitance probe
+# gj_probe.cu, m=8) and 64 (the panel body, m=16), then `chained` updates
+# of rank 16 threaded through the drift budget.  The factors are
+# profile_solve.update_factors'.
+UPDATE_ROW = (8192, 384, "rand", "float32", (16, 64), 8)
+# (n, m, generator, dtype, ranks): the SMW update on the card against the
+# same update on the CPU.
+UPDATE_REFERENCE_ROW = (1024, 128, "rand", "float64", (16, 64))
 # (n, m, generator, dtype, engine, group): the rows whose device time
 # profile_solve splits for the overlap check: the lookahead twins and the
 # grouped engine they reorder, at 8192/m384 rand fp32.
@@ -331,6 +403,18 @@ KERNELS = {
         "source": "tpu_jordan_torch/csrc/gj_probe_panel.cu",
         "replaces": "tpu_jordan/ops/pallas_block_inverse.py:250",
     },
+    # gj_probe.cu's complex bodies (the JAX package probes complex blocks
+    # with its plain batched_block_inverse through XLA).
+    "gj_probe[c64]": {
+        "route": "cuda",
+        "source": "tpu_jordan_torch/csrc/gj_probe.cu",
+        "replaces": "tpu_jordan/ops/pallas_block_inverse.py:74",
+    },
+    "gj_probe[c128]": {
+        "route": "cuda",
+        "source": "tpu_jordan_torch/csrc/gj_probe.cu",
+        "replaces": "tpu_jordan/ops/pallas_block_inverse.py:74",
+    },
 }
 
 # The probe variants: (kernel launch counter key, wrapper, plain twin).
@@ -395,14 +479,19 @@ ZERO_ROW_STACKS = {(300, 20, "float32")}
 
 def make_stack(torch, nc: int, m: int, dtype, seed: int):
     """Random blocks with a zero block (1), a duplicated row (2, rank
-    m-1; a zero row at ZERO_ROW_STACKS) and a NaN (3) mixed in; made with
+    m-1; a zero row at ZERO_ROW_STACKS and in a complex stack, whose real
+    and imaginary parts are both random) and a NaN (3) mixed in; made with
     numpy from ``seed``."""
     import numpy as np
 
-    b = np.random.default_rng(seed).standard_normal((nc, m, m))
+    rng = np.random.default_rng(seed)
+    b = rng.standard_normal((nc, m, m))
+    if dtype.is_complex:
+        b = b + 1j * rng.standard_normal((nc, m, m))
     b[1] = 0.0
     b[2, m - 1] = b[2, 0]
-    if (m, nc, str(dtype).split(".")[-1]) in ZERO_ROW_STACKS:
+    if (m, nc, str(dtype).split(".")[-1]) in ZERO_ROW_STACKS or (
+            dtype.is_complex):
         b[2, m - 1] = 0.0
     b[3, m // 2, m // 3] = np.nan
     return torch.from_numpy(b).to(device="cuda", dtype=dtype)
@@ -450,9 +539,11 @@ def compare_probe(torch, blocks, out_k, out_p, dname: str, flagged=(1, 2, 3)):
 
 def probe_bound(m: int, nc: int, dname: str, elem: int):
     """(bound_ms, bound_by) of inverting an (nc, m, m) stack: 2m³ flops a
-    block at the dtype's peak, against the stack read and the inverses and
-    flags written once."""
-    t_ops = 2.0 * m**3 * nc / PEAK_FLOPS[dname]
+    block at the dtype's peak (8m³ real flops for a complex one: a complex
+    multiply-add is four real ones), against the stack read and the
+    inverses and flags written once."""
+    flops = (8.0 if dname.startswith("complex") else 2.0) * m**3
+    t_ops = flops * nc / PEAK_FLOPS[dname]
     t_bytes = (2.0 * nc * m * m * elem + nc) / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
@@ -602,6 +693,97 @@ def phase_scaled_vs_plain(torch):
     if served != {"block", "cluster", "global"}:
         raise AssertionError(f"gj_probe.cu with a global scale ran only "
                              f"the schedules {sorted(served)}")
+    return rows
+
+
+def phase_complex_vs_plain(torch):
+    """gj_probe.cu's complex bodies at every COMPLEX_CASES stack against
+    ``batched_block_inverse`` (with the case's global scale) by
+    compare_probe's rules, each row with the kernel's, the plain probe's
+    and ``inv_ex``'s times and the bound; the scaled-down block flagged by
+    the global threshold and not by the block's own; a forced block
+    schedule at complex128 m=128 refused (KernelLaunchError); and a
+    complex64 product with TF32 off at fp32 accuracy (CGEMM_LIMIT against
+    a complex128 product).  Emits every row, then fails if any check
+    failed.  Returns {kernel name: rows}."""
+    from tpu_jordan_torch.config import eps_for, real_dtype
+    from tpu_jordan_torch.errors import KernelLaunchError
+    from tpu_jordan_torch.ops import batched_block_inverse
+    from tpu_jordan_torch.ops.gj_probe import (COMPLEX_BODIES, launch_kernel,
+                                               schedule_for)
+
+    rows = {f"gj_probe[{b}]": [] for b in COMPLEX_BODIES.values()}
+    bad = []
+    for i, (m, nc, dname, scale) in enumerate(COMPLEX_CASES):
+        dtype = getattr(torch, dname)
+        eps = eps_for(dtype)
+        blocks = make_stack(torch, nc, m, dtype, seed=300 + i)
+        flagged, kw = (1, 2, 3), {}
+        if scale is not None:
+            blocks = torch.cat([blocks, blocks[:1] * SCALE_DOWN["float32"]])
+            flagged += (nc,)
+            kw["scale"] = torch.tensor(scale, dtype=real_dtype(dtype),
+                                       device="cuda")
+        plain = batched_block_inverse(blocks, kw.get("scale"), eps)
+        out = launch_kernel(blocks, eps, **kw)
+        readings, ok = compare_probe(torch, blocks, out, plain, dname,
+                                     flagged=flagged)
+        reps = 20 if m <= 256 else 5
+        bound_ms, bound_by = probe_bound(m, len(blocks), dname,
+                                         blocks.element_size())
+        name = f"gj_probe[{COMPLEX_BODIES[dtype]}]"
+        row = {"phase": "kernel_vs_plain", "kernel": name, "m": m,
+               "nc": len(blocks), "dtype": dname, "global_scale": scale,
+               "schedule": list(schedule_for(blocks)), **readings,
+               "ms": cuda_ms(torch, lambda: launch_kernel(blocks, eps, **kw),
+                             reps),
+               "plain_ms": cuda_ms(torch, lambda: batched_block_inverse(
+                   blocks, kw.get("scale"), eps), 2),
+               "library_ms": cuda_ms(torch,
+                                     lambda: torch.linalg.inv_ex(blocks), 20),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        if scale is not None:
+            row["scaled_block_flagged"] = [bool(out[1][nc]),
+                                           bool(plain[1][nc])]
+            row["scaled_block_flagged_by_own_norm"] = bool(
+                launch_kernel(blocks, eps)[1][nc])
+            ok = ok and not row["scaled_block_flagged_by_own_norm"]
+        if dname == "complex128" and m > 64:
+            try:
+                launch_kernel(blocks, eps, ("block", 1))
+                row["block_schedule_refused"] = False
+            except KernelLaunchError:
+                row["block_schedule_refused"] = True
+            ok = ok and row["block_schedule_refused"]
+        emit(row)
+        rows[name].append(row)
+        if not ok:
+            bad.append(row)
+        del blocks, plain, out
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x, y = (torch.randn(4096, 4096, dtype=torch.complex128, device="cuda",
+                        generator=gen) for _ in range(2))
+    ref = x @ y
+    scale = x.abs() @ y.abs()
+
+    def cgemm_err():
+        got = (x.to(torch.complex64) @ y.to(torch.complex64)).to(ref.dtype)
+        return float(((got - ref).abs() / scale).max())
+
+    err = cgemm_err()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    err_tf32 = cgemm_err()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    row = {"phase": "kernel_vs_plain", "check": "cgemm_precision",
+           "shape": [4096, 4096, 4096], "max_rel_err": err,
+           "max_rel_err_tf32_allowed": err_tf32, "limit": CGEMM_LIMIT}
+    emit(row)
+    del x, y, ref, scale
+    if not err <= CGEMM_LIMIT:
+        bad.append(row)
+    if bad:
+        raise AssertionError(f"gj_probe.cu's complex bodies or the complex "
+                             f"products failed their checks: {bad}")
     return rows
 
 
@@ -1210,8 +1392,10 @@ def workload_inputs(torch, n: int, gen: str, dtype, workload: str, k: int):
     """(A, B) of a WORKLOAD_ROWS row on the card, as the CLI makes them;
     for lstsq, the (A, B) of its full-column-rank n × n//2 fit."""
     from tpu_jordan_torch.ops import generate
+    from tpu_jordan_torch.profile_solve import rhs_generator
 
-    b = generate("rand", (n, k), dtype, row_offset=n, device="cuda")
+    b = generate(rhs_generator(dtype), (n, k), dtype, row_offset=n,
+                 device="cuda")
     cols = n // 2 if workload == "lstsq" else n
     return generate(gen, (n, cols), dtype, device="cuda"), b
 
@@ -1221,12 +1405,14 @@ def phase_reference_workloads(torch):
     system) with the kernels against the plain probe.  fp64: equal pivot
     sequences, neither singular, X within min(eps·n·κ∞, 0.05) (κ∞ from the
     in-place invert engine's inverse), and on the pivoting rows the pivot
-    sequence equal to the in-place invert engine's.  fp32: every step's
+    sequence equal to the in-place invert engine's (the augmented one's for
+    complex128, COMPLEX_REFERENCE_WORKLOAD_ROWS).  fp32: every step's
     pivot held to the plain probe's on the same stack."""
     from tpu_jordan_torch import ops
     from tpu_jordan_torch.linalg.api import solve_engine_fn
 
-    for n, m, gen, dname, workload, k, engine in WORKLOAD_ROWS:
+    for n, m, gen, dname, workload, k, engine in (
+            WORKLOAD_ROWS + COMPLEX_REFERENCE_WORKLOAD_ROWS):
         dtype = getattr(torch, dname)
         a, b = workload_inputs(torch, n, gen, dtype, workload, k)
         if workload == "lstsq":
@@ -1236,12 +1422,19 @@ def phase_reference_workloads(torch):
         solve = solve_engine_fn(engine, m)
         row = {"phase": "reference", "workload": workload, "engine": engine,
                "n": size, "m": m, "k": k, "generator": gen, "dtype": dname}
-        if dname == "float64":
+        if dname in ("float64", "complex128"):
             piv_k, piv_p = [], []
             x_k, s_k = solve(a, b, probe=recording_probe(piv_k))
             x_p, s_p = solve(a, b, probe=recording_probe(piv_p, plain_probe))
-            x_i, s_i, st_i = ops.block_jordan_invert_inplace(
-                a, block_size=m, collect_stats=True)
+            if a.is_complex():
+                piv_i = []
+                x_i, s_i = ops.block_jordan_invert(
+                    a, block_size=m, global_scale=True,
+                    probe=recording_probe(piv_i))
+            else:
+                x_i, s_i, st_i = ops.block_jordan_invert_inplace(
+                    a, block_size=m, collect_stats=True)
+                piv_i = st_i["pivot_block"].tolist()
             kappa = float(ops.condition_inf(a, x_i))
             limit = min(torch.finfo(dtype).eps * size * kappa, 0.05)
             row.update({
@@ -1253,8 +1446,7 @@ def phase_reference_workloads(torch):
             ok = (row["pivots_equal"] and len(piv_k) == nr
                   and row["rel_diff"] <= limit and not (s_k or s_p))
             if engine != "solve_spd":
-                row["pivots_equal_to_invert"] = (
-                    piv_k == st_i["pivot_block"].tolist())
+                row["pivots_equal_to_invert"] = piv_k == piv_i
                 ok = ok and row["pivots_equal_to_invert"] and not bool(s_i)
             del x_k, x_p, x_i
         else:
@@ -1270,6 +1462,86 @@ def phase_reference_workloads(torch):
         if not ok:
             raise AssertionError(f"the {workload} engine disagrees with "
                                  f"the plain probe: {row}")
+
+
+def phase_reference_complex(torch):
+    """The complex augmented engine at COMPLEX_STEPWISE_ROW with the kernels,
+    step by step: on every superstep's candidate stack the plain probe
+    (with the same global scale) picks the kernel's pivot, and the run is
+    not singular.  Then the SMW update at UPDATE_REFERENCE_ROW on the card
+    against the same update on the CPU: neither singular, the updated
+    inverses within min(eps·n·κ∞, 0.05) of each other (κ∞ of the mutated
+    matrix's inverse on the CPU)."""
+    from tpu_jordan_torch.linalg import smw_update
+    from tpu_jordan_torch.ops import (
+        batched_block_inverse, block_jordan_invert,
+        block_jordan_invert_inplace, condition_inf, generate, inf_norm,
+        probe_blocks)
+    from tpu_jordan_torch.ops.jordan_inplace import _select as select
+    from tpu_jordan_torch.profile_solve import update_factors
+
+    n, m, gen, dname = COMPLEX_STEPWISE_ROW
+    picks = []
+
+    def both(cands, eps, scale=None):
+        invs, sing = probe_blocks(cands, eps, scale=scale)
+        picks.append([int(select(i, s, 0)[1])
+                      for i, s in (batched_block_inverse(cands, scale, eps),
+                                   (invs, sing))])
+        return invs, sing
+
+    a = generate(gen, (n, n), getattr(torch, dname), device="cuda")
+    _, singular = block_jordan_invert(a, block_size=m, global_scale=True,
+                                      probe=both)
+    row = {"phase": "reference", "engine": "augmented", "n": n, "m": m,
+           "generator": gen, "dtype": dname, "stepwise": True,
+           "steps": len(picks),
+           "pivots_equal": all(p == k for p, k in picks),
+           "singular": bool(singular)}
+    emit(row)
+    del a
+    torch.cuda.empty_cache()
+    if not (row["pivots_equal"] and row["steps"] == -(-n // m)
+            and not row["singular"]):
+        raise AssertionError(f"kernel and plain probe disagree in the "
+                             f"complex augmented engine: {row}")
+
+    n, m, gen, dname, ranks = UPDATE_REFERENCE_ROW
+    dtype = getattr(torch, dname)
+    a = generate(gen, (n, n), dtype, device="cuda")
+    inv = block_jordan_invert_inplace(a, block_size=m)[0]
+    for k in ranks:
+        u, v = update_factors(n, k, dtype)
+        x_k, s_k = smw_update(inv, u, v)
+        x_c, s_c = smw_update(inv.cpu(), u.cpu(), v.cpu())
+        kappa = float(condition_inf((a + u @ v.T).cpu(), x_c))
+        rel = float(inf_norm(x_k.cpu() - x_c) / inf_norm(x_c))
+        limit = min(torch.finfo(dtype).eps * n * kappa, 0.05)
+        row = {"phase": "reference", "engine": "smw_update", "n": n,
+               "m": m, "k": k, "generator": gen, "dtype": dname,
+               "against": "cpu", "singular": [bool(s_k), bool(s_c)],
+               "kappa_inf": kappa, "rel_diff": rel, "limit": limit}
+        emit(row)
+        if not (rel <= limit and not (bool(s_k) or bool(s_c))):
+            raise AssertionError(f"the SMW update on the card disagrees "
+                                 f"with the CPU's: {row}")
+    del a, inv
+    torch.cuda.empty_cache()
+
+
+class BodyCounter:
+    """The launch count of one complex body of ``csrc/gj_probe.cu``
+    (``gj_probe.complex_launches``), with a module counter's interface."""
+
+    def __init__(self, mod, body: str):
+        self.mod, self.body = mod, body
+
+    @property
+    def launches(self) -> int:
+        return self.mod.complex_launches[self.body]
+
+    def reset_launches(self) -> None:
+        self.mod.reset_launches()
 
 
 def phase_solve(torch):
@@ -1288,7 +1560,9 @@ def phase_solve(torch):
               device="cuda")
         torch.cuda.empty_cache()
     counters = {"gj_probe_fused_panel": panel_mod, "gj_probe": probe_mod,
-                "fused_update": update_mod}
+                "fused_update": update_mod,
+                **{f"gj_probe[{b}]": BodyCounter(probe_mod, b)
+                   for b in probe_mod.COMPLEX_BODIES.values()}}
     totals = dict.fromkeys(counters, 0)
     for n, m, gen, dname, engine in SOLVE_ROWS:
         eps = float(torch.finfo(getattr(torch, dname)).eps)
@@ -1302,11 +1576,12 @@ def phase_solve(torch):
         # The engine ran once, and once more for a re-solve rung.
         runs = 1 + sum(r["rung"] == "resolve" for r in res.recovery)
         nr = -(-n // m)
-        expected = {"gj_probe_fused_panel": 0, "gj_probe": 0,
-                    "fused_update": (-(-nr // res.group) * runs
-                                     if engine in PALLAS_ENGINES else 0)}
-        body = ("gj_probe" if engine == "augmented"
-                else probe_mod.probe_body(m))
+        expected = dict.fromkeys(counters, 0)
+        if engine in PALLAS_ENGINES:
+            expected["fused_update"] = -(-nr // res.group) * runs
+        dtype = getattr(torch, dname)
+        body = ("gj_probe" if res.engine == "augmented"
+                and not dtype.is_complex else probe_mod.probe_body(m, dtype))
         expected[body] = nr * runs
         if engine == "grouped_pallas_bf16":
             # The driver's own gate: bf16 eps for the bf16 result, fp32
@@ -1339,7 +1614,7 @@ def phase_solve(torch):
         for name in totals:
             totals[name] += launches[name]
     for phase in (phase_solve_batch, phase_solve_lookahead,
-                  phase_solve_workloads):
+                  phase_solve_workloads, phase_solve_update):
         for name, count in phase(torch, counters).items():
             totals[name] += count
     return totals
@@ -1405,7 +1680,8 @@ def phase_solve_workloads(torch, counters):
                                              solve_gate_threshold)
 
     totals = dict.fromkeys(counters, 0)
-    for n, m, gen, dname, workload, k, engine in WORKLOAD_ROWS:
+    for n, m, gen, dname, workload, k, engine in (WORKLOAD_ROWS
+                                                  + COMPLEX_WORKLOAD_ROWS):
         dtype = getattr(torch, dname)
         a, b = workload_inputs(torch, n, gen, dtype, workload, k)
 
@@ -1426,7 +1702,7 @@ def phase_solve_workloads(torch, counters):
         res = out.inner if workload == "lstsq" else out
         nr = -(-res.n // m)
         expected = dict.fromkeys(counters, 0)
-        expected[probe_mod.probe_body(m)] = nr
+        expected[probe_mod.probe_body(m, dtype)] = nr
         gate = solve_gate_threshold(DEFAULT_POLICY, res.n, dtype)
         row = {"phase": "solve", "workload": workload, "n": n, "m": m,
                "k": k, "generator": gen, "dtype": dname,
@@ -1449,6 +1725,90 @@ def phase_solve_workloads(torch, counters):
                 and row["finite"] and row["shape"] == [row["system_n"], k]):
             raise AssertionError(f"{workload} failed its checks: {row}")
         totals = {name: totals[name] + launches[name] for name in totals}
+    return totals
+
+
+def phase_solve_update(torch, counters):
+    """The update path at UPDATE_ROW: the resident inverse of the row's
+    matrix from the in-place engine (its warm time is the fresh invert's),
+    then ``linalg.solve_update`` at each rank with the kernels' counts set
+    to 0 just before the timed update and read just after: the capacitance
+    solve's probe launches = its Nr of the body its m routes to (m = 8:
+    ``gj_probe``; m = 16: ``gj_probe_fused_panel``), the update's
+    rel_residual under the update gate ``gate_threshold(DEFAULT_POLICY, n,
+    κ∞, dtype)`` with no ladder rung, the result finite.  Then `chained`
+    rank-16 updates under the default policy, each on the last one's
+    matrix and inverse with its drift threaded through: the drift within
+    the budget (``drift_budget``) and no rung walked.  Returns the counts
+    summed over the timed updates."""
+    from tpu_jordan_torch.config import default_block_size
+    from tpu_jordan_torch.linalg import drift_budget, smw_update, solve_update
+    from tpu_jordan_torch.ops import block_jordan_invert_inplace, generate
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+    from tpu_jordan_torch.profile_solve import update_factors
+    from tpu_jordan_torch.resilience import DEFAULT_POLICY, gate_threshold
+
+    n, m, gen, dname, ranks, chained = UPDATE_ROW
+    dtype = getattr(torch, dname)
+    a = generate(gen, (n, n), dtype, device="cuda")
+    fresh_ms = cuda_ms(torch, lambda: block_jordan_invert_inplace(
+        a, block_size=m), 1)
+    inv, singular = block_jordan_invert_inplace(a, block_size=m)
+    if bool(singular):
+        raise AssertionError("the resident inverse of the update row is "
+                             "singular")
+    totals = dict.fromkeys(counters, 0)
+    for k in ranks:
+        u, v = update_factors(n, k, dtype)
+        solve_update(a, inv, u, v, device="cuda")
+        for mod in counters.values():
+            mod.reset_launches()
+        res = solve_update(a, inv, u, v, device="cuda")
+        launches = {name: mod.launches for name, mod in counters.items()}
+        mk = min(default_block_size(k), k)
+        body = probe_mod.probe_body(mk, dtype)
+        expected = dict.fromkeys(counters, 0)
+        expected[body] = -(-k // mk)
+        gate = gate_threshold(DEFAULT_POLICY, n, res.kappa, dtype)
+        row = {"phase": "solve", "workload": "update", "n": n, "m": m,
+               "k": k, "generator": gen, "dtype": dname,
+               "engine": res.engine, "seconds": res.elapsed,
+               "gflops": res.gflops, "fresh_invert_ms": fresh_ms,
+               "smw_update_ms": cuda_ms(torch, lambda: smw_update(
+                   inv, u, v), 3),
+               "rel_residual": res.rel_residual, "kappa_inf": res.kappa,
+               "gate": gate, "capacitance_m": mk,
+               "capacitance_probe": body, "launches": launches,
+               "expected_launches": expected,
+               "finite": bool(torch.isfinite(res.inverse).all()),
+               "shape": list(res.inverse.shape)}
+        emit(row)
+        del res
+        if not (row["rel_residual"] < gate and launches == expected
+                and row["finite"] and row["shape"] == [n, n]):
+            raise AssertionError(f"update failed its checks: {row}")
+        totals = {name: totals[name] + launches[name] for name in totals}
+    cur_a, cur_inv, drift, rels = a, inv, 0.0, []
+    for step in range(chained):
+        u, v = update_factors(n, 16, dtype, step=step + 1)
+        res = solve_update(cur_a, cur_inv, u, v, drift=drift,
+                           policy=DEFAULT_POLICY, device="cuda")
+        if res.recovery:
+            raise AssertionError(f"chained update {step} walked the "
+                                 f"ladder: {res.recovery}")
+        cur_a, cur_inv, drift = res.a_new, res.inverse, res.drift
+        rels.append(res.rel_residual)
+    budget = drift_budget(gate_threshold(DEFAULT_POLICY, n, res.kappa,
+                                         dtype))
+    row = {"phase": "solve", "workload": "update", "n": n, "m": m,
+           "k": 16, "chained": chained, "rel_residuals": rels,
+           "drift": drift, "budget": budget}
+    emit(row)
+    del a, inv, cur_a, cur_inv, res
+    torch.cuda.empty_cache()
+    if not drift <= budget:
+        raise AssertionError(f"the chained updates' drift passed its "
+                             f"budget: {row}")
     return totals
 
 
@@ -1522,8 +1882,7 @@ def phase_solve_batch(torch, counters):
         launches = {name: mod.launches for name, mod in counters.items()}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         nr = -(-n // m)
-        expected = {"gj_probe_fused_panel": 0, "gj_probe": 0,
-                    "fused_update": 0}
+        expected = dict.fromkeys(counters, 0)
         expected[probe_mod.probe_body(m)] = nr
         inv = res.inverse
         a = generate_batch(gen, n, B, dtype, device="cuda")
@@ -1656,7 +2015,6 @@ def phase_cluster_sweep(torch):
     from tpu_jordan_torch.ops import gj_probe_panel, probe_variants
     from tpu_jordan_torch.ops import gj_probe as gp
 
-    lib = gp._lib()
     for m, nc, dname in SWEEP_CASES:
         dtype = getattr(torch, dname)
         eps = eps_for(dtype)
@@ -1672,8 +2030,7 @@ def phase_cluster_sweep(torch):
             options += [("global", c) for c in (2, 4, 5, 8, 16)
                         if 0 < gp.smem_rows(m, elem, c) < -(-m // c)]
         for sched in options:
-            active = lib.gj_probe_active_clusters(
-                m, elem, gp.SCHEDULES[sched[0]], sched[1])
+            active = gp.active_clusters(m, elem, *sched)
             row = {"phase": "cluster_sweep", "kernel": "gj_probe", "m": m,
                    "nc": nc, "dtype": dname, "schedule": list(sched),
                    "default": list(default), "active_clusters": active}
@@ -1725,24 +2082,34 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    start = time.perf_counter()
     phase_toolchain(torch)
+    seconds = {"toolchain": time.perf_counter() - start}
     rows = {name: [] for name in KERNELS}
     if "kernel_vs_plain" in phases:
         rows.update(phase_kernel_vs_plain(torch))
         rows["gj_probe"] += phase_scaled_vs_plain(torch)
+        rows.update(phase_complex_vs_plain(torch))
         rows["fused_update"] = phase_update_vs_plain(torch)
         rows.update(phase_variants_vs_plain(torch))
+    seconds["kernel_vs_plain"] = time.perf_counter() - start - sum(
+        seconds.values())
     launches = {}
     if "reference" in phases:
         phase_reference(torch)
         phase_reference_engines(torch)
         phase_reference_lookahead(torch)
         phase_reference_workloads(torch)
+        phase_reference_complex(torch)
         launches.update(phase_reference_variants(torch))
+    seconds["reference"] = time.perf_counter() - start - sum(
+        seconds.values())
     if "solve" in phases:
         launches.update(phase_solve(torch))
+    seconds["solve"] = time.perf_counter() - start - sum(seconds.values())
     if "overlap" in phases:
         phase_overlap(torch)
+    seconds["overlap"] = time.perf_counter() - start - sum(seconds.values())
     if "knife_edge" in phases:
         phase_knife_edge(torch)
     if "cluster_sweep" in phases:
@@ -1770,6 +2137,8 @@ def main(argv=None) -> int:
             "bound_by": rep.get("bound_by"),
             "library_ms": rep.get("library_ms"),
             "shape": shape, "dtype": rep.get("dtype", rep.get("mode"))})
+    emit({"phase": "wall", "seconds": seconds,
+          "total_s": time.perf_counter() - start})
     print(smi(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

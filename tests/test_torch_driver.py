@@ -270,7 +270,7 @@ def test_no_gpu_raises_instead_of_running_on_cpu(monkeypatch):
     {"precision": "mixed"},
     {"engine": "augmented", "group": 2},
     {"engine": "swapfree"},
-    {"dtype": "complex64"},
+    {"dtype": "complex64", "engine": "inplace"},
 ])
 def test_later_slice_options_are_refused(kwargs):
     with pytest.raises(UsageError):

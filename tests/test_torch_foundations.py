@@ -51,7 +51,7 @@ def test_generator_bit_equal(name, np_dt, t_dt, offsets):
 
 def test_generator_unknown_name_raises():
     with pytest.raises(ValueError, match="unknown generator"):
-        tgenerate("crand", (4, 4))
+        tgenerate("zrand", (4, 4))
 
 
 @pytest.mark.parametrize("n,N", [(5, 8), (8, 8)])

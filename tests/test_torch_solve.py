@@ -7,8 +7,8 @@ sequences (``collect_stats=True``) and singular flags must be equal; X
 agrees within min(100·eps·κ∞, 0.1) in the relative ∞-norm (eps the dtype's
 machine epsilon, κ∞ = ‖A‖∞‖A⁻¹‖∞ from numpy), the eps·n·κ scaling of
 ``test_torch_engine.py``.  ``solve_system``, ``lstsq`` and the CLI mirror
-the flag contract of ``tests/test_linalg.py``, without complex dtypes
-(ROADMAP.md Queue A item 7b).
+the flag contract of ``tests/test_linalg.py``; ``tests/test_torch_complex.py``
+holds the complex dtypes.
 """
 
 import subprocess
@@ -274,7 +274,7 @@ def test_flag_contract():
     ({"telemetry": object()}, "item 12"),
     ({"numerics": "summary"}, "item 12"),
     ({"plan_cache": "plans.json"}, "item 11"),
-    ({"dtype": "complex64"}, "item 7b"),
+    ({"dtype": "complex64", "workers": 2}, "item 15"),
 ])
 def test_later_slice_options_are_refused_by_name(kwargs, item):
     with pytest.raises(UsageError, match=item):
@@ -282,11 +282,34 @@ def test_later_slice_options_are_refused_by_name(kwargs, item):
 
 
 def test_complex_input_is_refused_by_name():
+    """Complex input is no longer refused: solve_system and lstsq match
+    the JAX package's (X within the file's tolerance, the solve engine's
+    pivots equal); only its distributed solve is refused, by item."""
+    def close(xt, xj, a):
+        kappa = _inf(a) * _inf(np.linalg.inv(a.astype(np.complex128)))
+        tol = min(100 * np.finfo(np.float32).eps * kappa, 0.1)
+        xj = np.asarray(xj)
+        return _inf(xt.numpy() - xj) / _inf(xj) <= tol
+
     a = (_rand((8, 8)) + 1j * _rand((8, 8), seed=1)).astype(np.complex64)
-    with pytest.raises(UsageError, match="item 7b"):
-        solve_system(a, np.ones(8, np.complex64), device="cpu")
-    with pytest.raises(UsageError, match="item 7b"):
-        lstsq(a, np.ones(8, np.complex64), device="cpu")
+    b = np.ones(8, np.complex64)
+    rt, rj = solve_system(a, b, device="cpu"), jsolve_system(a, b)
+    assert rt.engine == rj.engine and rt.x.dtype == torch.complex64
+    assert close(rt.x, rj.x, a)
+    _, _, stt = block_jordan_solve(torch.from_numpy(a),
+                                   torch.from_numpy(b[:, None]),
+                                   collect_stats=True)
+    _, _, stj = je.block_jordan_solve(jnp.asarray(a), jnp.asarray(b[:, None]),
+                                      collect_stats=True)
+    np.testing.assert_array_equal(stt["pivot_block"].numpy(),
+                                  np.asarray(stj["pivot_block"]))
+    tall = np.concatenate([a, a.conj() + 2 * np.eye(8)]).astype(np.complex64)
+    lt, lj = (lstsq(tall, np.ones(16, np.complex64), device="cpu"),
+              jlstsq(tall, np.ones(16, np.complex64)))
+    assert not lt.rank_deficient and not lj.rank_deficient
+    assert close(lt.x, lj.x, tall.conj().T @ tall)
+    with pytest.raises(UsageError, match="item 15"):
+        solve_system(a, b, workers=2, device="cpu")
 
 
 def test_singular_raises_and_check_false_reports():

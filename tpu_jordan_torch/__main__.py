@@ -6,10 +6,15 @@ unreadable file, singular matrix, a rank-deficient lstsq, an exhausted
 residual-gate ladder, no CUDA device).
 
 ``--workload solve`` solves A·X = B (B = the ``rand`` window of n × K at
-row offset n, ``--rhs K``) with no inverse formed, ``--assume spd`` on the
-pivot-free path; ``--workload lstsq`` fits an n × n//2 generated A to that
-B through the normal equations.  Both print the backward error beside the
-solve gate (``resilience.solve_gate_threshold`` of the default policy).
+row offset n, ``--rhs K``; ``crand`` for a complex dtype) with no inverse
+formed, ``--assume spd`` on the pivot-free path; ``--workload lstsq`` fits
+an n × n//2 generated A to that B through the normal equations.  Both print
+the backward error beside the solve gate
+(``resilience.solve_gate_threshold`` of the default policy).
+
+``--dtype complex64`` runs the complex path (with ``--generator crand``,
+the deterministic complex uniform, which a real ``--dtype`` refuses with
+exit 1): invert on the augmented engine, and both workloads.
 """
 
 from __future__ import annotations
@@ -33,10 +38,15 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("m", type=int, help="pivot block size")
     ap.add_argument("file", nargs="?", default=None, help="matrix file")
     ap.add_argument("--dtype", default="float32",
-                    choices=["float32", "float64", "bfloat16", "float16"])
+                    choices=["float32", "float64", "bfloat16", "float16",
+                             "complex64"],
+                    help="storage dtype (complex64: the augmented invert "
+                         "engine and --workload solve/lstsq)")
     ap.add_argument("--generator", default="absdiff",
-                    choices=["absdiff", "hilbert", "rand", "kms"],
-                    help="matrix generator when no file is given")
+                    choices=["absdiff", "hilbert", "rand", "kms", "crand"],
+                    help="matrix generator when no file is given (crand = "
+                         "deterministic complex uniform, complex dtypes "
+                         "only)")
     ap.add_argument("--workload", default="invert",
                     choices=["invert", "solve", "lstsq"],
                     help="invert = A^-1; solve = X = A^-1 B by Gauss-Jordan "
@@ -93,6 +103,11 @@ def main(argv=None) -> int:
                              "(the pivot-free SPD fast path)")
         if args.workload == "invert" and args.rhs != 1:
             raise UsageError("--rhs applies to --workload solve/lstsq")
+        if args.generator == "crand" and not args.dtype.startswith(
+                "complex"):
+            raise UsageError("--generator crand is complex-valued; a real "
+                             "--dtype would silently discard the imaginary "
+                             "part (use --dtype complex64)")
         if args.workload != "invert":
             return _workload(args)
         if args.batch > 1:
@@ -157,8 +172,8 @@ def _workload(args) -> int:
                          "via their own ladder (attach a policy)")
     dtype = resolve_dtype(args.dtype)
     dev = resolve_device(args.device)
-    bmat = generate("rand", (args.n, args.rhs), dtype, row_offset=args.n,
-                    device=dev)
+    bmat = generate("crand" if dtype.is_complex else "rand",
+                    (args.n, args.rhs), dtype, row_offset=args.n, device=dev)
     if args.workload == "solve":
         if args.file is not None:
             from .interop import from_numpy

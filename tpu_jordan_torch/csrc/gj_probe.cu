@@ -13,6 +13,18 @@
 // scale ‖A‖∞, main.cpp:782/972; a pointer, so the host never reads it) —
 // the rule of the plain version, tpu_jordan_torch/ops/block_inverse.py.
 //
+// Value types.  fp32 and fp64, and complex64 and complex128 (the JAX
+// package runs its complex probes through XLA's batched_block_inverse; the
+// port has no XLA, so these bodies are that function's counterpart on the
+// card).  Every body is templated on the value type V and its key type K,
+// the real component type: keys, row sums, the scale and the threshold are
+// real (|z| by hypot, NaN highest), so the slot reductions stay hardware
+// reductions over real key bits, and only the raw pivot value (two
+// shuffles for a complex one) and W are of type V.  A complex pivot is
+// inverted once a step by Smith's method (no |z|² that could overflow or
+// underflow) and the pivot row multiplied by that reciprocal; a real one
+// keeps its exact IEEE divisions.
+//
 // Algebra.  Gauss–Jordan with implicit partial pivoting and the width-m
 // in-place step: at step k the pivot is the unused row r with the largest
 // |W[r,k]| (lowest row on ties, NaN highest), its row is divided by the
@@ -35,7 +47,9 @@
 // Two barriers a step; the slots and prow are double-buffered by step
 // parity.  Three schedules, picked by ops/gj_probe.py::probe_schedule and
 // refused here when they do not fit:
-//   block    m ≤ 128: one block of 16 warps per candidate, W in its
+//   block    m ≤ 128 (m ≤ 64 in complex128, whose 8 x 4 values a thread
+//            would fill the 128 registers of a 512-thread block alone):
+//            one block of 16 warps per candidate, W in its
 //            registers: lane l of warp w holds W at rows w + 16·t and
 //            columns l + 32·u in v[t][u] (at most 8 x 4 values).  A step
 //            loads prow once a thread and costs an element an FMA and a
@@ -116,26 +130,26 @@ __host__ __device__ inline int rows_per_block(int m, int C) {
 // the cluster schedule, as many as fit on the global one, none on the
 // block one), then
 // prow, the factors, the slots, the warps' slots, the flags and the
-// permutation.
+// permutation.  Values take `elem` bytes, keys and row sums `key`.
 // ops/gj_probe.py::probe_smem_bytes mirrors it.
 struct Layout {
   size_t W, prow, fcol, key, raw, row, wkey, wraw, wrow, nsum, nfin, used,
       perm, pinv, total;
 };
 
-__host__ __device__ inline Layout layout(int m, int C, int elem,
+__host__ __device__ inline Layout layout(int m, int C, int elem, int key,
                                          int w_rows) {
   const size_t R = rows_per_block(m, C), S = size_t(kMaxWarps) * C;
   const size_t sizes[14] = {size_t(w_rows) * m * elem,
                             2 * size_t(m) * elem,
                             R * elem,
-                            2 * S * elem,
+                            2 * S * key,
                             2 * S * elem,
                             2 * S * 4,
-                            size_t(kMaxWarps) * elem,
+                            size_t(kMaxWarps) * key,
                             size_t(kMaxWarps) * elem,
                             size_t(kMaxWarps) * 4,
-                            S * elem,
+                            S * key,
                             S * 4,
                             R * 4,
                             size_t(m) * 4,
@@ -152,11 +166,90 @@ __host__ __device__ inline Layout layout(int m, int C, int elem,
 // loads and its stores.
 constexpr int kBatch = 8;
 
+// A complex value, laid out as torch's complex64 / complex128 (re, im).
+template <typename R>
+struct __align__(2 * sizeof(R)) Cpx {
+  R re, im;
+  Cpx() = default;
+  __device__ __forceinline__ constexpr Cpx(R r, R i = R(0)) : re(r), im(i) {}
+};
+
+template <typename R>
+__device__ __forceinline__ Cpx<R> operator*(Cpx<R> a, Cpx<R> b) {
+  return {fma(a.re, b.re, -a.im * b.im), fma(a.re, b.im, a.im * b.re)};
+}
+template <typename R>
+__device__ __forceinline__ Cpx<R> operator-(Cpx<R> a, Cpx<R> b) {
+  return {a.re - b.re, a.im - b.im};
+}
+
+// The key type of a value type: the value type itself for a real one, the
+// component type for a complex one.
+template <typename V>
+struct KeyOf {
+  using type = V;
+};
+template <typename R>
+struct KeyOf<Cpx<R>> {
+  using type = R;
+};
+template <typename V>
+using key_t = typename KeyOf<V>::type;
+
+// |v| in the key type, whether v is finite, whether it is 0.
+__device__ __forceinline__ float mag(float v) { return fabsf(v); }
+__device__ __forceinline__ double mag(double v) { return fabs(v); }
+__device__ __forceinline__ float mag(Cpx<float> v) { return hypotf(v.re, v.im); }
+__device__ __forceinline__ double mag(Cpx<double> v) { return hypot(v.re, v.im); }
+template <typename T>
+__device__ __forceinline__ bool finite(T v) { return isfinite(v); }
+template <typename R>
+__device__ __forceinline__ bool finite(Cpx<R> v) {
+  return isfinite(v.re) && isfinite(v.im);
+}
+template <typename T>
+__device__ __forceinline__ bool is_zero(T v) { return v == T(0); }
+template <typename R>
+__device__ __forceinline__ bool is_zero(Cpx<R> v) {
+  return v.re == R(0) && v.im == R(0);
+}
+
+// The pivot's reciprocal, once a step, and an element of the pivot row
+// scaled by it: a real pivot divides (one exact IEEE division an element),
+// a complex one multiplies by its reciprocal by Smith's method.
+template <typename T>
+__device__ __forceinline__ T recip(T p) { return T(1) / p; }
+template <typename R>
+__device__ __forceinline__ Cpx<R> recip(Cpx<R> p) {
+  if (fabs(p.re) >= fabs(p.im)) {
+    const R r = p.im / p.re, d = p.re + p.im * r;
+    return {R(1) / d, -r / d};
+  }
+  const R r = p.re / p.im, d = p.re * r + p.im;
+  return {r / d, R(-1) / d};
+}
+template <typename T>
+__device__ __forceinline__ T over_pivot(T x, T piv, T) { return x / piv; }
+template <typename R>
+__device__ __forceinline__ Cpx<R> over_pivot(Cpx<R> x, Cpx<R>, Cpx<R> rp) {
+  return x * rp;
+}
+
+// A lane's value from lane `src`: two shuffles for a complex one.
+template <typename T>
+__device__ __forceinline__ T shfl(T v, int src) {
+  return __shfl_sync(kFullMask, v, src);
+}
+template <typename R>
+__device__ __forceinline__ Cpx<R> shfl(Cpx<R> v, int src) {
+  return {__shfl_sync(kFullMask, v.re, src), __shfl_sync(kFullMask, v.im, src)};
+}
+
 // (v, i, x) <- the better of it and (ov, oi, ox): larger key, lower row on
 // ties.  A total order, so every reduction gives every lane one winner.
-template <typename T>
-__device__ __forceinline__ void take_better(T& v, int& i, T& x, T ov, int oi,
-                                            T ox) {
+template <typename K, typename V>
+__device__ __forceinline__ void take_better(K& v, int& i, V& x, K ov, int oi,
+                                            V ox) {
   if (ov > v || (ov == v && oi < i)) {
     v = ov;
     i = oi;
@@ -167,10 +260,10 @@ __device__ __forceinline__ void take_better(T& v, int& i, T& x, T ov, int oi,
 // The pivot key of a value: |v|, NaN highest (as in argmax).  Keys are
 // never negative, so their bits order as unsigned integers.  An empty
 // candidate is (key 0, row INT_MAX), and any row beats it.
-template <typename T>
-__device__ __forceinline__ T key_of(T v) {
-  const T a = fabs(v);
-  return isnan(a) ? T(INFINITY) : a;
+template <typename V>
+__device__ __forceinline__ key_t<V> key_of(V v) {
+  const key_t<V> a = mag(v);
+  return isnan(a) ? key_t<V>(INFINITY) : a;
 }
 
 // Whether this lane holds the largest key of the warp: hardware reductions
@@ -189,13 +282,13 @@ __device__ __forceinline__ bool holds_max(double key) {
 
 // The warp's best row by take_better's order (the lowest row among the
 // lanes that hold the largest key), in every lane, and its raw value.
-template <typename T>
-__device__ __forceinline__ int warp_best(T key, int row, T& raw) {
+template <typename K, typename V>
+__device__ __forceinline__ int warp_best(K key, int row, V& raw) {
   const bool win = holds_max(key);
   const int r = int(__reduce_min_sync(
       kFullMask, win ? unsigned(row) : unsigned(INT_MAX)));
   const unsigned from = __ballot_sync(kFullMask, win && row == r);
-  raw = __shfl_sync(kFullMask, raw, __ffs(from) - 1);
+  raw = shfl(raw, __ffs(from) - 1);
   return r;
 }
 
@@ -218,21 +311,22 @@ struct Sync {
 };
 
 // What every schedule shares: the cluster shape, the shared regions, the
-// slots, the flag and the threshold.
-template <typename T, bool kClustered>
+// slots, the flag and the threshold.  V is the value type, K its key type.
+template <typename V, bool kClustered>
 struct Frame {
   using Sy = Sync<kClustered>;
+  using K = key_t<V>;
   int C, rank, tid, nt, lane, warp, nwarps, S, R, r0, nloc, slot;
-  T* W;       // [w_rows][m], the first own rows (cluster, global)
-  T* prow;    // [2][m]
-  T* fcol;    // [R], own rows (cluster, global)
-  T* s_key;   // [2][S]
-  T* s_raw;   // [2][S]
+  V* W;       // [w_rows][m], the first own rows (cluster, global)
+  V* prow;    // [2][m]
+  V* fcol;    // [R], own rows (cluster, global)
+  K* s_key;   // [2][S]
+  V* s_raw;   // [2][S]
   int* s_row; // [2][S]
-  T* w_key;   // [32], the block's warps (cluster, global)
-  T* w_raw;
+  K* w_key;   // [32], the block's warps (cluster, global)
+  V* w_raw;
   int* w_row;
-  T* s_nsum;  // [S], rank 0's
+  K* s_nsum;  // [S], rank 0's
   int* s_nfin;
   int* used;  // [R], own rows (cluster, global)
   int* perm;  // [m]
@@ -255,17 +349,17 @@ struct Frame {
     r0 = rank * R;
     nloc = max(0, min(R, m - r0));
     slot = rank * nwarps + warp;
-    const Layout L = layout(m, C, sizeof(T), w_rows);
-    W = reinterpret_cast<T*>(smem + L.W);
-    prow = reinterpret_cast<T*>(smem + L.prow);
-    fcol = reinterpret_cast<T*>(smem + L.fcol);
-    s_key = reinterpret_cast<T*>(smem + L.key);
-    s_raw = reinterpret_cast<T*>(smem + L.raw);
+    const Layout L = layout(m, C, sizeof(V), sizeof(K), w_rows);
+    W = reinterpret_cast<V*>(smem + L.W);
+    prow = reinterpret_cast<V*>(smem + L.prow);
+    fcol = reinterpret_cast<V*>(smem + L.fcol);
+    s_key = reinterpret_cast<K*>(smem + L.key);
+    s_raw = reinterpret_cast<V*>(smem + L.raw);
     s_row = reinterpret_cast<int*>(smem + L.row);
-    w_key = reinterpret_cast<T*>(smem + L.wkey);
-    w_raw = reinterpret_cast<T*>(smem + L.wraw);
+    w_key = reinterpret_cast<K*>(smem + L.wkey);
+    w_raw = reinterpret_cast<V*>(smem + L.wraw);
     w_row = reinterpret_cast<int*>(smem + L.wrow);
-    s_nsum = reinterpret_cast<T*>(smem + L.nsum);
+    s_nsum = reinterpret_cast<K*>(smem + L.nsum);
     s_nfin = reinterpret_cast<int*>(smem + L.nfin);
     used = reinterpret_cast<int*>(smem + L.used);
     perm = reinterpret_cast<int*>(smem + L.perm);
@@ -274,10 +368,10 @@ struct Frame {
 
   // The warp's candidate (held by lane q) into its slot of parity par in
   // every block of the cluster: lanes 0..C-1 push one each.
-  __device__ void publish(int par, int q, T best, int bi, T bx) const {
+  __device__ void publish(int par, int q, K best, int bi, V bx) const {
     best = __shfl_sync(kFullMask, best, q);
     bi = __shfl_sync(kFullMask, bi, q);
-    bx = __shfl_sync(kFullMask, bx, q);
+    bx = shfl(bx, q);
     if (lane < C) {
       const int at = par * S + slot;
       *Sy::at(s_key + at, lane) = best;
@@ -290,10 +384,10 @@ struct Frame {
   // the cluster: each warp's candidate (held by lane q) to the block's
   // warp slots, a block barrier, then warp 0 reduces them and its lanes
   // 0..C-1 push the winner, one remote store each.
-  __device__ void publish_block(int par, int q, T best, int bi, T bx) const {
+  __device__ void publish_block(int par, int q, K best, int bi, V bx) const {
     best = __shfl_sync(kFullMask, best, q);
     bi = __shfl_sync(kFullMask, bi, q);
-    bx = __shfl_sync(kFullMask, bx, q);
+    bx = shfl(bx, q);
     if (lane == 0) {
       w_key[warp] = best;
       w_raw[warp] = bx;
@@ -301,7 +395,8 @@ struct Frame {
     }
     __syncthreads();
     if (warp != 0) return;
-    T kb = T(0), xb = T(0);
+    K kb = K(0);
+    V xb = V(0);
     int rb = INT_MAX;
     if (lane < nwarps) {
       kb = w_key[lane];
@@ -311,14 +406,14 @@ struct Frame {
     rb = warp_best(kb, rb, xb);
     if (lane < C) {
       const int at = par * C + rank;
-      *Sy::at(s_key + at, lane) = rb == INT_MAX ? T(0) : key_of(xb);
+      *Sy::at(s_key + at, lane) = rb == INT_MAX ? K(0) : key_of(xb);
       *Sy::at(s_raw + at, lane) = xb;
       *Sy::at(s_row + at, lane) = rb;
     }
   }
 
   // The warp's largest own-row sum and non-finite flag to rank 0.
-  __device__ void publish_norm(T row_max, int nonfinite) const {
+  __device__ void publish_norm(K row_max, int nonfinite) const {
     nonfinite = __any_sync(kFullMask, nonfinite);
     if (lane == 0) {
       *Sy::at(s_nsum + slot, 0) = row_max;
@@ -327,13 +422,13 @@ struct Frame {
   }
 
   // Rank 0's thread 0: the flag so far and the threshold eps·s, with s
-  // the caller's |scale[0]| if given, else ‖block‖∞.
-  __device__ void start_flag(T eps, const T* scale, int& bad,
-                             T& thresh) const {
+  // the caller's |scale[0]| if given (a real value), else ‖block‖∞.
+  __device__ void start_flag(K eps, const K* scale, int& bad,
+                             K& thresh) const {
     bad = 0;
-    thresh = T(0);
+    thresh = K(0);
     if (rank == 0 && tid == 0) {
-      T norm = T(0);
+      K norm = K(0);
       for (int w = 0; w < S; ++w) {
         norm = fmax(norm, s_nsum[w]);
         bad |= s_nfin[w];
@@ -347,10 +442,10 @@ struct Frame {
   // Every warp reduces the n slots of parity par (n = S, or C after
   // publish_block): the pivot row of step k and its raw value; thread 0
   // records it.
-  __device__ int pick(int par, int k, T& piv, int& bad, T thresh,
+  __device__ int pick(int par, int k, V& piv, int& bad, K thresh,
                       int n) const {
-    T best = T(0);
-    piv = T(0);
+    K best = K(0);
+    piv = V(0);
     int r = INT_MAX;
     for (int w = lane; w < n; w += 32)
       take_better(best, r, piv, s_key[par * n + w], s_row[par * n + w],
@@ -359,7 +454,7 @@ struct Frame {
     if (tid == 0) {
       perm[k] = r;
       pinv[r] = k;
-      if (rank == 0 && fabs(piv) < thresh) bad = 1;
+      if (rank == 0 && mag(piv) < thresh) bad = 1;
     }
     return r;
   }
@@ -371,18 +466,19 @@ struct Frame {
 // columns in v[t][u].  A step loads prow once a thread (CM values) and
 // updates its RM·CM values in place; the factor W[i, k] of a row comes
 // from the lane that holds column k by a shuffle.
-template <typename T, int CM, int RM>
+template <typename V, int CM, int RM>
 __global__ void __launch_bounds__(kRegWarps * 32)
-    gj_probe_reg_kernel(const T* __restrict__ blocks, T* __restrict__ inv,
-                        uint8_t* __restrict__ sing, int m, T eps,
-                        const T* __restrict__ scale) {
+    gj_probe_reg_kernel(const V* __restrict__ blocks, V* __restrict__ inv,
+                        uint8_t* __restrict__ sing, int m, key_t<V> eps,
+                        const key_t<V>* __restrict__ scale) {
+  using K = key_t<V>;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Frame<T, false> F(smem, m);
+  const Frame<V, false> F(smem, m);
   using Sy = Sync<false>;
   const int lane = F.lane, warp = F.warp;
   const size_t mm = size_t(m) * m;
   const size_t cand = blockIdx.x / F.C;
-  const T* a = blocks + cand * mm;
+  const V* a = blocks + cand * mm;
 
   // Row t of this thread is local row warp + kRegWarps·t, column u is
   // lane + 32·u; has_row and has_col mark those that exist.
@@ -392,22 +488,23 @@ __global__ void __launch_bounds__(kRegWarps * 32)
 
   // 1. Load the own rows, check that they are finite, take their largest
   //    row sum (for ‖block‖∞, on rank 0), and column 0's candidate.
-  T v[RM][CM];
+  V v[RM][CM];
   int nonfinite = 0;
-  T row_max = T(0), best = T(0), bx = T(0);
+  K row_max = K(0), best = K(0);
+  V bx = V(0);
   int bi = INT_MAX;
 #pragma unroll
   for (int t = 0; t < RM; ++t) {
     const bool rt = has_row(t);
-    const T* ai = a + size_t(F.r0 + row_of(t)) * m;
-    T s = T(0);
+    const V* ai = a + size_t(F.r0 + row_of(t)) * m;
+    K s = K(0);
 #pragma unroll
     for (int u = 0; u < CM; ++u) {
       const int j = lane + 32 * u;
-      const T x = rt && has_col(u) ? ai[j] : T(0);
+      const V x = rt && has_col(u) ? ai[j] : V(0);
       v[t][u] = x;
-      nonfinite |= !isfinite(x);
-      s += fabs(x);
+      nonfinite |= !finite(x);
+      s += mag(x);
     }
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFullMask, s, o);
     row_max = fmax(row_max, s);
@@ -419,32 +516,33 @@ __global__ void __launch_bounds__(kRegWarps * 32)
   Sy::all();  // X_0
 
   int bad;
-  T thresh;
+  K thresh;
   F.start_flag(eps, scale, bad, thresh);
   unsigned used = 0;  // bit t: own row t was a pivot
 
   for (int k = 0; k < m; ++k) {
     const int par = k & 1;
     // 2a. The pivot row r and its raw value.
-    T piv;
+    V piv;
     const int r = F.pick(par, k, piv, bad, thresh, F.S);
     // 2b. The warp that holds row r divides it by the pivot into every
     //     block's prow (its column-k entry becomes 1/piv, the inverse's
     //     column).
-    T* pr = F.prow + par * m;
+    V* pr = F.prow + par * m;
     const int lr = r - F.r0;
     if (lr >= 0 && lr < F.nloc && lr % kRegWarps == warp) {
       const int tr = lr / kRegWarps;
-      const T safe = piv == T(0) ? T(1) : piv;
+      const V safe = is_zero(piv) ? V(1) : piv;
+      const V rp = recip(safe);
 #pragma unroll
       for (int u = 0; u < CM; ++u) {
-        T x = T(0);
+        V x = V(0);
 #pragma unroll
         for (int t = 0; t < RM; ++t)
           if (t == tr) x = v[t][u];
         const int j = lane + 32 * u;
         if (has_col(u)) {
-          const T y = j == k ? T(1) / safe : x / safe;
+          const V y = j == k ? rp : over_pivot(x, safe, rp);
           for (int q = 0; q < F.C; ++q) *Sy::at(pr + j, q) = y;
         }
       }
@@ -456,14 +554,15 @@ __global__ void __launch_bounds__(kRegWarps * 32)
     //     of column k+1 takes the warp's candidate for the next step.
     const int lk = k & 31, uk = k >> 5;
     const int kn = k + 1, lkn = kn & 31, ukn = kn >> 5;
-    T p[CM];
+    V p[CM];
     bool zero[CM];
 #pragma unroll
     for (int u = 0; u < CM; ++u) {
-      p[u] = has_col(u) ? pr[lane + 32 * u] : T(0);
+      p[u] = has_col(u) ? pr[lane + 32 * u] : V(0);
       zero[u] = u == uk && lane == lk;
     }
-    T nb = T(0), nx = T(0);
+    K nb = K(0);
+    V nx = V(0);
     int ni = INT_MAX;
 #pragma unroll
     for (int t = 0; t < RM; ++t) {
@@ -475,15 +574,15 @@ __global__ void __launch_bounds__(kRegWarps * 32)
         used |= 1u << t;
         continue;
       }
-      T f = T(0);
+      V f = V(0);
 #pragma unroll
       for (int u = 0; u < CM; ++u)
         if (u == uk) f = v[t][u];
-      f = __shfl_sync(kFullMask, f, lk);
-      T y = T(0);
+      f = shfl(f, lk);
+      V y = V(0);
 #pragma unroll
       for (int u = 0; u < CM; ++u) {
-        const T w = zero[u] ? T(0) : v[t][u];
+        const V w = zero[u] ? V(0) : v[t][u];
         v[t][u] = w - f * p[u];
         if (u == ukn) y = v[t][u];
       }
@@ -497,11 +596,11 @@ __global__ void __launch_bounds__(kRegWarps * 32)
   // 3. Unscramble in the store: inv[a][b] = W[perm[a]][pinv[b]], so
   //    W[g][j] goes to inv[pinv[g]][perm[j]].
   if (F.rank == 0 && F.tid == 0) sing[cand] = bad ? 1 : 0;
-  T* out = inv + cand * mm;
+  V* out = inv + cand * mm;
 #pragma unroll
   for (int t = 0; t < RM; ++t) {
     if (!has_row(t)) continue;
-    T* o = out + size_t(F.pinv[F.r0 + row_of(t)]) * m;
+    V* o = out + size_t(F.pinv[F.r0 + row_of(t)]) * m;
 #pragma unroll
     for (int u = 0; u < CM; ++u)
       if (has_col(u)) o[F.perm[lane + 32 * u]] = v[t][u];
@@ -516,21 +615,22 @@ __global__ void __launch_bounds__(kRegWarps * 32)
 // at kBatch of its columns once, then, row by row, W at those columns
 // before it stores any.  The warps' candidates meet in the block first,
 // so each block pushes one slot a step to the others.
-template <typename T, bool kGlobalW>
+template <typename V, bool kGlobalW>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-    gj_probe_kernel(const T* __restrict__ blocks, T* __restrict__ inv,
-                    uint8_t* __restrict__ sing, T* __restrict__ scratch,
-                    int m, T eps, const T* __restrict__ scale,
+    gj_probe_kernel(const V* __restrict__ blocks, V* __restrict__ inv,
+                    uint8_t* __restrict__ sing, V* __restrict__ scratch,
+                    int m, key_t<V> eps, const key_t<V>* __restrict__ scale,
                     int w_rows) {
+  using K = key_t<V>;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Frame<T, true> F(smem, m, w_rows);
+  const Frame<V, true> F(smem, m, w_rows);
   using Sy = Sync<true>;
   const int tid = F.tid, nt = F.nt, lane = F.lane, warp = F.warp;
   const int nwarps = F.nwarps, nloc = F.nloc, r0 = F.r0;
   const size_t mm = size_t(m) * m;
   const size_t cand = blockIdx.x / F.C;
-  const T* a = blocks + cand * mm + size_t(r0) * m;
-  T* G = scratch + cand * mm + size_t(r0) * m;  // own rows (global)
+  const V* a = blocks + cand * mm + size_t(r0) * m;
+  V* G = scratch + cand * mm + size_t(r0) * m;  // own rows (global)
   auto row = [&](int i) {
     return kGlobalW && i >= w_rows ? G + size_t(i) * m : F.W + size_t(i) * m;
   };
@@ -539,17 +639,18 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   //    largest row sum (for ‖block‖∞, on rank 0), and column 0's candidate.
   {
     int nonfinite = 0;
-    T row_max = T(0), best = T(0), bx = T(0);
+    K row_max = K(0), best = K(0);
+    V bx = V(0);
     int bi = INT_MAX;
     for (int i = warp; i < nloc; i += nwarps) {
-      const T* ai = a + size_t(i) * m;
-      T* wi = row(i);
-      T s = T(0);
+      const V* ai = a + size_t(i) * m;
+      V* wi = row(i);
+      K s = K(0);
       for (int j = lane; j < m; j += 32) {
-        const T x = ai[j];
+        const V x = ai[j];
         wi[j] = x;
-        nonfinite |= !isfinite(x);
-        s += fabs(x);
+        nonfinite |= !finite(x);
+        s += mag(x);
         if (j == 0) take_better(best, bi, bx, key_of(x), r0 + i, x);
       }
       for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFullMask, s, o);
@@ -562,23 +663,24 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   Sy::all();  // X_0
 
   int bad;
-  T thresh;
+  K thresh;
   F.start_flag(eps, scale, bad, thresh);
 
   for (int k = 0; k < m; ++k) {
     const int par = k & 1;
     // 2a. The pivot row r and its raw value.
-    T piv;
+    V piv;
     const int r = F.pick(par, k, piv, bad, thresh, F.C);
     // 2b. The factors f = W[i, k] of the own rows, and the owner of row r
     //     divides it by the pivot into every block's prow.
     for (int i = tid; i < nloc; i += nt) F.fcol[i] = row(i)[k];
-    T* pr = F.prow + par * m;
+    V* pr = F.prow + par * m;
     if (r >= r0 && r < r0 + nloc) {
-      const T safe = piv == T(0) ? T(1) : piv;
-      const T* wr = row(r - r0);
+      const V safe = is_zero(piv) ? V(1) : piv;
+      const V rp = recip(safe);
+      const V* wr = row(r - r0);
       for (int j = tid; j < m; j += nt) {
-        const T y = j == k ? T(1) / safe : wr[j] / safe;
+        const V y = j == k ? rp : over_pivot(wr[j], safe, rp);
         for (int q = 0; q < F.C; ++q) *Sy::at(pr + j, q) = y;
       }
     }
@@ -588,33 +690,34 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     //     starts from 0, so it becomes -f/piv); row r takes prow.  The lane
     //     of column k+1 takes the warp's candidate for the next step.
     const int kn = k + 1;
-    T nb = T(0), nx = T(0);
+    K nb = K(0);
+    V nx = V(0);
     int ni = INT_MAX;
     for (int j0 = lane; j0 < m; j0 += 32 * kBatch) {
-      T p[kBatch];
+      V p[kBatch];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int j = j0 + 32 * u;
-        p[u] = j < m ? pr[j] : T(0);
+        p[u] = j < m ? pr[j] : V(0);
       }
       for (int i = warp; i < nloc; i += nwarps) {
-        T* wi = row(i);
+        V* wi = row(i);
         const int g = r0 + i;
         const bool pivot = g == r;
-        const T f = F.fcol[i];
+        const V f = F.fcol[i];
         const bool open = !F.used[i] && !pivot;
-        T x[kBatch];
+        V x[kBatch];
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
           const int j = j0 + 32 * u;
-          x[u] = j < m && !pivot ? wi[j] : T(0);
+          x[u] = j < m && !pivot ? wi[j] : V(0);
         }
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
           const int j = j0 + 32 * u;
           if (j < m) {
-            const T w = j == k ? T(0) : x[u];
-            const T y = pivot ? p[u] : w - f * p[u];
+            const V w = j == k ? V(0) : x[u];
+            const V y = pivot ? p[u] : w - f * p[u];
             wi[j] = y;
             if (j == kn && open) take_better(nb, ni, nx, key_of(y), g, y);
           }
@@ -629,10 +732,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   // 3. Unscramble in the store: inv[pinv[g]][b] = W[g][pinv[b]] for the
   //    own rows g.
   if (F.rank == 0 && tid == 0) sing[cand] = bad ? 1 : 0;
-  T* out = inv + cand * mm;
+  V* out = inv + cand * mm;
   for (int i = warp; i < nloc; i += nwarps) {
-    const T* wi = row(i);
-    T* o = out + size_t(F.pinv[r0 + i]) * m;
+    const V* wi = row(i);
+    V* o = out + size_t(F.pinv[r0 + i]) * m;
     for (int j = lane; j < m; j += 32) o[j] = wi[F.pinv[j]];
   }
 }
@@ -651,9 +754,14 @@ int max_optin_smem() {
 }
 
 // The block schedule's register classes: (CM, RM), the columns a lane and
-// the rows a warp hold; (2, 4) to m = 64, (4, 8) to m = 128
-// (ops/gj_probe.py::REG_MAX_M).
-constexpr int kRegMaxM = 128;
+// the rows a warp hold; (2, 4) to m = 64, (4, 8) to m = 128.  In
+// complex128 the (4, 8) class would hold 128 registers of W a thread, all
+// that a 512-thread block has, so that type stops at m = 64
+// (ops/gj_probe.py::reg_max_m).
+template <typename V>
+constexpr int reg_max_m() {
+  return sizeof(V) > 8 ? 64 : 128;
+}
 
 // What a launch needs from the runtime, asked once per (device, kernel,
 // block size, shared memory, cluster size) and kept: the kernel's
@@ -741,10 +849,11 @@ int run(K kernel, cudaLaunchConfig_t cfg, int C, int* clusters,
 }
 
 // Launch (or, with `clusters`, ask how many clusters the card holds).
-template <typename T>
+template <typename V>
 int launch(const void* blocks, void* inv, void* sing, void* scratch, int nc,
-           int m, T eps, const void* scale, int schedule, int C,
+           int m, key_t<V> eps, const void* scale, int schedule, int C,
            void* stream, int* clusters = nullptr) {
+  using K = key_t<V>;
   if (nc <= 0 || m <= 0) return int(cudaErrorInvalidValue);
   const bool global = schedule == kGlobal;
   if (C < 1 || C > kMaxCluster || C > m || schedule < kBlock ||
@@ -752,40 +861,45 @@ int launch(const void* blocks, void* inv, void* sing, void* scratch, int nc,
       (schedule != kBlock && C < 2))
     return kRefused;
   if (clusters == nullptr && global != (scratch != nullptr)) return kRefused;
-  if (schedule == kBlock && m > kRegMaxM) return kRefused;
+  if (schedule == kBlock && m > reg_max_m<V>()) return kRefused;
   const size_t optin = size_t(max_optin_smem());
   const int R = rows_per_block(m, C);
   int w_rows = schedule == kCluster ? R : 0;
   if (schedule == kGlobal) {
     // As many of the block's rows as its shared memory holds.
-    const size_t base = layout(m, C, sizeof(T), 0).total;
+    const size_t base = layout(m, C, sizeof(V), sizeof(K), 0).total;
     const size_t fit =
-        optin > base ? (optin - base) / (size_t(m) * sizeof(T)) : 0;
+        optin > base ? (optin - base) / (size_t(m) * sizeof(V)) : 0;
     w_rows = int(fit < size_t(R) ? fit : size_t(R));
-    while (w_rows > 0 && layout(m, C, sizeof(T), w_rows).total > optin)
+    while (w_rows > 0 &&
+           layout(m, C, sizeof(V), sizeof(K), w_rows).total > optin)
       --w_rows;
   }
-  const size_t smem = layout(m, C, sizeof(T), w_rows).total;
+  const size_t smem = layout(m, C, sizeof(V), sizeof(K), w_rows).total;
   if (smem > optin) return kRefused;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(unsigned(nc) * C);
   cfg.blockDim = dim3(32 * (schedule == kBlock ? kRegWarps : kMaxWarps));
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
-  const T* in = static_cast<const T*>(blocks);
-  T* o = static_cast<T*>(inv);
+  const V* in = static_cast<const V*>(blocks);
+  V* o = static_cast<V*>(inv);
   uint8_t* flags = static_cast<uint8_t*>(sing);
-  T* w = static_cast<T*>(scratch);
-  const T* sc = static_cast<const T*>(scale);
-  if (schedule == kBlock)
-    return m <= 64 ? run(gj_probe_reg_kernel<T, 2, 4>, cfg, 1, clusters, in, o,
-                         flags, m, eps, sc)
-                   : run(gj_probe_reg_kernel<T, 4, 8>, cfg, 1, clusters, in, o,
-                         flags, m, eps, sc);
+  V* w = static_cast<V*>(scratch);
+  const K* sc = static_cast<const K*>(scale);
+  if (schedule == kBlock) {
+    if (m <= 64)
+      return run(gj_probe_reg_kernel<V, 2, 4>, cfg, 1, clusters, in, o, flags,
+                 m, eps, sc);
+    if constexpr (reg_max_m<V>() > 64)
+      return run(gj_probe_reg_kernel<V, 4, 8>, cfg, 1, clusters, in, o, flags,
+                 m, eps, sc);
+    return kRefused;
+  }
   if (schedule == kCluster)
-    return run(gj_probe_kernel<T, false>, cfg, C, clusters, in, o, flags, w,
+    return run(gj_probe_kernel<V, false>, cfg, C, clusters, in, o, flags, w,
                m, eps, sc, w_rows);
-  return run(gj_probe_kernel<T, true>, cfg, C, clusters, in, o, flags, w, m,
+  return run(gj_probe_kernel<V, true>, cfg, C, clusters, in, o, flags, w, m,
              eps, sc, w_rows);
 }
 
@@ -794,27 +908,37 @@ int launch(const void* blocks, void* inv, void* sing, void* scratch, int nc,
 extern "C" {
 
 // How many clusters of the schedule the card holds at once at block size
-// m (0 for one block a candidate, or when it cannot hold one).
-int gj_probe_active_clusters(int m, int elem_bytes, int schedule,
-                             int cluster) {
+// m (0 for one block a candidate, or when it cannot hold one), for values
+// of elem_bytes and keys of key_bytes: (4, 4) fp32, (8, 8) fp64, (8, 4)
+// complex64, (16, 8) complex128.
+int gj_probe_active_clusters(int m, int elem_bytes, int key_bytes,
+                             int schedule, int cluster) {
   int n = 0;
-  const int err =
-      elem_bytes == 8
-          ? launch<double>(nullptr, nullptr, nullptr, nullptr, 1, m, 0.0,
-                           nullptr, schedule, cluster, nullptr, &n)
-          : launch<float>(nullptr, nullptr, nullptr, nullptr, 1, m, 0.f,
-                          nullptr, schedule, cluster, nullptr, &n);
+  int err = kRefused;
+  if (elem_bytes == 4 && key_bytes == 4)
+    err = launch<float>(nullptr, nullptr, nullptr, nullptr, 1, m, 0.f,
+                        nullptr, schedule, cluster, nullptr, &n);
+  else if (elem_bytes == 8 && key_bytes == 8)
+    err = launch<double>(nullptr, nullptr, nullptr, nullptr, 1, m, 0.0,
+                         nullptr, schedule, cluster, nullptr, &n);
+  else if (elem_bytes == 8 && key_bytes == 4)
+    err = launch<Cpx<float>>(nullptr, nullptr, nullptr, nullptr, 1, m, 0.f,
+                             nullptr, schedule, cluster, nullptr, &n);
+  else if (elem_bytes == 16 && key_bytes == 8)
+    err = launch<Cpx<double>>(nullptr, nullptr, nullptr, nullptr, 1, m, 0.0,
+                              nullptr, schedule, cluster, nullptr, &n);
   return err ? 0 : n;
 }
 
 // Launch the probe on `stream`: blocks and inv are contiguous (nc, m, m),
 // sing is (nc,) uint8.  schedule 0 (block: W in the registers of one block
-// a candidate, cluster 1, m ≤ 128), 1 (cluster: W's rows in the shared
-// memory of `cluster` blocks a candidate, 2..16) or 2 (global: W in
-// scratch, (nc, m, m), its rows over `cluster` blocks, 2..16); scratch is
-// null unless global.  scale is null (each block's threshold scale is its
-// own ‖block‖∞) or one device value of the blocks' type, the scale of
-// every block.
+// a candidate, cluster 1, m ≤ 128; complex128 m ≤ 64), 1 (cluster: W's
+// rows in the shared memory of `cluster` blocks a candidate, 2..16) or 2
+// (global: W in scratch, (nc, m, m), its rows over `cluster` blocks,
+// 2..16); scratch is null unless global.  scale is null (each block's
+// threshold scale is its own ‖block‖∞) or one device value of the blocks'
+// real (component) type, the scale of every block; eps is of that type
+// too.  The complex entries take interleaved (re, im) values.
 // Returns 0, a CUDA error code, or 1000 when the schedule does not fit
 // this card.
 int gj_probe_f32(const void* blocks, void* inv, void* sing, void* scratch,
@@ -829,6 +953,20 @@ int gj_probe_f64(const void* blocks, void* inv, void* sing, void* scratch,
                  int cluster, void* stream) {
   return launch<double>(blocks, inv, sing, scratch, nc, m, eps, scale,
                         schedule, cluster, stream);
+}
+
+int gj_probe_c64(const void* blocks, void* inv, void* sing, void* scratch,
+                 int nc, int m, float eps, const void* scale, int schedule,
+                 int cluster, void* stream) {
+  return launch<Cpx<float>>(blocks, inv, sing, scratch, nc, m, eps, scale,
+                            schedule, cluster, stream);
+}
+
+int gj_probe_c128(const void* blocks, void* inv, void* sing, void* scratch,
+                  int nc, int m, double eps, const void* scale, int schedule,
+                  int cluster, void* stream) {
+  return launch<Cpx<double>>(blocks, inv, sing, scratch, nc, m, eps, scale,
+                             schedule, cluster, stream);
 }
 
 }  // extern "C"

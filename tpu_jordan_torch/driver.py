@@ -17,6 +17,11 @@ With a ``policy`` (auto-attached for ``grouped_pallas_bf16``), the engine
 call runs under the policy's retry and the result must pass the residual
 gate, walking the degradation ladder (``resilience/degrade.py``) when it
 does not.
+
+Complex dtypes (complex64, complex128) run single-device on the augmented
+engine, as in the JAX package: ``engine="auto"`` resolves to it and every
+real-only engine is refused (:func:`complex_engine`).  Residuals, norms and
+κ∞ are real.
 """
 
 from __future__ import annotations
@@ -49,8 +54,8 @@ from .resilience.policy import DEFAULT_POLICY, ResiliencePolicy
 
 __all__ = ["ENGINES", "GROUPED_MIN_SINGLE_CHIP_N", "MAX_UNROLL_NR",
            "PALLAS_ENGINES", "SingularMatrixError", "SolveResult",
-           "UsageError", "batch_metrics", "invert", "resolve_engine",
-           "solve", "solve_batch"]
+           "UsageError", "batch_metrics", "complex_engine", "invert",
+           "resolve_engine", "solve", "solve_batch"]
 
 # The fused-update engines: grouped engines whose group-closing step is the
 # fused_update kernel, in fp32 or with bf16 operands.
@@ -171,11 +176,30 @@ def invert(a: torch.Tensor, engine: str, group: int, block_size: int,
                                        refine=refine)
 
 
+def complex_engine(engine: str, group: int):
+    """The engine of a complex solve, as the JAX package's ``_solve_impl``
+    routes it: the flags checked by :func:`resolve_engine`, then "auto" and
+    "augmented" run the augmented engine and every other engine is
+    refused.  Returns ``("augmented", 0)``."""
+    engine, group = resolve_engine(engine, group)
+    if engine not in ("auto", "augmented"):
+        raise UsageError(
+            f"complex dtype requires engine='augmented' (or 'auto'); "
+            f"engine={engine!r} is a real-dtype engine — for X = A⁻¹B use "
+            f"linalg.solve_system, which is complex-native")
+    return "augmented", 0
+
+
 def refuse_later_options(workers, gather, telemetry, policy, numerics,
                          tune, plan_cache, dtype):
     """Options of the JAX package's solve that later slices bring: each
     is refused with the slice that brings it, never silently ignored."""
-    if isinstance(workers, tuple) or workers != 1:
+    distributed = isinstance(workers, tuple) or workers != 1
+    if distributed and dtype is not None and resolve_dtype(dtype).is_complex:
+        raise UsageError("complex dtypes run single-device (the distributed "
+                         "scatter/collective paths are real-dtype); workers "
+                         "must be 1 (ROADMAP.md Queue A item 15)")
+    if distributed:
         raise UsageError("workers > 1 is the distributed path, not ported "
                          "yet (ROADMAP.md Queue A item 15)")
     if not gather:
@@ -194,9 +218,6 @@ def refuse_later_options(workers, gather, telemetry, policy, numerics,
     if tune or plan_cache is not None:
         raise UsageError("tune/plan_cache (the autotuner) is not ported "
                          "yet (ROADMAP.md Queue A item 11)")
-    if "complex" in str(dtype):
-        raise UsageError("complex dtypes are not ported yet (ROADMAP.md "
-                         "Queue A item 7b)")
 
 
 def _timed(dev, fn):
@@ -239,7 +260,9 @@ def solve(
     """Invert an n x n matrix from a file or a generator and verify it.
 
     Runs on the CUDA card unless ``device="cpu"``; without a card it
-    raises DeviceUnavailableError.  ``engine``: "auto" | "inplace" |
+    raises DeviceUnavailableError.  ``dtype`` may be complex64 or
+    complex128 (then ``engine`` is "auto" or "augmented", which run the
+    augmented engine).  ``engine``: "auto" | "inplace" |
     "grouped" | "augmented" | "lookahead" | "grouped_pallas" |
     "grouped_pallas_bf16" (see resolve_engine; "augmented" is the ~4N³
     reference-parity engine with the global singularity scale;
@@ -261,7 +284,8 @@ def solve(
     if block_size is None:
         block_size = default_block_size(n)
     _, refine = resolve_precision(precision, refine)
-    engine, group = resolve_engine(engine, group, n)
+    engine, group = (complex_engine(engine, group) if dtype.is_complex
+                     else resolve_engine(engine, group, n))
     if engine == "grouped_pallas_bf16" and policy is None:
         # The bf16 path never runs unguarded: a bf16-grade miss walks
         # refine -> fp32 re-solve instead of reaching the caller.
@@ -412,13 +436,19 @@ def solve_batch(
     timed as ``solve`` times it; ``gflops`` counts 2n³·batch.  Raises
     SingularMatrixError naming how many elements were flagged.
     ``residual``, ``kappa`` and ``rel_residual`` are element 0's, on a
-    freshly generated copy of it.  Counterpart of the JAX package's
-    ``solve_batch``."""
+    freshly generated copy of it.  A complex dtype is a UsageError: the
+    batched engine is the real-dtype in-place engine (the JAX package's
+    ``solve_batch`` fails on one too, in its in-place engine's pivot
+    comparisons).  Counterpart of the JAX package's ``solve_batch``."""
     if telemetry is not None:
         raise UsageError("telemetry is not ported yet (ROADMAP.md Queue A "
                          "item 12)")
     dev = resolve_device(device)
     dtype = resolve_dtype(dtype)
+    if dtype.is_complex:
+        raise UsageError("solve_batch runs the batched in-place engine, a "
+                         "real-dtype engine; invert complex matrices one at "
+                         "a time with solve (the augmented engine)")
     if block_size is None:
         block_size = default_block_size(n)
     _, refine = resolve_precision(precision, refine)

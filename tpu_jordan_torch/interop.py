@@ -21,6 +21,8 @@ _DTYPES = {
     "float64": torch.float64,
     "bfloat16": torch.bfloat16,
     "float16": torch.float16,
+    "complex64": torch.complex64,
+    "complex128": torch.complex128,
 }
 
 

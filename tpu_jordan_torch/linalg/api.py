@@ -1,15 +1,18 @@
 """``solve_system`` and ``lstsq``: the solve workloads as typed results.
 
-The single-device, real-dtype part of the JAX package's ``linalg/api.py``:
+The single-device part of the JAX package's ``linalg/api.py``, for real and
+complex dtypes:
 the engine choice (``resolve_solve_engine``, with "auto" resolved by the
 JAX registry's legality and cost order, written out), the solve timed with
 CUDA events on the card, the verification ‖A·X − B‖∞ against the caller's
 A and B, the κ-free backward-error gate and its recovery ladder when a
 policy is attached (``resilience/degrade.py``), and the results
 :class:`SolveSystemResult` and :class:`LstsqResult`.  Entry points run on
-the card unless ``device="cpu"``.  The JAX package's distributed solves,
-tuner, telemetry, numerics reports and complex dtypes are refused by name
-(ROADMAP.md Queue A items 15, 11, 12 and 7b).
+the card unless ``device="cpu"``.  The JAX package's distributed solves (complex
+ones included), tuner, telemetry and numerics reports are refused by name
+(ROADMAP.md Queue A items 15, 11 and 12).  Complex A and B flow through the
+engine, the residual (every norm is of |z|) and the gate; lstsq forms the
+conjugate transpose.
 """
 
 from __future__ import annotations
@@ -72,7 +75,7 @@ class SolveSystemResult:
 @dataclass
 class LstsqResult:
     """One ``lstsq`` outcome: ``x`` minimizes ‖A·x − b‖ through the normal
-    equations (AᵀA)x = Aᵀb, solved by ``solve_system``.  A singular Gram
+    equations (AᴴA)x = Aᴴb, solved by ``solve_system``.  A singular Gram
     system sets ``rank_deficient`` with ``x=None``; ``kappa_est`` is the
     Gram system's (≈ κ(A)²)."""
 
@@ -174,7 +177,8 @@ def solve_system(
     moved to ``device`` (the card unless "cpu") as ``dtype`` (``a``'s own
     unless given).  ``engine`` is one of SOLVE_ENGINES: "auto" resolves by
     :func:`auto_solve_engine`; ``assume="spd"`` promises a symmetric
-    positive definite A and makes "auto" take the pivot-free path.
+    (Hermitian, for a complex A) positive definite A and makes "auto" take
+    the pivot-free path.
     ``policy`` (a ``resilience.ResiliencePolicy``) retries the engine call
     and holds the result to ``rel_residual <= gate_tol·eps·n``
     (``solve_gate_threshold``), walking the solve ladder (refine, repivot
@@ -182,9 +186,10 @@ def solve_system(
     ``ResidualGateError`` when the ladder runs out.  ``check=False``
     reports a singular system on ``result.singular`` with ``x=None``
     instead of raising SingularMatrixError.  ``workers``, ``gather``,
-    ``tune``, ``plan_cache``, ``telemetry``, ``numerics`` other than "off"
-    and complex dtypes are refused by name (later slices of the port).
-    Counterpart of the JAX package's ``solve_system``."""
+    ``tune``, ``plan_cache``, ``telemetry`` and ``numerics`` other than
+    "off" are refused by name (later slices of the port).  A and B may be
+    complex64 or complex128.  Counterpart of the JAX package's
+    ``solve_system``."""
     refuse_later_options(workers, gather, telemetry, policy, numerics, tune,
                          plan_cache,
                          dtype if dtype is not None else getattr(a, "dtype",
@@ -264,10 +269,11 @@ def lstsq(
     device=None,
 ) -> LstsqResult:
     """argmin‖A·x − b‖₂ for a full-column-rank (rows, n) A through the
-    normal equations (AᵀA)x = Aᵀb: the Gram matrix and the projected
-    right-hand sides by ``torch.matmul``, then :func:`solve_system`, on the
-    pivot-free path under the default ``assume="spd"`` (the Gram matrix of
-    a full-column-rank A is SPD).  A singular Gram system is surfaced as
+    normal equations (AᴴA)x = Aᴴb (Aᴴ = Aᵀ for a real A): the Gram matrix
+    and the projected right-hand sides by ``torch.matmul``, then
+    :func:`solve_system`, on the pivot-free path under the default
+    ``assume="spd"`` (the Gram matrix of a full-column-rank A is Hermitian
+    positive definite).  A singular Gram system is surfaced as
     ``rank_deficient=True`` with ``x=None``.  The normal equations square
     the conditioning; ``residual`` reports the original ‖A·x − b‖∞ beside
     the Gram system's.  Counterpart of the JAX package's ``lstsq``."""
@@ -289,8 +295,9 @@ def lstsq(
     k = int(b2.shape[1])
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
-    gram = a.T @ a
-    rhs = a.T @ b2
+    ah = a.T.conj() if a.is_complex() else a.T
+    gram = ah @ a
+    rhs = ah @ b2
     inner = solve_system(gram, rhs, block_size=block_size, assume=assume,
                          engine=engine, policy=policy, check=False,
                          device=dev)

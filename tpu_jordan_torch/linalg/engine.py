@@ -20,7 +20,10 @@ are updated (the normalized pivot row is zero in every eliminated column),
 Padding follows ``ops/padding.py``: A embeds into [[A, 0], [0, I]] and B's
 rows pad with zeros, so the returned ``X[:n]`` does not depend on the
 padding.  Sub-fp32 storage computes in fp32 and rounds once at the end.
-Counterpart of the JAX package's ``linalg/engine.py``.
+Complex dtypes flow through unchanged: the probe's keys and thresholds are
+real (|z|), the sweeps dtype-generic; ``spd`` then promises a Hermitian
+positive definite A.  Counterpart of the JAX package's
+``linalg/engine.py``.
 """
 
 from __future__ import annotations

@@ -7,6 +7,10 @@ when a pivot falls below ``eps * scale`` (relative threshold,
 main.cpp:782), when the scale itself vanishes (``scale < eps``), or when the
 input holds a non-finite value.  The scale is ‖block‖∞ unless given.
 
+Complex blocks follow the JAX package's ``gauss_jordan_inverse``: the pivot
+key is |z| in the real dtype (argmax: the lowest row on ties, NaN highest),
+the threshold eps·|scale| is real, and eps is the component dtype's.
+
 The whole candidate stack is inverted at once: every operation carries a
 leading batch dimension, and a singular block does not stop the others (its
 inverse is garbage, its flag True).  This is the oracle for the CUDA probe

@@ -3,7 +3,7 @@
 Generators are functions of integer index grids; ``generate`` materializes
 any rectangular window of the global grid on the requested device.  Every
 generator gives the same bits as the JAX package's fixture of the same name,
-in fp32 and fp64.
+in fp32 and fp64 (``crand`` in complex64 and complex128).
 """
 
 from __future__ import annotations
@@ -61,12 +61,22 @@ def kms(i, j):
     return torch.pow(base, (i - j).abs().to(torch.float32))
 
 
+def crand(i, j):
+    """Deterministic complex uniform: ``rand_uniform`` for the real part,
+    its hash at the indices shifted by (0x5BF0, 0x2C1B) for the imaginary
+    part.  Complex dtypes only: :func:`generate` refuses to cast it to a
+    real one."""
+    im = rand_uniform(i + 0x5BF0, j + 0x2C1B)
+    return torch.complex(rand_uniform(i, j), im)
+
+
 GENERATORS: dict[str, GeneratorFn] = {
     "absdiff": abs_diff,
     "hilbert": hilbert,
     "identity": identity,
     "rand": rand_uniform,
     "kms": kms,
+    "crand": crand,
 }
 
 
@@ -91,7 +101,15 @@ def generate(
     ii = row_offset + torch.arange(h, dtype=torch.int32, device=device)
     jj = col_offset + torch.arange(w, dtype=torch.int32, device=device)
     ii, jj = torch.meshgrid(ii, jj, indexing="ij")
-    return fn(ii, jj).to(dtype)
+    vals = fn(ii, jj)
+    if vals.is_complex() and not dtype.is_complex:
+        # A complex generator cast to a real dtype would drop the imaginary
+        # part: a caller bug, never a half-real fixture (the JAX rule).
+        raise ValueError(
+            f"complex-valued generator cast to real dtype "
+            f"{str(dtype)[6:]} would discard the imaginary part; request "
+            f"a complex dtype")
+    return vals.to(dtype)
 
 
 def generate_batch(

@@ -23,6 +23,10 @@ candidate's own ‖block‖∞: the reference's exact rule, which the driver's
 with the scale as a device value (``ops/gj_probe.py``); without it the probe
 is the engines' default dispatch.  The pivot index stays on the device and
 no step waits for the host.
+
+Complex input (complex64, complex128) runs as it does in the JAX package:
+the argmin key ‖inv‖∞ and the global scale ‖A‖∞ are real (|z|), and on
+the card every probe is ``gj_probe.cu``'s complex body.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 
 The reference uses the max-abs-row-sum norm everywhere: as the relative
 singularity scale, as the pivot-quality metric (norm of the inverse block),
-and for the final residual.
+and for the final residual.  Of a complex matrix it is the row sums of |z|,
+in the real (component) dtype.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Newton–Schulz iterative refinement of an approximate inverse.
 
 ``X ← X + X(I − AX)`` roughly squares the residual per step at the cost of
-two GEMMs.  Convergence requires ‖I − AX₀‖ < 1 in some operator norm.
+two GEMMs, real or complex.  Convergence requires ‖I − AX₀‖ < 1 in some
+operator norm.
 """
 
 from __future__ import annotations

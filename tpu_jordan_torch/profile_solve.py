@@ -3,7 +3,8 @@
     python -m tpu_jordan_torch.profile_solve [--rows 4096:128:absdiff:float32,...]
         [--engine auto|inplace|grouped|augmented|lookahead|grouped_pallas|
                   grouped_pallas_bf16] [--group K] [--batch B]
-        [--workload invert|solve|spd|lstsq] [--rhs K]
+        [--workload invert|solve|spd|lstsq|update] [--rhs K]
+        [--dtype float32|float64|complex64|complex128]
 
 For each row (n:m:generator:dtype) the matrix is generated on the card, and
 the engine (the one ``driver.solve`` picks for ``--engine`` and
@@ -11,7 +12,10 @@ the engine (the one ``driver.solve`` picks for ``--engine`` and
 engine on the stack of B matrices that ``driver.solve_batch`` inverts; with
 ``--workload``, the engine ``linalg.solve_system`` picks for A·X = B with
 the CLI's B of K columns: ``spd`` under the assume="spd" promise,
-``lstsq`` the Gram product of the CLI's n × n//2 A and its solve) runs once
+``lstsq`` the Gram product of the CLI's n × n//2 A and its solve;
+``update`` the rank-K SMW update of the row's resident inverse,
+``linalg.smw_update_with_metrics`` with its verification against the
+mutated matrix, the inverse made once outside the timed calls) runs once
 to warm up, then once untraced and once under ``torch.profiler``, each
 between CUDA events.  Prints one JSON line a row: both wall times, the
 device time of the probe kernel, of the fused update kernel, of the GEMMs
@@ -20,7 +24,8 @@ which no kernel ran; tracing slows the host, so this share is an upper
 bound for the untraced run) and the overlap (the sum of the kernels' times
 less the union of their intervals: the time kernels ran beside each other,
 as the lookahead engines' probe beside their GEMMs on another stream).
-Needs a CUDA device.
+``--dtype`` replaces every row's dtype (complex64 and complex128 invert on
+the augmented engine, and B is ``crand`` for them).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,12 +36,13 @@ import sys
 
 import torch
 
-from .driver import ENGINES, invert, resolve_engine
-from .linalg import auto_solve_engine
+from .driver import ENGINES, complex_engine, invert, resolve_engine
+from .linalg import auto_solve_engine, reinvert_fresh, smw_update_with_metrics
 from .linalg.api import solve_engine_fn
 from .ops import batched_jordan_invert, generate, generate_batch
 
-WORKLOADS = ("invert", "solve", "spd", "lstsq")
+WORKLOADS = ("invert", "solve", "spd", "lstsq", "update")
+DTYPES = ("float32", "float64", "complex64", "complex128")
 
 DEFAULT_ROWS = ("4096:128:absdiff:float32,8192:384:absdiff:float64,"
                 "8192:384:rand:float32,16384:128:rand:float32")
@@ -65,16 +71,39 @@ def _union_us(intervals) -> float:
     return total
 
 
+def rhs_generator(dtype) -> str:
+    """The generator of the CLI's right-hand sides for ``dtype``."""
+    return "crand" if dtype.is_complex else "rand"
+
+
+def update_factors(n: int, k: int, dtype, device="cuda", step: int = 0):
+    """The (n, k) factors U and V of a rank-k update of an n × n matrix:
+    the ``rand`` (``crand``) windows at row offsets (2·step + 1)·n and
+    (2·step + 2)·n, scaled by 1/sqrt(n·k) so that U·Vᵀ is small beside the
+    matrix; ``step`` numbers the updates of a chain."""
+    gen, scale = rhs_generator(dtype), (n * k) ** -0.5
+    return tuple(generate(gen, (n, k), dtype, row_offset=off * n,
+                          device=device) * scale
+                 for off in (2 * step + 1, 2 * step + 2))
+
+
 def _workload_run(n: int, m: int, gen: str, dtype, workload: str,
                   rhs: int):
     """(engine, run) of a solve workload row, on the CLI's inputs."""
-    b = generate("rand", (n, rhs), dtype, row_offset=n, device="cuda")
+    if workload == "update":
+        a = generate(gen, (n, n), dtype, device="cuda")
+        inv = reinvert_fresh(a, m)[0]
+        u, v = update_factors(n, rhs, dtype)
+        return "smw_update", lambda: smw_update_with_metrics(a, inv, u, v)
+    b = generate(rhs_generator(dtype), (n, rhs), dtype, row_offset=n,
+                 device="cuda")
     if workload == "lstsq":
         a = generate(gen, (n, max(1, n // 2)), dtype, device="cuda")
         cols = a.shape[1]
         engine = auto_solve_engine(cols, min(m, cols), "solve_spd")
         solve = solve_engine_fn(engine, m)
-        return engine, lambda: solve(a.T @ a, a.T @ b)
+        ah = a.T.conj() if a.is_complex() else a.T
+        return engine, lambda: solve(ah @ a, ah @ b)
     a = generate(gen, (n, n), dtype, device="cuda")
     engine = auto_solve_engine(n, min(m, n), "solve_spd" if workload == "spd"
                                else "solve")
@@ -97,7 +126,8 @@ def profile_row(n: int, m: int, gen: str, dtype: torch.dtype,
         def run():
             return batched_jordan_invert(a, block_size=m)
     else:
-        engine, group = resolve_engine(engine, group, n)
+        engine, group = (complex_engine(engine, group) if dtype.is_complex
+                         else resolve_engine(engine, group, n))
         a = generate(gen, (n, n), dtype, device="cuda")
 
         def run():
@@ -161,7 +191,11 @@ def main(argv=None) -> int:
                          "promise) or fit lstsq in place of inverting "
                          "(--engine does not apply)")
     ap.add_argument("--rhs", type=int, default=1,
-                    help="right-hand-side columns of a solve workload")
+                    help="right-hand-side columns of a solve workload, the "
+                         "rank of an update")
+    ap.add_argument("--dtype", default=None, choices=DTYPES,
+                    help="the dtype of every row, in place of the rows' "
+                         "own")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_solve: no CUDA device", file=sys.stderr)
@@ -170,7 +204,8 @@ def main(argv=None) -> int:
     for row in args.rows.split(","):
         n, m, gen, dname = row.split(":")
         print(json.dumps(profile_row(int(n), int(m), gen,
-                                     getattr(torch, dname), args.engine,
+                                     getattr(torch, args.dtype or dname),
+                                     args.engine,
                                      args.batch, args.group, args.workload,
                                      args.rhs)),
               flush=True)

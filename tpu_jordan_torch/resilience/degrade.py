@@ -32,14 +32,16 @@ import math
 
 import torch
 
+from ..config import real_dtype
 from ..interop import resolve_dtype
 from .policy import ResidualGateError, ResiliencePolicy
 
 
 def gate_eps(dtype) -> float:
     """Machine epsilon of the gate's reference dtype (a torch dtype, a
-    numpy dtype or a name such as ``"bfloat16"``)."""
-    return float(torch.finfo(resolve_dtype(dtype)).eps)
+    numpy dtype or a name such as ``"bfloat16"``); a complex dtype's is its
+    component dtype's, as in the JAX package."""
+    return float(torch.finfo(real_dtype(resolve_dtype(dtype))).eps)
 
 
 def gate_threshold(policy: ResiliencePolicy, n: int, kappa: float,
