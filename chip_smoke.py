@@ -86,8 +86,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 4. ``solve``: the main path through ``driver.solve``, each row timed on a
    warm run with the three kernels' launch counts set to 0 just before it
    and read just after: ``engine="auto"`` at 4096/m128/absdiff fp32,
-   8192/m384/absdiff fp64, 8192/m384/rand fp32, 16384/m128/rand fp32,
-   1000/m50/rand fp32 and 6000/m300/rand fp32 (probe launches = Nr, of the
+   16384/m128/rand fp32, 1000/m50/rand fp32 and 6000/m300/rand fp32, and
+   ``engine="grouped"`` at 8192/m384/absdiff fp64 and 8192/m384/rand fp32
+   (the H100 cost model's auto picks the in-place engine there; the tune
+   phase drives auto at 8192) (probe launches = Nr, of the
    body the route picks: ``gj_probe_fused_panel`` where m has a panel
    width, ``gj_probe`` at m=50 and m=300; no update launch); ``grouped_pallas`` at 4096/m128 and 8192/m128
    rand fp32 and ``grouped_pallas_bf16`` at 8192/m128 kms and rand (probe
@@ -123,11 +125,22 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    Nr; rel_residual under the update gate; the update's time beside the
    fresh invert's), then 8 chained rank-16 updates under the default
    policy, their drift within the budget and no rung walked.
-5. ``overlap``: ``profile_solve``'s device-time split of OVERLAP_ROWS: the
+5. ``tune``: the tuner on the card (``phase_tune``): the card's plan key
+   (``cuda-h100|…``), the cost-only picks of AUTO_ROWS with their
+   projected seconds beside the JAX package's picks (the card's pick the
+   CPU's, but for CARD_ONLY_PICKS: bf16 8192/m384 runs the bf16 fused
+   engine on the card, driven once through ``solve``), measured tuning at
+   TUNE_POINTS into one temporary plan cache (every trial, the winner, the
+   kernels' launches over the run: probe launches > 0, fused-update
+   launches > 0 at 8192/m128), the winner solving the row twice from
+   the cache with zero measurements, its launches and the row's gate, and
+   the cache holding each point's own plan (the card's keys carry m).
+6. ``overlap``: ``profile_solve``'s device-time split of OVERLAP_ROWS: the
    lookahead twins must overlap their probe with a GEMM (> 0 ms).
-6. ``kernels``: every ported kernel with its launches on its path (the
-   solve rows; the variants' engine runs of ``reference``), the complex
-   bodies of ``gj_probe.cu`` as ``gj_probe[c64]`` and ``gj_probe[c128]``.
+7. ``kernels``: every ported kernel with its launches on its path (the
+   solve and tune rows; the variants' engine runs of ``reference``), the
+   complex bodies of ``gj_probe.cu`` as ``gj_probe[c64]`` and
+   ``gj_probe[c128]``.
 
 Not run by default: ``--phases knife_edge`` records that fp32 absdiff
 8192/m384 elimination through the grouped engine, with the kernel and with
@@ -152,7 +165,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("toolchain", "kernel_vs_plain", "reference", "solve", "overlap")
+PHASES = ("toolchain", "kernel_vs_plain", "reference", "solve", "tune",
+          "overlap")
 EXTRA_PHASES = ("knife_edge", "cluster_sweep", "batch_fp32")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
@@ -275,13 +289,16 @@ PALLAS_STEPWISE_ROW = (8192, 128, "rand")
 
 # (n, m, generator, dtype, engine): the main path through driver.solve.
 # "auto" rows are the paper's program; the fused-update rows are the repo's
-# own bench rows for those engines (bench.py:948-958).
+# own bench rows for those engines (bench.py:948-958).  The 8192/m384 rows
+# name the grouped engine: the H100 cost model ranks the in-place engine
+# first there (the tune phase prints both), and these rows keep the
+# grouped engine driven at the full width.
 # m=50 and m=300 have no panel width, so their probe is gj_probe.cu (on its
 # block and cluster schedules).  The augmented reference-parity engine runs
 # gj_probe.cu with the global scale at every superstep, whatever m is.
 SOLVE_ROWS = ((4096, 128, "absdiff", "float32", "auto"),
-              (8192, 384, "absdiff", "float64", "auto"),
-              (8192, 384, "rand", "float32", "auto"),
+              (8192, 384, "absdiff", "float64", "grouped"),
+              (8192, 384, "rand", "float32", "grouped"),
               (16384, 128, "rand", "float32", "auto"),
               (1000, 50, "rand", "float32", "auto"),
               (6000, 300, "rand", "float32", "auto"),
@@ -340,6 +357,44 @@ UPDATE_REFERENCE_ROW = (1024, 128, "rand", "float64", (16, 64))
 OVERLAP_ROWS = ((8192, 384, "rand", "float32", "lookahead", 0),
                 (8192, 384, "rand", "float32", "lookahead", 2),
                 (8192, 384, "rand", "float32", "grouped", 2))
+# (n, m, dtype, workload, the JAX package's cost-only pick): the auto rows
+# of PERF.md §4, whose cost-only picks the tune phase prints with each
+# candidate's projected seconds on the H100 model (the JAX picks are the
+# JAX registry's, on its v5e model, as the JAX package gives them: this
+# script imports none of it).  lstsq's rows are its Gram systems.
+AUTO_ROWS = ((4096, 128, "float32", "invert", "inplace"),
+             (8192, 384, "float64", "invert", "grouped2"),
+             (8192, 384, "float32", "invert", "grouped2"),
+             (16384, 128, "float32", "invert", "grouped2"),
+             (1000, 50, "float32", "invert", "inplace"),
+             (6000, 300, "float32", "invert", "inplace"),
+             (4096, 128, "complex64", "invert", "augmented"),
+             (8192, 384, "float32", "solve", "solve_aug"),
+             (8192, 384, "float64", "solve", "solve_aug"),
+             (16384, 128, "float32", "solve", "solve_fori"),
+             (8192, 384, "float64", "solve_spd", "solve_spd"),
+             (4096, 128, "float64", "solve_spd", "solve_spd"),
+             (8192, 384, "complex64", "solve", "solve_aug"),
+             (4096, 128, "complex64", "solve_spd", "solve_spd"),
+             (8192, 384, "bfloat16", "invert", "grouped2"))
+# AUTO_ROWS rows whose card pick is not the CPU's, as (card, CPU): the
+# fused-update engines are priced only where their kernel runs, so at a
+# sub-fp32 storage point with m % 128 == 0 from n = 8192 on the card picks
+# the bf16 fused engine and the CPU the in-place engine.
+CARD_ONLY_PICKS = {(8192, 384, "bfloat16", "invert"):
+                   ("grouped_pallas_bf16", "inplace")}
+# (n, m, generator, dtype, workload, survivors): the points the tune phase
+# measures on the card, TUNE_SAMPLES timed calls a candidate: the 8192 row;
+# 4096/m128, a host-bound row (its survivors in-place, lookahead and
+# augmented, so gj_probe.cu is measured too); 8192/m128 with every legal
+# invert engine measured, grouped_pallas (fused_update.cu) included; the
+# solve at 8192/m384, K=1.  The tuner measures on rand (the JAX tuner's
+# fixture); the winner then solves the row's input.
+TUNE_POINTS = ((8192, 384, "rand", "float32", "invert", 3),
+               (4096, 128, "rand", "float32", "invert", 3),
+               (8192, 128, "rand", "float32", "invert", 5),
+               (8192, 384, "rand", "float32", "solve", 3))
+TUNE_SAMPLES = 5
 # (B, n, m, generator, dtype): driver.solve_batch, bench.py's two batched
 # tiers (bench.py:403-425; BASELINE.md's batch north star), one probe call
 # a superstep for the whole batch.  They run in fp64: in fp32 the rand
@@ -1544,14 +1599,42 @@ class BodyCounter:
         self.mod.reset_launches()
 
 
+def launch_counters() -> dict:
+    """The launch counters of the main path's kernels, by kernel name."""
+    from tpu_jordan_torch.ops import fused_update as update_mod
+    from tpu_jordan_torch.ops import gj_fused_panel as panel_mod
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+
+    return {"gj_probe_fused_panel": panel_mod, "gj_probe": probe_mod,
+            "fused_update": update_mod,
+            **{f"gj_probe[{b}]": BodyCounter(probe_mod, b)
+               for b in probe_mod.COMPLEX_BODIES.values()}}
+
+
+def expected_launches(torch, counters, n: int, m: int, dtype, engine: str,
+                      group: int, runs: int = 1) -> dict:
+    """The launches of ``runs`` engine runs of driver.solve at (n, m):
+    Nr probe calls of the body the route picks (gj_probe.cu for the
+    augmented engine's global scale on a real dtype), and for the
+    fused-update engines ceil(Nr/k) group closes."""
+    from tpu_jordan_torch.driver import PALLAS_ENGINES
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+
+    nr = -(-n // m)
+    expected = dict.fromkeys(counters, 0)
+    if engine in PALLAS_ENGINES:
+        expected["fused_update"] = -(-nr // group) * runs
+    body = ("gj_probe" if engine == "augmented" and not dtype.is_complex
+            else probe_mod.probe_body(m, dtype))
+    expected[body] = nr * runs
+    return expected
+
+
 def phase_solve(torch):
     """The main path: every SOLVE_ROWS row through driver.solve, warm.
     Each row runs with both kernels' counts set to 0 just before it and
     read just after; returns the counts summed over the rows."""
-    from tpu_jordan_torch.driver import PALLAS_ENGINES, solve
-    from tpu_jordan_torch.ops import fused_update as update_mod
-    from tpu_jordan_torch.ops import gj_fused_panel as panel_mod
-    from tpu_jordan_torch.ops import gj_probe as probe_mod
+    from tpu_jordan_torch.driver import solve
     from tpu_jordan_torch.resilience import DEFAULT_POLICY, gate_threshold
 
     # Warm runs first (kernel loading, cuBLAS handles, the allocator).
@@ -1559,10 +1642,7 @@ def phase_solve(torch):
         solve(n, m, generator=gen, dtype=dname, engine=engine,
               device="cuda")
         torch.cuda.empty_cache()
-    counters = {"gj_probe_fused_panel": panel_mod, "gj_probe": probe_mod,
-                "fused_update": update_mod,
-                **{f"gj_probe[{b}]": BodyCounter(probe_mod, b)
-                   for b in probe_mod.COMPLEX_BODIES.values()}}
+    counters = launch_counters()
     totals = dict.fromkeys(counters, 0)
     for n, m, gen, dname, engine in SOLVE_ROWS:
         eps = float(torch.finfo(getattr(torch, dname)).eps)
@@ -1576,13 +1656,9 @@ def phase_solve(torch):
         # The engine ran once, and once more for a re-solve rung.
         runs = 1 + sum(r["rung"] == "resolve" for r in res.recovery)
         nr = -(-n // m)
-        expected = dict.fromkeys(counters, 0)
-        if engine in PALLAS_ENGINES:
-            expected["fused_update"] = -(-nr // res.group) * runs
-        dtype = getattr(torch, dname)
-        body = ("gj_probe" if res.engine == "augmented"
-                and not dtype.is_complex else probe_mod.probe_body(m, dtype))
-        expected[body] = nr * runs
+        expected = expected_launches(torch, counters, n, m,
+                                     getattr(torch, dname), res.engine,
+                                     res.group, runs)
         if engine == "grouped_pallas_bf16":
             # The driver's own gate: bf16 eps for the bf16 result, fp32
             # for a refined or re-solved one.
@@ -1809,6 +1885,197 @@ def phase_solve_update(torch, counters):
     if not drift <= budget:
         raise AssertionError(f"the chained updates' drift passed its "
                              f"budget: {row}")
+    return totals
+
+
+def phase_tune(torch):
+    """The tuner on the card.  Prints the point 8192/m384 fp32 as the card
+    makes it (its plan key must begin with ``cuda-h100|``); the cost-only
+    pick at every AUTO_ROWS row with each candidate's projected seconds
+    and the JAX package's pick beside it (the card's ranking must equal
+    the CPU's: one model); then at every TUNE_POINTS point a measured
+    tuning run (``tuning.Tuner``, the point's survivors, TUNE_SAMPLES
+    timed calls each) into one temporary plan cache, with every trial and
+    the kernels' launches over the run (probe launches > 0; at 8192/m128
+    the fused update's too), and the winner through the entry point twice
+    with the same cache
+    (``driver.solve`` or ``linalg.solve_system`` with ``engine="auto"``,
+    first with ``tune=True``, then with the cache alone): zero
+    measurements, the plan's engine, the launches of one run of it, the
+    row's gate; last, the shared cache holds one plan a point, each the
+    point's own winner.  Returns the launch counts summed over the
+    phase."""
+    import math
+    import tempfile
+
+    from tpu_jordan_torch.driver import solve
+    from tpu_jordan_torch.linalg import solve_system
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+    from tpu_jordan_torch.resilience import (DEFAULT_POLICY, gate_threshold,
+                                             solve_gate_threshold)
+    from tpu_jordan_torch.tuning import (PlanCache, Tuner, TunePoint,
+                                         candidates, plan_key,
+                                         select_by_cost)
+    from tpu_jordan_torch.tuning.tuner import _M_MEASUREMENTS
+
+    point = TunePoint.create(8192, 384, "float32", device="cuda")
+    row = {"phase": "tune", "step": "point", "backend": point.backend,
+           "chip": point.chip, "plan_key": plan_key(point)}
+    emit(row)
+    if not row["plan_key"].startswith("cuda-h100|"):
+        raise AssertionError(f"the card's point is not an H100 one: {row}")
+    for n, m, dname, workload, jax_pick in AUTO_ROWS:
+        p = TunePoint.create(n, m, dname, workload=workload, device="cuda")
+        pick = select_by_cost(p).name
+        row = {"phase": "tune", "step": "cost_only", "n": n, "m": m,
+               "dtype": dname, "workload": workload, "pick": pick,
+               "jax_pick": jax_pick, "differs": pick != jax_pick,
+               "projected_s": {c.name: (None if math.isinf(c.cost(p))
+                                        else c.cost(p))
+                               for c in candidates(p)}}
+        emit(row)
+        cpu = TunePoint.create(n, m, dname, workload=workload, device="cpu")
+        cpu_pick = select_by_cost(cpu).name
+        expect = CARD_ONLY_PICKS.get((n, m, dname, workload),
+                                     (cpu_pick, cpu_pick))
+        if (pick, cpu_pick) != expect:
+            raise AssertionError(f"the card's pick against the CPU's "
+                                 f"({cpu_pick}) is not {expect}: {row}")
+
+    counters = launch_counters()
+    totals = dict.fromkeys(counters, 0)
+
+    def reset():
+        for mod in counters.values():
+            mod.reset_launches()
+
+    def read():
+        counts = {name: mod.launches for name, mod in counters.items()}
+        for name in totals:
+            totals[name] += counts[name]
+        return counts
+
+    # A card-only pick through the entry point: the bf16 fused engine on
+    # kms (κ∞ ≈ 2.8), under the driver's own gate at bf16 eps, no rung.
+    for (n, m, dname, workload), (card_pick, _) in CARD_ONLY_PICKS.items():
+        for counted in (False, True):       # a warm run first
+            reset()
+            res = solve(n, m, generator="kms", dtype=dname, engine="auto",
+                        device="cuda")
+        launches = read()
+        expected = expected_launches(torch, counters, n, m, torch.float32,
+                                     res.engine, res.group)
+        row = {"phase": "tune", "step": "card_only_pick", "n": n, "m": m,
+               "generator": "kms", "dtype": dname, "engine": res.engine,
+               "plan_source": res.plan.source, "seconds": res.elapsed,
+               "rel_residual": res.rel_residual,
+               "gate": gate_threshold(DEFAULT_POLICY, n, res.kappa, dname),
+               "recovery": list(res.recovery), "launches": launches,
+               "expected_launches": expected,
+               "finite": bool(torch.isfinite(res.inverse.float()).all())}
+        emit(row)
+        del res
+        torch.cuda.empty_cache()
+        if not (row["engine"] == card_pick and launches == expected
+                and row["rel_residual"] < row["gate"]
+                and row["recovery"] == [] and row["finite"]):
+            raise AssertionError(f"the card-only pick failed its "
+                                 f"checks: {row}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # One cache for every point: the card's keys carry the block
+        # size, so 8192/m384 and 8192/m128 each keep a plan of their own.
+        path = os.path.join(tmp, "plans.json")
+        winners = {}
+        for n, m, gen, dname, workload, survivors in TUNE_POINTS:
+            dtype = getattr(torch, dname)
+            p = TunePoint.create(n, m, dname, workload=workload,
+                                 device="cuda")
+            finite = [c.name for c in candidates(p)
+                      if not math.isinf(c.cost(p))]
+            tuner = Tuner(cache=PlanCache.load(path), measure=True,
+                          survivors=survivors, samples=TUNE_SAMPLES)
+            reset()
+            t0 = time.perf_counter()
+            plan = tuner.select(p)
+            tune_s = time.perf_counter() - t0
+            launches = read()
+            row = {"phase": "tune", "step": "measured", "n": n, "m": m,
+                   "generator": "rand", "dtype": dname,
+                   "workload": workload, "survivors": survivors,
+                   "samples": TUNE_SAMPLES, "trials": list(plan.trials),
+                   "winner": plan.config, "engine": plan.engine,
+                   "group": plan.group, "seconds": plan.seconds,
+                   "drift": plan.drift,
+                   "variance_flag": plan.variance_flag,
+                   "measurements": tuner.measurements, "tune_s": tune_s,
+                   "launches": launches}
+            emit(row)
+            probes = sum(v for k, v in launches.items()
+                         if k != "fused_update")
+            measured = [t["config"] for t in plan.trials]
+            fused_ok = ((n, m) != (8192, 128)
+                        or ("grouped_pallas" in measured
+                            and launches["fused_update"] > 0))
+            if not (plan.source == "measured" and probes > 0 and fused_ok
+                    and tuner.measurements == min(survivors, len(finite))
+                    and measured == finite[:survivors]):
+                raise AssertionError(f"tuning failed its checks: {row}")
+            winners[plan_key(p)] = plan
+
+            for tune in (True, False):
+                before = _M_MEASUREMENTS.total()
+                reset()
+                if workload == "invert":
+                    res = solve(n, m, generator=gen, dtype=dname,
+                                engine="auto", tune=tune, plan_cache=path,
+                                device="cuda")
+                    eps = float(torch.finfo(dtype).eps)
+                    gate = min(3.0 * eps * n * res.kappa / res._norm_a, 0.5)
+                    out = res.inverse
+                    expected = expected_launches(torch, counters, n, m,
+                                                 dtype, res.engine,
+                                                 res.group)
+                else:
+                    a, b = workload_inputs(torch, n, gen, dtype, "solve", 1)
+                    res = solve_system(a, b, block_size=m, tune=tune,
+                                       plan_cache=path, device="cuda")
+                    gate = solve_gate_threshold(DEFAULT_POLICY, n, dtype)
+                    out = res.x
+                    expected = dict.fromkeys(counters, 0)
+                    expected[probe_mod.probe_body(m, dtype)] = -(-n // m)
+                    del a, b
+                launches = read()
+                row = {"phase": "tune", "step": "winner" if tune else "warm",
+                       "n": n, "m": m, "generator": gen, "dtype": dname,
+                       "workload": workload, "tune": tune,
+                       "engine": res.engine,
+                       "plan_source": res.plan.source,
+                       "measurements": _M_MEASUREMENTS.total() - before,
+                       "seconds": res.elapsed,
+                       "rel_residual": res.rel_residual, "gate": gate,
+                       "recovery": list(res.recovery),
+                       "launches": launches, "expected_launches": expected,
+                       "finite": bool(torch.isfinite(out).all())}
+                emit(row)
+                del res, out
+                torch.cuda.empty_cache()
+                if not (row["measurements"] == 0
+                        and row["engine"] == plan.engine
+                        and row["plan_source"] == "measured"
+                        and launches == expected and row["finite"]
+                        and row["rel_residual"] < gate
+                        and row["recovery"] == []):
+                    raise AssertionError(
+                        f"the tuned solve failed its checks: {row}")
+        plans = {k: (v.config, v.seconds)
+                 for k, v in PlanCache.load(path).plans.items()}
+        row = {"phase": "tune", "step": "shared_cache", "plans": plans}
+        emit(row)
+        if (plans != {k: (v.config, v.seconds) for k, v in winners.items()}
+                or len(plans) != len(TUNE_POINTS)):
+            raise AssertionError(f"the shared cache does not hold each "
+                                 f"point's own plan: {row}")
     return totals
 
 
@@ -2107,6 +2374,10 @@ def main(argv=None) -> int:
     if "solve" in phases:
         launches.update(phase_solve(torch))
     seconds["solve"] = time.perf_counter() - start - sum(seconds.values())
+    if "tune" in phases:
+        for name, count in phase_tune(torch).items():
+            launches[name] = launches.get(name, 0) + count
+    seconds["tune"] = time.perf_counter() - start - sum(seconds.values())
     if "overlap" in phases:
         phase_overlap(torch)
     seconds["overlap"] = time.perf_counter() - start - sum(seconds.values())

@@ -274,7 +274,8 @@ def test_driver_refuses_real_only_engines_like_jax(engine, group):
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"workers": 2}, "item 15"), ({"workers": (2, 2)}, "item 15"),
-    ({"tune": True}, "item 11"), ({"telemetry": object()}, "item 12"),
+    ({"tune": True, "engine": "augmented"}, "engine='auto' only"),
+    ({"telemetry": object()}, "item 12"),
     ({"numerics": "summary"}, "item 12")])
 def test_driver_refuses_later_options_for_complex(kwargs, item):
     with pytest.raises(UsageError, match=item):

@@ -13,11 +13,11 @@ from tpu_jordan import driver as jdriver
 from tpu_jordan import io as jio
 from tpu_jordan.ops import generate as jgenerate
 from tpu_jordan.__main__ import main as jmain
-from tpu_jordan.tuning.tuner import auto_select
 
 from tpu_jordan_torch import driver as tdriver
 from tpu_jordan_torch.__main__ import main as tmain
 from tpu_jordan_torch.config import default_block_size
+from tpu_jordan_torch.tuning.tuner import auto_select as tauto_select
 from tpu_jordan_torch.errors import (
     DeviceUnavailableError,
     SingularMatrixError,
@@ -66,10 +66,17 @@ def test_solve_from_file_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("n", [512, 4096, 8192, 16384])
 def test_auto_engine_matches_jax_cost_rule(n):
-    """The port's written-out rule against the JAX tuner's cost-only pick
-    for a single-device fp32 solve at the default block size."""
-    engine, group, _ = auto_select(n, default_block_size(n), np.float32, 1,
-                                   True)
+    """The invert calls' engine resolution (resolve_invert_engine, and
+    resolve_engine's "auto" with n) against the port's own tuner
+    (auto_select, no plan cache) for a single-device fp32 solve at the
+    default block size on the CPU.  The comparison with the JAX package's
+    pick, which ranks with other chip constants, is
+    tests/test_torch_tuning.py's grid."""
+    engine, group, plan = tauto_select(n, default_block_size(n), np.float32,
+                                       1, True, device="cpu")
+    assert plan.source == "cost_model"
+    got = tdriver.resolve_invert_engine("auto", 0, n, device="cpu")
+    assert got[:2] == (engine, group) and got[2].source == "cost_model"
     assert tdriver.resolve_engine("auto", 0, n) == (engine, group)
 
 
@@ -264,8 +271,8 @@ def test_no_gpu_raises_instead_of_running_on_cpu(monkeypatch):
     {"telemetry": object()},
     {"policy": object()},
     {"numerics": "summary"},
-    {"tune": True},
-    {"plan_cache": "plans.json"},
+    {"tune": True, "engine": "inplace"},
+    {"plan_cache": "plans.json", "engine": "grouped"},
     {"precision": "high"},
     {"precision": "mixed"},
     {"engine": "augmented", "group": 2},

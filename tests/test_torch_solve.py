@@ -273,7 +273,8 @@ def test_flag_contract():
     ({"gather": False}, "item 15"),
     ({"telemetry": object()}, "item 12"),
     ({"numerics": "summary"}, "item 12"),
-    ({"plan_cache": "plans.json"}, "item 11"),
+    ({"plan_cache": "plans.json", "engine": "solve_aug"},
+     "engine='auto' only"),
     ({"dtype": "complex64", "workers": 2}, "item 15"),
 ])
 def test_later_slice_options_are_refused_by_name(kwargs, item):

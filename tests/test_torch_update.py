@@ -471,8 +471,10 @@ def test_solver_policy_retries_the_engine_call():
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"workers": 2}, "item 15"), ({"workers": (2, 4)}, "item 15"),
-    ({"gather": False}, "item 15"), ({"tune": True}, "item 11"),
-    ({"plan_cache": "plans.json"}, "item 11"),
+    ({"gather": False}, "item 15"),
+    ({"tune": True, "engine": "inplace"}, "engine='auto' only"),
+    ({"plan_cache": "plans.json", "engine": "grouped"},
+     "engine='auto' only"),
     ({"telemetry": object()}, "item 12")])
 def test_solver_refuses_later_options_by_item(kwargs, item):
     with pytest.raises(UsageError, match=item):

@@ -15,6 +15,11 @@ the backward error beside the solve gate
 ``--dtype complex64`` runs the complex path (with ``--generator crand``,
 the deterministic complex uniform, which a real ``--dtype`` refuses with
 exit 1): invert on the augmented engine, and both workloads.
+
+``--engine auto`` (the default) resolves through the tuner: a plan from
+``--plan-cache PATH``, else the cost ranking, else with ``--tune`` a
+measurement of the cost-pruned engines at this point; the plan's source
+(and a variance flag of its measurement) is printed beside the engine.
 """
 
 from __future__ import annotations
@@ -22,7 +27,9 @@ from __future__ import annotations
 import argparse
 import sys
 
+from .driver import LATER_ENGINES
 from .errors import DeviceUnavailableError, SingularMatrixError, UsageError
+from .tuning.registry import ENGINES
 from .io import MatrixReadError
 from .resilience.policy import ResidualGateError
 
@@ -63,11 +70,28 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--refine", type=int, default=0,
                     help="Newton-Schulz refinement steps")
     ap.add_argument("--engine", default="auto",
-                    help="auto | inplace | grouped | augmented | lookahead "
-                         "| grouped_pallas | grouped_pallas_bf16")
+                    choices=list(ENGINES) + list(LATER_ENGINES),
+                    help="elimination engine: 'auto' = autotuned "
+                         "selection (plan cache -> registry cost "
+                         "ranking -> --tune measured tuning); the names "
+                         "of a later slice are refused with exit 1")
     ap.add_argument("--group", type=int, default=0,
                     help="delayed-group size for the grouped engines "
                          "(default 2)")
+    ap.add_argument("--tune", action="store_true",
+                    help="--engine auto only: measure the registry's "
+                         "cost-pruned engine candidates at this "
+                         "(n, dtype, mesh, gather) point with the robust "
+                         "core (median-of-k, IQR outlier rejection) and "
+                         "run the fastest; combine with --plan-cache to "
+                         "persist the plan")
+    ap.add_argument("--plan-cache", default=None, metavar="PATH",
+                    help="--engine auto only: versioned JSON plan cache "
+                         "consulted before any cost ranking or "
+                         "measurement (a warm hit performs zero "
+                         "measurements) and updated after selection; "
+                         "corrupt/version-stale files fall back to "
+                         "cost-model ranking")
     ap.add_argument("--batch", type=int, default=1,
                     help="invert a batch of B generated matrices through "
                          "the batched engine (generator input only; "
@@ -116,6 +140,9 @@ def main(argv=None) -> int:
             if args.engine != "auto" or args.group != 0:
                 raise UsageError("--batch uses the batched engine; "
                                  "--engine/--group do not apply")
+            if args.tune or args.plan_cache:
+                raise UsageError("--batch uses the batched engine; "
+                                 "--tune/--plan-cache do not apply")
             result = solve_batch(n=args.n, block_size=args.m,
                                  batch=args.batch, generator=args.generator,
                                  dtype=args.dtype, refine=args.refine,
@@ -125,7 +152,8 @@ def main(argv=None) -> int:
                            generator=args.generator, dtype=args.dtype,
                            refine=args.refine, device=args.device,
                            verbose=args.verbose, engine=args.engine,
-                           group=args.group)
+                           group=args.group, tune=args.tune,
+                           plan_cache=args.plan_cache)
     except FileNotFoundError:
         print(f"cannot open {args.file}")
         return 2
@@ -147,8 +175,19 @@ def main(argv=None) -> int:
     if not args.verbose:
         print(f"glob_time: {result.elapsed:.2f}")
         print(f"residual: {result.residual:e}")
-    print(f"engine: {result.engine} on {result.device}")
+    _print_engine(result)
     return 0
+
+
+def _print_engine(result) -> None:
+    """The engine that ran, and where an auto plan chose it, the ladder
+    rung that did (so --engine auto is never a black box)."""
+    print(f"engine: {result.engine} on {result.device}")
+    plan = getattr(result, "plan", None)
+    if plan is not None:
+        print(f"plan: {plan.config} (auto, {plan.source} plan)")
+        if plan.variance_flag:
+            print(f"plan variance_flag: {plan.variance_flag}")
 
 
 def _workload(args) -> int:
@@ -163,9 +202,9 @@ def _workload(args) -> int:
                          "modes; pick one")
     if args.engine != "auto" or args.group != 0:
         raise UsageError("--workload solve/lstsq resolve their engine "
-                         "through the workload-scoped auto rule; "
-                         "--engine/--group name invert engines and do not "
-                         "apply")
+                         "through the workload-scoped auto ladder "
+                         "(optionally --tune/--plan-cache); --engine/"
+                         "--group name invert engines and do not apply")
     if args.refine:
         raise UsageError("--refine is Newton-Schulz on an INVERSE; the "
                          "solve workloads gate on ||AX - B|| and recover "
@@ -185,7 +224,8 @@ def _workload(args) -> int:
             amat = generate(args.generator, (args.n, args.n), dtype,
                             device=dev)
         result = solve_system(amat, bmat, block_size=args.m,
-                              assume=args.assume, device=dev,
+                              assume=args.assume, tune=args.tune,
+                              plan_cache=args.plan_cache, device=dev,
                               verbose=args.verbose)
         lsq = None
     else:
@@ -198,7 +238,8 @@ def _workload(args) -> int:
                              "construction)")
         amat = generate(args.generator, (args.n, max(1, args.n // 2)),
                         dtype, device=dev)
-        lsq = lstsq(amat, bmat, block_size=args.m, device=dev,
+        lsq = lstsq(amat, bmat, block_size=args.m, tune=args.tune,
+                    plan_cache=args.plan_cache, device=dev,
                     verbose=args.verbose)
         if lsq.rank_deficient:
             print("rank deficient (singular normal equations)",
@@ -212,7 +253,7 @@ def _workload(args) -> int:
     print(f"rel_residual: {result.rel_residual:e} (solve gate {gate:e})")
     if lsq is not None:
         print(f"lstsq residual: {lsq.residual:e}")
-    print(f"engine: {result.engine} on {result.device}")
+    _print_engine(result)
     return 0
 
 

@@ -51,27 +51,23 @@ from .ops import (
 from .ops.refine import resolve_precision
 from .resilience.degrade import maybe_recover
 from .resilience.policy import DEFAULT_POLICY, ResiliencePolicy
+from .tuning.registry import (ENGINES, GROUPED_MIN_SINGLE_CHIP_N,
+                              PALLAS_ENGINES)
+from .tuning.tuner import auto_select
 
 __all__ = ["ENGINES", "GROUPED_MIN_SINGLE_CHIP_N", "MAX_UNROLL_NR",
            "PALLAS_ENGINES", "SingularMatrixError", "SolveResult",
            "UsageError", "batch_metrics", "complex_engine", "invert",
-           "resolve_engine", "solve", "solve_batch"]
+           "resolve_engine", "resolve_invert_engine", "solve",
+           "solve_batch"]
 
-# The fused-update engines: grouped engines whose group-closing step is the
-# fused_update kernel, in fp32 or with bf16 operands.
-PALLAS_ENGINES = ("grouped_pallas", "grouped_pallas_bf16")
-# The engines ported so far.  The JAX package's other engines arrive with
-# later slices of the port (ROADMAP.md, Queue A).
-ENGINES = (("auto", "inplace", "grouped", "augmented", "lookahead")
-           + PALLAS_ENGINES)
-_LATER_ENGINES = {
+# ENGINES (the invert vocabulary, "auto" first), PALLAS_ENGINES (the
+# fused-update engines) and GROUPED_MIN_SINGLE_CHIP_N come from the
+# registry (tuning/registry.py).  The JAX package's other engines arrive
+# with later slices of the port (ROADMAP.md, Queue A).
+LATER_ENGINES = {
     "swapfree": "Queue A item 15",
 }
-
-# The JAX package's registry cost rule (tuning/registry.py:38,243-246),
-# written out: the delayed-group-update engine with k=2 from n = 8192 on,
-# the plain in-place engine below.
-GROUPED_MIN_SINGLE_CHIP_N = 8192
 
 
 @dataclass
@@ -85,6 +81,7 @@ class SolveResult:
     kappa: float | None = None   # κ∞(A) = ‖A‖∞‖A⁻¹‖∞
     engine: str | None = None    # the resolved engine that ran
     group: int = 0               # resolved delayed-group size (0 = ungrouped)
+    plan: object | None = None   # tuning.Plan when engine="auto" selected it
     device: str = ""             # where it ran, e.g. "cuda:0" or "cpu"
     _norm_a: float | None = None  # ‖A‖∞, backing rel_residual
     # One dict per degradation-ladder rung walked (policy solves only):
@@ -100,14 +97,13 @@ class SolveResult:
 def resolve_engine(engine: str, group: int, n: int | None = None):
     """Shared engine/group flag contract (solve, CLI), as in the JAX
     package.  Returns the ``(engine, group)`` pair; with ``n`` given,
-    "auto" is resolved by the cost rule (grouped k=2 at
-    n >= GROUPED_MIN_SINGLE_CHIP_N, inplace below).  The fused-update
-    engines are grouped engines with the same default k=2; "auto" never
-    picks them."""
-    if engine in _LATER_ENGINES:
+    "auto" (with group 0) is what :func:`resolve_invert_engine` picks for
+    an fp32 CPU call at the default block size with no plan cache.  The
+    fused-update engines are grouped engines with the same default k=2."""
+    if engine in LATER_ENGINES:
         raise UsageError(
             f"engine={engine!r} is not ported yet (ROADMAP.md "
-            f"{_LATER_ENGINES[engine]}); choose from {'/'.join(ENGINES)}")
+            f"{LATER_ENGINES[engine]}); choose from {'/'.join(ENGINES)}")
     if engine not in ENGINES:
         raise UsageError(f"unknown engine {engine!r}; choose from "
                          f"{'/'.join(ENGINES)}")
@@ -129,10 +125,32 @@ def resolve_engine(engine: str, group: int, n: int | None = None):
     if engine == "grouped" or (engine == "auto" and group > 1):
         return "grouped", (group if group > 1 else 2)
     if engine == "auto" and n is not None:
-        if n >= GROUPED_MIN_SINGLE_CHIP_N:
-            return "grouped", 2
-        return "inplace", 0
+        return resolve_invert_engine(engine, group, n, device="cpu")[:2]
     return engine, 0
+
+
+def resolve_invert_engine(engine: str, group: int, n: int,
+                          block_size: int | None = None,
+                          dtype=torch.float32, *, tune: bool = False,
+                          plan_cache: str | None = None, workers=1,
+                          gather: bool = True, device=None):
+    """The engine of an invert call (``solve``, ``JordanSolver``,
+    ``profile_solve``): the flag contract (:func:`resolve_engine`), a
+    complex dtype's routing (:func:`complex_engine`), the refusal of
+    ``tune``/``plan_cache`` beside an explicit engine, and for "auto" the
+    tuner's selection ladder on ``device`` (``tuning.auto_select``: the
+    plan cache, the cost ranking, measurement with ``tune=True``; a
+    complex point resolves to the augmented engine by legality).  Returns
+    ``(engine, group, plan)``, ``plan`` None for an explicit engine."""
+    engine, group = resolve_engine(engine, group)
+    if resolve_dtype(dtype).is_complex and engine != "auto":
+        engine, group = complex_engine(engine, group)
+    refuse_tune_for_explicit_engine(engine, tune, plan_cache)
+    if engine != "auto":
+        return engine, group, None
+    return auto_select(n, block_size or default_block_size(n), dtype,
+                       workers, gather, tune=tune, plan_cache=plan_cache,
+                       device=device)
 
 
 def invert(a: torch.Tensor, engine: str, group: int, block_size: int,
@@ -190,8 +208,16 @@ def complex_engine(engine: str, group: int):
     return "augmented", 0
 
 
+def refuse_tune_for_explicit_engine(engine: str, tune, plan_cache):
+    """``tune``/``plan_cache`` belong to ``engine="auto"``, in the JAX
+    package's words."""
+    if (tune or plan_cache is not None) and engine != "auto":
+        raise UsageError("tune/plan_cache apply to engine='auto' only "
+                         "(an explicit engine leaves nothing to tune)")
+
+
 def refuse_later_options(workers, gather, telemetry, policy, numerics,
-                         tune, plan_cache, dtype):
+                         dtype):
     """Options of the JAX package's solve that later slices bring: each
     is refused with the slice that brings it, never silently ignored."""
     distributed = isinstance(workers, tuple) or workers != 1
@@ -215,9 +241,6 @@ def refuse_later_options(workers, gather, telemetry, policy, numerics,
         raise UsageError("numerics reports are not ported yet (ROADMAP.md "
                          "Queue A item 12); the engines' collect_stats=True "
                          "gives the per-superstep record")
-    if tune or plan_cache is not None:
-        raise UsageError("tune/plan_cache (the autotuner) is not ported "
-                         "yet (ROADMAP.md Queue A item 11)")
 
 
 def _timed(dev, fn):
@@ -262,7 +285,11 @@ def solve(
     Runs on the CUDA card unless ``device="cpu"``; without a card it
     raises DeviceUnavailableError.  ``dtype`` may be complex64 or
     complex128 (then ``engine`` is "auto" or "augmented", which run the
-    augmented engine).  ``engine``: "auto" | "inplace" |
+    augmented engine).  ``engine="auto"`` resolves through the tuner
+    (``tuning.auto_select``): a hit in the JSON plan cache ``plan_cache``,
+    else the registry's cost ranking on this device, else, with
+    ``tune=True``, a measurement of the cost-pruned survivors; the plan is
+    on ``SolveResult.plan``.  ``engine``: "auto" | "inplace" |
     "grouped" | "augmented" | "lookahead" | "grouped_pallas" |
     "grouped_pallas_bf16" (see resolve_engine; "augmented" is the ~4N³
     reference-parity engine with the global singularity scale;
@@ -278,14 +305,16 @@ def solve(
     file errors propagate from read_matrix_file.
     """
     refuse_later_options(workers, gather, telemetry, policy, numerics,
-                         tune, plan_cache, dtype)
+                         dtype)
     dev = resolve_device(device)
     dtype = resolve_dtype(dtype)
     if block_size is None:
         block_size = default_block_size(n)
     _, refine = resolve_precision(precision, refine)
-    engine, group = (complex_engine(engine, group) if dtype.is_complex
-                     else resolve_engine(engine, group, n))
+    # Before any matrix is made.
+    engine, group, plan = resolve_invert_engine(
+        engine, group, n, block_size, dtype, tune=tune,
+        plan_cache=plan_cache, workers=workers, gather=gather, device=dev)
     if engine == "grouped_pallas_bf16" and policy is None:
         # The bf16 path never runs unguarded: a bf16-grade miss walks
         # refine -> fp32 re-solve instead of reaching the caller.
@@ -370,6 +399,7 @@ def solve(
         kappa=kappa,
         engine=engine,
         group=group,
+        plan=plan,
         device=str(inv.device),
         _norm_a=norm_a,
         recovery=recovery,

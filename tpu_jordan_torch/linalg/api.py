@@ -3,14 +3,15 @@
 The single-device part of the JAX package's ``linalg/api.py``, for real and
 complex dtypes:
 the engine choice (``resolve_solve_engine``, with "auto" resolved by the
-JAX registry's legality and cost order, written out), the solve timed with
+tuner at a workload-scoped point: plan cache, cost ranking, measurement
+with ``tune=True``), the solve timed with
 CUDA events on the card, the verification ‖A·X − B‖∞ against the caller's
 A and B, the κ-free backward-error gate and its recovery ladder when a
 policy is attached (``resilience/degrade.py``), and the results
 :class:`SolveSystemResult` and :class:`LstsqResult`.  Entry points run on
 the card unless ``device="cpu"``.  The JAX package's distributed solves (complex
-ones included), tuner, telemetry and numerics reports are refused by name
-(ROADMAP.md Queue A items 15, 11 and 12).  Complex A and B flow through the
+ones included), telemetry and numerics reports are refused by name
+(ROADMAP.md Queue A items 15 and 12).  Complex A and B flow through the
 engine, the residual (every norm is of |z|) and the gate; lstsq forms the
 conjugate transpose.
 """
@@ -21,19 +22,21 @@ from dataclasses import dataclass
 
 import torch
 
-from ..config import MAX_UNROLL_NR, default_block_size
-from ..driver import _timed, refuse_later_options
+from ..config import default_block_size
+from ..driver import (_timed, refuse_later_options,
+                      refuse_tune_for_explicit_engine)
 from ..errors import SingularMatrixError, UsageError
 from ..interop import from_numpy, resolve_device, resolve_dtype
 from ..ops.norms import inf_norm
 from ..ops.residual import solve_residual_stats
 from ..resilience.degrade import backward_error, solve_recover
+from ..tuning.registry import SOLVE_ENGINES, TunePoint, select_by_cost
+from ..tuning.tuner import auto_select
 from .engine import block_jordan_solve, block_jordan_solve_fori
 
 ASSUME = ("general", "spd")
-# The solve vocabulary of the JAX package's registry (tuning/registry.py:
-# SOLVE_ENGINES), less the distributed engines, which item 15 brings.
-SOLVE_ENGINES = ("auto", "solve_aug", "solve_spd", "solve_fori")
+# SOLVE_ENGINES comes from the registry; the distributed engines arrive
+# with item 15.
 _LATER_SOLVE_ENGINES = {"solve_sharded": "Queue A item 15",
                         "solve_lookahead": "Queue A item 15"}
 
@@ -55,6 +58,7 @@ class SolveSystemResult:
     engine: str | None = None
     workload: str = "solve"
     singular: bool = False
+    plan: object | None = None    # tuning.Plan when engine="auto"
     kappa_est: float | None = None
     recovery: tuple = ()          # ladder rungs (policy solves only)
     device: str = ""
@@ -90,6 +94,7 @@ class LstsqResult:
     elapsed: float
     engine: str | None = None
     workload: str = "lstsq"
+    plan: object | None = None
     inner: SolveSystemResult | None = None
 
 
@@ -120,15 +125,13 @@ def resolve_solve_engine(engine: str, assume: str):
 
 
 def auto_solve_engine(n: int, m: int, workload: str) -> str:
-    """The JAX registry's choice for engine="auto" on one device
-    (tuning/registry.py:336-379), written out: where the unrolled engines
-    are legal (Nr <= MAX_UNROLL_NR) the cheapest, ``solve_spd`` at
-    "solve_spd" points and ``solve_aug`` at "solve" points; above, the
-    pivoting ``solve_fori`` (the registry's ``solve_fori_spd`` entry at spd
-    points)."""
-    if -(-n // m) > MAX_UNROLL_NR:
-        return "solve_fori"
-    return "solve_spd" if workload == "solve_spd" else "solve_aug"
+    """The registry's cost-only pick on one device at a "solve" or
+    "solve_spd" point: where the unrolled engines are legal (Nr <=
+    MAX_UNROLL_NR) the cheapest, ``solve_spd`` at "solve_spd" points and
+    ``solve_aug`` at "solve" points; above, the pivoting ``solve_fori``
+    (the registry's ``solve_fori_spd`` entry at spd points).  No dtype or
+    chip constant decides it."""
+    return select_by_cost(TunePoint.create(n, m, workload=workload)).engine
 
 
 def solve_engine_fn(engine: str, m: int):
@@ -175,10 +178,13 @@ def solve_system(
 
     ``a`` (n, n) and ``b`` ((n,) or (n, k)) are numpy arrays or tensors,
     moved to ``device`` (the card unless "cpu") as ``dtype`` (``a``'s own
-    unless given).  ``engine`` is one of SOLVE_ENGINES: "auto" resolves by
-    :func:`auto_solve_engine`; ``assume="spd"`` promises a symmetric
-    (Hermitian, for a complex A) positive definite A and makes "auto" take
-    the pivot-free path.
+    unless given).  ``engine`` is one of SOLVE_ENGINES: "auto" resolves
+    through the tuner at the "solve" (or "solve_spd") point on this device
+    (``tuning.auto_select``: the JSON plan cache ``plan_cache``, the cost
+    ranking, or with ``tune=True`` a measurement; the plan is on
+    ``result.plan``); ``assume="spd"`` promises a symmetric (Hermitian,
+    for a complex A) positive definite A and makes "auto" take the
+    pivot-free path.
     ``policy`` (a ``resilience.ResiliencePolicy``) retries the engine call
     and holds the result to ``rel_residual <= gate_tol·eps·n``
     (``solve_gate_threshold``), walking the solve ladder (refine, repivot
@@ -186,12 +192,11 @@ def solve_system(
     ``ResidualGateError`` when the ladder runs out.  ``check=False``
     reports a singular system on ``result.singular`` with ``x=None``
     instead of raising SingularMatrixError.  ``workers``, ``gather``,
-    ``tune``, ``plan_cache``, ``telemetry`` and ``numerics`` other than
-    "off" are refused by name (later slices of the port).  A and B may be
+    ``telemetry`` and ``numerics`` other than "off" are refused by name
+    (later slices of the port).  A and B may be
     complex64 or complex128.  Counterpart of the JAX package's
     ``solve_system``."""
-    refuse_later_options(workers, gather, telemetry, policy, numerics, tune,
-                         plan_cache,
+    refuse_later_options(workers, gather, telemetry, policy, numerics,
                          dtype if dtype is not None else getattr(a, "dtype",
                                                                  None))
     dev = resolve_device(device)
@@ -205,8 +210,12 @@ def solve_system(
     k = int(b2.shape[1])
     m = min(block_size or default_block_size(n), n)
     engine, workload = resolve_solve_engine(engine, assume)
+    refuse_tune_for_explicit_engine(engine, tune, plan_cache)
+    plan = None
     if engine == "auto":
-        engine = auto_solve_engine(n, m, workload)
+        engine, _, plan = auto_select(n, m, dtype, workers, gather,
+                                      tune=tune, plan_cache=plan_cache,
+                                      workload=workload, device=dev)
     spd = engine == "solve_spd"
     run = solve_engine_fn(engine, m)
     if dev.type == "cuda":
@@ -224,7 +233,7 @@ def solve_system(
         return SolveSystemResult(
             x=None, elapsed=elapsed, residual=float("inf"), n=n, k=k,
             block_size=m, gflops=0.0, engine=engine, workload=workload,
-            singular=True, device=str(dev))
+            singular=True, plan=plan, device=str(dev))
 
     stats = solve_residual_stats(a, x, b2)
     recovery = ()
@@ -247,7 +256,7 @@ def solve_system(
         x=x[:, 0] if squeezed else x, elapsed=elapsed, residual=residual,
         n=n, k=k, block_size=m,
         gflops=(flops / elapsed / 1e9) if elapsed > 0 else 0.0,
-        engine=engine, workload=workload, singular=False,
+        engine=engine, workload=workload, singular=False, plan=plan,
         kappa_est=(norm_a * norm_x / norm_b) if norm_b else None,
         recovery=recovery, device=str(x.device),
         _norm_a=norm_a, _norm_x=norm_x, _norm_b=norm_b)
@@ -276,9 +285,9 @@ def lstsq(
     positive definite).  A singular Gram system is surfaced as
     ``rank_deficient=True`` with ``x=None``.  The normal equations square
     the conditioning; ``residual`` reports the original ‖A·x − b‖∞ beside
-    the Gram system's.  Counterpart of the JAX package's ``lstsq``."""
-    refuse_later_options(1, True, telemetry, policy, numerics, tune,
-                         plan_cache,
+    the Gram system's.  ``engine``, ``tune`` and ``plan_cache`` go to that
+    solve, whose plan is on ``result.plan``.  Counterpart of the JAX package's ``lstsq``."""
+    refuse_later_options(1, True, telemetry, policy, numerics,
                          dtype if dtype is not None else getattr(a, "dtype",
                                                                  None))
     dev = resolve_device(device)
@@ -299,15 +308,16 @@ def lstsq(
     gram = ah @ a
     rhs = ah @ b2
     inner = solve_system(gram, rhs, block_size=block_size, assume=assume,
-                         engine=engine, policy=policy, check=False,
-                         device=dev)
+                         engine=engine, tune=tune, plan_cache=plan_cache,
+                         policy=policy, check=False, device=dev)
     if inner.singular:
         if verbose:
             print("rank deficient (singular normal equations)")
         return LstsqResult(
             x=None, residual=float("inf"), normal_residual=float("inf"),
             rows=rows, n=n, k=k, rank_deficient=True, kappa_est=None,
-            elapsed=inner.elapsed, engine=inner.engine, inner=inner)
+            elapsed=inner.elapsed, engine=inner.engine, plan=inner.plan,
+            inner=inner)
     x = inner.x
     residual = float(inf_norm(a @ x.to(a.dtype) - b2))
     if verbose:
@@ -316,4 +326,5 @@ def lstsq(
         x=x[:, 0] if squeezed else x, residual=residual,
         normal_residual=inner.residual, rows=rows, n=n, k=k,
         rank_deficient=False, kappa_est=inner.kappa_est,
-        elapsed=inner.elapsed, engine=inner.engine, inner=inner)
+        elapsed=inner.elapsed, engine=inner.engine, plan=inner.plan,
+        inner=inner)

@@ -4,9 +4,10 @@ matrices of one shape.
 The reference re-runs its whole program per matrix (main.cpp:65-93).  The
 JAX package's solver caches a compiled executable; torch has none to
 compile, so this one caches what the port can: the resolved engine, as a
-callable, and its block size, fixed at construction.  Single device; the
-JAX constructor's distributed, tuning and telemetry fields are kept and
-refused by name (ROADMAP.md Queue A items 15, 11 and 12).
+callable, and its block size, fixed at construction; ``engine="auto"``
+resolves once, through the tuner, at construction.  Single device; the JAX
+constructor's distributed and telemetry fields are kept and refused by
+name (ROADMAP.md Queue A items 15 and 12).
 """
 
 from __future__ import annotations
@@ -34,12 +35,13 @@ class JordanSolver:
     and complex128 run the augmented engine); ``refine`` Newton–Schulz
     steps after every inversion; ``precision`` "highest" only (as
     ``driver.solve``); ``engine``/``group`` as ``driver.resolve_engine``,
-    "auto" resolved by the port's rule for n (complex: "augmented");
-    ``policy`` a ``resilience.ResiliencePolicy`` whose retry wraps every
-    engine call; ``device`` the card unless "cpu".  ``workers > 1`` and
-    ``gather=False`` (item 15), ``tune``/``plan_cache`` (item 11) and
-    ``telemetry`` (item 12) are refused by name.  Counterpart of the JAX
-    package's ``models.JordanSolver``."""
+    "auto" resolved by the tuner's ladder as in ``driver.solve`` (the plan
+    cache ``plan_cache``, the cost ranking, measurement with ``tune=True``;
+    complex: "augmented"), the plan kept on ``plan``; ``policy`` a
+    ``resilience.ResiliencePolicy`` whose retry wraps every engine call;
+    ``device`` the card unless "cpu".  ``workers > 1`` and
+    ``gather=False`` (item 15) and ``telemetry`` (item 12) are refused by
+    name.  Counterpart of the JAX package's ``models.JordanSolver``."""
 
     n: int
     block_size: int | None = None
@@ -55,24 +57,27 @@ class JordanSolver:
     telemetry: Any = None
     policy: Any = None
     device: Any = None
+    plan: Any = field(default=None, repr=False)
     _run: Any = field(default=None, repr=False)
 
     def __post_init__(self):
-        from ..driver import (complex_engine, invert, refuse_later_options,
-                              resolve_engine)
+        from ..driver import (invert, refuse_later_options,
+                              resolve_invert_engine)
         from ..ops.refine import resolve_precision
 
         refuse_later_options(self.workers, self.gather, self.telemetry,
-                             self.policy, "off", self.tune, self.plan_cache,
-                             self.dtype)
+                             self.policy, "off", self.dtype)
         self.dtype = resolve_dtype(self.dtype)
         self._device = resolve_device(self.device)
         if self.block_size is None:
             self.block_size = default_block_size(self.n)
         _, self.refine = resolve_precision(self.precision, self.refine)
-        self.engine, self.group = (
-            complex_engine(self.engine, self.group) if self.dtype.is_complex
-            else resolve_engine(self.engine, self.group, self.n))
+        # The resolution of driver.solve, once: the pick is pinned on
+        # engine/group/plan.
+        self.engine, self.group, self.plan = resolve_invert_engine(
+            self.engine, self.group, self.n, self.block_size, self.dtype,
+            tune=self.tune, plan_cache=self.plan_cache,
+            workers=self.workers, gather=self.gather, device=self._device)
         self._work_dtype = (torch.float32 if self.dtype in _SUB_FP32
                             else self.dtype)
         self._run = partial(invert, engine=self.engine, group=self.group,

@@ -36,7 +36,7 @@ import sys
 
 import torch
 
-from .driver import ENGINES, complex_engine, invert, resolve_engine
+from .driver import ENGINES, invert, resolve_invert_engine
 from .linalg import auto_solve_engine, reinvert_fresh, smw_update_with_metrics
 from .linalg.api import solve_engine_fn
 from .ops import batched_jordan_invert, generate, generate_batch
@@ -126,8 +126,9 @@ def profile_row(n: int, m: int, gen: str, dtype: torch.dtype,
         def run():
             return batched_jordan_invert(a, block_size=m)
     else:
-        engine, group = (complex_engine(engine, group) if dtype.is_complex
-                         else resolve_engine(engine, group, n))
+        # What driver.solve runs here with no plan cache.
+        engine, group, _ = resolve_invert_engine(engine, group, n, m, dtype,
+                                                 device="cuda")
         a = generate(gen, (n, n), dtype, device="cuda")
 
         def run():

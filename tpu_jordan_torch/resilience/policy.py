@@ -7,7 +7,9 @@ package's ``resilience/policy.py``.
     quotes a marker is never retried.  The JAX runtime error types have no
     counterpart here; the transport types and the markers stay.
   * :class:`RetryPolicy`: bounded retries with exponential backoff and
-    deterministic jitter (a pure function of the attempt index).
+    deterministic jitter (a pure function of the attempt index), and
+    :func:`retry_transient`, its one-shot form for the tuner's
+    measurements.
   * :class:`ResiliencePolicy`: the umbrella ``solve(policy=)`` takes: retry,
     the residual gate and degradation ladder (``resilience/degrade.py``),
     and the breaker knobs, carried as data.
@@ -111,6 +113,19 @@ class RetryPolicy:
                 if on_retry is not None:
                     on_retry(e, attempt)
                 attempt += 1
+
+
+#: The one-shot contract of the measurement core: one retry, no backoff,
+#: strict transient classification only.
+_ONE_SHOT = RetryPolicy(max_retries=1, backoff_s=0.0, classify=is_transient)
+
+
+def retry_transient(fn):
+    """Run ``fn()`` with one retry on the documented-transient failure
+    class (:func:`is_transient`).  Anything else, an accuracy or
+    singularity error included, is a real result and propagates at
+    once."""
+    return _ONE_SHOT.call(fn)
 
 
 @dataclass
