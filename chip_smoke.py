@@ -137,10 +137,22 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    the cache holding each point's own plan (the card's keys carry m).
 6. ``overlap``: ``profile_solve``'s device-time split of OVERLAP_ROWS: the
    lookahead twins must overlap their probe with a GEMM (> 0 ms).
-7. ``kernels``: every ported kernel with its launches on its path (the
-   solve and tune rows; the variants' engine runs of ``reference``), the
-   complex bodies of ``gj_probe.cu`` as ``gj_probe[c64]`` and
-   ``gj_probe[c128]``.
+7. ``telemetry``: the observability layer on the card
+   (``phase_telemetry``): the 8192/m384 in-place solve traced
+   (``Telemetry()``, ``numerics="trace"``) in turns with the same solve
+   untraced (the trace's cost; the untraced launches unchanged, no
+   bracket; pivots equal; ``elapsed`` equal to the execute span's
+   duration), the ``grouped_pallas`` 8192/m128 solve traced (measured
+   phase children from kernel brackets: 2 probe and 2 update launches
+   above the engine's own), a traced solve and a summary-mode update,
+   ``numerics_demo`` at DEMO_CASES through ``tools/check_numerics.py``,
+   and the CLI with ``--numerics trace`` and every export through
+   ``tools/check_telemetry.py`` (the capacity report's device watermark
+   available).
+8. ``kernels``: every ported kernel with its launches on its path (the
+   solve, tune and telemetry rows; the variants' engine runs of
+   ``reference``), the complex bodies of ``gj_probe.cu`` as
+   ``gj_probe[c64]`` and ``gj_probe[c128]``.
 
 Not run by default: ``--phases knife_edge`` records that fp32 absdiff
 8192/m384 elimination through the grouped engine, with the kernel and with
@@ -166,7 +178,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("toolchain", "kernel_vs_plain", "reference", "solve", "tune",
-          "overlap")
+          "overlap", "telemetry")
 EXTRA_PHASES = ("knife_edge", "cluster_sweep", "batch_fp32")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
@@ -348,6 +360,25 @@ COMPLEX_REFERENCE_WORKLOAD_ROWS = (
 # of rank 16 threaded through the drift budget.  The factors are
 # profile_solve.update_factors'.
 UPDATE_ROW = (8192, 384, "rand", "float32", (16, 64), 8)
+
+# The telemetry phase: the in-place row traced (Telemetry(), numerics=
+# "trace") in turns with the same solve untraced, TELEMETRY_TURNS each;
+# the fp32 fused engine's row traced once (its measured phase brackets);
+# the numerics demo (n, m, κ decades, the rungs it must walk as (rung,
+# passed) pairs) at the JAX default and at m = 128 below the bf16 fused
+# engine's auto range, where the in-place engine probes with the panel
+# kernel.  The fp32 re-solve's rel residual grows with n·κ against the
+# gate's 0.5 cap: at n = 512 κ 10^3.9 refine diverges and the re-solve
+# passes (the JAX package walks the same rungs there on the CPU,
+# tests/test_torch_numerics.py); at n = 2048 κ 10^3.5 refine recovers,
+# and the default κ 10^4.5 exhausts the ladder (ResidualGateError).
+TELEMETRY_ROW = (8192, 384, "rand", "float32")
+TELEMETRY_PALLAS_ROW = (8192, 128, "rand", "float32")
+TELEMETRY_TURNS = 3
+_RESOLVED = (("refine", False), ("resolve", True))
+DEMO_CASES = ((16, 8, 4.5, _RESOLVED), (512, 128, 3.9, _RESOLVED),
+              (2048, 128, 3.5, (("refine", True),)),
+              (2048, 128, 4.5, (("refine", False), ("resolve", False))))
 # (n, m, generator, dtype, ranks): the SMW update on the card against the
 # same update on the CPU.
 UPDATE_REFERENCE_ROW = (1024, 128, "rand", "float64", (16, 64))
@@ -1888,6 +1919,243 @@ def phase_solve_update(torch, counters):
     return totals
 
 
+def check_tool(tool: str, *paths, stdin: str | None = None) -> str:
+    """Run ``tools/<tool>`` of the checkout on ``paths`` (or on ``stdin``
+    with ``-``); raises unless it exits 0.  Returns its output."""
+    args = [sys.executable, os.path.join(ROOT, "tools", tool)]
+    args += list(paths) if paths else ["-"]
+    out = subprocess.run(args, input=stdin, capture_output=True, text=True)
+    if out.returncode != 0:
+        raise AssertionError(f"{tool} exited {out.returncode}: "
+                             f"{out.stdout}{out.stderr}")
+    return out.stdout.strip()
+
+
+def phase_telemetry(torch, counters):
+    """Observability on the card, every row warm; each run with the
+    kernels' counts set to 0 just before it and read just after.
+
+    (a) TELEMETRY_ROW through ``driver.solve`` (inplace), untraced and
+    with ``Telemetry()`` and ``numerics="trace"`` in turns: the untraced
+    run launches what the solve phase's rows launch (Nr panel probes, no
+    bracket), the traced one Nr records whose pivots equal an untraced
+    engine run's (recorded by its probe), and ``elapsed == execute``'s
+    duration exactly in both.  (b) TELEMETRY_PALLAS_ROW through
+    ``grouped_pallas``, traced: measured phase children, and the probe and
+    update counts rise by the brackets' 2 + 2 above the engine's Nr and
+    ceil(Nr/k); the bracket walls are printed.  (c) the solve K=1 at
+    TELEMETRY_ROW with ``numerics="trace"`` (Nr records) and the update
+    k=16 with telemetry and ``numerics="summary"``.  (d) ``numerics_demo``
+    at DEMO_CASES, each walking its listed rungs, each report through
+    ``tools/check_numerics.py`` (an exhausted ladder raises
+    ``ResidualGateError`` and leaves no report to check).  (e)
+    the CLI at TELEMETRY_ROW with ``--numerics trace`` and every export,
+    the Prometheus text and the Chrome trace through
+    ``tools/check_telemetry.py``, the capacity report's device watermark
+    available with a peak of at least A's bytes.  Returns the counts
+    summed over the runs."""
+    import tempfile
+
+    from tpu_jordan_torch.__main__ import main as cli
+    from tpu_jordan_torch.driver import solve
+    from tpu_jordan_torch.linalg import solve_system, solve_update
+    from tpu_jordan_torch.obs import Telemetry
+    from tpu_jordan_torch.obs.numerics import numerics_demo
+    from tpu_jordan_torch.ops import block_jordan_invert_inplace, generate
+    from tpu_jordan_torch.ops import fused_update as update_mod
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+    from tpu_jordan_torch.profile_solve import update_factors
+    from tpu_jordan_torch.resilience import ResidualGateError
+
+    totals = dict.fromkeys(counters, 0)
+
+    def counted(fn):
+        for mod in counters.values():
+            mod.reset_launches()
+        out = fn()
+        got = {name: mod.launches for name, mod in counters.items()}
+        for name in totals:
+            totals[name] += got[name]
+        return out, got
+
+    def elapsed_is_execute(res):
+        return res.trace is None or res.elapsed == res.trace.find(
+            "execute").duration
+
+    # (a) traced and untraced in turns.
+    n, m, gen, dname = TELEMETRY_ROW
+    nr = -(-n // m)
+    body = probe_mod.probe_body(m, getattr(torch, dname))
+    expected = dict.fromkeys(counters, 0)
+    expected[body] = nr
+    solve(n, m, generator=gen, dtype=dname, engine="inplace",
+          device="cuda", numerics="trace", telemetry=Telemetry())
+    a = generate(gen, (n, n), getattr(torch, dname), device="cuda")
+    picks = []
+    block_jordan_invert_inplace(a, block_size=m,
+                                probe=recording_probe(picks))
+    del a
+    times = {"untraced": [], "traced": []}
+    bad = []
+    for _ in range(TELEMETRY_TURNS):
+        for mode in ("untraced", "traced"):
+            kw = ({"telemetry": Telemetry(), "numerics": "trace"}
+                  if mode == "traced" else {})
+            res, got = counted(lambda: solve(
+                n, m, generator=gen, dtype=dname, engine="inplace",
+                device="cuda", **kw))
+            times[mode].append(res.elapsed)
+            rep = res.numerics
+            ok = (got == expected and elapsed_is_execute(res)
+                  and (mode == "untraced" or (
+                      len(rep.pivot_block) == nr
+                      and rep.pivot_block == picks
+                      and res.trace.find("pivot").attrs.get("modeled"))))
+            if not ok:
+                bad.append({"mode": mode, "launches": got,
+                            "pivots": rep and rep.pivot_block})
+            del res
+    torch.cuda.empty_cache()
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    emit({"phase": "telemetry", "row": "trace_cost", "n": n, "m": m,
+          "generator": gen, "dtype": dname, "engine": "inplace",
+          "seconds": times, "median_s": med,
+          "trace_cost_ms": (med["traced"] - med["untraced"]) * 1e3,
+          "pivots": picks, "launches_each": expected, "failures": bad})
+    if bad:
+        raise AssertionError(f"traced/untraced solves failed: {bad}")
+
+    # (b) the fused engine's measured phases.
+    n, m, gen, dname = TELEMETRY_PALLAS_ROW
+    nr, k = -(-n // m), 2
+    solve(n, m, generator=gen, dtype=dname, engine="grouped_pallas",
+          device="cuda")
+    update_mod._PHASE_CACHE.clear()
+    res, got = counted(lambda: solve(
+        n, m, generator=gen, dtype=dname, engine="grouped_pallas",
+        device="cuda", telemetry=Telemetry(), numerics="trace"))
+    body = probe_mod.probe_body(m, getattr(torch, dname))
+    expected = dict.fromkeys(counters, 0)
+    expected[body] = nr + 2
+    expected["fused_update"] = -(-nr // k) + 2
+    esp = res.trace.find("execute")
+    phases = {c.name: dict(c.attrs) for c in esp.children}
+    row = {"phase": "telemetry", "row": "measured_phases", "n": n, "m": m,
+           "engine": res.engine, "seconds": res.elapsed,
+           "phases": phases,
+           "bracket_ms": {p: a["bracket_seconds"] * 1e3
+                          for p, a in phases.items()
+                          if "bracket_seconds" in a},
+           "records": len(res.numerics.pivot_block),
+           "rel_residual": res.rel_residual, "launches": got,
+           "expected_launches": expected}
+    emit(row)
+    if not (got == expected and elapsed_is_execute(res)
+            and len(phases) == 3 and row["records"] == nr
+            and all(a.get("measured") and not a.get("modeled")
+                    for a in phases.values())):
+        raise AssertionError(f"measured phases failed their checks: {row}")
+    del res
+    torch.cuda.empty_cache()
+
+    # (c) the solve and the update rows.
+    n, m, gen, dname = TELEMETRY_ROW
+    dtype = getattr(torch, dname)
+    nr, body = -(-n // m), probe_mod.probe_body(m, dtype)
+    a, b = workload_inputs(torch, n, gen, dtype, "solve", 1)
+    solve_system(a, b, block_size=m, device="cuda", numerics="trace")
+    out, got = counted(lambda: solve_system(
+        a, b, block_size=m, device="cuda", numerics="trace",
+        telemetry=Telemetry()))
+    rows = [{"phase": "telemetry", "row": "solve", "n": n, "m": m, "k": 1,
+             "engine": out.engine, "seconds": out.elapsed,
+             "records": len(out.numerics.pivot_block),
+             "rel_residual": out.rel_residual,
+             "spans": [sp.name for sp in out.trace.walk()],
+             "launches": got}]
+    ok = (len(out.numerics.pivot_block) == nr and got[body] == nr
+          and elapsed_is_execute(out))
+    del out, b
+    inv, _ = block_jordan_invert_inplace(a, block_size=m)
+    u, v = update_factors(n, 16, dtype)
+    tel = Telemetry()
+    out, got = counted(lambda: solve_update(
+        a, inv, u, v, device="cuda", telemetry=tel, numerics="summary"))
+    upd = tel.find("solve_update")
+    rows.append({"phase": "telemetry", "row": "update", "n": n, "k": 16,
+                 "seconds": out.elapsed,
+                 "numerics": out.numerics.to_json(),
+                 "spans": [sp.name for sp in upd.walk()],
+                 "launches": got})
+    ok = ok and (out.numerics.mode == "summary"
+                 and out.elapsed == upd.find("execute").duration
+                 and got["gj_probe"] == 2)
+    for r in rows:
+        emit(r)
+    del out, a, inv, u, v
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"traced solve or update failed: {rows}")
+
+    # (d) the numerics demo.
+    for dn, dm, decades, rungs in DEMO_CASES:
+        t0 = time.perf_counter()
+
+        def demo():
+            try:
+                return numerics_demo(n=dn, block_size=dm,
+                                     kappa_decades=decades, device="cuda")
+            except ResidualGateError as e:
+                return {"engine": None, "recovery": list(e.recovery),
+                        "spike_count": None, "rung_count": None}
+
+        report, got = counted(demo)
+        verdict = (check_tool("check_numerics.py", stdin=json.dumps(report))
+                   if report["engine"] is not None else None)
+        walked = tuple((r["rung"], r["passed"]) for r in report["recovery"])
+        row = {"phase": "telemetry", "row": "numerics_demo", "n": dn,
+               "m": dm, "kappa_decades": decades, "engine": report["engine"],
+               "recovery": report["recovery"],
+               "spike_count": report["spike_count"],
+               "rung_count": report["rung_count"],
+               "check_numerics": verdict, "launches": got,
+               "wall_s": time.perf_counter() - t0}
+        emit(row)
+        if walked != rungs:
+            raise AssertionError(
+                f"numerics_demo walked {walked}, expected {rungs}: {row}")
+
+    # (e) the CLI with every export.
+    n, m, gen, dname = TELEMETRY_ROW
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: os.path.join(tmp, k) for k in (
+            "metrics.prom", "trace.json", "capacity.json", "blackbox.json")}
+        rc, got = counted(lambda: cli([
+            str(n), str(m), "--generator", gen, "--numerics", "trace",
+            "--trace-json", paths["trace.json"],
+            "--metrics-out", paths["metrics.prom"],
+            "--capacity-report", paths["capacity.json"],
+            "--blackbox-out", paths["blackbox.json"]]))
+        verdict = check_tool("check_telemetry.py", paths["metrics.prom"],
+                             paths["trace.json"])
+        with open(paths["capacity.json"]) as f:
+            device = json.load(f)["components"]["device"]
+        with open(paths["blackbox.json"]) as f:
+            blackbox = json.load(f)
+    row = {"phase": "telemetry", "row": "cli", "n": n, "m": m, "rc": rc,
+           "check_telemetry": verdict, "device_capacity": device,
+           "blackbox_events": blackbox["recorded_total"],
+           "launches": got}
+    emit(row)
+    if not (rc == 0 and device.get("available")
+            and device.get("peak_bytes_in_use", 0) >= n * n * 4
+            and blackbox.get("metric") == "blackbox"
+            and got[probe_mod.probe_body(m, getattr(torch, dname))] == nr):
+        raise AssertionError(f"the CLI's exports failed their checks: {row}")
+    return totals
+
+
 def phase_tune(torch):
     """The tuner on the card.  Prints the point 8192/m384 fp32 as the card
     makes it (its plan key must begin with ``cuda-h100|``); the cost-only
@@ -2381,6 +2649,12 @@ def main(argv=None) -> int:
     if "overlap" in phases:
         phase_overlap(torch)
     seconds["overlap"] = time.perf_counter() - start - sum(seconds.values())
+    if "telemetry" in phases:
+        for name, count in phase_telemetry(torch,
+                                           launch_counters()).items():
+            launches[name] = launches.get(name, 0) + count
+    seconds["telemetry"] = time.perf_counter() - start - sum(
+        seconds.values())
     if "knife_edge" in phases:
         phase_knife_edge(torch)
     if "cluster_sweep" in phases:

@@ -178,8 +178,15 @@ def test_solve_batch_singular_count_matches_jax(n, m, batch):
 
 
 def test_solve_batch_refuses_telemetry_and_needs_a_card(monkeypatch):
-    with pytest.raises(UsageError):
-        tdriver.solve_batch(8, 4, batch=2, device="cpu", telemetry=object())
+    """solve_batch records its span tree (the JAX package's names, less
+    compile) and still needs a card unless the CPU is asked for."""
+    from tpu_jordan_torch.obs import Telemetry
+
+    r = tdriver.solve_batch(8, 4, batch=2, generator="rand", device="cpu",
+                            telemetry=Telemetry())
+    assert [sp.name for sp in r.trace.walk()] == [
+        "solve_batch", "load", "execute", "residual"]
+    assert r.elapsed == r.trace.find("execute").duration
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(DeviceUnavailableError):
         tdriver.solve_batch(8, 4, batch=2)
@@ -268,9 +275,9 @@ def test_no_gpu_raises_instead_of_running_on_cpu(monkeypatch):
     {"workers": 2},
     {"workers": (2, 4)},
     {"gather": False},
-    {"telemetry": object()},
+    {"numerics": "trace", "engine": "augmented"},
     {"policy": object()},
-    {"numerics": "summary"},
+    {"numerics": "loud"},
     {"tune": True, "engine": "inplace"},
     {"plan_cache": "plans.json", "engine": "grouped"},
     {"precision": "high"},

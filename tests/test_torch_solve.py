@@ -255,7 +255,7 @@ def test_flag_contract():
         solve(a, b, assume="hermitian")
     with pytest.raises(UsageError, match="tune"):
         solve(a, b, engine="solve_aug", tune=True)
-    with pytest.raises(UsageError, match="item 12"):
+    with pytest.raises(UsageError, match="has no probe"):
         solve(a @ a.T + 16 * np.eye(16, dtype=np.float32), b, assume="spd",
               numerics="trace")
     with pytest.raises(UsageError, match="square"):
@@ -271,8 +271,10 @@ def test_flag_contract():
     ({"workers": 2}, "item 15"),
     ({"workers": (2, 2)}, "item 15"),
     ({"gather": False}, "item 15"),
-    ({"telemetry": object()}, "item 12"),
-    ({"numerics": "summary"}, "item 12"),
+    pytest.param({"numerics": "trace", "engine": "solve_fori"},
+                 "UNROLLED solve engine", id="kwargs5-item 12"),
+    pytest.param({"numerics": "loud"}, "unknown numerics mode",
+                 id="kwargs6-item 12"),
     ({"plan_cache": "plans.json", "engine": "solve_aug"},
      "engine='auto' only"),
     ({"dtype": "complex64", "workers": 2}, "item 15"),

@@ -718,9 +718,13 @@ def test_measure_config_refusals():
     dist = tregistry.TunePoint(64, 8, "float32", workers=8, backend="cpu")
     with pytest.raises(UsageError, match="item 15"):
         ttuner.measure_config(dist, tregistry.get("inplace"))
-    with pytest.raises(UsageError, match="item 12"):
-        ttuner.auto_select(64, 8, "float32", 1, True, telemetry=object(),
-                           device="cpu")
+    from tpu_jordan_torch.obs import Telemetry
+
+    tel = Telemetry()
+    engine, _, _ = ttuner.auto_select(64, 8, "float32", 1, True,
+                                      telemetry=tel, device="cpu")
+    sel = tel.find("select")
+    assert sel.attrs["engine"] == engine and sel.attrs["source"]
 
 
 def test_metric_names_are_in_the_port_namespace():

@@ -331,10 +331,14 @@ def test_shape_and_option_errors_typed():
                      device="cpu")
     with pytest.raises(UsageError, match="inv must match"):
         solve_update(a, np.eye(4, dtype=np.float32), one, one, device="cpu")
-    with pytest.raises(UsageError, match="trace.*item 12"):
+    with pytest.raises(UsageError, match="trace.*three matmuls"):
         solve_update(a, a, one, one, numerics="trace", device="cpu")
-    with pytest.raises(UsageError, match="item 12"):
-        solve_update(a, a, one, one, telemetry=object(), device="cpu")
+    from tpu_jordan_torch.obs import Telemetry
+
+    tel = Telemetry()
+    solve_update(a, np.linalg.inv(a), one, one, telemetry=tel, device="cpu")
+    assert [sp.name for sp in tel.find("solve_update").walk()] == [
+        "solve_update", "execute"]
     with pytest.raises(UsageError, match="ResiliencePolicy"):
         solve_update(a, a, one, one, policy=object(), device="cpu")
 
@@ -475,7 +479,8 @@ def test_solver_policy_retries_the_engine_call():
     ({"tune": True, "engine": "inplace"}, "engine='auto' only"),
     ({"plan_cache": "plans.json", "engine": "grouped"},
      "engine='auto' only"),
-    ({"telemetry": object()}, "item 12")])
+    pytest.param({"engine": "swapfree"}, "item 15",
+                 id="kwargs5-item 12")])
 def test_solver_refuses_later_options_by_item(kwargs, item):
     with pytest.raises(UsageError, match=item):
         JordanSolver(n=16, device="cpu", **kwargs)

@@ -20,11 +20,22 @@ exit 1): invert on the augmented engine, and both workloads.
 ``--plan-cache PATH``, else the cost ranking, else with ``--tune`` a
 measurement of the cost-pruned engines at this point; the plan's source
 (and a variance flag of its measurement) is printed beside the engine.
+
+Observability: ``--numerics off|summary|trace`` (the per-solve health
+record), ``--numerics-demo`` (the observatory's acceptance run, one JSON
+line for ``tools/check_numerics.py``; ``--chaos-seed`` seeds it),
+``--metrics-out`` (Prometheus text), ``--trace-json`` (Chrome trace of the
+run's spans), ``--blackbox-out`` (the flight recorder) and
+``--capacity-report`` (the capacity ledger).  The exports are written on
+every exit path and never change the exit code; on exit 2 the flight
+recorder is dumped to ``<tmp>/tpu_jordan_torch_blackbox.json`` unless
+``--blackbox-out`` names a path.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from .driver import LATER_ENGINES
@@ -96,13 +107,127 @@ def _parser() -> argparse.ArgumentParser:
                     help="invert a batch of B generated matrices through "
                          "the batched engine (generator input only; "
                          "element b at index offset b*n)")
+    ap.add_argument("--numerics", default="off",
+                    choices=["off", "summary", "trace"],
+                    help="per-solve numerical health record: 'summary' "
+                         "reports rel_residual/kappa from what the solve "
+                         "already returns; 'trace' adds the full "
+                         "per-superstep record (chosen pivot block, its "
+                         "inverse inf-norm — the paper's selection "
+                         "criterion — candidate spread, element-growth "
+                         "watermark) from the instrumented unrolled "
+                         "engines (--workload solve traces the [A | B] "
+                         "elimination the same way; the SPD fast path "
+                         "has no probe to trace and refuses typed).  Both "
+                         "mirror into the tpu_jordan_torch_pivot_"
+                         "condition/growth_factor/residual histograms and "
+                         "spike the flight recorder before any recovery "
+                         "rung; 'off' (default) costs nothing")
+    ap.add_argument("--numerics-demo", action="store_true",
+                    help="run the numerics-observatory acceptance demo "
+                         "(obs/numerics.numerics_demo): one seeded "
+                         "ill-conditioned bf16 solve, traced — the "
+                         "residual gate fails, refine diverges, the fp32 "
+                         "re-solve recovers — and print ONE JSON line "
+                         "proving every degradation rung was causally "
+                         "preceded by a numerics_spike event in the "
+                         "flight recorder (exit 2 on an unexplained rung; "
+                         "tools/check_numerics.py validates the report).  "
+                         "n is the fixture size, m the block size; "
+                         "--chaos-seed seeds the fixture")
+    ap.add_argument("--chaos-seed", type=int, default=0, metavar="S",
+                    help="--numerics-demo: the fixture's seed (default 0; "
+                         "same seed = the same matrix)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the process-wide tpu_jordan_torch_* "
+                         "metrics registry (solves, plan-cache hits/"
+                         "misses, retries, numerics histograms, capacity "
+                         "gauges) as Prometheus text format on exit")
+    ap.add_argument("--trace-json", default=None, metavar="PATH",
+                    help="record the run's span tree (solve: select/load/"
+                         "execute/residual, the hot-loop phases under "
+                         "execute — measured kernel brackets for the "
+                         "fused engines, modeled otherwise — and the "
+                         "ladder's recover rungs) and write it as Chrome "
+                         "trace-event JSON — open in Perfetto "
+                         "(ui.perfetto.dev) or chrome://tracing")
+    ap.add_argument("--blackbox-out", default=None, metavar="PATH",
+                    help="dump the always-on flight recorder (the "
+                         "bounded ring of structured events: recovery "
+                         "rungs, numerics spikes, retries, injected "
+                         "faults, plan-cache write failures) as one JSON "
+                         "document on exit; without this flag the dump "
+                         "still happens automatically on any exit-2 path")
+    ap.add_argument("--capacity-report", default=None, metavar="PATH",
+                    help="write the process-wide capacity snapshot "
+                         "(tpu_jordan_torch_capacity_*: plan cache, "
+                         "flight-recorder ring, device live-bytes "
+                         "watermark — with high-water marks and the "
+                         "per-class created == live + evicted "
+                         "reconciliation) as one JSON document on exit")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("-v", "--verbose", action="store_true",
                     help="print the corners of A and of its inverse")
     return ap
 
 
+def _write_telemetry(metrics_out, trace_json, telemetry) -> None:
+    """``--metrics-out``/``--trace-json``, on every exit path; a write
+    failure warns on stderr and never masks the run's exit code."""
+    try:
+        if metrics_out:
+            from .obs.export import write_metrics
+
+            write_metrics(metrics_out)
+        if trace_json and telemetry is not None:
+            from .obs.export import write_chrome_trace
+
+            write_chrome_trace(trace_json, telemetry)
+    except OSError as e:
+        print(f"warning: telemetry export failed: {e}", file=sys.stderr)
+
+
+def _write_capacity(path) -> None:
+    """``--capacity-report``, on every exit path, with the same
+    discipline."""
+    if not path:
+        return
+    try:
+        from .obs.capacity import write_report
+
+        write_report(path)
+    except OSError as e:
+        print(f"warning: capacity report failed: {e}", file=sys.stderr)
+
+
+def _write_blackbox(path) -> None:
+    """Dump the flight recorder (``--blackbox-out``, and on every exit
+    2), with the same discipline."""
+    try:
+        from .obs.recorder import RECORDER
+
+        RECORDER.write(path)
+        print(f"flight recorder dumped to {path} "
+              f"({RECORDER.total} events recorded)", file=sys.stderr)
+    except OSError as e:
+        print(f"warning: blackbox dump failed: {e}", file=sys.stderr)
+
+
 def main(argv=None) -> int:
+    """Run the command line; on the way out dump the flight recorder when
+    ``--blackbox-out`` asked for it or the run ends in exit 2."""
+    state: dict = {"blackbox_out": None}
+    rc = _main(argv, state)
+    if state["blackbox_out"] or rc == 2:
+        import tempfile
+
+        _write_blackbox(state["blackbox_out"]
+                        or os.path.join(tempfile.gettempdir(),
+                                        "tpu_jordan_torch_blackbox.json"))
+    return rc
+
+
+def _main(argv, state) -> int:
     try:
         args = _parser().parse_args(argv)
         if args.n <= 0 or args.m <= 0:
@@ -119,9 +244,18 @@ def main(argv=None) -> int:
         print(_USAGE, file=sys.stderr)
         return 1
 
+    state["blackbox_out"] = args.blackbox_out
     from .driver import solve, solve_batch
 
+    telemetry = None
+    if args.metrics_out or args.trace_json:
+        # One span collector for the whole run.
+        from .obs.spans import Telemetry
+
+        telemetry = Telemetry()
     try:
+        if args.numerics_demo:
+            return _numerics_demo(args)
         if args.workload == "invert" and args.assume != "general":
             raise UsageError("--assume applies to --workload solve "
                              "(the pivot-free SPD fast path)")
@@ -133,7 +267,7 @@ def main(argv=None) -> int:
                              "--dtype would silently discard the imaginary "
                              "part (use --dtype complex64)")
         if args.workload != "invert":
-            return _workload(args)
+            return _workload(args, telemetry)
         if args.batch > 1:
             if args.file is not None:
                 raise UsageError("--batch requires generator input")
@@ -143,17 +277,24 @@ def main(argv=None) -> int:
             if args.tune or args.plan_cache:
                 raise UsageError("--batch uses the batched engine; "
                                  "--tune/--plan-cache do not apply")
+            if args.numerics != "off":
+                raise UsageError("--numerics applies to single solves "
+                                 "(the batched engine is one fused "
+                                 "vmapped executable — no per-superstep "
+                                 "host visibility)")
             result = solve_batch(n=args.n, block_size=args.m,
                                  batch=args.batch, generator=args.generator,
                                  dtype=args.dtype, refine=args.refine,
-                                 verbose=args.verbose, device=args.device)
+                                 verbose=args.verbose, device=args.device,
+                                 telemetry=telemetry)
         else:
             result = solve(n=args.n, block_size=args.m, file=args.file,
                            generator=args.generator, dtype=args.dtype,
                            refine=args.refine, device=args.device,
                            verbose=args.verbose, engine=args.engine,
                            group=args.group, tune=args.tune,
-                           plan_cache=args.plan_cache)
+                           plan_cache=args.plan_cache, telemetry=telemetry,
+                           numerics=args.numerics)
     except FileNotFoundError:
         print(f"cannot open {args.file}")
         return 2
@@ -172,6 +313,9 @@ def main(argv=None) -> int:
     except UsageError as e:
         print(e, file=sys.stderr)
         return 1
+    finally:
+        _write_telemetry(args.metrics_out, args.trace_json, telemetry)
+        _write_capacity(args.capacity_report)
     if not args.verbose:
         print(f"glob_time: {result.elapsed:.2f}")
         print(f"residual: {result.residual:e}")
@@ -179,9 +323,43 @@ def main(argv=None) -> int:
     return 0
 
 
+def _print_numerics(result) -> None:
+    """One line of the numerics record, when one was asked for."""
+    rep = getattr(result, "numerics", None)
+    if rep is None:
+        return
+    steps = (f", {len(rep.pivot_block)} supersteps traced"
+             if rep.pivot_block is not None else "")
+    print(f"numerics: {rep.mode}{steps}, {len(rep.spikes)} spikes")
+
+
+def _numerics_demo(args) -> int:
+    """``--numerics-demo``: one JSON line; exit 2 on an unexplained rung."""
+    import json
+
+    from .obs.numerics import numerics_demo
+
+    if args.file is not None:
+        raise UsageError("--numerics-demo runs on a single device "
+                         "(gathered output, seeded built-in "
+                         "ill-conditioned fixture)")
+    if args.batch > 1 or args.tune or args.group != 0:
+        raise UsageError("--numerics-demo takes no --batch/--tune/--group")
+    report = numerics_demo(n=args.n, block_size=args.m, seed=args.chaos_seed,
+                           workload=args.workload, device=args.device)
+    print(json.dumps(report))
+    if report["silent_rung"]:
+        print(f"unexplained degradation rung(s): "
+              f"{report['unexplained_rungs']} — no causally preceding "
+              f"numerics_spike", file=sys.stderr)
+        return 2
+    return 0
+
+
 def _print_engine(result) -> None:
     """The engine that ran, and where an auto plan chose it, the ladder
     rung that did (so --engine auto is never a black box)."""
+    _print_numerics(result)
     print(f"engine: {result.engine} on {result.device}")
     plan = getattr(result, "plan", None)
     if plan is not None:
@@ -190,7 +368,7 @@ def _print_engine(result) -> None:
             print(f"plan variance_flag: {plan.variance_flag}")
 
 
-def _workload(args) -> int:
+def _workload(args, telemetry=None) -> int:
     """``--workload solve`` / ``lstsq`` (the JAX CLI's flag contract)."""
     from .interop import resolve_device, resolve_dtype
     from .linalg import lstsq, solve_system
@@ -226,6 +404,7 @@ def _workload(args) -> int:
         result = solve_system(amat, bmat, block_size=args.m,
                               assume=args.assume, tune=args.tune,
                               plan_cache=args.plan_cache, device=dev,
+                              telemetry=telemetry, numerics=args.numerics,
                               verbose=args.verbose)
         lsq = None
     else:
@@ -240,6 +419,7 @@ def _workload(args) -> int:
                         dtype, device=dev)
         lsq = lstsq(amat, bmat, block_size=args.m, tune=args.tune,
                     plan_cache=args.plan_cache, device=dev,
+                    telemetry=telemetry, numerics=args.numerics,
                     verbose=args.verbose)
         if lsq.rank_deficient:
             print("rank deficient (singular normal equations)",

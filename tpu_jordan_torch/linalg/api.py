@@ -9,10 +9,14 @@ CUDA events on the card, the verification ‖A·X − B‖∞ against the caller
 A and B, the κ-free backward-error gate and its recovery ladder when a
 policy is attached (``resilience/degrade.py``), and the results
 :class:`SolveSystemResult` and :class:`LstsqResult`.  Entry points run on
-the card unless ``device="cpu"``.  The JAX package's distributed solves (complex
-ones included), telemetry and numerics reports are refused by name
-(ROADMAP.md Queue A items 15 and 12).  Complex A and B flow through the
-engine, the residual (every norm is of |z|) and the gate; lstsq forms the
+the card unless ``device="cpu"``.  ``telemetry`` records a
+``solve_system`` root span with ``load``, ``select``, ``execute``,
+``residual`` and ``recover`` children; ``numerics`` gives a
+``NumericsReport`` ("summary", or "trace" on the unrolled [A | B] engine).
+Every call counts in ``tpu_jordan_torch_workload_requests_total``.  The JAX
+package's distributed solves (complex ones included) are refused by name
+(ROADMAP.md Queue A item 15).  Complex A and B flow through the engine,
+the residual (every norm is of |z|) and the gate; lstsq forms the
 conjugate transpose.
 """
 
@@ -23,10 +27,13 @@ from dataclasses import dataclass
 import torch
 
 from ..config import default_block_size
-from ..driver import (_timed, refuse_later_options,
-                      refuse_tune_for_explicit_engine)
+from ..driver import refuse_later_options, refuse_tune_for_explicit_engine
 from ..errors import SingularMatrixError, UsageError
 from ..interop import from_numpy, resolve_device, resolve_dtype
+from ..obs import hwcost as _hwcost
+from ..obs import metrics as _obs_metrics
+from ..obs.spans import NULL as _NULL_TEL
+from ..obs.spans import timed_blocking
 from ..ops.norms import inf_norm
 from ..ops.residual import solve_residual_stats
 from ..resilience.degrade import backward_error, solve_recover
@@ -39,6 +46,16 @@ ASSUME = ("general", "spd")
 # with item 15.
 _LATER_SOLVE_ENGINES = {"solve_sharded": "Queue A item 15",
                         "solve_lookahead": "Queue A item 15"}
+
+_M_WORKLOAD = _obs_metrics.counter(
+    "tpu_jordan_torch_workload_requests_total",
+    "direct-API workload executions (solve_system / lstsq / "
+    "solve_update), labeled by workload")
+
+
+def count_workload(workload: str) -> None:
+    """One direct-API workload execution in the traffic counter."""
+    _M_WORKLOAD.inc(workload=workload)
 
 
 @dataclass
@@ -62,6 +79,8 @@ class SolveSystemResult:
     kappa_est: float | None = None
     recovery: tuple = ()          # ladder rungs (policy solves only)
     device: str = ""
+    trace: object | None = None   # obs.spans.Span root ("solve_system")
+    numerics: object | None = None  # obs.numerics.NumericsReport
     _norm_a: float | None = None
     _norm_x: float | None = None
     _norm_b: float | None = None
@@ -189,45 +208,104 @@ def solve_system(
     and holds the result to ``rel_residual <= gate_tol·eps·n``
     (``solve_gate_threshold``), walking the solve ladder (refine, repivot
     under spd, an fp32 re-solve of sub-fp32 storage) when it fails;
-    ``ResidualGateError`` when the ladder runs out.  ``check=False``
-    reports a singular system on ``result.singular`` with ``x=None``
-    instead of raising SingularMatrixError.  ``workers``, ``gather``,
-    ``telemetry`` and ``numerics`` other than "off" are refused by name
-    (later slices of the port).  A and B may be
+    ``ResidualGateError`` when the ladder runs out.  ``telemetry`` records
+    the ``solve_system`` span tree on ``result.trace``; ``numerics=
+    "summary"`` puts the workload-tagged ``NumericsReport`` on
+    ``result.numerics`` and ``"trace"`` adds the unrolled engine's
+    per-superstep record over [A_live | X] (refused on the spd path and on
+    ``solve_fori``, in the JAX package's words); its spikes are recorded
+    before any rung.  ``check=False`` reports a singular system on
+    ``result.singular`` with ``x=None`` instead of raising
+    SingularMatrixError.  ``workers`` and ``gather`` other than the
+    single-device values are refused by name (item 15).  A and B may be
     complex64 or complex128.  Counterpart of the JAX package's
     ``solve_system``."""
-    refuse_later_options(workers, gather, telemetry, policy, numerics,
+    from ..obs.numerics import resolve_mode
+
+    refuse_later_options(workers, gather, policy,
                          dtype if dtype is not None else getattr(a, "dtype",
                                                                  None))
-    dev = resolve_device(device)
-    a = from_numpy(a, dev, None if dtype is None else resolve_dtype(dtype))
-    dtype = a.dtype
-    if a.dim() != 2 or a.shape[0] != a.shape[1]:
-        raise UsageError(f"expected a square (n, n) matrix, got shape "
-                         f"{tuple(a.shape)}")
-    n = int(a.shape[0])
-    b2, squeezed = _as_2d_rhs(b, dtype, n, "b", dev)
-    k = int(b2.shape[1])
-    m = min(block_size or default_block_size(n), n)
+    numerics = resolve_mode(numerics)
+    if numerics == "trace" and assume == "spd":
+        raise UsageError(
+            "numerics='trace' traces the condition-based pivot probe; "
+            "the assume='spd' fast path has no probe (one diagonal "
+            "candidate per superstep) — use numerics='summary', or "
+            "assume='general'")
     engine, workload = resolve_solve_engine(engine, assume)
     refuse_tune_for_explicit_engine(engine, tune, plan_cache)
-    plan = None
-    if engine == "auto":
-        engine, _, plan = auto_select(n, m, dtype, workers, gather,
-                                      tune=tune, plan_cache=plan_cache,
-                                      workload=workload, device=dev)
+    dev = resolve_device(device)
+    tel = telemetry if telemetry is not None else _NULL_TEL
+    with tel.span("solve_system", workload=workload) as root:
+        with tel.span("load"):
+            a = from_numpy(a, dev,
+                           None if dtype is None else resolve_dtype(dtype))
+            if a.dim() != 2 or a.shape[0] != a.shape[1]:
+                raise UsageError(f"expected a square (n, n) matrix, got "
+                                 f"shape {tuple(a.shape)}")
+            n = int(a.shape[0])
+            b2, squeezed = _as_2d_rhs(b, a.dtype, n, "b", dev)
+        dtype = a.dtype
+        k = int(b2.shape[1])
+        m = min(block_size or default_block_size(n), n)
+        root.attrs.update(n=n, k=k)
+        plan = None
+        if engine == "auto":
+            engine, _, plan = auto_select(n, m, dtype, workers, gather,
+                                          tune=tune, plan_cache=plan_cache,
+                                          telemetry=tel, workload=workload,
+                                          device=dev)
+        if numerics == "trace" and engine == "solve_fori":
+            raise UsageError(
+                "numerics='trace' instruments the UNROLLED solve engine "
+                "only (the fori engine's traced supersteps have no "
+                "host-visible stats twin); use a larger block_size so "
+                "Nr <= MAX_UNROLL_NR, or numerics='summary'")
+        count_workload(workload)
+        result = _solve_system_impl(a, b2, n, k, m, dtype, engine, workload,
+                                    plan, tel, policy, numerics, check,
+                                    verbose, dev)
+    if telemetry is not None:
+        result.trace = root
+    if squeezed and result.x is not None:
+        result.x = result.x[:, 0]
+    return result
+
+
+def _solve_system_impl(a, b2, n, k, m, dtype, engine, workload, plan, tel,
+                       policy, numerics, check, verbose, dev):
     spd = engine == "solve_spd"
     run = solve_engine_fn(engine, m)
+    collect = numerics == "trace"
     if dev.type == "cuda":
         # Full fp32 products on the card (the JAX package's HIGHEST).
         torch.backends.cuda.matmul.allow_tf32 = False
 
     def execute():
-        return _timed(dev, lambda: run(a, b2))
+        return timed_blocking(
+            lambda: (run(a, b2, collect_stats=True) if collect
+                     else run(a, b2)),
+            telemetry=tel, name="execute", device=dev, engine=engine,
+            workload=workload)
 
-    (x, singular), elapsed = (policy.retry.call(execute)
-                              if policy is not None else execute())
+    out, esp = (policy.retry.call(execute, component="solve_system.execute")
+                if policy is not None else execute())
+    x, singular = out[:2]
+    nstats = out[2] if collect else None
+    elapsed = esp.duration
+    flops = _hwcost.baseline_workload_flops(n, workload, k=k)
+    if elapsed > 0:
+        esp.attrs["gflops"] = round(flops / elapsed / 1e9, 3)
+    _hwcost.attach_execute_cost(esp, _hwcost.executable_cost(),
+                                analytical_flops=flops)
+    _obs_metrics.histogram(
+        "tpu_jordan_torch_solve_seconds",
+        "timed elimination seconds (the glob_time analog)",
+    ).observe(elapsed, workload=workload)
     if bool(singular):
+        _obs_metrics.counter("tpu_jordan_torch_singular_total",
+                             "solves/requests flagged singular"
+                             ).inc(component="solve_system")
         if check:
             raise SingularMatrixError("singular matrix")
         return SolveSystemResult(
@@ -235,7 +313,16 @@ def solve_system(
             block_size=m, gflops=0.0, engine=engine, workload=workload,
             singular=True, plan=plan, device=str(dev))
 
-    stats = solve_residual_stats(a, x, b2)
+    with tel.span("residual"):
+        stats = solve_residual_stats(a, x, b2)
+    residual, norm_a, norm_x, norm_b = stats
+    kappa_est = (norm_a * norm_x / norm_b) if norm_b else None
+    nreport = None
+    if numerics != "off":
+        # Recorded and spiked BEFORE the ladder.
+        nreport = _solve_numerics(
+            n, m, engine, workload, backward_error(*stats), kappa_est,
+            norm_a, dtype, policy, stats=nstats)
     recovery = ()
     if policy is not None:
         def fresh(aa, bb, pivot_free):
@@ -245,21 +332,44 @@ def solve_system(
                 n, m, "solve_spd" if pivot_free else "solve"), m)(aa, bb)
 
         x, stats, recovery = solve_recover(
-            policy, a=a, b=b2, x=x, stats=stats, n=n, dtype=dtype, spd=spd,
-            rerun=run, fresh=fresh)
+            policy, tel, a=a, b=b2, x=x, stats=stats, n=n, dtype=dtype,
+            spd=spd, rerun=run, fresh=fresh, workload=workload)
     residual, norm_a, norm_x, norm_b = stats
     if verbose:
         print(f"glob_time: {elapsed:.2f}")
         print(f"residual: {residual:e}")
-    flops = float(n) ** 3 + float(n) ** 2 * k
     return SolveSystemResult(
-        x=x[:, 0] if squeezed else x, elapsed=elapsed, residual=residual,
-        n=n, k=k, block_size=m,
+        x=x, elapsed=elapsed, residual=residual, n=n, k=k, block_size=m,
         gflops=(flops / elapsed / 1e9) if elapsed > 0 else 0.0,
         engine=engine, workload=workload, singular=False, plan=plan,
         kappa_est=(norm_a * norm_x / norm_b) if norm_b else None,
-        recovery=recovery, device=str(x.device),
+        recovery=recovery, device=str(x.device), numerics=nreport,
         _norm_a=norm_a, _norm_x=norm_x, _norm_b=norm_b)
+
+
+def _solve_numerics(n, m, engine, workload, rel, kappa_est, norm_a, dtype,
+                    policy, stats=None):
+    """The solve's numerics record: the κ-free backward error, the
+    ‖A‖‖X‖/‖B‖ estimate as κ, and with ``stats`` the engine's
+    per-superstep record; spiked at the policy's solve gate."""
+    from ..obs import numerics as _numerics
+    from ..resilience.degrade import solve_gate_threshold
+
+    kw = dict(n=n, block_size=m, engine=engine, rel_residual=rel,
+              kappa=(kappa_est if kappa_est is not None else 1.0),
+              norm_a=norm_a, dtype=dtype, workload=workload)
+    if stats is not None:
+        report = _numerics.trace_report(stats, trace_engine=engine, **kw)
+    else:
+        report = _numerics.summary_report(**kw)
+    _numerics.observe(report)
+    thresholds = None
+    if policy is not None:
+        gd = policy.gate_dtype if policy.gate_dtype is not None else dtype
+        thresholds = _numerics.SpikeThresholds(
+            residual=solve_gate_threshold(policy, n, gd))
+    _numerics.record_spikes(report, thresholds)
+    return report
 
 
 def lstsq(
@@ -286,8 +396,10 @@ def lstsq(
     ``rank_deficient=True`` with ``x=None``.  The normal equations square
     the conditioning; ``residual`` reports the original ‖A·x − b‖∞ beside
     the Gram system's.  ``engine``, ``tune`` and ``plan_cache`` go to that
-    solve, whose plan is on ``result.plan``.  Counterpart of the JAX package's ``lstsq``."""
-    refuse_later_options(1, True, telemetry, policy, numerics,
+    solve, whose plan is on ``result.plan``; ``telemetry`` and
+    ``numerics`` too (its span tree and report are ``result.inner``'s).
+    Counterpart of the JAX package's ``lstsq``."""
+    refuse_later_options(1, True, policy,
                          dtype if dtype is not None else getattr(a, "dtype",
                                                                  None))
     dev = resolve_device(device)
@@ -302,6 +414,7 @@ def lstsq(
             f"underdetermined minimum-norm problem is not implemented")
     b2, squeezed = _as_2d_rhs(b, a.dtype, rows, "b", dev)
     k = int(b2.shape[1])
+    count_workload("lstsq")
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     ah = a.T.conj() if a.is_complex() else a.T
@@ -309,7 +422,8 @@ def lstsq(
     rhs = ah @ b2
     inner = solve_system(gram, rhs, block_size=block_size, assume=assume,
                          engine=engine, tune=tune, plan_cache=plan_cache,
-                         policy=policy, check=False, device=dev)
+                         telemetry=telemetry, policy=policy,
+                         numerics=numerics, check=False, device=dev)
     if inner.singular:
         if verbose:
             print("rank deficient (singular normal equations)")

@@ -25,10 +25,14 @@ rung, a fresh elimination of the mutated matrix that resets the drift.
 Zero-padded columns of U and V are exact: they add nothing to U·Vᵀ, make
 the capacitance [[S, 0], [0, I]] and drop out of the correction.
 
-Counterpart of the JAX package's ``linalg/update.py``.  Its telemetry,
-numerics reports and traffic counter are refused by name (ROADMAP.md Queue A
-item 12, which also brings the executable cost); its fault hooks
-(``faults.fire``/``corrupt``) come with item 13.
+:func:`solve_update` takes ``telemetry`` (a ``solve_update`` span with
+``execute`` and, on a rung, ``recover``/``re_invert``), ``numerics=
+"summary"`` (spiked before the rung, with a ``drift`` spike when the
+budget fires it), counts in ``tpu_jordan_torch_workload_requests_total``
+as ``update`` and puts the analytical rate of :func:`update_flops` on its
+execute span.  Counterpart of the JAX package's ``linalg/update.py``; its
+fault hooks (``faults.fire``/``corrupt``) come with ROADMAP.md Queue A
+item 13.
 """
 
 from __future__ import annotations
@@ -38,9 +42,13 @@ from dataclasses import dataclass
 
 import torch
 
-from ..driver import _timed, batch_metrics
+from ..driver import batch_metrics
 from ..errors import SingularMatrixError, UsageError
 from ..interop import from_numpy, resolve_device, resolve_dtype
+from ..obs import hwcost as _hwcost
+from ..obs import metrics as _obs_metrics
+from ..obs.spans import NULL as _NULL_TEL
+from ..obs.spans import timed_blocking
 from ..ops.jordan_inplace import _SUB_FP32
 from ..resilience.policy import ResiliencePolicy
 from .engine import block_jordan_solve
@@ -146,6 +154,7 @@ class UpdateResult:
     singular: bool = False
     recovery: tuple = ()
     device: str = ""
+    numerics: object | None = None  # obs.numerics.NumericsReport
 
 
 def solve_update(
@@ -177,18 +186,15 @@ def solve_update(
     resets the drift, and ``ResidualGateError`` is raised when that fails
     too.  ``check=False`` reports a singular mutated matrix on
     ``result.singular`` with ``inverse=None`` instead of raising
-    SingularMatrixError.  ``telemetry`` and ``numerics`` other than "off"
-    are refused by name.  Counterpart of the JAX package's
-    ``solve_update``."""
-    if telemetry is not None:
-        raise UsageError("telemetry is not ported yet (ROADMAP.md Queue A "
-                         "item 12)")
-    if numerics != "off":
-        raise UsageError(f"numerics={numerics!r} reports are not ported yet "
-                         f"(ROADMAP.md Queue A item 12)")
+    SingularMatrixError.  ``telemetry`` and ``numerics="summary"`` as in
+    the module docstring; ``numerics="trace"`` is refused in the JAX
+    package's words.  Counterpart of the JAX package's ``solve_update``."""
+    from ..obs.numerics import resolve_mode
+
     if policy is not None and not isinstance(policy, ResiliencePolicy):
         raise UsageError("policy must be a tpu_jordan_torch.resilience."
                          "ResiliencePolicy")
+    tel = telemetry if telemetry is not None else _NULL_TEL
     dev = resolve_device(device)
     a = from_numpy(a, dev, None if dtype is None else resolve_dtype(dtype))
     dtype = a.dtype
@@ -201,31 +207,78 @@ def solve_update(
         raise UsageError(f"inv must match a's shape {tuple(a.shape)}, "
                          f"got {tuple(inv.shape)}")
     u, v, k = as_update_factors(u, v, n, dtype, UsageError, dev)
+    numerics = resolve_mode(numerics)
+    if numerics == "trace":
+        raise UsageError(
+            "numerics='trace' instruments the unrolled elimination "
+            "engines; the SMW update is three matmuls and a k×k solve "
+            "— use numerics='summary'")
+    from .api import count_workload
+
+    count_workload("update")
+    # The update path's fault hooks (faults.fire/corrupt) come with
+    # ROADMAP.md Queue A item 13.
+    with tel.span("solve_update", n=n, k=k, workload="update"):
+        result = _solve_update_impl(a, inv, u, v, n, k, dtype, float(drift),
+                                    tel, policy, numerics, verbose, dev)
+    if result.singular and check:
+        raise SingularMatrixError("singular matrix (rank-k update made "
+                                  "the matrix singular)")
+    return result
+
+
+def _solve_update_impl(a, inv, u, v, n, k, dtype, drift, tel, policy,
+                       numerics, verbose, dev):
     if dev.type == "cuda":
         # Full fp32 products on the card (the JAX package's HIGHEST).
         torch.backends.cuda.matmul.allow_tf32 = False
 
     def execute():
-        return _timed(dev, lambda: smw_update_with_metrics(a, inv, u, v))
+        return timed_blocking(smw_update_with_metrics, a, inv, u, v,
+                              telemetry=tel, name="execute", device=dev,
+                              engine="smw_update", workload="update")
 
-    (a_new, inv_new, singular, kappa, rel), elapsed = (
-        policy.retry.call(execute) if policy is not None else execute())
+    (a_new, inv_new, singular, kappa, rel), esp = (
+        policy.retry.call(execute, component="solve_update.execute")
+        if policy is not None else execute())
+    elapsed = esp.duration
     flops = update_flops(n, k)
+    _hwcost.attach_execute_cost(esp, _hwcost.executable_cost(),
+                                analytical_flops=flops)
     if bool(singular):
-        if check:
-            raise SingularMatrixError("singular matrix (rank-k update made "
-                                      "the matrix singular)")
+        _obs_metrics.counter("tpu_jordan_torch_singular_total",
+                             "solves/requests flagged singular"
+                             ).inc(component="solve_update")
         return UpdateResult(
             inverse=None, a_new=a_new, n=n, k=k, elapsed=elapsed,
             rel_residual=float("inf"), kappa=float("inf"), drift=drift,
             gflops=0.0, singular=True, device=str(dev))
     rel, kappa = float(rel), float(kappa)
+
+    nreport = None
+    if numerics == "summary":
+        from ..obs import numerics as _numerics
+
+        nreport = _numerics.summary_report(
+            n=n, block_size=n, engine="smw_update", rel_residual=rel,
+            kappa=kappa, norm_a=0.0, dtype=dtype, workload="update")
+        _numerics.observe(nreport)
+        thresholds = None
+        if policy is not None:
+            from ..resilience.degrade import gate_threshold
+
+            gd = (policy.gate_dtype if policy.gate_dtype is not None
+                  else dtype)
+            thresholds = _numerics.SpikeThresholds(
+                residual=gate_threshold(policy, n, kappa, gd))
+        _numerics.record_spikes(nreport, thresholds)
+
     new_drift = drift + max(rel, 0.0) if rel == rel else float("nan")
     recovery = ()
     if policy is not None:
         inv_new, rel, kappa, new_drift, recovery = _update_recover(
-            policy, a_new=a_new, inv_new=inv_new, rel=rel, kappa=kappa,
-            drift=drift, n=n, dtype=dtype)
+            policy, tel, a_new=a_new, inv_new=inv_new, rel=rel,
+            kappa=kappa, drift=drift, n=n, dtype=dtype, numerics=numerics)
     if verbose:
         print(f"glob_time: {elapsed:.2f}")
         print(f"rel_residual: {rel:e}")
@@ -233,7 +286,7 @@ def solve_update(
         inverse=inv_new, a_new=a_new, n=n, k=k, elapsed=elapsed,
         rel_residual=rel, kappa=kappa, drift=new_drift,
         gflops=(flops / elapsed / 1e9) if elapsed > 0 else 0.0,
-        recovery=recovery, device=str(inv_new.device))
+        recovery=recovery, device=str(inv_new.device), numerics=nreport)
 
 
 def reinvert_fresh(a_new: torch.Tensor, block_size: int | None = None):
@@ -254,10 +307,13 @@ def reinvert_fresh(a_new: torch.Tensor, block_size: int | None = None):
             float(met["rel_residual"][0]))
 
 
-def _update_recover(policy, *, a_new, inv_new, rel, kappa, drift, n, dtype):
-    """The residual gate, the drift budget and the re_invert rung.
-    Returns ``(inv, rel, kappa, new_drift, recovery)``."""
-    from ..resilience.degrade import gate_passes, gate_threshold
+def _update_recover(policy, tel, *, a_new, inv_new, rel, kappa, drift, n,
+                    dtype, numerics="off"):
+    """The residual gate, the drift budget and the re_invert rung, as a
+    ``recover``/``re_invert`` span pair of ``tel``.  Returns ``(inv, rel,
+    kappa, new_drift, recovery)``."""
+    from ..resilience.degrade import (gate_passes, gate_threshold,
+                                      record_gate_failure, record_rung)
     from ..resilience.policy import ResidualGateError
 
     gate_dtype = (policy.gate_dtype if policy.gate_dtype is not None
@@ -270,15 +326,32 @@ def _update_recover(policy, *, a_new, inv_new, rel, kappa, drift, n, dtype):
         return inv_new, rel, kappa, new_drift, ()
     cause = ("drift_budget" if gate_passes(rel, threshold)
              else "residual_gate")
-    inv2, sing2, kap2, rel2 = reinvert_fresh(a_new)
-    passed = (gate_passes(rel2, gate_threshold(policy, n, kap2, gate_dtype))
-              and not sing2)
-    recovery = ({"rung": "re_invert", "cause": cause,
-                 "rel_residual_before": float(rel),
-                 "rel_residual_after": float(rel2),
-                 "drift_before": float(new_drift), "passed": passed},)
-    if passed:
-        return inv2, float(rel2), float(kap2), 0.0, recovery
+    if numerics == "summary" and cause == "drift_budget":
+        # The residual spike cannot explain a drift-caused rung: the
+        # budget exceedance records its own breadcrumb.
+        from ..obs.numerics import record_drift_spike
+
+        record_drift_spike(n=n, engine="smw_update", value=new_drift,
+                           threshold=budget)
+    record_gate_failure(n, rel, threshold, workload="update",
+                        drift=float(new_drift), budget=float(budget),
+                        cause=cause)
+    with tel.span("recover", n=n, workload="update", cause=cause,
+                  rel_residual=float(rel), drift=float(new_drift)) as rsp:
+        with tel.span("re_invert") as sp:
+            inv2, sing2, kap2, rel2 = reinvert_fresh(a_new)
+            passed = (gate_passes(rel2, gate_threshold(policy, n, kap2,
+                                                       gate_dtype))
+                      and not sing2)
+            sp.attrs.update(rel_residual=float(rel2), passed=passed)
+        recovery = ({"rung": "re_invert", "cause": cause,
+                     "rel_residual_before": float(rel),
+                     "rel_residual_after": float(rel2),
+                     "drift_before": float(new_drift), "passed": passed},)
+        record_rung("re_invert", passed, rel2, workload="update")
+        if passed:
+            rsp.attrs["recovered_by"] = "re_invert"
+            return inv2, float(rel2), float(kap2), 0.0, recovery
     raise ResidualGateError(
         f"update residual gate failed ({cause}: rel {rel:.3e}, drift "
         f"{new_drift:.3e} vs threshold {threshold:.3e} / budget "

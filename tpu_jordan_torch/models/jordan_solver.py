@@ -6,8 +6,8 @@ JAX package's solver caches a compiled executable; torch has none to
 compile, so this one caches what the port can: the resolved engine, as a
 callable, and its block size, fixed at construction; ``engine="auto"``
 resolves once, through the tuner, at construction.  Single device; the JAX
-constructor's distributed and telemetry fields are kept and refused by
-name (ROADMAP.md Queue A items 15 and 12).
+constructor's distributed fields are kept and refused by name (ROADMAP.md
+Queue A item 15).
 """
 
 from __future__ import annotations
@@ -39,9 +39,12 @@ class JordanSolver:
     cache ``plan_cache``, the cost ranking, measurement with ``tune=True``;
     complex: "augmented"), the plan kept on ``plan``; ``policy`` a
     ``resilience.ResiliencePolicy`` whose retry wraps every engine call;
-    ``device`` the card unless "cpu".  ``workers > 1`` and
-    ``gather=False`` (item 15) and ``telemetry`` (item 12) are refused by
-    name.  Counterpart of the JAX package's ``models.JordanSolver``."""
+    ``telemetry`` an ``obs.Telemetry``: the construction's ``select`` span
+    (engine="auto"), and an ``execute`` span for every :meth:`invert`
+    with its analytical rate (2n³); without it ``invert`` is timed by
+    nothing; ``device`` the card unless "cpu".  ``workers > 1`` and
+    ``gather=False`` (item 15) are refused by name.  Counterpart of the
+    JAX package's ``models.JordanSolver``."""
 
     n: int
     block_size: int | None = None
@@ -65,8 +68,8 @@ class JordanSolver:
                               resolve_invert_engine)
         from ..ops.refine import resolve_precision
 
-        refuse_later_options(self.workers, self.gather, self.telemetry,
-                             self.policy, "off", self.dtype)
+        refuse_later_options(self.workers, self.gather, self.policy,
+                             self.dtype)
         self.dtype = resolve_dtype(self.dtype)
         self._device = resolve_device(self.device)
         if self.block_size is None:
@@ -77,7 +80,8 @@ class JordanSolver:
         self.engine, self.group, self.plan = resolve_invert_engine(
             self.engine, self.group, self.n, self.block_size, self.dtype,
             tune=self.tune, plan_cache=self.plan_cache,
-            workers=self.workers, gather=self.gather, device=self._device)
+            workers=self.workers, gather=self.gather, device=self._device,
+            telemetry=self.telemetry)
         self._work_dtype = (torch.float32 if self.dtype in _SUB_FP32
                             else self.dtype)
         self._run = partial(invert, engine=self.engine, group=self.group,
@@ -94,15 +98,32 @@ class JordanSolver:
         if self._device.type == "cuda":
             # Full fp32 products on the card (the JAX package's HIGHEST).
             torch.backends.cuda.matmul.allow_tf32 = False
-        return (self.policy.retry.call(fn) if self.policy is not None
-                else fn())
+        return (self.policy.retry.call(fn, component="solver.execute")
+                if self.policy is not None else fn())
 
     def invert(self, a):
         """Invert one (n, n) matrix (a numpy array or a tensor); returns
         ``(inverse, singular)``, the inverse in the storage dtype and
-        ``singular`` a 0-d bool tensor."""
+        ``singular`` a 0-d bool tensor.  With ``telemetry`` the engine
+        call is an ``execute`` span (``obs.spans.timed_blocking``: CUDA
+        events and a synchronize on the card)."""
         a = self._matrix(a, (self.n, self.n))
-        inv, singular = self._execute(lambda: self._run(a))
+        if self.telemetry is None:
+            inv, singular = self._execute(lambda: self._run(a))
+            return inv.to(self.dtype), singular
+        from ..obs import hwcost as _hwcost
+        from ..obs.spans import timed_blocking
+
+        def run():
+            out, esp = timed_blocking(self._run, a, telemetry=self.telemetry,
+                                      name="execute", device=self._device,
+                                      engine=self.engine)
+            _hwcost.attach_execute_cost(
+                esp, _hwcost.executable_cost(),
+                analytical_flops=2.0 * float(self.n) ** 3)
+            return out
+
+        inv, singular = self._execute(run)
         return inv.to(self.dtype), singular
 
     def invert_batch(self, stack):

@@ -1,22 +1,50 @@
-"""Telemetry of the port, the part of the JAX package's ``obs/`` that the
-tuner reaches:
+"""Observability of the port.  Counterpart of the JAX package's ``obs/``:
 
+  * ``spans``: the span tree with an injectable clock (``solve`` roots
+    with select/load/execute/residual children, the hot-loop phases under
+    ``execute``), and ``timed_blocking``, the one timing bracket;
   * ``metrics``: the process-wide registry of ``tpu_jordan_torch_*``
     counters, gauges and reservoir histograms (p50/p95/p99);
+  * ``export``: Prometheus text and Chrome trace-event JSON (Perfetto);
+  * ``numerics``: per-superstep numerical health behind ``numerics=``
+    (off/summary/trace), with ``numerics_spike`` events recorded before
+    any recovery rung (``tools/check_numerics.py``);
+  * ``hwcost``: the flop conventions, the executable-cost record
+    (unavailable in eager PyTorch, never modeled) and the CUDA
+    allocator's watermark;
+  * ``capacity``: the ledger of resident bytes per class;
   * ``recorder``: the always-on bounded flight recorder.
 
-Spans, exporters, the numerics and hardware-cost observatories, capacity
-metering, journeys and SLOs come with ROADMAP.md Queue A item 12; the
-communication and work inventories with item 15.
+Journeys, SLOs, the metric exemplars, the one-line JSON report, the cost
+gauges and the runtime fingerprint come with the serving stack (ROADMAP.md
+Queue A item 14); the communication and work inventories with
+the distributed engines (item 15).
 """
 
-from . import metrics, recorder
+from . import capacity, export, hwcost, metrics, numerics, recorder, spans
+from .export import (to_chrome_trace, to_prometheus, write_chrome_trace,
+                     write_metrics)
+from .hwcost import ExecutableCost, attach_execute_cost, executable_cost
 from .metrics import (NAME_RE, REGISTRY, Counter, Gauge, Histogram,
                       MetricsRegistry, Reservoir, counter, gauge, histogram,
                       percentiles)
+from .numerics import (NumericsReport, SpikeThresholds, numerics_demo,
+                       record_spikes)
 from .recorder import RECORDER, FlightRecorder, record
+from .spans import (NULL, NullTelemetry, Span, Telemetry, attribute_phases,
+                    attribute_phases_measured, timed_blocking)
 
-__all__ = ["Counter", "FlightRecorder", "Gauge", "Histogram",
-           "MetricsRegistry", "NAME_RE", "RECORDER", "REGISTRY",
-           "Reservoir", "counter", "gauge", "histogram", "metrics",
-           "percentiles", "record", "recorder"]
+__all__ = [
+    "capacity", "export", "hwcost", "metrics", "numerics", "recorder",
+    "spans",
+    "to_chrome_trace", "to_prometheus", "write_chrome_trace",
+    "write_metrics",
+    "ExecutableCost", "attach_execute_cost", "executable_cost",
+    "NumericsReport", "SpikeThresholds", "numerics_demo", "record_spikes",
+    "NAME_RE", "REGISTRY", "Counter", "Gauge", "Histogram",
+    "MetricsRegistry", "Reservoir", "counter", "gauge", "histogram",
+    "percentiles",
+    "RECORDER", "FlightRecorder", "record",
+    "NULL", "NullTelemetry", "Span", "Telemetry", "attribute_phases",
+    "attribute_phases_measured", "timed_blocking",
+]

@@ -11,7 +11,8 @@ Labels are keyword arguments at mutation time (``inc(1, bucket="512")``);
 each distinct label set is one series.  ``counter(...)`` is idempotent per
 name, so a call site may fetch at use; a kind conflict (a counter and a
 gauge under one name) raises.  The request exemplars of the JAX metrics
-come with the journey layer (ROADMAP.md Queue A item 12).
+come with the journey layer of the serving stack (ROADMAP.md Queue A item
+14).  ``obs/export.py`` writes the registry as Prometheus text.
 """
 
 from __future__ import annotations

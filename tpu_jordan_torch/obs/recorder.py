@@ -6,9 +6,14 @@ Recording is one dict build, one lock and one deque append; nothing is
 formatted until ``dump()``.  The ring keeps the ``capacity`` most recent
 events, and ``dump`` reports how many were dropped.  Every event carries
 ``seq`` (dense and monotone), ``t`` (the recorder's clock, any zero-arg
-monotonic callable) and ``kind``.  In this slice the tuner's plan cache
-(``plan_cache_write_failure``) and the fault points (``fault_injected``)
-record into it.
+monotonic callable) and ``kind``.  The tuner's plan cache
+(``plan_cache_write_failure``), the fault points (``fault_injected``),
+``RetryPolicy`` (``retry``), the numerics observatory
+(``numerics_spike``) and the degradation ladders
+(``residual_gate_failure``, ``recovery_rung``) record into it; the CLI
+dumps it with ``--blackbox-out`` and on every exit 2.  The per-request
+``journey`` events come with the serving stack (ROADMAP.md Queue A item
+14).
 """
 
 from __future__ import annotations

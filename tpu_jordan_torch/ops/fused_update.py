@@ -162,3 +162,96 @@ def fused_normalize_eliminate(V, U, P, H, rows_p, *, t: int, j: int, m: int,
     global launches
     launches += 1
     return V
+
+
+#: Largest matrix edge of the phase brackets' operands (64 MB fp32 at the
+#: cap): beyond it the brackets run on a capped twin of the configuration
+#: and each per-launch wall is scaled by its phase's work ratio.
+_BRACKET_MAX_N = 4096
+
+_PHASE_CACHE: dict = {}
+
+
+def measured_phase_fractions(n: int, block_size: int, group: int,
+                             mode: str = "fp32", device=None):
+    """Measured pivot/permute/eliminate fractions of the
+    ``grouped_pallas`` engines at one configuration (the JAX package's
+    ``ops/pallas_update.py::measured_phase_fractions``).
+
+    Three brackets, each one warm-up and one timed call through
+    ``obs.spans.timed_blocking`` after a synchronize (CUDA events on the
+    card, the host clock on the CPU):
+
+      * ``pivot``: ``probe_blocks`` on the capped candidate stack (the
+        probe kernel on the card);
+      * ``permute``: the block-row swap pair (two row copies);
+      * ``eliminate``: ``fused_normalize_eliminate`` on a group-closing
+        superstep (the fused-update kernel on the card).
+
+    The operands are index-based (no RNG), on a twin of at most
+    ``_BRACKET_MAX_N`` rows with the same m and group; each wall is
+    scaled to the solve by its phase's launches times the twin's work
+    ratio: ``pivot`` Nr·Nr/Nr_b, ``permute`` Nr·N/N_b, ``eliminate``
+    max(1, Nr // k)·(N/N_b)².  Cached per (N, m, k, mode, device type).
+    On the CPU the brackets run the plain versions.  ``device=None`` is
+    the card, as for every entry point of the package.
+
+    Returns ``(fractions, seconds)``: ``{"pivot": f, "permute": f,
+    "eliminate": f}`` summing to 1, and the timed calls' unscaled seconds
+    per phase."""
+    import math
+
+    from ..config import eps_for
+    from ..interop import resolve_device
+    from ..obs.spans import timed_blocking
+    from .block_inverse import probe_blocks
+
+    dev = resolve_device(device)
+    m = min(block_size, n)
+    Nr = -(-n // m)
+    N = Nr * m
+    k = max(1, min(group, Nr))
+    key = (N, m, k, mode, dev.type)
+    if key not in _PHASE_CACHE:
+        eps = eps_for(torch.float32)
+        km = k * m
+        Nr_b = min(Nr, max(k, _BRACKET_MAX_N // m))
+        Nb = Nr_b * m
+        ii = torch.arange(Nb, dtype=torch.float32, device=dev)
+        V = (torch.eye(Nb, dtype=torch.float32, device=dev) * Nb
+             + torch.sin(ii)[:, None] * torch.cos(ii)[None, :])
+        cands = V[:, :m].reshape(Nr_b, m, m).contiguous()
+        H = (torch.eye(m, dtype=torch.float32, device=dev)
+             + 1e-3 * torch.outer(torch.sin(ii[:m]), torch.cos(ii[:m])))
+        rows_p = V[:m].clone()
+        U = V[:, :km] * 1e-3
+        P = torch.zeros((km, Nb), dtype=torch.float32, device=dev)
+
+        def swap():
+            rows_t = V[:m].clone()
+            V[:m] = V[Nb - m:]
+            V[Nb - m:] = rows_t
+
+        brackets = (
+            ("pivot", lambda: probe_blocks(cands, eps)),
+            ("permute", swap),
+            ("eliminate", lambda: fused_normalize_eliminate(
+                V, U, P, H, rows_p, t=0, j=k - 1, m=m, mode=mode)))
+        scale = {
+            "pivot": Nr * (Nr / Nr_b),
+            "permute": Nr * (N / Nb),
+            "eliminate": max(1, Nr // k) * (N / Nb) ** 2,
+        }
+        seconds, scaled = {}, {}
+        for name, fn in brackets:
+            fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            _, sp = timed_blocking(fn, name=f"bracket_{name}", device=dev)
+            seconds[name] = sp.duration
+            scaled[name] = max(sp.duration, 1e-9) * scale[name]
+        total = math.fsum(scaled.values())
+        _PHASE_CACHE[key] = ({p: scaled[p] / total for p in scaled},
+                             seconds)
+    fractions, seconds = _PHASE_CACHE[key]
+    return dict(fractions), dict(seconds)

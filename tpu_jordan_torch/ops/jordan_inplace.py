@@ -65,7 +65,9 @@ class _StepStats:
 
     @staticmethod
     def _max_abs(arrays):
-        return torch.stack([x.abs().max() for x in arrays]).max()
+        # One read of each array, no |x| temporary (max|x| is exact).
+        return torch.stack([torch.linalg.vector_norm(x, float("inf"))
+                            for x in arrays]).max()
 
     def sample_growth(self, *arrays):
         """One per-step watermark sample over the live working state (the
@@ -80,6 +82,19 @@ class _StepStats:
         self._watermark = torch.maximum(self._watermark,
                                         self._max_abs(arrays))
         self.growth[-1] = self._watermark
+
+    def sample_before_close(self, V, U, H, rows_p, t: int, m: int):
+        """The closing step's watermark sample of a fused group close: the
+        state the plain grouped engine samples there, V with its pivot
+        column block zeroed and its pivot row block normalized (and the
+        pending panel U), read from its parts before the close writes
+        them."""
+        lo, hi = t * m, (t + 1) * m
+        prow = H @ rows_p
+        prow[:, lo:hi] = H
+        parts = [V[r, c] for r in (slice(0, lo), slice(hi, None))
+                 for c in (slice(0, lo), slice(hi, None))]
+        self.sample_growth(*[x for x in parts if x.numel()], prow, U)
 
     def stacked(self) -> dict:
         return {
@@ -390,6 +405,7 @@ def block_jordan_invert_inplace_grouped_pallas(
     mode: str = "fp32",
     probe=probe_blocks,
     update=fused_normalize_eliminate,
+    collect_stats: bool = False,
 ):
     """The delayed-group-update engine with its group-closing step (the
     pivot-row normalize, the pivot-column zeroing, the pivot-row write-back
@@ -404,13 +420,18 @@ def block_jordan_invert_inplace_grouped_pallas(
     inverse is bf16-grade: ``driver.solve`` guards this engine with the
     residual-gate ladder.  ``update(V, U, P, H, rows_p, *, t, j, m, mode)``
     must update V in place (``chip_smoke.py`` passes the plain version to
-    hold the kernel's run against it).  Computes in fp32: sub-fp32 input is
-    upcast, float64 is refused.  Counterpart of the JAX package's
+    hold the kernel's run against it).  ``collect_stats=True`` returns the
+    per-superstep record as the other engines do: the engine instruments
+    itself (its sums are not cuBLAS's, so no other engine's record would
+    be its own), sampling each closing step's watermark from the state's
+    parts before the close (:meth:`_StepStats.sample_before_close`).
+    Computes in fp32: sub-fp32 input is upcast, float64 is refused.
+    Counterpart of the JAX package's
     ``block_jordan_invert_inplace_grouped_pallas``."""
     if a.dtype in _SUB_FP32:
         return _upcast_call(block_jordan_invert_inplace_grouped_pallas, a,
                             block_size, eps, refine, group, mode, probe,
-                            update)
+                            update, collect_stats)
     if a.dtype != torch.float32:
         raise ValueError(
             f"the grouped_pallas engines compute in fp32 (the fused update "
@@ -419,10 +440,16 @@ def block_jordan_invert_inplace_grouped_pallas(
     if mode not in MODES:
         raise ValueError(f"unknown kernel precision mode {mode!r}")
 
-    def close(V, U, P, H, rows_p, t, j, m):
-        update(V, U, P, H, rows_p, t=t, j=j, m=m, mode=mode)
+    stats = _StepStats() if collect_stats else None
 
-    return _grouped(a, block_size, eps, refine, group, probe, None, close)
+    def close(V, U, P, H, rows_p, t, j, m):
+        if stats is not None:
+            stats.sample_before_close(V, U, H, rows_p, t, m)
+        update(V, U, P, H, rows_p, t=t, j=j, m=m, mode=mode)
+        if stats is not None:
+            stats.refresh(V)
+
+    return _grouped(a, block_size, eps, refine, group, probe, stats, close)
 
 
 def _grouped(a, block_size, eps, refine, group, probe, stats, close,

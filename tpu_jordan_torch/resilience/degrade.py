@@ -20,10 +20,12 @@ The solve workloads (``linalg/``) have their own gate and ladder
 backward error, then refine, repivot and resolve rungs.
 
 Each rung is recorded on the returned ``recovery`` tuple with the JAX
-package's keys.  A ladder that exhausts without passing raises
-:class:`~.policy.ResidualGateError`, never a silent wrong answer.  The JAX
-package's spans, counters and flight-recorder events around the ladder wait
-for the observability layer (ROADMAP.md Queue A item 12).
+package's keys, as a child span of ``recover`` (``refine``, ``repivot``,
+``resolve``) and as a ``recovery_rung`` flight-recorder event, and counted
+in ``tpu_jordan_torch_recovery_rungs_total``; a failed gate is counted in
+``tpu_jordan_torch_residual_gate_failures_total`` and recorded as a
+``residual_gate_failure`` event.  A ladder that exhausts without passing
+raises :class:`~.policy.ResidualGateError`, never a silent wrong answer.
 """
 
 from __future__ import annotations
@@ -34,7 +36,37 @@ import torch
 
 from ..config import real_dtype
 from ..interop import resolve_dtype
+from ..obs import metrics as _obs_metrics
+from ..obs import recorder as _recorder
+from ..obs.spans import NULL
 from .policy import ResidualGateError, ResiliencePolicy
+
+_M_RUNGS = _obs_metrics.counter(
+    "tpu_jordan_torch_recovery_rungs_total",
+    "degradation-ladder rungs executed (refine / repivot / resolve / "
+    "re_invert), labeled by rung and outcome")
+_M_GATE_FAIL = _obs_metrics.counter(
+    "tpu_jordan_torch_residual_gate_failures_total",
+    "solves whose residual gate failed and entered the recovery ladder")
+
+
+def record_rung(rung: str, passed: bool, rel_residual: float,
+                **fields) -> None:
+    """One rung's counter increment and ``recovery_rung`` event."""
+    outcome = "passed" if passed else "failed"
+    _M_RUNGS.inc(rung=rung, outcome=outcome)
+    _recorder.record("recovery_rung", rung=rung, outcome=outcome,
+                     rel_residual=float(rel_residual), **fields)
+
+
+def record_gate_failure(n: int, rel_residual: float, threshold: float,
+                        **fields) -> None:
+    """A failed gate's counter increment and ``residual_gate_failure``
+    event, recorded before the first rung runs."""
+    _M_GATE_FAIL.inc()
+    _recorder.record("residual_gate_failure", n=n,
+                     rel_residual=float(rel_residual),
+                     threshold=float(threshold), **fields)
 
 
 def gate_eps(dtype) -> float:
@@ -82,14 +114,15 @@ def backward_error(residual: float, norm_a: float, norm_x: float,
     return residual / denom if denom else residual
 
 
-def solve_recover(policy: ResiliencePolicy, *, a, b, x, stats, n: int,
-                  dtype, spd: bool, rerun, fresh):
+def solve_recover(policy: ResiliencePolicy, tel=None, *, a, b, x, stats,
+                  n: int, dtype, spd: bool, rerun, fresh,
+                  workload: str = "solve"):
     """The solve workloads' gate and ladder (the JAX package's
     ``linalg/api.py::_solve_recover``).  ``stats`` is ``(residual, norm_a,
     norm_x, norm_b)`` of ``x`` against the caller's ``a`` and ``b``;
     ``rerun(a, r)`` runs the solve's own engine on a new right-hand side
     and ``fresh(a, b, spd)`` a fresh solve, each returning ``(x,
-    singular)``.  The rungs:
+    singular)``.  The rungs, each a span under ``recover`` of ``tel``:
 
       1. **refine** (``policy.refine_steps > 0``): one pass of iterative
          refinement, X += A⁻¹(B − A·X) with the residual in at least fp32,
@@ -105,40 +138,54 @@ def solve_recover(policy: ResiliencePolicy, *, a, b, x, stats, n: int,
     ladder runs out."""
     from ..ops.residual import solve_residual_stats
 
+    tel = tel if tel is not None else NULL
     threshold = solve_gate_threshold(policy, n, dtype)
     rel = backward_error(*stats)
     if gate_passes(rel, threshold):
         return x, stats, ()
+    record_gate_failure(n, rel, threshold, workload=workload)
     recovery = []
 
-    def judge(x2, singular, rung, **extra):
+    def judge(x2, singular, span, rung, **extra):
         stats2 = solve_residual_stats(a, x2, b)
         rel2 = backward_error(*stats2)
         passed = gate_passes(rel2, threshold)
+        span.attrs.update(rel_residual=float(rel2), passed=passed)
         recovery.append({"rung": rung, "rel_residual_before": float(rel),
                          "rel_residual_after": float(rel2),
                          "passed": passed, **extra})
+        record_rung(rung, passed, rel2, workload=workload)
         return passed and not bool(singular), stats2
 
-    if policy.refine_steps > 0:
-        work = torch.promote_types(a.dtype, torch.float32)
-        xw = x.to(work)
-        r = b.to(work) - a.to(work) @ xw
-        d, dsing = rerun(a, r.to(a.dtype))
-        x2 = xw + d.to(work)
-        ok, stats2 = judge(x2, dsing, "refine")
-        if ok:
-            return x2, stats2, tuple(recovery)
-    if spd:
-        x3, sing3 = fresh(a, b, False)
-        ok, stats3 = judge(x3, sing3, "repivot")
-        if ok:
-            return x3, stats3, tuple(recovery)
-    if policy.escalate and a.dtype.itemsize < 4:
-        x4, sing4 = fresh(a.float(), b.float(), spd)
-        ok, stats4 = judge(x4, sing4, "resolve", dtype=str(x4.dtype)[6:])
-        if ok:
-            return x4, stats4, tuple(recovery)
+    with tel.span("recover", n=n, workload=workload,
+                  rel_residual=float(rel),
+                  threshold=float(threshold)) as rsp:
+        if policy.refine_steps > 0:
+            with tel.span("refine", steps=1) as sp:
+                work = torch.promote_types(a.dtype, torch.float32)
+                xw = x.to(work)
+                r = b.to(work) - a.to(work) @ xw
+                d, dsing = rerun(a, r.to(a.dtype))
+                x2 = xw + d.to(work)
+                ok, stats2 = judge(x2, dsing, sp, "refine")
+            if ok:
+                rsp.attrs["recovered_by"] = "refine"
+                return x2, stats2, tuple(recovery)
+        if spd:
+            with tel.span("repivot") as sp:
+                x3, sing3 = fresh(a, b, False)
+                ok, stats3 = judge(x3, sing3, sp, "repivot")
+            if ok:
+                rsp.attrs["recovered_by"] = "repivot"
+                return x3, stats3, tuple(recovery)
+        if policy.escalate and a.dtype.itemsize < 4:
+            with tel.span("resolve") as sp:
+                x4, sing4 = fresh(a.float(), b.float(), spd)
+                ok, stats4 = judge(x4, sing4, sp, "resolve",
+                                   dtype=str(x4.dtype)[6:])
+            if ok:
+                rsp.attrs["recovered_by"] = "resolve"
+                return x4, stats4, tuple(recovery)
     raise ResidualGateError(
         f"solve residual gate failed (rel {rel:.3e} > {threshold:.3e}) "
         f"and the recovery ladder exhausted "
@@ -146,53 +193,69 @@ def solve_recover(policy: ResiliencePolicy, *, a, b, x, stats, n: int,
         recovery=tuple(recovery))
 
 
-def maybe_recover(policy: ResiliencePolicy, *, a_fresh, inv,
+def maybe_recover(policy: ResiliencePolicy, tel=None, *, a_fresh, inv,
                   residual: float, norm_a: float, kappa: float, n: int,
                   dtype, resolve):
     """The driver's post-residual hook: run the gate and, on failure, the
-    ladder.
+    ladder, each rung a span under ``recover`` of ``tel``.
 
     ``a_fresh`` is the freshly re-loaded A the residual was verified
     against; ``resolve`` is a zero-argument callable that runs the
-    escalated re-solve and returns a ``SolveResult``.  Returns ``(inv,
-    residual, norm_a, kappa, recovery)``; ``recovery`` is empty when the
-    gate passed outright.  A refined or re-solved inverse is returned at
-    the precision that produced it (fp32 after a refine of a bf16 solve).
+    escalated re-solve and returns a ``SolveResult`` (the driver runs it
+    under the same telemetry, so its spans nest under ``resolve``).
+    Returns ``(inv, residual, norm_a, kappa, recovery)``; ``recovery`` is
+    empty when the gate passed outright.  A refined or re-solved inverse
+    is returned at the precision that produced it (fp32 after a refine of
+    a bf16 solve).
     """
+    tel = tel if tel is not None else NULL
     rel = residual / norm_a if norm_a else residual
     threshold = gate_threshold(policy, n, kappa, dtype)
     if gate_passes(rel, threshold):
         return inv, residual, norm_a, kappa, ()
 
+    record_gate_failure(n, rel, threshold)
     recovery = []
-    if policy.refine_steps > 0:
-        inv2, res2, norm2, kap2 = _refine(a_fresh, inv, policy.refine_steps)
-        rel2 = res2 / norm2 if norm2 else res2
-        # Judged at the refine work dtype (>= fp32, never below the request)
-        # unless the policy pins a gate_dtype.
-        passed = gate_passes(rel2, gate_threshold(policy, n, kap2,
-                                                  inv2.dtype))
-        recovery.append({
-            "rung": "refine", "steps": policy.refine_steps,
-            "rel_residual_before": float(rel),
-            "rel_residual_after": float(rel2), "passed": passed,
-        })
-        if passed:
-            return inv2, res2, norm2, kap2, tuple(recovery)
+    with tel.span("recover", n=n, rel_residual=float(rel),
+                  threshold=float(threshold)) as rsp:
+        if policy.refine_steps > 0:
+            with tel.span("refine", steps=policy.refine_steps) as sp:
+                inv2, res2, norm2, kap2 = _refine(a_fresh, inv,
+                                                  policy.refine_steps)
+                rel2 = res2 / norm2 if norm2 else res2
+                # Judged at the refine work dtype (>= fp32, never below
+                # the request) unless the policy pins a gate_dtype.
+                passed = gate_passes(rel2, gate_threshold(
+                    policy, n, kap2, inv2.dtype))
+                sp.attrs.update(rel_residual=float(rel2), passed=passed)
+            recovery.append({
+                "rung": "refine", "steps": policy.refine_steps,
+                "rel_residual_before": float(rel),
+                "rel_residual_after": float(rel2), "passed": passed,
+            })
+            record_rung("refine", passed, rel2)
+            if passed:
+                rsp.attrs["recovered_by"] = "refine"
+                return inv2, res2, norm2, kap2, tuple(recovery)
 
-    if policy.escalate:
-        res = resolve()
-        rel3 = res.rel_residual
-        passed = gate_passes(rel3, gate_threshold(policy, n, res.kappa,
-                                                  res.inverse.dtype))
-        recovery.append({
-            "rung": "resolve", "dtype": str(res.inverse.dtype)[6:],
-            "rel_residual_before": float(rel),
-            "rel_residual_after": float(rel3), "passed": passed,
-        })
-        if passed:
-            return (res.inverse, res.residual, res._norm_a, res.kappa,
-                    tuple(recovery))
+        if policy.escalate:
+            with tel.span("resolve") as sp:
+                res = resolve()
+                rel3 = res.rel_residual
+                passed = gate_passes(rel3, gate_threshold(
+                    policy, n, res.kappa, res.inverse.dtype))
+                sp.attrs.update(rel_residual=float(rel3), passed=passed,
+                                dtype=str(res.inverse.dtype)[6:])
+            recovery.append({
+                "rung": "resolve", "dtype": str(res.inverse.dtype)[6:],
+                "rel_residual_before": float(rel),
+                "rel_residual_after": float(rel3), "passed": passed,
+            })
+            record_rung("resolve", passed, rel3)
+            if passed:
+                rsp.attrs["recovered_by"] = "resolve"
+                return (res.inverse, res.residual, res._norm_a, res.kappa,
+                        tuple(recovery))
 
     raise ResidualGateError(
         f"residual gate failed (rel {rel:.3e} > {threshold:.3e}) and "

@@ -14,8 +14,9 @@ package's ``resilience/policy.py``.
     the residual gate and degradation ladder (``resilience/degrade.py``),
     and the breaker knobs, carried as data.
 
-The circuit breaker and the retry metrics and flight-recorder events of the
-JAX package are not ported yet (ROADMAP.md Queue A items 12 and 14).
+Every retry is counted in ``tpu_jordan_torch_retries_total`` (labeled by
+component) and recorded as a ``retry`` flight-recorder event.  The circuit
+breaker comes with the serving stack (ROADMAP.md Queue A item 14).
 """
 
 from __future__ import annotations
@@ -23,6 +24,14 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass, field
 from typing import Any
+
+from ..obs import metrics as _obs_metrics
+from ..obs import recorder as _recorder
+
+_M_RETRIES = _obs_metrics.counter(
+    "tpu_jordan_torch_retries_total",
+    "retries performed by RetryPolicy (transient failures and detected "
+    "result corruption), labeled by component")
 
 #: Documented-transient message markers.  Marker AND type are both required.
 _RETRYABLE = ("INTERNAL", "remote_compile", "read body", "DEADLINE")
@@ -92,12 +101,13 @@ class RetryPolicy:
         return base * (1.0 + self.jitter_pct / 100.0
                        * _jitter_fraction(attempt))
 
-    def call(self, fn, on_retry=None):
+    def call(self, fn, on_retry=None, component: str | None = None):
         """Run ``fn()`` under the policy.  ``on_retry(exc, attempt)``
         (optional) runs before each re-attempt: the hook a caller uses to
-        rebuild its input.  The JAX package's ``component`` and
-        ``exemplar`` label its retry counter, which comes with ROADMAP.md
-        Queue A item 12."""
+        rebuild its input.  ``component`` labels the retry counter and the
+        ``retry`` events ("default" when None).  The JAX package's request
+        ``exemplar`` comes with the serving stack (ROADMAP.md Queue A item
+        14)."""
         classify = self.classify if self.classify is not None else retryable
         sleep = self.sleep if self.sleep is not None else time.sleep
         attempt = 0
@@ -107,6 +117,10 @@ class RetryPolicy:
             except Exception as e:              # noqa: BLE001
                 if attempt >= self.max_retries or not classify(e):
                     raise
+                label = component or "default"
+                _M_RETRIES.inc(component=label)
+                _recorder.record("retry", component=label, attempt=attempt,
+                                 error=type(e).__name__)
                 delay = self.delay_s(attempt)
                 if delay > 0:
                     sleep(delay)
@@ -125,7 +139,7 @@ def retry_transient(fn):
     class (:func:`is_transient`).  Anything else, an accuracy or
     singularity error included, is a real result and propagates at
     once."""
-    return _ONE_SHOT.call(fn)
+    return _ONE_SHOT.call(fn, component="measure")
 
 
 @dataclass

@@ -98,11 +98,11 @@ def measure_direct(fn, samples: int = 5, warmup: int = 1) -> Measurement:
         return fn()
 
     for _ in range(warmup):
-        MEASURE_RETRY.call(call)
+        MEASURE_RETRY.call(call, component="measure")
     ts = []
     for _ in range(samples):
         t0 = time.perf_counter()
-        MEASURE_RETRY.call(call)
+        MEASURE_RETRY.call(call, component="measure")
         ts.append(time.perf_counter() - t0)
     return robust_stats(ts)
 

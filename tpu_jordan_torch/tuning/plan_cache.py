@@ -20,8 +20,9 @@ tuner falls back to cost ranking.  Saves are atomic (a temporary file and
 ``plan_cache_write_failure`` event and sets ``last_write_error``; the
 ``plan_cache_write`` fault point simulates it.  ``load(path,
 read_only=True)`` freezes the cache: a write is a ``UsageError``, and a
-missing file too.  The capacity metering of the JAX cache comes with the
-capacity ledger (ROADMAP.md Queue A item 12).
+missing file too.  The serialized document is resident process state: each
+cache registers its bytes in the capacity ledger (``obs/capacity.py``,
+component ``plan_cache``) when it is built and again after every save.
 """
 
 from __future__ import annotations
@@ -115,7 +116,8 @@ class PlanCache:
     def __init__(self, path: str | None = None,
                  plans: dict[str, Plan] | None = None,
                  fallback_reason: str | None = None,
-                 read_only: bool = False):
+                 read_only: bool = False,
+                 resident_nbytes: int | None = None):
         self.path = path
         self.plans = dict(plans or {})
         self.read_only = bool(read_only)
@@ -123,6 +125,24 @@ class PlanCache:
         self.fallback_reason = fallback_reason
         #: the last save failure; None while writes succeed.
         self.last_write_error: str | None = None
+        self._meter(resident_nbytes)
+
+    def _document(self) -> str:
+        doc = {"version": CACHE_VERSION,
+               "plans": {k: p.to_json() for k, p in
+                         sorted(self.plans.items())}}
+        return json.dumps(doc, indent=1, sort_keys=True) + "\n"
+
+    def _meter(self, nbytes: int | None = None) -> None:
+        """One ``plan_cache`` ledger entry per cache, re-registered
+        (replacing the old bytes) at every save; ``nbytes`` is the
+        document's length when the caller has it."""
+        from ..obs import capacity as _capacity
+
+        if nbytes is None:
+            nbytes = len(self._document())
+        _capacity.register("plan_cache", (id(self),), nbytes,
+                           detail=self.path or "<memory>")
 
     @classmethod
     def load(cls, path: str, read_only: bool = False) -> "PlanCache":
@@ -148,7 +168,8 @@ class PlanCache:
                                f"{CACHE_VERSION} — ignoring stale cache"))
             plans = {str(k): Plan.from_json(v)
                      for k, v in doc["plans"].items()}
-            return cls(path=path, plans=plans, read_only=read_only)
+            return cls(path=path, plans=plans, read_only=read_only,
+                       resident_nbytes=os.path.getsize(path))
         except (OSError, ValueError, KeyError, TypeError,
                 AttributeError) as e:
             return cls(path=path, read_only=read_only, fallback_reason=(
@@ -178,10 +199,7 @@ class PlanCache:
         path = path or self.path
         if path is None:
             return
-        doc = {"version": CACHE_VERSION,
-               "plans": {k: p.to_json() for k, p in
-                         sorted(self.plans.items())}}
-        text = json.dumps(doc, indent=1, sort_keys=True) + "\n"
+        text = self._document()
         try:
             _faults.fire("plan_cache_write")
             d = os.path.dirname(os.path.abspath(path))
@@ -203,3 +221,4 @@ class PlanCache:
             _recorder.record("plan_cache_write_failure", error=str(e))
             return
         self.last_write_error = None
+        self._meter(len(text))

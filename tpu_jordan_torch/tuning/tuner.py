@@ -197,14 +197,19 @@ def auto_select(n: int, block_size: int | None, dtype, workers,
     on its resolved ``device`` (a CPU point when None), the selection
     ladder, and the resolved ``(engine, group, plan)``.  ``plan_cache`` is
     a JSON path, consulted always and updated whenever selection ran;
-    ``tune=True`` measures the cost-pruned survivors.  The ``select`` span
-    of ``telemetry`` comes with item 12."""
-    if telemetry is not None:
-        raise UsageError("telemetry is not ported yet (ROADMAP.md Queue A "
-                         "item 12)")
-    point = TunePoint.create(n, block_size, dtype, workers, gather,
-                             workload=workload, device=device)
-    cache = PlanCache.load(plan_cache) if plan_cache else None
-    tuner = Tuner(cache=cache, measure=tune)
-    plan = tuner.select(point)
+    ``tune=True`` measures the cost-pruned survivors (without spans, as
+    the JAX package's trials run).  ``telemetry`` records the ladder walk
+    as a ``select`` span, with the resolved engine and the rung that
+    chose it (``source``)."""
+    from ..obs.spans import NULL
+
+    tel = telemetry if telemetry is not None else NULL
+    with tel.span("select", n=n, tune=tune, workload=workload) as sp:
+        point = TunePoint.create(n, block_size, dtype, workers, gather,
+                                 workload=workload, device=device)
+        cache = PlanCache.load(plan_cache) if plan_cache else None
+        tuner = Tuner(cache=cache, measure=tune)
+        plan = tuner.select(point)
+        sp.attrs["engine"] = plan.engine
+        sp.attrs["source"] = tuner.last_source
     return plan.engine, plan.group, plan
