@@ -149,9 +149,23 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    and the CLI with ``--numerics trace`` and every export through
    ``tools/check_telemetry.py`` (the capacity report's device watermark
    available).
-8. ``kernels``: every ported kernel with its launches on its path (the
-   solve, tune and telemetry rows; the variants' engine runs of
-   ``reference``), the complex bodies of ``gj_probe.cu`` as
+8. ``resilience``: the fault points and checkpoint/resume on the card
+   (``phase_resilience``) at 8192/m384 rand fp32: two monolithic in-place
+   runs bit-equal; a transient ``execute`` and a transient ``compile``
+   fault retried under a policy to the clean inverse's bits; a
+   ``result_corrupt_nan`` injection recovered on the ``resolve`` rung; an
+   unplanned solve of the solve phase's grouped row launching what it
+   launched, its time beside the row's; ``checkpointed_invert``
+   (``unrolled``, ``grouped`` k=2, cadence 8) bit-equal to the monolithic
+   engine fresh and across a resume from a ``preempt`` at the second
+   boundary (zero new segments, the ledger invariant, probe launches = the
+   supersteps run), the same for ``checkpointed_solve`` K=1 and a 1000/m50
+   invert (``gj_probe.cu``); the bytes and seconds of one checkpoint and
+   the checkpointed walls beside the monolithic ones; the CLI's
+   ``--sleep`` and ``--precision``.
+9. ``kernels``: every ported kernel with its launches on its path (the
+   solve, tune, telemetry and resilience rows; the variants' engine runs
+   of ``reference``), the complex bodies of ``gj_probe.cu`` as
    ``gj_probe[c64]`` and ``gj_probe[c128]``.
 
 Not run by default: ``--phases knife_edge`` records that fp32 absdiff
@@ -178,7 +192,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("toolchain", "kernel_vs_plain", "reference", "solve", "tune",
-          "overlap", "telemetry")
+          "overlap", "telemetry", "resilience")
 EXTRA_PHASES = ("knife_edge", "cluster_sweep", "batch_fp32")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
@@ -382,6 +396,17 @@ DEMO_CASES = ((16, 8, 4.5, _RESOLVED), (512, 128, 3.9, _RESOLVED),
 # (n, m, generator, dtype, ranks): the SMW update on the card against the
 # same update on the CPU.
 UPDATE_REFERENCE_ROW = (1024, 128, "rand", "float64", (16, 64))
+# The resilience phase: fault points and checkpoint/resume at the 8192 row
+# (Nr = 22; cadence 8 writes at supersteps 8 and 16, the grouped engine
+# with k = 2), the checkpointed solve with K = 1, and 1000/m50 so that
+# gj_probe.cu runs through segments.
+RESILIENCE_ROW = (8192, 384, "rand", "float32")
+CKPT_CADENCE = 8
+CKPT_GROUP = 2
+CKPT_SMALL_ROW = (1000, 50, "rand", "float32")
+# driver.solve's seconds of each solve-phase row, by (n, m, gen, dtype,
+# engine): the resilience phase prints its unplanned solve beside them.
+SOLVE_SECONDS: dict = {}
 # (n, m, generator, dtype, engine, group): the rows whose device time
 # profile_solve splits for the overlap check: the lookahead twins and the
 # grouped engine they reorder, at 8192/m384 rand fp32.
@@ -1713,6 +1738,7 @@ def phase_solve(torch):
                "finite": bool(torch.isfinite(res.inverse).all()),
                "shape": list(res.inverse.shape)}
         emit(row)
+        SOLVE_SECONDS[(n, m, gen, dname, engine)] = res.elapsed
         del res
         torch.cuda.empty_cache()
         if not (row["rel_residual"] < gate and launches == expected
@@ -2347,6 +2373,273 @@ def phase_tune(torch):
     return totals
 
 
+def phase_resilience(torch, counters):
+    """The resilience layer on the card, at RESILIENCE_ROW unless said;
+    each engine run with the kernels' counts set to 0 just before it and
+    read just after.  (1) Two monolithic in-place runs must be bit-equal
+    (``torch.equal``): every bit-match below rests on it.  (2) A transient
+    ``execute`` fault, then a transient ``compile`` fault, each retried
+    under a policy to an inverse bit-equal to the clean solve.  (3) A
+    ``result_corrupt_nan`` injection fails the gate and the ladder
+    recovers on its ``resolve`` rung (bit-equal to the clean solve).  (4)
+    An unplanned, untraced solve of the solve phase's grouped row launches
+    what that row launched; its time is printed beside the row's.  (5)
+    ``checkpointed_invert`` (``unrolled`` and ``grouped`` k=CKPT_GROUP,
+    cadence CKPT_CADENCE): bit-equal to the monolithic engine; a
+    ``preempt`` at the second boundary raises PreemptedError at the
+    durable step 16; the resume is bit-equal, runs [(16, Nr)] with no new
+    segment; the ledger invariant holds; probe launches = the supersteps
+    run.  ``checkpointed_solve`` K=1 and the 1000/m50 invert the same way.
+    Prints the bytes of a checkpoint, the seconds of one write (the copy to
+    the host, then npz, sha256 and the file) and each checkpointed run's
+    wall against the monolithic run's.  (6) The CLI: ``--sleep 1`` and
+    ``--precision highest`` exit 0, ``--precision high`` exits 1.  Returns
+    the counts summed over the runs."""
+    import contextlib
+    import io
+    import tempfile
+
+    from tpu_jordan_torch.__main__ import main as cli
+    from tpu_jordan_torch.driver import solve
+    from tpu_jordan_torch.linalg import block_jordan_solve
+    from tpu_jordan_torch.ops import (block_jordan_invert_inplace,
+                                      block_jordan_invert_inplace_grouped,
+                                      generate, pad_with_identity)
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+    from tpu_jordan_torch.resilience import (
+        CheckpointKey, CheckpointStore, FaultPlan, FaultSpec,
+        PreemptedError, ResiliencePolicy, RetryPolicy, activate,
+        checkpointed_invert, checkpointed_solve)
+    from tpu_jordan_torch.resilience import checkpoint as ckpt_mod
+
+    totals = dict.fromkeys(counters, 0)
+
+    def counted(fn):
+        for mod in counters.values():
+            mod.reset_launches()
+        try:
+            return fn()
+        finally:
+            for name in totals:
+                counted.last[name] = counters[name].launches
+                totals[name] += counted.last[name]
+
+    counted.last = {}
+
+    def walled(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def only(body, count):
+        want = dict.fromkeys(counters, 0)
+        want[body] = count
+        return counted.last == want
+
+    n, m, gen, dname = RESILIENCE_ROW
+    dtype = getattr(torch, dname)
+    nr, body = -(-n // m), probe_mod.probe_body(m, dtype)
+    failures = []
+
+    # (1) determinism of the monolithic engine.
+    a = generate(gen, (n, n), dtype, device="cuda")
+    x1, _ = block_jordan_invert_inplace(a, block_size=m)
+    x2, _ = block_jordan_invert_inplace(a, block_size=m)
+    same = bool(torch.equal(x1, x2))
+    emit({"phase": "resilience", "check": "determinism", "n": n, "m": m,
+          "generator": gen, "dtype": dname, "bit_equal": same})
+    if not same:
+        raise AssertionError("two monolithic in-place runs differ: the "
+                             "bit-match checks below have no footing")
+    del x2
+
+    # (2) retries and (3) corruption, through driver.solve.
+    clean = solve(n, m, generator=gen, dtype=dname, engine="inplace",
+                  device="cuda")
+    if not torch.equal(clean.inverse, x1):
+        failures.append("driver.solve's inverse is not the engine's")
+    pol = ResiliencePolicy(retry=RetryPolicy(max_retries=2, backoff_s=0.0))
+    for point, mode, runs in (("execute", "transient", 1),
+                              ("compile", "transient", 1),
+                              ("result_corrupt_nan", "corrupt", 2)):
+        plan = FaultPlan([FaultSpec(point, (1,), mode)])
+        with activate(plan):
+            res = counted(lambda: solve(n, m, generator=gen, dtype=dname,
+                                        engine="inplace", policy=pol,
+                                        device="cuda"))
+        rungs = [r["rung"] for r in res.recovery]
+        row = {"phase": "resilience", "check": point, "mode": mode,
+               "injections": plan.injections, "calls": plan.calls(),
+               "recovery": list(res.recovery),
+               "rel_residual": res.rel_residual,
+               "bit_equal_clean": bool(torch.equal(res.inverse,
+                                                   clean.inverse)),
+               "launches": dict(counted.last), "seconds": res.elapsed}
+        emit(row)
+        ok = (plan.injected_total == 1 and row["bit_equal_clean"]
+              and only(body, nr * runs)
+              and (rungs == ["refine", "resolve"]
+                   and res.recovery[-1]["passed"]
+                   and not res.recovery[0]["passed"]
+                   if mode == "corrupt" else rungs == []))
+        if not ok:
+            failures.append(row)
+        del res
+    del clean
+    torch.cuda.empty_cache()
+
+    # (4) the unplanned, untraced solve of the solve phase's row.
+    res = counted(lambda: solve(n, m, generator=gen, dtype=dname,
+                                engine="grouped", device="cuda"))
+    row = {"phase": "resilience", "check": "no_plan", "n": n, "m": m,
+           "engine": res.engine, "group": res.group,
+           "seconds": res.elapsed,
+           "solve_phase_seconds": SOLVE_SECONDS.get(
+               (n, m, gen, dname, "grouped")),
+           "launches": dict(counted.last)}
+    emit(row)
+    if not only(body, nr):
+        failures.append(row)
+    del res
+
+    # (5) checkpoint/resume.
+    nbytes = write_s = None
+    with tempfile.TemporaryDirectory() as root:
+        store = CheckpointStore(root)
+        kw = dict(store=store, cadence=CKPT_CADENCE, group=CKPT_GROUP,
+                  device="cuda")
+        cases = (
+            ("unrolled", a, m, body, nr,
+             lambda: block_jordan_invert_inplace(a, block_size=m)),
+            ("grouped", a, m, body, nr,
+             lambda: block_jordan_invert_inplace_grouped(
+                 a, block_size=m, group=CKPT_GROUP)))
+        sn, sm, sgen, sdname = CKPT_SMALL_ROW
+        small = generate(sgen, (sn, sn), getattr(torch, sdname),
+                         device="cuda")
+        snr = -(-sn // sm)
+        cases += (("unrolled", small, sm,
+                   probe_mod.probe_body(sm, small.dtype), snr,
+                   lambda: block_jordan_invert_inplace(small,
+                                                       block_size=sm)),)
+        for engine, mat, bm, pbody, steps, mono in cases:
+            run = f"smoke:{engine}:{mat.shape[0]}"
+            # The preempt fires at the third segment's start, after the
+            # second boundary's write.
+            tail = (2 * CKPT_CADENCE, steps)
+            (ref, _), mono_s = walled(mono)
+            (inv, sing, info), ck_s = walled(lambda: counted(
+                lambda: checkpointed_invert(mat, bm, run_id=run,
+                                            engine=engine, **kw)))
+            fresh = dict(counted.last)
+            ok = (bool(torch.equal(inv, ref)) and not sing
+                  and only(pbody, steps) and info["ckpt_written"] == 2)
+            with activate(FaultPlan([FaultSpec("preempt", (3,),
+                                               "permanent")])):
+                try:
+                    counted(lambda: checkpointed_invert(
+                        mat, bm, run_id=run + ":p", engine=engine, **kw))
+                    step = None
+                except PreemptedError as e:
+                    step = e.step
+            (inv2, _, info2), resume_s = walled(lambda: counted(
+                lambda: checkpointed_invert(
+                    mat, bm, run_id=run + ":p", engine=engine,
+                    resume_from=run + ":p", **kw)))
+            ok = (ok and step == tail[0] and bool(torch.equal(inv2, ref))
+                  and info2["segments_run"] == [tail]
+                  and info2["segment_compiles"] == 0
+                  and only(pbody, tail[1] - tail[0])
+                  and store.ledger()["invariant_holds"])
+            row = {"phase": "resilience", "check": "checkpoint",
+                   "workload": "invert", "engine": engine,
+                   "n": int(mat.shape[0]), "m": bm, "cadence": info["cadence"],
+                   "bit_equal": bool(torch.equal(inv, ref)),
+                   "preempted_at": step, "resume": info2["segments_run"],
+                   "resume_bit_equal": bool(torch.equal(inv2, ref)),
+                   "segment_compiles": info2["segment_compiles"],
+                   "launches": fresh, "resume_launches": dict(counted.last),
+                   "ckpt_bytes": info["ckpt_bytes_last"],
+                   "ckpt_written": info["ckpt_written"],
+                   "monolithic_s": mono_s, "checkpointed_s": ck_s,
+                   "resume_s": resume_s, "ledger": store.ledger()}
+            emit(row)
+            if not ok:
+                failures.append(row)
+            del ref, inv, inv2
+        del small
+
+        # The solve, K = 1.
+        b = generate("rand", (n, 1), dtype, row_offset=n, device="cuda")
+        (ref, _), mono_s = walled(lambda: block_jordan_solve(
+            a, b, block_size=m))
+        (x, sing, info), ck_s = walled(lambda: counted(
+            lambda: checkpointed_solve(a, b, m, run_id="smoke:solve",
+                                       store=store, cadence=CKPT_CADENCE,
+                                       device="cuda")))
+        row = {"phase": "resilience", "check": "checkpoint",
+               "workload": "solve", "n": n, "m": m, "k": 1,
+               "bit_equal": bool(torch.equal(x, ref)),
+               "launches": dict(counted.last),
+               "ckpt_bytes": info["ckpt_bytes_last"],
+               "ckpt_written": info["ckpt_written"],
+               "monolithic_s": mono_s, "checkpointed_s": ck_s,
+               "ledger": store.ledger()}
+        emit(row)
+        if not (row["bit_equal"] and not sing and only(body, nr)
+                and info["ckpt_written"] == 2
+                and row["ledger"]["invariant_holds"]):
+            failures.append(row)
+        del b, ref, x
+
+        # One boundary's cost, split: the copy to the host, then the
+        # store's npz, sha256 and file.
+        state = {"V": pad_with_identity(a, nr * m),
+                 "singular": torch.zeros((), dtype=torch.bool,
+                                         device="cuda"),
+                 "swaps": torch.zeros(nr, dtype=torch.int64,
+                                      device="cuda")}
+        key = CheckpointKey(run_id="smoke:write", workload="invert",
+                            engine="unrolled", topology="single", n=n, m=m,
+                            Nr=nr, dtype=dname, nrhs=0,
+                            cadence=CKPT_CADENCE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = ckpt_mod._state_to_host(state)
+        t1 = time.perf_counter()
+        nbytes = store.write(key, CKPT_CADENCE, host)
+        t2 = time.perf_counter()
+        store.discard("smoke:write")
+        write_s = {"d2h_s": t1 - t0, "store_write_s": t2 - t1,
+                   "total_s": t2 - t0}
+        del state, host
+    emit({"phase": "resilience", "check": "checkpoint_write", "n": n,
+          "m": m, "dtype": dname, "bytes": nbytes, **write_s})
+    del a, x1
+    torch.cuda.empty_cache()
+
+    # (6) the CLI flags.
+    rcs = {}
+    for flags in (["--sleep", "1"], ["--precision", "highest"],
+                  ["--precision", "high"]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rcs[" ".join(flags)] = cli(["1000", "50", "--generator", "rand",
+                                        *flags])
+        if flags[0] == "--sleep" and "sleeping 1s" not in out.getvalue():
+            failures.append({"cli": flags, "stdout": out.getvalue()})
+    emit({"phase": "resilience", "check": "cli", "exit_codes": rcs})
+    if rcs != {"--sleep 1": 0, "--precision highest": 0,
+               "--precision high": 1}:
+        failures.append({"cli": rcs})
+    if failures:
+        raise AssertionError(f"resilience failed its checks: {failures}")
+    return totals
+
+
 def phase_overlap(torch):
     """profile_solve's device-time split of the OVERLAP_ROWS rows: the
     probe, GEMM and other ms, the idle share and the overlap (the kernels'
@@ -2654,6 +2947,12 @@ def main(argv=None) -> int:
                                            launch_counters()).items():
             launches[name] = launches.get(name, 0) + count
     seconds["telemetry"] = time.perf_counter() - start - sum(
+        seconds.values())
+    if "resilience" in phases:
+        for name, count in phase_resilience(torch,
+                                            launch_counters()).items():
+            launches[name] = launches.get(name, 0) + count
+    seconds["resilience"] = time.perf_counter() - start - sum(
         seconds.values())
     if "knife_edge" in phases:
         phase_knife_edge(torch)

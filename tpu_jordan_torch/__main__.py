@@ -3,7 +3,10 @@
 Mirrors the reference's ``argv = n m [file]`` surface (main.cpp:66-127) and
 the JAX package's exit codes: 0 ok, 1 usage, 2 runtime error (missing or
 unreadable file, singular matrix, a rank-deficient lstsq, an exhausted
-residual-gate ladder, no CUDA device).
+residual-gate ladder, no CUDA device).  ``--precision`` takes the JAX
+package's choices, of which only ``highest`` runs here (the others exit
+1); ``--sleep SECONDS`` prints the pid and sleeps before any device work
+(the reference's ``-DSLEEP`` hook).
 
 ``--workload solve`` solves A·X = B (B = the ``rand`` window of n × K at
 row offset n, ``--rhs K``; ``crand`` for a complex dtype) with no inverse
@@ -60,6 +63,12 @@ def _parser() -> argparse.ArgumentParser:
                              "complex64"],
                     help="storage dtype (complex64: the augmented invert "
                          "engine and --workload solve/lstsq)")
+    ap.add_argument("--precision", default="highest",
+                    choices=["highest", "high", "default", "mixed"],
+                    help="matmul precision of the elimination; the JAX "
+                         "package's choices, of which only 'highest' (true "
+                         "fp32 or fp64 products) exists here: the others "
+                         "exit 1")
     ap.add_argument("--generator", default="absdiff",
                     choices=["absdiff", "hilbert", "rand", "kms", "crand"],
                     help="matrix generator when no file is given (crand = "
@@ -165,6 +174,10 @@ def _parser() -> argparse.ArgumentParser:
                          "watermark — with high-water marks and the "
                          "per-class created == live + evicted "
                          "reconciliation) as one JSON document on exit")
+    ap.add_argument("--sleep", type=int, default=0, metavar="SECONDS",
+                    help="print the pid, then sleep before any device work: "
+                         "a window to attach a debugger (the reference's "
+                         "-DSLEEP startup hook, main.cpp:8,70-72)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("-v", "--verbose", action="store_true",
                     help="print the corners of A and of its inverse")
@@ -245,7 +258,14 @@ def _main(argv, state) -> int:
         return 1
 
     state["blackbox_out"] = args.blackbox_out
+    if args.sleep > 0:
+        # The reference's -DSLEEP hook (main.cpp:8,70-72).
+        import time
+
+        print(f"pid {os.getpid()} sleeping {args.sleep}s", flush=True)
+        time.sleep(args.sleep)
     from .driver import solve, solve_batch
+    from .ops.refine import resolve_precision
 
     telemetry = None
     if args.metrics_out or args.trace_json:
@@ -254,6 +274,7 @@ def _main(argv, state) -> int:
 
         telemetry = Telemetry()
     try:
+        resolve_precision(args.precision, args.refine)
         if args.numerics_demo:
             return _numerics_demo(args)
         if args.workload == "invert" and args.assume != "general":
@@ -285,12 +306,14 @@ def _main(argv, state) -> int:
             result = solve_batch(n=args.n, block_size=args.m,
                                  batch=args.batch, generator=args.generator,
                                  dtype=args.dtype, refine=args.refine,
+                                 precision=args.precision,
                                  verbose=args.verbose, device=args.device,
                                  telemetry=telemetry)
         else:
             result = solve(n=args.n, block_size=args.m, file=args.file,
                            generator=args.generator, dtype=args.dtype,
-                           refine=args.refine, device=args.device,
+                           refine=args.refine, precision=args.precision,
+                           device=args.device,
                            verbose=args.verbose, engine=args.engine,
                            group=args.group, tune=args.tune,
                            plan_cache=args.plan_cache, telemetry=telemetry,

@@ -27,7 +27,9 @@ statistics, no synchronize but the timing's own.
 With a ``policy`` (auto-attached for ``grouped_pallas_bf16``), the engine
 call runs under the policy's retry and the result must pass the residual
 gate, walking the degradation ladder (``resilience/degrade.py``) when it
-does not.
+does not.  A solve crosses the ``compile``, ``execute`` and
+``result_corrupt_nan`` fault points where the JAX package's does
+(``resilience/faults.py``).
 
 Complex dtypes (complex64, complex128) run single-device on the augmented
 engine, as in the JAX package: ``engine="auto"`` resolves to it and every
@@ -38,6 +40,7 @@ real-only engine is refused (:func:`complex_engine`).  Residuals, norms and
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 
@@ -63,6 +66,7 @@ from .obs import metrics as _obs_metrics
 from .obs.spans import NULL as _NULL_TEL
 from .obs.spans import attribute_phases, timed_blocking
 from .ops.refine import resolve_precision
+from .resilience import faults as _faults
 from .resilience.degrade import maybe_recover
 from .resilience.policy import DEFAULT_POLICY, ResiliencePolicy
 from .tuning.registry import (ENGINES, GROUPED_MIN_SINGLE_CHIP_N,
@@ -482,10 +486,20 @@ def _solve_impl(n, block_size, load, dtype, refine, dev, verbose,
 
     collect = numerics == "trace"
 
+    def ready():
+        # The compile analogue (resilience/faults.py): the engine callable.
+        _faults.fire("compile")
+        return partial(invert, engine=engine, group=group,
+                       block_size=block_size, refine=refine,
+                       collect_stats=collect)
+
+    run = (policy.retry.call(ready, component="solve.compile")
+           if policy is not None else ready())
+
     def execute():
-        return timed_blocking(
-            invert, a, engine, group, block_size, refine, collect,
-            telemetry=tel, name="execute", device=dev, engine=engine)
+        _faults.fire("execute")
+        return timed_blocking(run, a, telemetry=tel, name="execute",
+                              device=dev, engine=engine)
 
     def reload(_exc, _attempt):
         # A retry starts from a fresh load, as the JAX package's does.
@@ -503,6 +517,10 @@ def _solve_impl(n, block_size, load, dtype, refine, dev, verbose,
     _solve_metrics(n, elapsed, esp, singular=bool(singular))
     _hwcost.attach_execute_cost(esp, _hwcost.executable_cost(),
                                 analytical_flops=2.0 * float(n) ** 3)
+    if _faults.corrupt("result_corrupt_nan"):
+        # Silent corruption: the residual on a fresh A goes NaN, so the
+        # policy's gate, not a lucky caller, must catch it.
+        inv[0, 0] = float("nan")
 
     if bool(singular):
         raise SingularMatrixError("singular matrix")

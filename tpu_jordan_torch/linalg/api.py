@@ -13,7 +13,9 @@ the card unless ``device="cpu"``.  ``telemetry`` records a
 ``solve_system`` root span with ``load``, ``select``, ``execute``,
 ``residual`` and ``recover`` children; ``numerics`` gives a
 ``NumericsReport`` ("summary", or "trace" on the unrolled [A | B] engine).
-Every call counts in ``tpu_jordan_torch_workload_requests_total``.  The JAX
+Every call counts in ``tpu_jordan_torch_workload_requests_total`` and
+crosses the ``compile``, ``execute`` and ``result_corrupt_nan`` fault
+points (``resilience/faults.py``).  The JAX
 package's distributed solves (complex ones included) are refused by name
 (ROADMAP.md Queue A item 15).  Complex A and B flow through the engine,
 the residual (every norm is of |z|) and the gate; lstsq forms the
@@ -36,6 +38,7 @@ from ..obs.spans import NULL as _NULL_TEL
 from ..obs.spans import timed_blocking
 from ..ops.norms import inf_norm
 from ..ops.residual import solve_residual_stats
+from ..resilience import faults as _faults
 from ..resilience.degrade import backward_error, solve_recover
 from ..tuning.registry import SOLVE_ENGINES, TunePoint, select_by_cost
 from ..tuning.tuner import auto_select
@@ -275,13 +278,21 @@ def solve_system(
 def _solve_system_impl(a, b2, n, k, m, dtype, engine, workload, plan, tel,
                        policy, numerics, check, verbose, dev):
     spd = engine == "solve_spd"
-    run = solve_engine_fn(engine, m)
     collect = numerics == "trace"
     if dev.type == "cuda":
         # Full fp32 products on the card (the JAX package's HIGHEST).
         torch.backends.cuda.matmul.allow_tf32 = False
 
+    def ready():
+        # The compile analogue (resilience/faults.py): the engine callable.
+        _faults.fire("compile")
+        return solve_engine_fn(engine, m)
+
+    run = (policy.retry.call(ready, component="solve_system.compile")
+           if policy is not None else ready())
+
     def execute():
+        _faults.fire("execute")
         return timed_blocking(
             lambda: (run(a, b2, collect_stats=True) if collect
                      else run(a, b2)),
@@ -302,6 +313,9 @@ def _solve_system_impl(a, b2, n, k, m, dtype, engine, workload, plan, tel,
         "tpu_jordan_torch_solve_seconds",
         "timed elimination seconds (the glob_time analog)",
     ).observe(elapsed, workload=workload)
+    if _faults.corrupt("result_corrupt_nan"):
+        x = x.clone()
+        x[0, 0] = float("nan")
     if bool(singular):
         _obs_metrics.counter("tpu_jordan_torch_singular_total",
                              "solves/requests flagged singular"

@@ -114,10 +114,35 @@ def _solve(a, b, m, eps, spd, collect_stats, probe):
         A = a.clone()
     X = A.new_zeros((N, k))
     X[:n] = b
-    Xb = X.view(Nr, m, k)
     singular = torch.zeros((), dtype=torch.bool, device=a.device)
     stats = _StepStats() if collect_stats else None
-    for t in range(Nr):
+    _solve_steps(A, X, singular, 0, Nr, Nr=Nr, m=m, eps=eps, spd=spd,
+                 probe=probe, stats=stats)
+    if stats is not None:
+        return X[:n], singular, stats.stacked()
+    return X[:n], singular
+
+
+def solve_segment(A, X, singular, *, t0: int, t1: int, Nr: int, m: int,
+                  eps):
+    """Supersteps [t0, t1) of the pivoting solve on its closed state: the
+    identity-padded (N, N) ``A``, the zero-padded (N, k) ``X`` and the 0-d
+    bool ``singular``, updated in place and returned.  The loop body is
+    :func:`block_jordan_solve`'s own, so the segments' ``X[:n]`` is that
+    engine's.  Counterpart of the JAX package's ``solve_segment`` (and
+    ``solve_segment_fori``)."""
+    _solve_steps(A, X, singular, t0, t1, Nr=Nr, m=m, eps=eps, spd=False,
+                 probe=probe_blocks)
+    return A, X, singular
+
+
+def _solve_steps(A, X, singular, t_start, t_end, *, Nr, m, eps, spd, probe,
+                 stats=None):
+    """Supersteps [t_start, t_end) of the [A | B] elimination, in place on
+    ``A``, ``X`` and ``singular``."""
+    N, k = Nr * m, X.shape[-1]
+    Xb = X.view(Nr, m, k)
+    for t in range(t_start, t_end):
         lo = t * m
         s = slice(lo, lo + m)
         # --- PIVOT: probe the live candidates of column block t (the
@@ -154,9 +179,6 @@ def _solve(a, b, m, eps, spd, collect_stats, probe):
         X[s] = prow_X
         if stats is not None:
             stats.sample_growth(A[:, lo:], X)
-    if stats is not None:
-        return X[:n], singular, stats.stacked()
-    return X[:n], singular
 
 
 def solve_batch_metrics(a, x, b, n_real=None) -> dict:

@@ -30,9 +30,9 @@ the capacitance [[S, 0], [0, I]] and drop out of the correction.
 "summary"`` (spiked before the rung, with a ``drift`` spike when the
 budget fires it), counts in ``tpu_jordan_torch_workload_requests_total``
 as ``update`` and puts the analytical rate of :func:`update_flops` on its
-execute span.  Counterpart of the JAX package's ``linalg/update.py``; its
-fault hooks (``faults.fire``/``corrupt``) come with ROADMAP.md Queue A
-item 13.
+execute span.  It crosses the ``compile``, ``execute`` and
+``result_corrupt_nan`` fault points (``resilience/faults.py``) as the JAX
+package's does.  Counterpart of the JAX package's ``linalg/update.py``.
 """
 
 from __future__ import annotations
@@ -50,6 +50,7 @@ from ..obs import metrics as _obs_metrics
 from ..obs.spans import NULL as _NULL_TEL
 from ..obs.spans import timed_blocking
 from ..ops.jordan_inplace import _SUB_FP32
+from ..resilience import faults as _faults
 from ..resilience.policy import ResiliencePolicy
 from .engine import block_jordan_solve
 
@@ -216,8 +217,6 @@ def solve_update(
     from .api import count_workload
 
     count_workload("update")
-    # The update path's fault hooks (faults.fire/corrupt) come with
-    # ROADMAP.md Queue A item 13.
     with tel.span("solve_update", n=n, k=k, workload="update"):
         result = _solve_update_impl(a, inv, u, v, n, k, dtype, float(drift),
                                     tel, policy, numerics, verbose, dev)
@@ -233,8 +232,17 @@ def _solve_update_impl(a, inv, u, v, n, k, dtype, drift, tel, policy,
         # Full fp32 products on the card (the JAX package's HIGHEST).
         torch.backends.cuda.matmul.allow_tf32 = False
 
+    def ready():
+        # The compile analogue (resilience/faults.py).
+        _faults.fire("compile")
+        return smw_update_with_metrics
+
+    run = (policy.retry.call(ready, component="solve_update.compile")
+           if policy is not None else ready())
+
     def execute():
-        return timed_blocking(smw_update_with_metrics, a, inv, u, v,
+        _faults.fire("execute")
+        return timed_blocking(run, a, inv, u, v,
                               telemetry=tel, name="execute", device=dev,
                               engine="smw_update", workload="update")
 
@@ -245,6 +253,8 @@ def _solve_update_impl(a, inv, u, v, n, k, dtype, drift, tel, policy,
     flops = update_flops(n, k)
     _hwcost.attach_execute_cost(esp, _hwcost.executable_cost(),
                                 analytical_flops=flops)
+    if _faults.corrupt("result_corrupt_nan"):
+        rel = float("nan")
     if bool(singular):
         _obs_metrics.counter("tpu_jordan_torch_singular_total",
                              "solves/requests flagged singular"

@@ -5,9 +5,12 @@ The reference re-runs its whole program per matrix (main.cpp:65-93).  The
 JAX package's solver caches a compiled executable; torch has none to
 compile, so this one caches what the port can: the resolved engine, as a
 callable, and its block size, fixed at construction; ``engine="auto"``
-resolves once, through the tuner, at construction.  Single device; the JAX
-constructor's distributed fields are kept and refused by name (ROADMAP.md
-Queue A item 15).
+resolves once, through the tuner, at construction.  The first
+:meth:`JordanSolver.invert` crosses the ``compile`` fault point
+(``resilience/faults.py``), where the JAX solver compiles, and every
+``invert`` the ``execute`` point inside the policy's retry.  Single device;
+the JAX constructor's distributed fields are kept and refused by name
+(ROADMAP.md Queue A item 15).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from ..errors import UsageError
 from ..interop import from_numpy, resolve_device, resolve_dtype
 from ..ops import residual_inf_norm
 from ..ops.jordan_inplace import _SUB_FP32
+from ..resilience import faults as _faults
 
 
 @dataclass
@@ -62,6 +66,7 @@ class JordanSolver:
     device: Any = None
     plan: Any = field(default=None, repr=False)
     _run: Any = field(default=None, repr=False)
+    _compiled: bool = field(default=False, repr=False)
 
     def __post_init__(self):
         from ..driver import (invert, refuse_later_options,
@@ -87,6 +92,16 @@ class JordanSolver:
         self._run = partial(invert, engine=self.engine, group=self.group,
                             block_size=self.block_size, refine=self.refine)
 
+    def _compile(self):
+        """The JAX solver's compile, once per configuration: here only its
+        ``compile`` fault point (the engine callable is ``_run``)."""
+        if self.policy is not None:
+            self.policy.retry.call(lambda: _faults.fire("compile"),
+                                   component="solver.compile")
+        else:
+            _faults.fire("compile")
+        self._compiled = True
+
     def _matrix(self, a, shape):
         a = from_numpy(a, self._device, self._work_dtype)
         if tuple(a.shape[-2:]) != shape[-2:] or (
@@ -108,13 +123,16 @@ class JordanSolver:
         call is an ``execute`` span (``obs.spans.timed_blocking``: CUDA
         events and a synchronize on the card)."""
         a = self._matrix(a, (self.n, self.n))
-        if self.telemetry is None:
-            inv, singular = self._execute(lambda: self._run(a))
-            return inv.to(self.dtype), singular
-        from ..obs import hwcost as _hwcost
-        from ..obs.spans import timed_blocking
+        if not self._compiled:
+            self._compile()
 
         def run():
+            _faults.fire("execute")
+            if self.telemetry is None:
+                return self._run(a)
+            from ..obs import hwcost as _hwcost
+            from ..obs.spans import timed_blocking
+
             out, esp = timed_blocking(self._run, a, telemetry=self.telemetry,
                                       name="execute", device=self._device,
                                       engine=self.engine)

@@ -22,6 +22,12 @@ the driver keeps TF32 off); the probe is ``block_inverse.probe_blocks``.  The
 ``fused_update.fused_normalize_eliminate`` (a CUDA kernel on the card)
 instead of the group-end ``addmm_``.
 
+The loops run a step range on a carried state (V, the ``singular`` flag
+and the (Nr,) int64 swap record), so the segment entries
+(:func:`invert_segment`, :func:`invert_segment_grouped`, then
+:func:`invert_finalize`), which ``resilience/checkpoint.py`` runs between
+checkpoints, are the monolithic engines' own per-step code.
+
 The probe-ahead (``lookahead``) twins launch step t+1's probe before step
 t's trailing eliminate.  On the card that probe runs on a side CUDA stream
 of high priority (:class:`_ProbeAhead`), so it overlaps the GEMMs that
@@ -142,13 +148,15 @@ def _setup(a, block_size, eps):
     return n, m, eps, Nr, N, V
 
 
-def _select(invs, sing, t):
+def _select(invs, sing, t, out=None):
     """The step's pivot decision: key = ‖inv‖∞ (inf where singular),
-    argmin with ties to the lowest row.  Returns (H, piv, key)."""
+    argmin with ties to the lowest row.  Returns (H, piv, key); with
+    ``out`` (a 0-d int64 tensor, the swap record's slot t) ``piv`` is
+    written there and is that slot."""
     key = torch.where(sing, float("inf"), block_inf_norms(invs))
     rel = torch.argmin(key)
     H = invs.index_select(0, rel.view(1))[0]
-    return H, rel + t, key
+    return H, torch.add(rel, t, out=out), key
 
 
 class _ProbeAhead:
@@ -209,10 +217,24 @@ def _swap_rows(Xb, t: int, piv):
     return rows_p
 
 
-def _finish(V, rswaps, Nr, n, m, a, refine, stats, singular):
-    V = apply_col_perm(V, compose_swap_perm(torch.stack(rswaps).tolist(),
-                                            Nr), m)
-    x = newton_schulz(a, unpad(V, n).contiguous(), refine)
+def _carry(Nr: int, device):
+    """A fresh run's ``singular`` flag and (Nr,) int64 swap record."""
+    return (torch.zeros((), dtype=torch.bool, device=device),
+            torch.zeros((Nr,), dtype=torch.int64, device=device))
+
+
+def invert_finalize(V, swaps, *, n: int, Nr: int, m: int):
+    """The in-place engines' epilogue: compose the swap record (read back
+    once) into one block-column permutation, apply it as one blocked
+    gather, strip the identity padding.  Runs once, after the last
+    superstep (or segment).  Counterpart of the JAX package's
+    ``invert_finalize``."""
+    V = apply_col_perm(V, compose_swap_perm(swaps.tolist(), Nr), m)
+    return unpad(V, n).contiguous()
+
+
+def _finish(V, swaps, Nr, n, m, a, refine, stats, singular):
+    x = newton_schulz(a, invert_finalize(V, swaps, n=n, Nr=Nr, m=m), refine)
     if stats is not None:
         return x, singular, stats.stacked()
     return x, singular
@@ -278,29 +300,41 @@ def block_jordan_invert_inplace_lookahead(
 
 
 def _inplace(a, block_size, eps, refine, probe, stats, lookahead):
-    """The loop of both in-place engines.  ``lookahead`` splits each
-    eliminate around the launch of the next step's probe
-    (:class:`_ProbeAhead`)."""
+    """Both in-place engines: the supersteps of :func:`_inplace_steps`
+    over the whole range, then :func:`_finish`."""
     n, m, eps, Nr, N, V = _setup(a, block_size, eps)
+    singular, swaps = _carry(Nr, a.device)
+    _inplace_steps(V, singular, swaps, 0, Nr, Nr=Nr, m=m, eps=eps,
+                   probe=probe, stats=stats, lookahead=lookahead)
+    return _finish(V, swaps, Nr, n, m, a, refine, stats, singular)
+
+
+def _inplace_steps(V, singular, swaps, t_start, t_end, *, Nr, m, eps,
+                   probe, stats=None, lookahead=False):
+    """Supersteps [t_start, t_end) of the in-place loop, in place on the
+    (N, N) working matrix ``V``, the 0-d ``singular`` flag and the (Nr,)
+    swap record ``swaps``.  ``lookahead`` splits each eliminate around the
+    launch of the next step's probe (:class:`_ProbeAhead`)."""
+    N = Nr * m
     Vb = V.view(Nr, m, N)
-    singular = torch.zeros((), dtype=torch.bool, device=a.device)
-    rswaps = []
-    ahead = _ProbeAhead(a.device, probe, eps) if lookahead else None
+    ahead = _ProbeAhead(V.device, probe, eps) if lookahead else None
     if ahead is not None:
-        # --- PROLOGUE: step 0's probe on the untouched first column.
-        ahead.launch(V[:, :m].reshape(Nr, m, m).contiguous(), 0)
-    for t in range(Nr):
+        # --- PROLOGUE: the first step's probe on its untouched column.
+        t, c = t_start, slice(t_start * m, (t_start + 1) * m)
+        ahead.launch(V[t * m:, c].reshape(Nr - t, m, m).contiguous(), t)
+    for t in range(t_start, t_end):
         s = slice(t * m, (t + 1) * m)
         if ahead is None:
             # --- PROBE the live candidate blocks of column t
             # (main.cpp:1039).
             cands = V[t * m:, s].reshape(Nr - t, m, m).contiguous()
             invs, sing = probe(cands, eps)
-            H, piv, key = _select(invs, sing, t)
+            H, piv, key = _select(invs, sing, t, out=swaps[t])
         else:
             # --- PROBE-AHEAD: launched before the previous trailing
             # eliminate.
             H, piv, key, sing = ahead.take()
+            swaps[t] = piv
         singular |= sing.all()
         if stats is not None:
             stats.probe(piv, key, sing)
@@ -316,7 +350,7 @@ def _inplace(a, block_size, eps, refine, probe, stats, lookahead):
         E[s] = 0
         V[:, s] = 0
         c0 = (t + 1) * m
-        if ahead is not None and t < Nr - 1:
+        if ahead is not None and t < t_end - 1:
             # --- CRITICAL PANEL first, then step t+1's probe on its live
             # window (rows below the pivot-row write), copied so that the
             # probe reads no column the trailing update writes; the
@@ -330,10 +364,23 @@ def _inplace(a, block_size, eps, refine, probe, stats, lookahead):
         else:
             V.addmm_(E, prow, alpha=-1)
         V[s] = prow
-        rswaps.append(piv)
         if stats is not None:
             stats.sample_growth(V)
-    return _finish(V, rswaps, Nr, n, m, a, refine, stats, singular)
+
+
+def invert_segment(V, singular, swaps, *, t0: int, t1: int, Nr: int,
+                   m: int, eps):
+    """Supersteps [t0, t1) of the in-place engine on its closed state: the
+    identity-padded (N, N) working matrix ``V``, the 0-d bool ``singular``
+    and the (Nr,) int64 swap record ``swaps``, all updated in place and
+    returned.  The loop body is :func:`block_jordan_invert_inplace`'s own,
+    so segments [0, t1), [t1, t2), … then :func:`invert_finalize` give
+    that engine's bits.  Counterpart of the JAX package's
+    ``invert_segment`` (and ``invert_segment_fori``: the port has one loop
+    for every Nr)."""
+    _inplace_steps(V, singular, swaps, t0, t1, Nr=Nr, m=m, eps=eps,
+                   probe=probe_blocks)
+    return V, singular, swaps
 
 
 def block_jordan_invert_inplace_grouped(
@@ -462,17 +509,36 @@ def _grouped(a, block_size, eps, refine, group, probe, stats, close,
     (with ``close`` None) launches each group's first probe before the
     previous group-end ``addmm_`` (:class:`_ProbeAhead`)."""
     n, m, eps, Nr, N, V = _setup(a, block_size, eps)
+    singular, swaps = _carry(Nr, a.device)
+    _grouped_steps(V, singular, swaps, 0, Nr, Nr=Nr, m=m, group=group,
+                   eps=eps, probe=probe, stats=stats, close=close,
+                   lookahead=lookahead)
+    return _finish(V, swaps, Nr, n, m, a, refine, stats, singular)
+
+
+def _grouped_steps(V, singular, swaps, t_start, t_end, *, Nr, m, group,
+                   eps, probe, stats=None, close=None, lookahead=False):
+    """The groups of supersteps [t_start, t_end) of the delayed-group-update
+    loop, in place on ``V``, ``singular`` and ``swaps`` (as
+    :func:`_inplace_steps`).  Both ends sit on the group grid (``t_end``
+    may be Nr): the panels U and P live within a group, so between groups
+    the state is (V, singular, swaps) alone."""
+    N = Nr * m
     k = max(1, min(group, Nr))
+    if t_start % k or (t_end % k and t_end != Nr):
+        raise ValueError(
+            f"grouped segment bounds must sit on group boundaries: "
+            f"[{t_start}, {t_end}) with group={k}")
     Vb = V.view(Nr, m, N)
-    singular = torch.zeros((), dtype=torch.bool, device=a.device)
-    rswaps = []
     ahead = None
     if lookahead:
-        ahead = _ProbeAhead(a.device, probe, eps)
-        # --- PROLOGUE: group 0's first probe on the untouched column.
-        col_ahead = V[:, :m].clone()
-        ahead.launch(col_ahead.view(Nr, m, m), 0)
-    for t0 in range(0, Nr, k):
+        ahead = _ProbeAhead(V.device, probe, eps)
+        # --- PROLOGUE: the first group's first probe on its untouched
+        # column.
+        col_ahead = V[:, t_start * m:(t_start + 1) * m].clone()
+        ahead.launch(col_ahead[t_start * m:].view(Nr - t_start, m, m),
+                     t_start)
+    for t0 in range(t_start, t_end, k):
         kg = min(k, Nr - t0)                   # this group's width
         U = V.new_zeros((N, kg * m))
         P = V.new_zeros((kg * m, N))
@@ -484,6 +550,7 @@ def _grouped(a, block_size, eps, refine, group, probe, stats, close,
                 # --- PROBE-AHEAD: this group's first decision was
                 # launched before the previous group-end update.
                 H, piv, key, sing = ahead.take()
+                swaps[t] = piv
                 col = col_ahead
             else:
                 # --- EAGER CANDIDATE COLUMN: V[:, t] minus pending
@@ -493,7 +560,7 @@ def _grouped(a, block_size, eps, refine, group, probe, stats, close,
                     col.addmm_(U[:, :j * m], P[:j * m, s], alpha=-1)
                 # --- PROBE the live window (main.cpp:1039).
                 invs, sing = probe(col[t * m:].view(Nr - t, m, m), eps)
-                H, piv, key = _select(invs, sing, t)
+                H, piv, key = _select(invs, sing, t, out=swaps[t])
             singular |= sing.all()
             if stats is not None:
                 stats.probe(piv, key, sing)
@@ -518,7 +585,6 @@ def _grouped(a, block_size, eps, refine, group, probe, stats, close,
                 P[:j * m, s] = 0
             U[s] = 0
             U[:, j * m:(j + 1) * m] = col
-            rswaps.append(piv)
             if close is not None and j == kg - 1:
                 # --- GROUP-CLOSING STEP: normalize, zero the pivot
                 # column, write the pivot row and retire the group.
@@ -533,7 +599,7 @@ def _grouped(a, block_size, eps, refine, group, probe, stats, close,
                 stats.sample_growth(V, U)
 
         tn = t0 + kg
-        if ahead is not None and tn < Nr:
+        if ahead is not None and tn < t_end:
             # --- CRITICAL PANEL + PROBE-AHEAD: the next group's first
             # eager column is the column slice of the group-end product;
             # its probe is launched before that product.
@@ -546,4 +612,16 @@ def _grouped(a, block_size, eps, refine, group, probe, stats, close,
             V.addmm_(U, P, alpha=-1)
             if stats is not None:
                 stats.refresh(V)
-    return _finish(V, rswaps, Nr, n, m, a, refine, stats, singular)
+
+
+def invert_segment_grouped(V, singular, swaps, *, t0: int, t1: int, Nr: int,
+                           m: int, group: int, eps):
+    """Supersteps [t0, t1) of the delayed-group-update engine
+    (:func:`block_jordan_invert_inplace_grouped`'s loop body) on the state
+    of :func:`invert_segment`, updated in place and returned.  ``t0`` and
+    ``t1`` sit on the group grid (``t1`` may be Nr), the only points where
+    the state is closed; other bounds raise ValueError.  Counterpart of the
+    JAX package's ``invert_segment_grouped``."""
+    _grouped_steps(V, singular, swaps, t0, t1, Nr=Nr, m=m, group=group,
+                   eps=eps, probe=probe_blocks)
+    return V, singular, swaps

@@ -1,8 +1,24 @@
-"""The residual gate, its degradation ladder and the retry policy of the
-solve path (the part of the JAX package's ``resilience/`` that a single
-solve uses), and the deterministic fault points of the tuner
-(``faults.py``)."""
+"""The resilience layer of the single-device path: the residual gate, its
+degradation ladder and the retry policy (``degrade.py``, ``policy.py``),
+the deterministic fault points (``faults.py``) and superstep
+checkpoint/resume (``checkpoint.py``).  Counterpart of the JAX package's
+``resilience/``; the serving pieces (deadlines, the circuit breaker) come
+with ROADMAP.md Queue A item 14."""
 
+from . import faults
+from .checkpoint import (
+    CheckpointCorruptError,
+    CheckpointError,
+    CheckpointKey,
+    CheckpointMismatchError,
+    CheckpointNotFoundError,
+    CheckpointStore,
+    CheckpointUnsupportedError,
+    PreemptedError,
+    checkpointed_invert,
+    checkpointed_solve,
+    fingerprint,
+)
 from .degrade import (
     backward_error,
     gate_eps,
@@ -11,6 +27,13 @@ from .degrade import (
     maybe_recover,
     solve_gate_threshold,
     solve_recover,
+)
+from .faults import (
+    FaultPlan,
+    FaultSpec,
+    InjectedFaultError,
+    InjectedTransientError,
+    activate,
 )
 from .policy import (
     DEFAULT_POLICY,
@@ -23,8 +46,14 @@ from .policy import (
     retryable,
 )
 
-__all__ = ["DEFAULT_POLICY", "ResidualGateError", "ResiliencePolicy",
-           "ResultCorruptionError", "RetryPolicy", "backward_error",
-           "gate_eps", "gate_passes", "gate_threshold", "is_transient",
-           "maybe_recover", "retry_transient", "retryable",
-           "solve_gate_threshold", "solve_recover"]
+__all__ = ["CheckpointCorruptError", "CheckpointError", "CheckpointKey",
+           "CheckpointMismatchError", "CheckpointNotFoundError",
+           "CheckpointStore", "CheckpointUnsupportedError",
+           "DEFAULT_POLICY", "FaultPlan", "FaultSpec", "InjectedFaultError",
+           "InjectedTransientError", "PreemptedError", "ResidualGateError",
+           "ResiliencePolicy", "ResultCorruptionError", "RetryPolicy",
+           "activate", "backward_error", "checkpointed_invert",
+           "checkpointed_solve", "faults", "fingerprint", "gate_eps",
+           "gate_passes", "gate_threshold", "is_transient", "maybe_recover",
+           "retry_transient", "retryable", "solve_gate_threshold",
+           "solve_recover"]

@@ -7,23 +7,49 @@ the k-th time it is reached (1-based, counted per point under a lock), so
 a seeded :class:`FaultPlan` fires at the same calls on every run, and at
 the same calls as the JAX package's plan of that seed.
 
-The point names are the JAX package's (``POINTS``).  The points wired in
-the port so far are the tuner's:
+The point names are the JAX package's (``POINTS``).  Wired in the port:
 
-  ================  ===================================================
-  point             fires inside
-  ================  ===================================================
-  measure           ``tuning/measure.measure_direct``, every timed call
-  plan_cache_write  ``tuning/plan_cache.PlanCache.save`` (simulates a
-                    full disk or a read-only directory)
-  ================  ===================================================
+  ==================  =================================================
+  point               fires inside
+  ==================  =================================================
+  compile             once per entry call, where the JAX entry compiles:
+                      after ``load`` and before the execute in
+                      ``driver.solve``, ``linalg.solve_system`` (so
+                      ``lstsq``) and ``linalg.solve_update``; once per
+                      configuration in ``JordanSolver`` (its first
+                      ``invert``).  Under a policy it runs in
+                      ``policy.retry`` with the JAX component names
+                      (``solve.compile``, ``solve_system.compile``,
+                      ``solve_update.compile``, ``solver.compile``)
+  execute             the timed engine call of the same four entries,
+                      inside the policy's retry (``driver.solve``
+                      re-loads A before a retry)
+  result_corrupt_nan  after the execute: ``driver.solve`` poisons
+                      ``inv[0, 0]``, ``solve_system`` ``x[0, 0]`` (before
+                      the singular check), ``solve_update`` its
+                      rel_residual, so the residual gate must catch it
+  measure             ``tuning/measure.measure_direct``, every timed call
+  plan_cache_write    ``tuning/plan_cache.PlanCache.save`` (simulates a
+                      full disk or a read-only directory)
+  preempt             the segment boundaries of the checkpointed
+                      runners (``resilience/checkpoint.py``), after the
+                      previous boundary's checkpoint is durable
+  ==================  =================================================
 
-The update path's ``fire``/``corrupt`` hooks and the other points' call
-sites come with the layers that cross them (ROADMAP.md Queue A items 13
-and 14).  A point with no active plan costs one module-global ``is None``
-check.  Every fired injection is logged on the plan (``injections``,
-``report``) and recorded as a ``fault_injected`` flight-recorder event;
-the JAX package's injected-faults counter comes with item 13.
+The port has no compile step: eager PyTorch builds no executable, and the
+kernels under ``csrc/`` are built and loaded once per process
+(``_build.py``).  Its ``compile`` point stands for the step that readies
+the engine (the resolved engine callable, and on the card the kernel
+load), fired once per entry call where the JAX entry compiles, so a
+seeded plan's per-point call counts (``FaultPlan.calls``) equal the JAX
+package's on the same call sequence.  ``dispatch`` and ``replica_kill``
+come with the serving stack and the fleet (ROADMAP.md Queue A item 14),
+the distributed entries' sites with item 15.
+
+A point with no active plan costs one module-global ``is None`` check.
+Every fired injection increments ``tpu_jordan_torch_faults_injected_total``
+(labeled by point), is logged on the plan (``injections``, ``report``) and
+is recorded as a ``fault_injected`` flight-recorder event.
 """
 
 from __future__ import annotations
@@ -34,6 +60,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..obs import metrics as _obs_metrics
 from ..obs import recorder as _recorder
 
 #: The named injection points.  ``fire()`` on an unknown point raises: a
@@ -49,6 +76,10 @@ POINTS = ("compile", "execute", "plan_cache_write", "measure",
 #:   corrupt: raises nothing; ``corrupt(point)`` returns True and the call
 #:     site poisons its own result.
 MODES = ("transient", "permanent", "oserror", "corrupt")
+
+_M_INJECTED = _obs_metrics.counter(
+    "tpu_jordan_torch_faults_injected_total",
+    "faults fired by an active FaultPlan, labeled by injection point")
 
 
 class InjectedFaultError(RuntimeError):
@@ -148,6 +179,7 @@ class FaultPlan:
             if mode is not None:
                 self.injections.append((point, idx, mode))
         if mode is not None:
+            _M_INJECTED.inc(point=point)
             _recorder.record("fault_injected", point=point, call=idx,
                              mode=mode)
         return mode
