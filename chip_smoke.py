@@ -163,9 +163,27 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    invert (``gj_probe.cu``); the bytes and seconds of one checkpoint and
    the checkpointed walls beside the monolithic ones; the CLI's
    ``--sleep`` and ``--precision``.
-9. ``kernels``: every ported kernel with its launches on its path (the
-   solve, tune, telemetry and resilience rows; the variants' engine runs
-   of ``reference``), the complex bodies of ``gj_probe.cu`` as
+9. ``serve``: the serving core on the card (``phase_serve``): the CLI's
+   ``--serve-demo`` at SERVE_DEMO_ROW (2048/m128 rand, 64 requests, batch
+   cap 8: buckets 2048, 1024 and 512) with ``--numerics summary``, in fp32
+   and fp64: exit 0, zero builds on the request path and zero plan-cache
+   measurements, in fp64 no residual spike (every request's rel_residual
+   under eps·n·κ∞; fp32's knife-edge requests are printed, not held),
+   panel-probe launches equal to Σ over batches of the
+   bucket's Nr (16, 8, 4) and no other kernel (every probe call a launch,
+   so no plain-twin call); per bucket the p50/p99 of queue and execute
+   seconds, the first batch's execute seconds beside the steady median,
+   the mean occupancy.  SERVE_SOLVE_ROWS through ``submit(a, b)`` (2048
+   rand fp32 K=16, panel launches = Nr; 1024 crand complex64 K=4,
+   ``gj_probe[c64]`` launches = Nr): the backward error under the solve
+   gate, X within min(16·eps·n·κ_est, 0.05) of ``linalg.solve_system`` on
+   the same element.  ``chaos_demo`` at CHAOS_ROW for CHAOS_SEEDS, each
+   report through ``tools/check_chaos.py`` with zero mismatches (bits
+   equal to the fault-free replay on the card), and the CLI's
+   ``--chaos-demo --quiet`` once (exit 0, the checker).
+10. ``kernels``: every ported kernel with its launches on its path (the
+   solve, tune, telemetry, resilience and serve rows; the variants'
+   engine runs of ``reference``), the complex bodies of ``gj_probe.cu`` as
    ``gj_probe[c64]`` and ``gj_probe[c128]``.
 
 Not run by default: ``--phases knife_edge`` records that fp32 absdiff
@@ -192,7 +210,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("toolchain", "kernel_vs_plain", "reference", "solve", "tune",
-          "overlap", "telemetry", "resilience")
+          "overlap", "telemetry", "resilience", "serve")
 EXTRA_PHASES = ("knife_edge", "cluster_sweep", "batch_fp32")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
@@ -527,6 +545,19 @@ KERNELS = {
         "replaces": "tpu_jordan/ops/pallas_block_inverse.py:74",
     },
 }
+
+# The serve phase (PR 12): the CLI's --serve-demo at (n, m, requests,
+# batch_cap), rand fp32; the solve lanes (n, m, generator, dtype, K); the
+# chaos demo at (n, requests, batch_cap) and its seeds.
+SERVE_DEMO_ROW = (2048, 128, 64, 8)
+# fp32 is the CLI's default; its stream holds knife-edge fixtures (request
+# 39: κ∞ 5.0e6, κ∞·eps32 ≈ 0.6, rel_residual 0.53 on the card, PR 12), so
+# the gate is held on every request in fp64, as the batch rows are (PR 6).
+SERVE_DEMO_DTYPES = ("float32", "float64")
+SERVE_SOLVE_ROWS = ((2048, 128, "rand", "float32", 16),
+                    (1024, 128, "crand", "complex64", 4))
+CHAOS_ROW = (512, 64, 8)
+CHAOS_SEEDS = (0, 1, 2)
 
 # The probe variants: (kernel launch counter key, wrapper, plain twin).
 VARIANTS = {"gj_probe_inplace": ("inplace", "gj_probe_inplace",
@@ -2640,6 +2671,168 @@ def phase_resilience(torch, counters):
     return totals
 
 
+def phase_serve(torch, counters):
+    """The serving core on the card (the module docstring's phase 9); each
+    driven path with the kernels' counts set to 0 just before it and read
+    just after.  Returns the counts summed over the paths."""
+    import contextlib
+    import io
+    import statistics
+    import tempfile
+
+    from tpu_jordan_torch.__main__ import main as cli
+    from tpu_jordan_torch.linalg import solve_system
+    from tpu_jordan_torch.obs.metrics import REGISTRY
+    from tpu_jordan_torch.obs.recorder import RECORDER
+    from tpu_jordan_torch.ops import generate
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+    from tpu_jordan_torch.resilience import (DEFAULT_POLICY,
+                                             solve_gate_threshold)
+    from tpu_jordan_torch.serve import JordanService, chaos_demo
+
+    totals = dict.fromkeys(counters, 0)
+    failures = []
+
+    def counted(fn):
+        for mod in counters.values():
+            mod.reset_launches()
+        try:
+            return fn()
+        finally:
+            counted.last = {k: counters[k].launches for k in totals}
+            for k in totals:
+                totals[k] += counted.last[k]
+
+    def run_cli(args):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli(args)
+        lines = out.getvalue().strip().splitlines()
+        return rc, (json.loads(lines[-1]) if rc == 0 and lines else None)
+
+    # (1) the serve demo through the CLI, in each SERVE_DEMO_DTYPES dtype.
+    n, m, requests, cap = SERVE_DEMO_ROW
+    exec_hist = REGISTRY.histogram("tpu_jordan_torch_serve_execute_seconds")
+
+    for dname in SERVE_DEMO_DTYPES:
+        seen = {k: len(v.samples) for k, v in exec_hist.series().items()}
+        spike_mark = RECORDER.total
+        t0 = time.perf_counter()
+        rc, rep = counted(lambda: run_cli([
+            str(n), str(m), "--serve-demo", "--generator", "rand",
+            "--dtype", dname, "--serve-requests", str(requests),
+            "--batch-cap", str(cap), "--numerics", "summary"]))
+        wall = time.perf_counter() - t0
+        got = counted.last
+        if rc != 0 or rep is None:
+            raise AssertionError(f"--serve-demo --dtype {dname} exited {rc}")
+        spikes = [e for e in RECORDER.since(spike_mark)
+                  if e["kind"] == "numerics_spike"]
+        want = dict.fromkeys(counters, 0)
+        buckets = {}
+        for lane, st in rep["stats"]["buckets"].items():
+            mm = min(m, int(lane))
+            nr = -(-int(lane) // mm)
+            want[probe_mod.probe_body(mm, getattr(torch, dname))] += (
+                st["batches"] * nr)
+            samples = next((res.samples[seen.get(key, 0):]
+                            for key, res in exec_hist.series().items()
+                            if dict(key).get("bucket") == lane), [])
+            buckets[lane] = {
+                "requests": st["requests"], "batches": st["batches"],
+                "mean_occupancy": st["mean_occupancy"], "nr": nr,
+                "queue_ms": st["queue_ms"], "execute_ms": st["execute_ms"],
+                "first_batch_ms": samples[0] * 1e3,
+                "steady_median_ms": (statistics.median(samples[1:]) * 1e3
+                                     if len(samples) > 1 else None)}
+        emit({"phase": "serve", "check": "serve_demo", "n": n, "m": m,
+              "dtype": dname, "requests": requests, "batch_cap": cap,
+              "exit": rc,
+              "compiles_on_request_path": rep["compiles_on_request_path"],
+              "plan_cache_measurements": rep["plan_cache_measurements"],
+              "worst_rel_residual": rep["worst_rel_residual"],
+              "residual_spikes": [(e["value"], e["threshold"])
+                                  for e in spikes],
+              "elapsed_s": rep["elapsed_s"], "wall_s": wall,
+              "requests_per_s": requests / rep["elapsed_s"],
+              "device_memory": rep["device_memory"], "buckets": buckets,
+              "launches": got, "expected": want})
+        if rep["compiles_on_request_path"] or rep["plan_cache_measurements"]:
+            failures.append(f"the warm serve path built or measured "
+                            f"({dname})")
+        if rep["singular"] or (spikes and dname != "float32"):
+            failures.append({"dtype": dname, "residual_spikes": spikes[:3],
+                             "singular": rep["singular"]})
+        if got != want:
+            failures.append({"serve_demo_launches": got, "expected": want,
+                             "dtype": dname})
+
+    # (2) the solve lanes, one request each.
+    for n, m, gen, dname, k in SERVE_SOLVE_ROWS:
+        dtype = getattr(torch, dname)
+        a = generate(gen, (n, n), dtype, device="cpu")
+        b = generate(gen, (n, k), dtype, row_offset=n, device="cpu")
+        with JordanService(dtype=dtype, batch_cap=cap, block_size=m) as svc:
+            svc.warmup(solve_shapes=[(n, k)])
+            res = counted(lambda: svc.solve_system(a, b, timeout=600))
+            got = counted.last
+        direct = solve_system(a.cuda(), b.cuda(), block_size=m,
+                              device="cuda")
+        x, ref = res.solution, direct.x
+        eps = torch.finfo(dtype).eps
+        tol = min(16 * eps * n * res.kappa, 0.05)
+        diff = float((x - ref).abs().sum(-1).max()
+                     / ref.abs().sum(-1).max())
+        gate = solve_gate_threshold(DEFAULT_POLICY, n, dtype)
+        want = dict.fromkeys(counters, 0)
+        want[probe_mod.probe_body(m, dtype)] = -(-n // m)
+        emit({"phase": "serve", "check": "solve_lane", "n": n, "m": m,
+              "generator": gen, "dtype": dname, "rhs": k,
+              "rel_residual": res.rel_residual, "solve_gate": gate,
+              "x_rel_diff": diff, "tolerance": tol,
+              "execute_s": res.execute_seconds, "launches": got})
+        if not res.rel_residual < gate or not diff <= tol or got != want:
+            failures.append({"solve_lane": (n, dname), "launches": got,
+                             "expected": want})
+        del a, b, x, ref, direct
+        torch.cuda.empty_cache()
+
+    # (3) chaos on the card, then the CLI once.
+    n, requests, cap = CHAOS_ROW
+    with tempfile.TemporaryDirectory() as tmp:
+        for seed in CHAOS_SEEDS:
+            rep = counted(lambda: chaos_demo(n=n, requests=requests,
+                                             batch_cap=cap, seed=seed))
+            path = os.path.join(tmp, f"chaos{seed}.json")
+            with open(path, "w") as f:
+                json.dump(rep, f)
+            verdict = check_tool("check_chaos.py", path)
+            emit({"phase": "serve", "check": "chaos_demo", "n": n,
+                  "requests": requests, "batch_cap": cap, "seed": seed,
+                  "accounting": rep["accounting"],
+                  "injected_by_point": rep["faults"]["injected_by_point"],
+                  "matched_bitwise": rep["matched_bitwise"],
+                  "mismatches": rep["mismatches"],
+                  "elapsed_s": rep["elapsed_s"], "check_chaos": verdict,
+                  "launches": counted.last})
+            if rep["mismatches"]:
+                failures.append({"chaos_seed": seed,
+                                 "mismatches": rep["mismatches"][:3]})
+        rc, rep = counted(lambda: run_cli([
+            str(n), "64", "--chaos-demo", "--quiet",
+            "--serve-requests", str(requests), "--batch-cap", str(cap)]))
+        verdict = (check_tool("check_chaos.py", stdin=json.dumps(rep))
+                   if rc == 0 else None)
+        emit({"phase": "serve", "check": "chaos_cli", "exit": rc,
+              "check_chaos": verdict})
+        if rc != 0:
+            failures.append({"chaos_cli": rc})
+    if failures:
+        raise AssertionError(f"serve failed its checks: {failures}")
+    return totals
+
+
 def phase_overlap(torch):
     """profile_solve's device-time split of the OVERLAP_ROWS rows: the
     probe, GEMM and other ms, the idle share and the overlap (the kernels'
@@ -2954,6 +3147,10 @@ def main(argv=None) -> int:
             launches[name] = launches.get(name, 0) + count
     seconds["resilience"] = time.perf_counter() - start - sum(
         seconds.values())
+    if "serve" in phases:
+        for name, count in phase_serve(torch, launch_counters()).items():
+            launches[name] = launches.get(name, 0) + count
+    seconds["serve"] = time.perf_counter() - start - sum(seconds.values())
     if "knife_edge" in phases:
         phase_knife_edge(torch)
     if "cluster_sweep" in phases:

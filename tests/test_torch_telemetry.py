@@ -30,7 +30,6 @@ from tpu_jordan.resilience import ResiliencePolicy as JPolicy
 
 from tpu_jordan_torch.__main__ import main as tmain
 from tpu_jordan_torch.driver import solve as tsolve
-from tpu_jordan_torch.errors import UsageError
 from tpu_jordan_torch.linalg import lstsq, solve_system, solve_update
 from tpu_jordan_torch.obs import export, spans as tspans
 from tpu_jordan_torch.obs.metrics import NAME_RE, REGISTRY
@@ -300,11 +299,16 @@ def test_a_modeled_fused_phase_fails_the_checker(tmp_path):
 
 
 def test_journey_refusals():
+    """Journey lanes were refused until the serving stack came; now a
+    journey event becomes its request's async lane beside the spans, and an
+    empty list adds nothing."""
     tel = tspans.Telemetry()
     with tel.span("solve"):
         pass
-    with pytest.raises(UsageError, match="item 14"):
-        export.to_chrome_trace(tel, journey_events=[{"kind": "journey"}])
+    doc = export.to_chrome_trace(tel, journey_events=[
+        {"kind": "journey", "request_id": "req-00001", "event": "submit",
+         "t": 1.0}])
+    assert [e["ph"] for e in doc["traceEvents"]] == ["X", "b", "n", "e"]
     assert export.to_chrome_trace(None, journey_events=[]) == {
         "traceEvents": [], "displayTimeUnit": "ms"}
 

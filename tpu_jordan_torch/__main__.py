@@ -32,7 +32,18 @@ run's spans), ``--blackbox-out`` (the flight recorder) and
 ``--capacity-report`` (the capacity ledger).  The exports are written on
 every exit path and never change the exit code; on exit 2 the flight
 recorder is dumped to ``<tmp>/tpu_jordan_torch_blackbox.json`` unless
-``--blackbox-out`` names a path.
+``--blackbox-out`` names a path.  ``--trace-json`` adds one lane per
+served request (its journey).
+
+Serving: ``--serve-demo`` streams ``--serve-requests`` mixed-size invert
+requests (n, n/2, n/4) through a warmed ``serve.JordanService``
+(``--batch-cap``, ``--max-wait-ms``) and prints one JSON line (exit 2 when
+a request was singular); ``--chaos-demo`` serves one seeded stream twice,
+fault-free and under a ``FaultPlan`` (``--chaos-seed``), and prints one
+JSON line for ``tools/check_chaos.py`` (exit 2 on silent corruption).
+``--quiet`` drops the bulky parts of the demos' reports (the per-lane
+stats, the fault log); elsewhere it is the default, non-verbose output.
+The serving flags apply to the two demos only.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ from .errors import DeviceUnavailableError, SingularMatrixError, UsageError
 from .tuning.registry import ENGINES
 from .io import MatrixReadError
 from .resilience.policy import ResidualGateError
+from .serve.batcher import ServiceClosedError, ServiceOverloadedError
 
 _USAGE = "usage: python -m tpu_jordan_torch n m [<file>]"
 
@@ -144,9 +156,42 @@ def _parser() -> argparse.ArgumentParser:
                          "tools/check_numerics.py validates the report).  "
                          "n is the fixture size, m the block size; "
                          "--chaos-seed seeds the fixture")
+    ap.add_argument("--serve-demo", action="store_true",
+                    help="run the dynamic-batching service demo "
+                         "(tpu_jordan_torch.serve.JordanService): mixed "
+                         "request sizes n, n/2, n/4 across >= 3 shape "
+                         "buckets, micro-batched through the bucketed "
+                         "executor cache, then print ONE JSON line of "
+                         "per-bucket stats (occupancy, latency "
+                         "percentiles, build and plan-cache measurement "
+                         "counters); n is the largest request size, m the "
+                         "block size; generator input only")
+    ap.add_argument("--chaos-demo", action="store_true",
+                    help="serve the SAME deterministic mixed request "
+                         "stream twice, fault-free and under a seeded "
+                         "FaultPlan (build failures, transient execute "
+                         "errors, NaN result corruption, plan-cache write "
+                         "failures), and print ONE JSON line proving every "
+                         "response bit-matched the fault-free replay or "
+                         "carried a typed error, with every injected fault "
+                         "accounted for (exit 2 on silent corruption; "
+                         "tools/check_chaos.py validates the report)")
     ap.add_argument("--chaos-seed", type=int, default=0, metavar="S",
-                    help="--numerics-demo: the fixture's seed (default 0; "
-                         "same seed = the same matrix)")
+                    help="--numerics-demo: the fixture's seed; "
+                         "--chaos-demo: the FaultPlan and request-stream "
+                         "seed (default 0; same seed = the same run)")
+    ap.add_argument("--serve-requests", type=int, default=64, metavar="R",
+                    help="--serve-demo/--chaos-demo: requests to submit "
+                         "(default 64)")
+    ap.add_argument("--batch-cap", type=int, default=8, metavar="B",
+                    help="--serve-demo/--chaos-demo: max requests fused "
+                         "into one lane run (default 8)")
+    ap.add_argument("--max-wait-ms", type=float, default=2.0, metavar="MS",
+                    help="--serve-demo/--chaos-demo: how long the oldest "
+                         "request waits for batch-mates (default 2.0)")
+    ap.add_argument("--quiet", action="store_true",
+                    help="--serve-demo/--chaos-demo: drop the per-lane "
+                         "stats and the fault log from the report")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write the process-wide tpu_jordan_torch_* "
                          "metrics registry (solves, plan-cache hits/"
@@ -194,8 +239,13 @@ def _write_telemetry(metrics_out, trace_json, telemetry) -> None:
             write_metrics(metrics_out)
         if trace_json and telemetry is not None:
             from .obs.export import write_chrome_trace
+            from .obs.recorder import RECORDER
 
-            write_chrome_trace(trace_json, telemetry)
+            # The journey slice rides the span trace: one lane per served
+            # request, from the flight recorder.
+            write_chrome_trace(
+                trace_json, telemetry,
+                journey_events=RECORDER.events(kind="journey"))
     except OSError as e:
         print(f"warning: telemetry export failed: {e}", file=sys.stderr)
 
@@ -248,6 +298,10 @@ def _main(argv, state) -> int:
         if args.refine < 0 or args.rhs < 1:
             raise ValueError("--refine must be non-negative, --rhs "
                              "positive")
+        if args.serve_requests < 1 or args.batch_cap < 1:
+            raise ValueError("--serve-requests/--batch-cap must be >= 1")
+        if args.max_wait_ms < 0:
+            raise ValueError("--max-wait-ms must be non-negative")
     except SystemExit as e:
         if e.code == 0:      # --help is not a usage error
             return 0
@@ -275,8 +329,22 @@ def _main(argv, state) -> int:
         telemetry = Telemetry()
     try:
         resolve_precision(args.precision, args.refine)
+        if args.quiet and args.verbose:
+            raise UsageError("--quiet and --verbose contradict each other")
         if args.numerics_demo:
+            if args.serve_demo or args.chaos_demo:
+                raise UsageError("--numerics-demo, --chaos-demo and "
+                                 "--serve-demo are distinct modes; pick "
+                                 "one")
             return _numerics_demo(args)
+        if args.chaos_demo:
+            return _chaos_demo(args, telemetry)
+        if args.serve_demo:
+            return _serve_demo(args, telemetry)
+        if (args.serve_requests != 64 or args.batch_cap != 8
+                or args.max_wait_ms != 2.0):
+            raise UsageError("--serve-requests/--batch-cap/--max-wait-ms "
+                             "apply to --serve-demo/--chaos-demo")
         if args.workload == "invert" and args.assume != "general":
             raise UsageError("--assume applies to --workload solve "
                              "(the pivot-free SPD fast path)")
@@ -333,6 +401,10 @@ def _main(argv, state) -> int:
     except DeviceUnavailableError as e:
         print(e, file=sys.stderr)
         return 2
+    except (ServiceOverloadedError, ServiceClosedError) as e:
+        # Serving runtime failures are runtime errors, not usage.
+        print(e, file=sys.stderr)
+        return 2
     except UsageError as e:
         print(e, file=sys.stderr)
         return 1
@@ -375,6 +447,89 @@ def _numerics_demo(args) -> int:
         print(f"unexplained degradation rung(s): "
               f"{report['unexplained_rungs']} — no causally preceding "
               f"numerics_spike", file=sys.stderr)
+        return 2
+    return 0
+
+
+def _chaos_demo(args, telemetry) -> int:
+    """``--chaos-demo``: one JSON line; exit 2 on silent corruption."""
+    import json
+
+    from .serve import chaos_demo
+
+    if args.serve_demo:
+        raise UsageError("--chaos-demo and --serve-demo are distinct "
+                         "modes; pick one")
+    if args.file is not None:
+        raise UsageError("--chaos-demo runs on a single device (gathered "
+                         "output, deterministic built-in fixtures)")
+    if args.batch > 1 or args.tune:
+        raise UsageError("--chaos-demo takes no --batch/--tune")
+    if args.numerics != "off":
+        raise UsageError("--chaos-demo's replay-compare semantics are "
+                         "pinned; --numerics does not apply (use "
+                         "--serve-demo --numerics summary, or solve with "
+                         "--numerics)")
+    if args.group != 0 or args.engine != "auto":
+        raise UsageError("--chaos-demo engines are single-device (auto "
+                         "resolution); --engine/--group do not apply")
+    if args.workload != "invert":
+        raise UsageError("--chaos-demo streams invert requests; "
+                         "--workload does not apply")
+    report = chaos_demo(n=args.n, block_size=args.m,
+                        requests=args.serve_requests,
+                        batch_cap=args.batch_cap,
+                        max_wait_ms=args.max_wait_ms, seed=args.chaos_seed,
+                        dtype=args.dtype, plan_cache=args.plan_cache,
+                        telemetry=telemetry, device=args.device)
+    if args.quiet:
+        report["faults"].pop("log", None)
+    print(json.dumps(report))
+    if report["silent_corruption"]:
+        print(f"silent corruption under chaos: "
+              f"{len(report['mismatches'])} mismatches, "
+              f"{report['accounting']['unaccounted']} unaccounted faults",
+              file=sys.stderr)
+        return 2
+    return 0
+
+
+def _serve_demo(args, telemetry) -> int:
+    """``--serve-demo``: one JSON line; exit 2 when a request was
+    singular."""
+    import json
+
+    from .serve import serve_demo
+
+    if args.file is not None:
+        raise UsageError("--serve-demo requires generator input")
+    if args.batch > 1:
+        raise UsageError("--serve-demo and --batch are distinct modes; "
+                         "pick one")
+    if args.tune:
+        raise UsageError("--serve-demo resolves engines through the "
+                         "cost-only ladder (optionally a --plan-cache); "
+                         "--tune does not apply")
+    if args.group != 0:
+        raise UsageError("--serve-demo engines are single-device "
+                         "(auto/inplace/grouped/augmented); --group does "
+                         "not apply")
+    if args.workload != "invert":
+        raise UsageError("--serve-demo streams invert requests; submit(a, "
+                         "b) is the solve serve surface")
+    report = serve_demo(n=args.n, block_size=args.m,
+                        requests=args.serve_requests,
+                        batch_cap=args.batch_cap,
+                        max_wait_ms=args.max_wait_ms, engine=args.engine,
+                        plan_cache=args.plan_cache, dtype=args.dtype,
+                        generator=args.generator, telemetry=telemetry,
+                        numerics=args.numerics, device=args.device)
+    if args.quiet:
+        report.pop("stats", None)
+    print(json.dumps(report))
+    if report["singular"]:
+        print(f"singular matrix ({report['singular']} requests flagged)",
+              file=sys.stderr)
         return 2
     return 0
 

@@ -6,16 +6,21 @@ loaded with ``ctypes``; the pointers and the stream go in as integers.  The
 library's file name carries a hash of its source and flags, so an edited
 source is rebuilt and a stale library is never loaded.  No ``--use_fast_math``:
 the probe divides by its pivots and must divide exactly.
+
+:func:`load` is safe to call from several threads (a serving dispatcher
+beside the caller's thread): the first load of a library runs under one
+lock, and every build writes a temporary file named for its process and
+thread before the atomic rename.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -56,7 +61,7 @@ def _start(name: str, verbose: bool):
     if out.exists():
         return None
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS]
     if verbose:
         cmd += ["-Xptxas", "-v"]
@@ -89,9 +94,19 @@ def build(names, verbose: bool = False) -> dict[str, str]:
     return logs
 
 
-@functools.cache
+_LOAD_LOCK = threading.Lock()
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed
-    (once per process)."""
-    build([name])
-    return ctypes.CDLL(str(library_path(name)))
+    (once per process, whichever thread asks first; the others wait)."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            build([name])
+            lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+    return lib

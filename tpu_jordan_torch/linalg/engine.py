@@ -24,6 +24,12 @@ Complex dtypes flow through unchanged: the probe's keys and thresholds are
 real (|z|), the sweeps dtype-generic; ``spd`` then promises a Hermitian
 positive definite A.  Counterpart of the JAX package's
 ``linalg/engine.py``.
+
+:func:`block_jordan_solve_batched` solves a (B, n, n) stack the way
+``ops/batched.py`` inverts one: the batch folded into the probe's candidate
+axis (one probe call a superstep for the whole stack, as the JAX probe's
+batching rule folds a ``vmap``), pivots selected per element by gather, the
+products batched.  It is the serving solve lanes' engine.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from ..config import MAX_UNROLL_NR, default_block_size, eps_for
 from ..errors import UsageError
 from ..ops.block_inverse import probe_blocks
 from ..ops.jordan_inplace import _select, _StepStats, _swap_rows
+from ..ops.norms import block_inf_norms
 from ..ops.padding import pad_with_identity
 
 _SUB_FP32 = (torch.float16, torch.bfloat16)
@@ -73,6 +80,86 @@ def block_jordan_solve(
             f"block_jordan_solve_fori (engine='solve_fori', any Nr) or "
             f"a larger block_size")
     return _solve(a, b, m, eps, spd, collect_stats, probe)
+
+
+def block_jordan_solve_batched(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    block_size: int | None = None,
+    eps: float | None = None,
+    spd: bool = False,
+    probe=probe_blocks,
+):
+    """Solve each A_i·X_i = B_i of a (B, n, n) stack ``a`` and a (B, n, k)
+    stack ``b``; returns ``(x, singular)``, x (B, n, k) and a (B,) bool
+    tensor.  Each element picks the pivots :func:`block_jordan_solve` picks
+    on it alone; a superstep probes every element's live candidates in
+    ONE ``probe`` call on the folded (B·nc, m, m) stack (the diagonal
+    block of each element alone under ``spd``).  Neither input is written:
+    a caller may run the same stacks again (a retry).  Nr > MAX_UNROLL_NR
+    is refused, as :func:`block_jordan_solve` refuses it."""
+    n = a.shape[-1]
+    m = min(block_size or default_block_size(n), n)
+    Nr = -(-n // m)
+    if Nr > MAX_UNROLL_NR:
+        raise UsageError(
+            f"block_jordan_solve_batched is the batched UNROLLED engine "
+            f"and Nr={Nr} exceeds MAX_UNROLL_NR={MAX_UNROLL_NR}; use a "
+            f"larger block_size")
+    if a.dtype in _SUB_FP32:
+        x, singular = block_jordan_solve_batched(
+            a.float(), b.float(), m, eps, spd, probe)
+        return x.to(a.dtype), singular
+    if eps is None:
+        eps = eps_for(a.dtype)
+    B, k = a.shape[0], b.shape[-1]
+    N = Nr * m
+    A = pad_with_identity(a, N)
+    if A is a:
+        A = a.clone()
+    X = A.new_zeros((B, N, k))
+    X[:, :n] = b
+    Ab = A.view(B, Nr, m, N)
+    Xb = X.view(B, Nr, m, k)
+    elems = torch.arange(B, device=a.device)
+    singular = torch.zeros(B, dtype=torch.bool, device=a.device)
+    for t in range(Nr):
+        lo = t * m
+        s = slice(lo, lo + m)
+        if spd:
+            H, sing = probe(A[:, s, s].contiguous(), eps)
+            singular |= sing
+            rows_p_A, rows_p_X = A[:, s, lo:], X[:, s]
+        else:
+            # --- PROBE every element's live candidates in one call,
+            # SELECT per element (argmin ‖inv‖∞, lowest row on ties).
+            nc = Nr - t
+            invs, sing = probe(
+                A[:, lo:, s].reshape(B * nc, m, m).contiguous(), eps)
+            invs = invs.view(B, nc, m, m)
+            sing = sing.view(B, nc)
+            key = torch.where(sing, float("inf"), block_inf_norms(invs))
+            rel = torch.argmin(key, dim=1)
+            singular |= sing.all(dim=1)
+            H = invs[elems, rel]                              # (B, m, m)
+            piv = rel + t
+            # --- SWAP by copy: each element's pivot rows are read before
+            # its slot t is written into the pivot slot.
+            rows_p_A = Ab[elems, piv, :, lo:]                 # (B, m, ·)
+            rows_p_X = Xb[elems, piv]
+            Ab[elems, piv, :, lo:] = Ab[:, t, :, lo:].clone()
+            Xb[elems, piv] = Xb[:, t].clone()
+
+        # --- NORMALIZE the pivot rows, ELIMINATE the live columns and X.
+        prow_A = torch.bmm(H, rows_p_A)
+        prow_X = torch.bmm(H, rows_p_X)
+        E = A[:, :, s].clone()
+        E[:, s] = 0
+        A[:, :, lo:].baddbmm_(E, prow_A, alpha=-1)
+        X.baddbmm_(E, prow_X, alpha=-1)
+        A[:, s, lo:] = prow_A
+        X[:, s] = prow_X
+    return X[:, :n], singular
 
 
 def block_jordan_solve_fori(

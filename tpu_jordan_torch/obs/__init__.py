@@ -13,18 +13,22 @@
     (unavailable in eager PyTorch, never modeled) and the CUDA
     allocator's watermark;
   * ``capacity``: the ledger of resident bytes per class;
-  * ``recorder``: the always-on bounded flight recorder.
+  * ``recorder``: the always-on bounded flight recorder;
+  * ``journey``: per-request journeys of the serving stack, their outcome
+    ledger and their Chrome-trace lanes.
 
-Journeys, SLOs, the metric exemplars, the one-line JSON report, the cost
-gauges and the runtime fingerprint come with the serving stack (ROADMAP.md
-Queue A item 14); the communication and work inventories with
-the distributed engines (item 15).
+The SLO monitor comes with the fleet (ROADMAP.md Queue A item 14d); the
+communication and work inventories with the distributed engines (item
+15).
 """
 
-from . import capacity, export, hwcost, metrics, numerics, recorder, spans
-from .export import (to_chrome_trace, to_prometheus, write_chrome_trace,
-                     write_metrics)
-from .hwcost import ExecutableCost, attach_execute_cost, executable_cost
+from . import (capacity, export, hwcost, journey, metrics, numerics,
+               recorder, spans)
+from .export import (to_chrome_trace, to_json_line, to_prometheus,
+                     write_chrome_trace, write_metrics)
+from .hwcost import (ExecutableCost, attach_execute_cost, executable_cost,
+                     runtime_env)
+from .journey import JourneyLog, RequestContext, outcome_ledger
 from .metrics import (NAME_RE, REGISTRY, Counter, Gauge, Histogram,
                       MetricsRegistry, Reservoir, counter, gauge, histogram,
                       percentiles)
@@ -35,11 +39,12 @@ from .spans import (NULL, NullTelemetry, Span, Telemetry, attribute_phases,
                     attribute_phases_measured, timed_blocking)
 
 __all__ = [
-    "capacity", "export", "hwcost", "metrics", "numerics", "recorder",
-    "spans",
-    "to_chrome_trace", "to_prometheus", "write_chrome_trace",
-    "write_metrics",
+    "capacity", "export", "hwcost", "journey", "metrics", "numerics",
+    "recorder", "spans",
+    "to_chrome_trace", "to_json_line", "to_prometheus",
+    "write_chrome_trace", "write_metrics",
     "ExecutableCost", "attach_execute_cost", "executable_cost",
+    "runtime_env", "JourneyLog", "RequestContext", "outcome_ledger",
     "NumericsReport", "SpikeThresholds", "numerics_demo", "record_spikes",
     "NAME_RE", "REGISTRY", "Counter", "Gauge", "Histogram",
     "MetricsRegistry", "Reservoir", "counter", "gauge", "histogram",

@@ -6,8 +6,9 @@ row-cyclic decomposition (main.cpp:95-123).  Here two kinds of byte class
 are accounted:
 
   * **metered**: residency with an explicit lifecycle registers and
-    releases through :data:`LEDGER`, in this slice the tuner's plan
-    document (``plan_cache``).  ``bytes_created == bytes_live +
+    releases through :data:`LEDGER`: the tuner's plan document
+    (``plan_cache``) and the serving lanes' executors (``executor_lanes``,
+    their projected argument + output bytes, ``serve/executors.py``).  ``bytes_created == bytes_live +
     bytes_evicted`` holds per class by construction.
   * **sampled**: probed at :func:`snapshot` time, the flight-recorder
     ring (``flight_recorder``) and the CUDA caching allocator's live and
@@ -16,9 +17,8 @@ are accounted:
 
 Exported as ``tpu_jordan_torch_capacity_*`` gauges and counters; the CLI's
 ``--capacity-report PATH`` writes :func:`snapshot`.  The eviction budget,
-the eviction/refusal/projection records and the capacity demo meter serve
-handles and executor lanes, and come with the serving stack (ROADMAP.md
-Queue A item 14).
+the eviction/refusal/projection records and the capacity demo come with
+the resident handles (ROADMAP.md Queue A item 14b).
 """
 
 from __future__ import annotations

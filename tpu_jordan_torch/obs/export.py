@@ -1,16 +1,19 @@
 """Telemetry exporters.  Counterpart of the JAX package's ``obs/export.py``
-(its tiers 2 and 3; the one-line JSON of the serve report comes with the
-serving stack, ROADMAP Queue A item 14, and the kernel-level profiler
-capture with the first caller that reads it):
+(its tiers 1 to 3; the kernel-level profiler capture comes with the first
+caller that reads it):
 
+  * **One-line JSON** (:func:`to_json_line`): the metrics snapshot and the
+     span trees, with a caller's extras, as one ``json.dumps`` line.
   * **Prometheus text** (:func:`to_prometheus`, :func:`write_metrics`):
      ``# HELP``/``# TYPE`` and sample lines; histograms export in summary
      form (quantile lines, ``_sum`` and ``_count``).  The CLI's
      ``--metrics-out``.
   * **Chrome trace-event JSON** (:func:`to_chrome_trace`,
-     :func:`write_chrome_trace`): one complete ("X") event per span, for
-     Perfetto (https://ui.perfetto.dev) or ``chrome://tracing``.  The
-     CLI's ``--trace-json``.
+     :func:`write_chrome_trace`): one complete ("X") event per span, and
+     one async lane per request from journey events
+     (``obs/journey.async_trace_events``), for Perfetto
+     (https://ui.perfetto.dev) or ``chrome://tracing``.  The CLI's
+     ``--trace-json``.
 
 ``tools/check_telemetry.py`` validates both.
 """
@@ -81,15 +84,9 @@ def to_chrome_trace(telemetry, journey_events=None) -> dict:
     """The span trees as a Chrome trace-event document: one complete ("X")
     event per finished span, microsecond timestamps on the telemetry's
     clock.  Modeled and measured phase children carry their attributes in
-    ``args``.  ``journey_events`` (per-request lanes) come with the
-    serving stack (ROADMAP.md Queue A item 14): until then only an empty
-    list is taken, and a non-empty one is refused rather than dropped.
-    ``telemetry`` may be None."""
-    if journey_events:
-        from ..errors import UsageError
-
-        raise UsageError("journey lanes come with the serving stack "
-                         "(ROADMAP.md Queue A item 14)")
+    ``args``.  ``journey_events`` (flight-recorder ``journey`` events) are
+    appended as one async lane per ``request_id``.  ``telemetry`` may be
+    None for a journeys-only trace."""
     events = []
     roots = telemetry.roots if telemetry is not None else []
     for root in roots:
@@ -107,7 +104,32 @@ def to_chrome_trace(telemetry, journey_events=None) -> dict:
                              else str(v))
                          for k, v in sp.attrs.items()},
             })
+    if journey_events is not None:
+        from .journey import async_trace_events
+
+        events.extend(async_trace_events(journey_events))
     return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def to_json_line(registry=None, telemetry=None, **extra) -> str:
+    """One JSON line: the metrics snapshot and/or the span trees, with the
+    caller's extras.  An extra may not reuse a payload key (``metric``,
+    ``metrics``, ``spans``): that is a ``UsageError``, never a silent
+    overwrite."""
+    doc: dict = {"metric": "telemetry"}
+    if registry is not None:
+        doc["metrics"] = registry.snapshot()
+    if telemetry is not None:
+        doc["spans"] = [r.to_dict() for r in telemetry.roots]
+    clash = sorted(set(extra) & set(doc))
+    if clash:
+        from ..errors import UsageError
+
+        raise UsageError(
+            f"to_json_line extra key(s) {clash} collide with the telemetry "
+            f"payload keys {sorted(doc)}; rename the extras")
+    doc.update(extra)
+    return json.dumps(doc)
 
 
 def write_metrics(path: str, registry=None) -> None:
@@ -122,7 +144,8 @@ def write_metrics(path: str, registry=None) -> None:
 
 
 def write_chrome_trace(path: str, telemetry, journey_events=None) -> None:
-    """Write the Chrome trace-event JSON to ``path`` (``--trace-json``)."""
+    """Write the Chrome trace-event JSON to ``path`` (``--trace-json``),
+    with one lane per request where ``journey_events`` is given."""
     with open(path, "w") as f:
         json.dump(to_chrome_trace(telemetry,
                                   journey_events=journey_events), f)

@@ -1,7 +1,6 @@
-"""Hardware cost: flop conventions, the executable-cost record and the
-device-memory watermark.  Counterpart of the JAX package's
-``obs/hwcost.py``, less what only the serving stack calls (``observe_cost``,
-``observe_device_memory``, ``runtime_env``: ROADMAP Queue A item 14).
+"""Hardware cost: flop conventions, the executable-cost record, the
+device-memory watermark and the runtime fingerprint.  Counterpart of the
+JAX package's ``obs/hwcost.py``.
 
 Honesty contract, the JAX package's own: every number here is read from
 the runtime or counted by a published convention, and nothing is modeled
@@ -18,6 +17,12 @@ or :func:`baseline_workload_flops`).
 allocator's live and peak bytes, as ``bytes_in_use`` and
 ``peak_bytes_in_use``) and is None on the CPU, so :data:`WATERMARK` there
 stays ``available=False`` for good: absent, never zeroed.
+:func:`observe_device_memory` samples it into the same gauges on demand
+(the serving demo's report), :func:`observe_cost` mirrors an available
+cost into the ``tpu_jordan_torch_executable_*`` gauges (a no-op on
+:data:`UNAVAILABLE`, so on every lane of this port), and
+:func:`runtime_env` names the torch and CUDA versions and the device a
+report was taken on.
 """
 
 from __future__ import annotations
@@ -27,6 +32,17 @@ from dataclasses import dataclass
 
 from . import metrics as _metrics
 
+_M_FLOPS = _metrics.gauge(
+    "tpu_jordan_torch_executable_flops",
+    "compiler cost-analysis FLOPs of an executable, per serve lane (set "
+    "only where a compiler reports it)")
+_M_BYTES = _metrics.gauge(
+    "tpu_jordan_torch_executable_bytes_accessed",
+    "compiler cost-analysis bytes accessed of an executable, per serve lane")
+_M_HBM = _metrics.gauge(
+    "tpu_jordan_torch_executable_hbm_bytes",
+    "compiler memory-analysis footprint (arguments + outputs + temps) of "
+    "an executable, per serve lane")
 _M_DEV_USED = _metrics.gauge(
     "tpu_jordan_torch_device_bytes_in_use",
     "live bytes of the CUDA caching allocator (absent on the CPU)")
@@ -38,6 +54,15 @@ _M_DEV_PEAK = _metrics.gauge(
 def baseline_invert_flops(n: int) -> float:
     """The 2n³ Gauss–Jordan convention of every invert GFLOP/s figure."""
     return 2.0 * float(n) ** 3
+
+
+def gauss_jordan_flops(n: int) -> float:
+    """The (8/3)n³ analytical count of the blocked in-place Gauss–Jordan
+    inversion including the probe's block inverses and the normalize
+    side-products (the JAX package's count of what its compiled executable
+    does); the rates use the 2n³ convention of
+    :func:`baseline_invert_flops`."""
+    return (8.0 / 3.0) * float(n) ** 3
 
 
 def baseline_workload_flops(n: int, workload: str = "invert",
@@ -150,6 +175,20 @@ def attach_execute_cost(span, cost: ExecutableCost,
         span.attrs["arithmetic_intensity"] = _sig(ai)
 
 
+def observe_cost(cost: ExecutableCost, **labels) -> None:
+    """Mirror an executable's cost into the ``tpu_jordan_torch_executable_*``
+    gauges; an unavailable cost sets nothing (absent, never zero)."""
+    if not cost.available:
+        return
+    if cost.flops is not None:
+        _M_FLOPS.set(cost.flops, **labels)
+    if cost.bytes_accessed is not None:
+        _M_BYTES.set(cost.bytes_accessed, **labels)
+    hbm = cost.hbm_bytes
+    if hbm is not None:
+        _M_HBM.set(hbm, **labels)
+
+
 def device_memory_stats(device=None) -> dict | None:
     """The CUDA caching allocator's counters for ``device`` (the current
     card by default), with ``allocated_bytes.all.current``/``.peak``
@@ -181,6 +220,33 @@ def _set_watermark(stats: dict, labels: dict) -> None:
         _M_DEV_USED.set(float(used), **labels)
     if peak is not None:
         _M_DEV_PEAK.set(float(peak), **labels)
+
+
+def observe_device_memory(device=None, **labels) -> dict | None:
+    """Sample ``device``'s allocator into the watermark gauges and return
+    its stats; None (gauges untouched) on the CPU or without a card."""
+    stats = device_memory_stats(device)
+    if stats is not None:
+        _set_watermark(stats, labels)
+    return stats
+
+
+def runtime_env() -> dict:
+    """The fingerprint a report carries so its numbers can be read: the
+    torch and CUDA versions, the device's name and count, the host's core
+    count.  Context, never a gate; the CUDA fields are None without a
+    card."""
+    import os
+
+    import torch
+
+    env = {"host_cpu_count": os.cpu_count(), "torch": torch.__version__,
+           "cuda": torch.version.cuda, "device_kind": None,
+           "device_count": 0}
+    if torch.cuda.is_available():
+        env["device_kind"] = torch.cuda.get_device_name(0)
+        env["device_count"] = torch.cuda.device_count()
+    return env
 
 
 class DeviceMemoryWatermark:

@@ -10,9 +10,11 @@ Counters end in ``_total``, timings in ``_seconds``.
 Labels are keyword arguments at mutation time (``inc(1, bucket="512")``);
 each distinct label set is one series.  ``counter(...)`` is idempotent per
 name, so a call site may fetch at use; a kind conflict (a counter and a
-gauge under one name) raises.  The request exemplars of the JAX metrics
-come with the journey layer of the serving stack (ROADMAP.md Queue A item
-14).  ``obs/export.py`` writes the registry as Prometheus text.
+gauge under one name) raises.  ``Counter.inc(..., exemplar=request_id)``
+keeps the last request id per series (``exemplar``, ``exemplars``, and the
+``exemplar`` key of ``snapshot``), so a counter that moved leads to one
+journey in the flight recorder.  ``obs/export.py`` writes the registry as
+Prometheus text.
 """
 
 from __future__ import annotations
@@ -89,11 +91,22 @@ class Metric:
         self.help = help
         self._lock = threading.Lock()
         self._series: dict[tuple, object] = {}
+        #: the last exemplar (a request id) per series.
+        self._exemplars: dict[tuple, str] = {}
 
     def series(self) -> dict:
         """{label_key_tuple: value or reservoir}, a copy."""
         with self._lock:
             return dict(self._series)
+
+    def exemplar(self, **labels) -> str | None:
+        """The most recent exemplar of the series, or None."""
+        with self._lock:
+            return self._exemplars.get(_label_key(labels))
+
+    def exemplars(self) -> dict:
+        with self._lock:
+            return dict(self._exemplars)
 
     def value(self, **labels) -> float:
         with self._lock:
@@ -103,12 +116,17 @@ class Metric:
 class Counter(Metric):
     kind = "counter"
 
-    def inc(self, value: float = 1.0, **labels) -> None:
+    def inc(self, value: float = 1.0, *, exemplar: str | None = None,
+            **labels) -> None:
+        """``exemplar`` (keyword-only, never a label) records the request
+        id of the mutation as the series' latest exemplar."""
         if value < 0:
             raise ValueError("counters only go up; use a gauge")
         key = _label_key(labels)
         with self._lock:
             self._series[key] = self._series.get(key, 0.0) + float(value)
+            if exemplar is not None:
+                self._exemplars[key] = str(exemplar)
 
     def total(self) -> float:
         """The sum over every label series."""
@@ -188,10 +206,12 @@ class MetricsRegistry:
 
     def snapshot(self) -> dict:
         """{name: {type, help, series: [{labels, value} or {labels,
-        count, sum, p50, p95, p99}]}}, plain JSON."""
+        count, sum, p50, p95, p99}, with ``exemplar`` where one was
+        recorded]}}, plain JSON."""
         out = {}
         for m in self.collect():
             series = []
+            exemplars = m.exemplars()
             for key, val in m.series().items():
                 entry: dict = {"labels": dict(key)}
                 if isinstance(val, Reservoir):
@@ -200,6 +220,8 @@ class MetricsRegistry:
                     entry.update(val.percentiles())
                 else:
                     entry["value"] = val
+                if key in exemplars:
+                    entry["exemplar"] = exemplars[key]
                 series.append(entry)
             out[m.name] = {"type": m.kind, "help": m.help,
                            "series": series}

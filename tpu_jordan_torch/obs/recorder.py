@@ -11,9 +11,9 @@ monotonic callable) and ``kind``.  The tuner's plan cache
 ``RetryPolicy`` (``retry``), the numerics observatory
 (``numerics_spike``) and the degradation ladders
 (``residual_gate_failure``, ``recovery_rung``) record into it; the CLI
-dumps it with ``--blackbox-out`` and on every exit 2.  The per-request
-``journey`` events come with the serving stack (ROADMAP.md Queue A item
-14).
+dumps it with ``--blackbox-out`` and on every exit 2.  The serving stack
+records the per-request ``journey`` events (``obs/journey.py``) and the
+circuit breakers' ``breaker_transition``.
 """
 
 from __future__ import annotations

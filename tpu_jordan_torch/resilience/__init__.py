@@ -1,9 +1,9 @@
 """The resilience layer of the single-device path: the residual gate, its
 degradation ladder and the retry policy (``degrade.py``, ``policy.py``),
 the deterministic fault points (``faults.py``) and superstep
-checkpoint/resume (``checkpoint.py``).  Counterpart of the JAX package's
-``resilience/``; the serving pieces (deadlines, the circuit breaker) come
-with ROADMAP.md Queue A item 14."""
+checkpoint/resume (``checkpoint.py``), and the serving pieces: typed
+deadlines and the circuit breaker (``policy.py``).  Counterpart of the JAX
+package's ``resilience/``."""
 
 from . import faults
 from .checkpoint import (
@@ -37,6 +37,9 @@ from .faults import (
 )
 from .policy import (
     DEFAULT_POLICY,
+    CircuitBreaker,
+    CircuitOpenError,
+    DeadlineExceededError,
     ResidualGateError,
     ResiliencePolicy,
     ResultCorruptionError,
@@ -49,6 +52,7 @@ from .policy import (
 __all__ = ["CheckpointCorruptError", "CheckpointError", "CheckpointKey",
            "CheckpointMismatchError", "CheckpointNotFoundError",
            "CheckpointStore", "CheckpointUnsupportedError",
+           "CircuitBreaker", "CircuitOpenError", "DeadlineExceededError",
            "DEFAULT_POLICY", "FaultPlan", "FaultSpec", "InjectedFaultError",
            "InjectedTransientError", "PreemptedError", "ResidualGateError",
            "ResiliencePolicy", "ResultCorruptionError", "RetryPolicy",

@@ -20,14 +20,24 @@ The point names are the JAX package's (``POINTS``).  Wired in the port:
                       ``invert``).  Under a policy it runs in
                       ``policy.retry`` with the JAX component names
                       (``solve.compile``, ``solve_system.compile``,
-                      ``solve_update.compile``, ``solver.compile``)
+                      ``solve_update.compile``, ``solver.compile``).
+                      Serving: once per lane executor build
+                      (``serve.executors.BucketExecutor``, component
+                      ``serve.compile``)
+  dispatch            the serving dispatcher, once per dispatched batch
+                      before its executor lookup (a failure fans to the
+                      batch's riders)
   execute             the timed engine call of the same four entries,
                       inside the policy's retry (``driver.solve``
-                      re-loads A before a retry)
+                      re-loads A before a retry); serving: each attempt of
+                      a batch's run (component ``serve.execute``)
   result_corrupt_nan  after the execute: ``driver.solve`` poisons
                       ``inv[0, 0]``, ``solve_system`` ``x[0, 0]`` (before
                       the singular check), ``solve_update`` its
-                      rel_residual, so the residual gate must catch it
+                      rel_residual, so the residual gate must catch it;
+                      serving: the rel_residual of the batch's first
+                      non-singular rider, so the integrity gate must
+                      catch it
   measure             ``tuning/measure.measure_direct``, every timed call
   plan_cache_write    ``tuning/plan_cache.PlanCache.save`` (simulates a
                       full disk or a read-only directory)
@@ -42,9 +52,9 @@ kernels under ``csrc/`` are built and loaded once per process
 the engine (the resolved engine callable, and on the card the kernel
 load), fired once per entry call where the JAX entry compiles, so a
 seeded plan's per-point call counts (``FaultPlan.calls``) equal the JAX
-package's on the same call sequence.  ``dispatch`` and ``replica_kill``
-come with the serving stack and the fleet (ROADMAP.md Queue A item 14),
-the distributed entries' sites with item 15.
+package's on the same call sequence.  ``replica_kill`` comes with the
+fleet (ROADMAP.md Queue A item 14d), the distributed entries' sites with
+item 15.
 
 A point with no active plan costs one module-global ``is None`` check.
 Every fired injection increments ``tpu_jordan_torch_faults_injected_total``

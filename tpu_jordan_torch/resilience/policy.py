@@ -1,5 +1,5 @@
-"""Retry and the residual-gate knobs: what the solve path uses of the JAX
-package's ``resilience/policy.py``.
+"""Retry, deadlines, circuit breaking and the residual-gate knobs: the
+port of the JAX package's ``resilience/policy.py``.
 
   * :func:`is_transient` / :func:`retryable`: the typed transient classifier.
     A transport exception TYPE carrying a documented-transient message
@@ -10,17 +10,29 @@ package's ``resilience/policy.py``.
     deterministic jitter (a pure function of the attempt index), and
     :func:`retry_transient`, its one-shot form for the tuner's
     measurements.
-  * :class:`ResiliencePolicy`: the umbrella ``solve(policy=)`` takes: retry,
-    the residual gate and degradation ladder (``resilience/degrade.py``),
-    and the breaker knobs, carried as data.
+  * :class:`DeadlineExceededError`: the typed per-request deadline
+    failure (queue wait + execute) of the serving dispatcher; counted in
+    ``tpu_jordan_torch_deadline_exceeded_total`` by phase.
+  * :class:`CircuitBreaker`: closed -> (K consecutive failures) open ->
+    typed fast-fail (:class:`CircuitOpenError`) -> half-open probe after
+    the cooldown -> closed on the probe's success, open again on its
+    failure.  Its state is the ``tpu_jordan_torch_breaker_state`` gauge,
+    its openings ``tpu_jordan_torch_breaker_open_total``; every transition
+    is a ``breaker_transition`` flight-recorder event.
+  * :class:`ResiliencePolicy`: the umbrella ``solve(policy=)`` and
+    ``JordanService(policy=)`` take: retry, the residual gate and
+    degradation ladder (``resilience/degrade.py``), and the breaker knobs.
 
 Every retry is counted in ``tpu_jordan_torch_retries_total`` (labeled by
-component) and recorded as a ``retry`` flight-recorder event.  The circuit
-breaker comes with the serving stack (ROADMAP.md Queue A item 14).
+component, with the affected request as the series' exemplar when the
+caller names one) and recorded as a ``retry`` flight-recorder event.
+``CapacityExceededError`` comes with the resident handles (ROADMAP.md Queue
+A item 14b).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any
@@ -32,9 +44,31 @@ _M_RETRIES = _obs_metrics.counter(
     "tpu_jordan_torch_retries_total",
     "retries performed by RetryPolicy (transient failures and detected "
     "result corruption), labeled by component")
+_M_BREAKER_STATE = _obs_metrics.gauge(
+    "tpu_jordan_torch_breaker_state",
+    "circuit breaker state: 0 closed, 1 open, 2 half-open")
+_M_BREAKER_OPEN = _obs_metrics.counter(
+    "tpu_jordan_torch_breaker_open_total",
+    "closed/half-open -> open breaker transitions")
+_M_DEADLINE = _obs_metrics.counter(
+    "tpu_jordan_torch_deadline_exceeded_total",
+    "requests failed by their deadline, labeled by phase (queue|execute)")
 
 #: Documented-transient message markers.  Marker AND type are both required.
 _RETRYABLE = ("INTERNAL", "remote_compile", "read body", "DEADLINE")
+
+
+class DeadlineExceededError(TimeoutError):
+    """A request's deadline elapsed (queue wait + execute) before its
+    result could be delivered: the serving dispatcher's typed per-request
+    deadline failure, never a hang or a silent drop."""
+
+
+class CircuitOpenError(RuntimeError):
+    """Fast-fail from an OPEN circuit breaker: the lane's executor failed K
+    consecutive times, and queueing more work at it would queue doomed
+    work.  Retry after the cooldown (the breaker then admits a half-open
+    probe)."""
 
 
 class ResultCorruptionError(ArithmeticError):
@@ -101,13 +135,15 @@ class RetryPolicy:
         return base * (1.0 + self.jitter_pct / 100.0
                        * _jitter_fraction(attempt))
 
-    def call(self, fn, on_retry=None, component: str | None = None):
+    def call(self, fn, on_retry=None, component: str | None = None,
+             exemplar: str | None = None):
         """Run ``fn()`` under the policy.  ``on_retry(exc, attempt)``
         (optional) runs before each re-attempt: the hook a caller uses to
         rebuild its input.  ``component`` labels the retry counter and the
-        ``retry`` events ("default" when None).  The JAX package's request
-        ``exemplar`` comes with the serving stack (ROADMAP.md Queue A item
-        14)."""
+        ``retry`` events ("default" when None).  ``exemplar`` is an
+        affected request id, attached to the retry counter's series and to
+        the ``retry`` events (the serving dispatcher passes one rider of
+        the batch)."""
         classify = self.classify if self.classify is not None else retryable
         sleep = self.sleep if self.sleep is not None else time.sleep
         attempt = 0
@@ -118,9 +154,11 @@ class RetryPolicy:
                 if attempt >= self.max_retries or not classify(e):
                     raise
                 label = component or "default"
-                _M_RETRIES.inc(component=label)
+                _M_RETRIES.inc(component=label, exemplar=exemplar)
                 _recorder.record("retry", component=label, attempt=attempt,
-                                 error=type(e).__name__)
+                                 error=type(e).__name__,
+                                 **({"request_id": exemplar}
+                                    if exemplar else {}))
                 delay = self.delay_s(attempt)
                 if delay > 0:
                     sleep(delay)
@@ -142,6 +180,92 @@ def retry_transient(fn):
     return _ONE_SHOT.call(fn, component="measure")
 
 
+class CircuitBreaker:
+    """Per-resource circuit breaker (each serving lane holds one).
+
+    closed --K consecutive failures--> open --cooldown--> half-open
+    --probe success--> closed; --probe failure--> open again.
+
+    ``allow()`` is the admission check (False: fast-fail with
+    :class:`CircuitOpenError` at the call site); ``record_success`` and
+    ``record_failure`` are the outcome feedback.  ``clock`` is any zero-arg
+    monotonic callable (tests inject a fake one)."""
+
+    CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
+    _GAUGE = {CLOSED: 0.0, OPEN: 1.0, HALF_OPEN: 2.0}
+
+    def __init__(self, failures: int = 3, cooldown_s: float = 5.0,
+                 clock=None, name: str = ""):
+        if failures < 1:
+            raise ValueError("failures must be >= 1")
+        self.failures = int(failures)
+        self.cooldown_s = float(cooldown_s)
+        self.clock = clock if clock is not None else time.monotonic
+        self.name = str(name)
+        self._lock = threading.Lock()
+        self._state = self.CLOSED
+        self._consecutive = 0
+        self._opened_at = 0.0
+        self._export()
+
+    def _export(self):
+        _M_BREAKER_STATE.set(self._GAUGE[self._state], breaker=self.name)
+
+    @property
+    def state(self) -> str:
+        """The state, reading an open breaker past its cooldown as
+        half-open even before an ``allow()`` flipped it."""
+        with self._lock:
+            if (self._state == self.OPEN
+                    and self.clock() - self._opened_at >= self.cooldown_s):
+                return self.HALF_OPEN
+            return self._state
+
+    def allow(self) -> bool:
+        """Admission check; flips open -> half-open once the cooldown has
+        elapsed (the next admitted request is the probe)."""
+        with self._lock:
+            if self._state == self.OPEN:
+                if self.clock() - self._opened_at < self.cooldown_s:
+                    return False
+                self._state = self.HALF_OPEN
+                self._export()
+                _recorder.record("breaker_transition", breaker=self.name,
+                                 state=self.HALF_OPEN)
+            return True
+
+    def _open(self):
+        self._state = self.OPEN
+        self._opened_at = self.clock()
+        self._consecutive = 0
+        self._export()
+        _M_BREAKER_OPEN.inc(breaker=self.name)
+        _recorder.record("breaker_transition", breaker=self.name,
+                         state=self.OPEN)
+
+    def record_success(self) -> None:
+        with self._lock:
+            transitioned = self._state != self.CLOSED
+            self._state = self.CLOSED
+            self._consecutive = 0
+            self._export()
+        if transitioned:
+            # Only transitions are events: a success on every healthy batch
+            # would evict the events that matter from the ring.
+            _recorder.record("breaker_transition", breaker=self.name,
+                             state=self.CLOSED)
+
+    def record_failure(self) -> None:
+        with self._lock:
+            if self._state == self.HALF_OPEN:
+                self._open()                 # a failed probe: straight back
+                return
+            self._consecutive += 1
+            if (self._state == self.CLOSED
+                    and self._consecutive >= self.failures):
+                self._open()
+
+
 @dataclass
 class ResiliencePolicy:
     """The umbrella policy ``solve(policy=)`` takes.
@@ -156,8 +280,9 @@ class ResiliencePolicy:
     re-solve, each rung recorded on ``SolveResult.recovery``.  A ladder
     that exhausts without passing raises :class:`ResidualGateError`.
 
-    Breaker knobs (``breaker_failures``, ``breaker_cooldown_s``) are carried
-    as data for the serving layer, which is not ported yet.
+    Breaker (serving): ``breaker_failures`` consecutive terminal executor
+    failures open a lane's :class:`CircuitBreaker` for
+    ``breaker_cooldown_s``.
     """
 
     retry: RetryPolicy = field(default_factory=RetryPolicy)
@@ -169,7 +294,8 @@ class ResiliencePolicy:
     breaker_cooldown_s: float = 5.0
 
 
-#: The defaults when no policy is passed where one is required: two retries
-#: with a short capped backoff, the standard gate, K=3 breaker.
+#: The defaults when no policy is passed where one is required (and the
+#: service's default): two retries with a short capped backoff, the standard
+#: gate, K=3 breaker.
 DEFAULT_POLICY = ResiliencePolicy(
     retry=RetryPolicy(max_retries=2, backoff_s=0.01, max_backoff_s=0.25))
