@@ -181,10 +181,32 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    report through ``tools/check_chaos.py`` with zero mismatches (bits
    equal to the fault-free replay on the card), and the CLI's
    ``--chaos-demo --quiet`` once (exit 0, the checker).
-10. ``kernels``: every ported kernel with its launches on its path (the
-   solve, tune, telemetry, resilience and serve rows; the variants'
-   engine runs of ``reference``), the complex bodies of ``gj_probe.cu`` as
-   ``gj_probe[c64]`` and ``gj_probe[c128]``.
+10. ``handles``: resident handles, update lanes and the capacity budget
+   on the card (``phase_handles``).  HANDLES_ROW (8192²/m384 rand fp32):
+   per rank (32: the capacitance probe ``gj_probe.cu`` at m = 8; 64: the
+   panel body at m = 16, 5 kernel launches a call) a resident invert, one
+   update through a second service with a zero drift budget, then a
+   stream of 8 cap-1 updates whose middle one makes the capacitance
+   exactly singular (``singular_factors``): every update accounted, ≥ 1
+   refreshed and ≥ 1 gated, the gated one leaving the handle's bits and
+   version unchanged, the first one's inverse within SMW_FP64_TOL of an
+   fp64 SMW of the same inputs, the forced one re_inverted, zero builds
+   and measurements after warmup, capacitance
+   probe calls = k/m an update (plus the invert lane's Nr when a rung ran),
+   and the final resident inverse under the gate beside three fresh
+   inverts of the mutated matrix through the warm invert lane (their
+   execute median printed beside the updates').  HANDLES_BATCH_ROW
+   (2048²/m128, rank 32, cap 4): four distinct handles in ONE launch (4
+   capacitance probe calls for the batch), then two distinct handles and a
+   same-handle follower, each result against the cap-1 lane on the same
+   states within BATCH_VS_CAP1_TOL with equal flags and versions.  A complex64
+   update at 1024, rank 8 (``gj_probe[c64]``, one call).  The CLI's
+   ``--capacity-demo`` at CAPACITY_DEMO_ROW: exit 0 and
+   ``tools/check_capacity.py`` exit 0.
+11. ``kernels``: every ported kernel with its launches on its path (the
+   solve, tune, telemetry, resilience, serve and handles rows; the
+   variants' engine runs of ``reference``), the complex bodies of
+   ``gj_probe.cu`` as ``gj_probe[c64]`` and ``gj_probe[c128]``.
 
 Not run by default: ``--phases knife_edge`` records that fp32 absdiff
 8192/m384 elimination through the grouped engine, with the kernel and with
@@ -210,7 +232,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("toolchain", "kernel_vs_plain", "reference", "solve", "tune",
-          "overlap", "telemetry", "resilience", "serve")
+          "overlap", "telemetry", "resilience", "serve", "handles")
 EXTRA_PHASES = ("knife_edge", "cluster_sweep", "batch_fp32")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
@@ -248,7 +270,10 @@ PROBE_CASES = (
     (300, 20, "float32"),
     (300, 20, "float64"),
     (1100, 4, "float32"),
+    (8, 16, "float32"),
 )
+# (8, 16) is the first capacitance stack of the batched update lane (4
+# handles × nc = 4 at rank 32, m = 8: gj_probe.cu).
 # The stack of the main-path row 1000/m50 (Nr = 20), whose m has no panel
 # width, so the probe is gj_probe.cu: the representative of that kernel for
 # the kernels line.  m = 300 (6000/m300 and 3000/m300) is its cluster
@@ -558,6 +583,21 @@ SERVE_SOLVE_ROWS = ((2048, 128, "rand", "float32", 16),
                     (1024, 128, "crand", "complex64", 4))
 CHAOS_ROW = (512, 64, 8)
 CHAOS_SEEDS = (0, 1, 2)
+
+# The handles phase: the cap-1 update lanes at (n, m, generator,
+# dtype, ranks, updates a stream); the batched lane at (n, m, rank, cap);
+# the complex update at (n, m, rank); the CLI's capacity demo at (n, m).
+HANDLES_ROW = (8192, 384, "rand", "float32", (32, 64), 8)
+HANDLES_BATCH_ROW = (2048, 128, 32, 4)
+HANDLES_COMPLEX_ROW = (1024, 128, 8)
+#: The served 8192 update against an fp64 SMW of the same inputs, relative
+#: to the correction's ∞-norm (fp32 rounding reads ≈ 1e-6 at 2048 on the
+#: host; a missing or transposed correction ≈ 1).
+SMW_FP64_TOL = 1e-3
+#: The batched lane against the cap-1 lane, relative ∞-norm (the same
+#: products in another grouping; the card read 4.2e-8).
+BATCH_VS_CAP1_TOL = 1e-5
+CAPACITY_DEMO_ROW = (2048, 128)
 
 # The probe variants: (kernel launch counter key, wrapper, plain twin).
 VARIANTS = {"gj_probe_inplace": ("inplace", "gj_probe_inplace",
@@ -2833,6 +2873,385 @@ def phase_serve(torch, counters):
     return totals
 
 
+def singular_factors(inv_row0, n: int, rank: int, np_dtype):
+    """Rank-destroying factors against the committed inverse X, given its
+    row 0: u = −e_j / X[0, j] in column 0, v = e₀, zero columns to rank k,
+    for the first j where fl(X[0, j]·(1/X[0, j])) = 1.  The capacitance
+    I + VᵀX·U then has a zero row and column in floating point (each GEMM
+    entry is one product, rounded once), so the probe flags it whatever
+    the products' order.  The JAX update demo's recipe (zero column 0 of
+    A, ``tpu_jordan/serve/update_demo.py::_singular_factors``) leaves a
+    capacitance singular only to eps·κ∞, which at this row's κ∞·eps ≈ 0.3
+    the card's runs of identical inputs judged both ways (ROADMAP.md
+    Queue C)."""
+    import numpy as np
+
+    row = np.asarray(inv_row0, np_dtype)[:n]
+    for j, x in enumerate(row):
+        c = np_dtype.type(1) / x
+        if x != 0 and np_dtype.type(c * x) == 1:
+            break
+    u = np.zeros((n, rank), np_dtype)
+    v = np.zeros((n, rank), np_dtype)
+    u[j, 0] = -c
+    v[0, 0] = 1
+    return u, v
+
+
+def phase_handles(torch, counters):
+    """Resident handles, update lanes and the capacity budget on the card
+    (the module docstring's phase 10); each driven path with the kernels'
+    counts set to 0 just before it and read just after.  Returns the counts
+    summed over the paths."""
+    import contextlib
+    import io
+    import statistics
+
+    import numpy as np
+
+    from tpu_jordan_torch.__main__ import main as cli
+    from tpu_jordan_torch.config import default_block_size
+    from tpu_jordan_torch.driver import batch_metrics
+    from tpu_jordan_torch.obs.metrics import REGISTRY
+    from tpu_jordan_torch.ops import block_jordan_invert, generate
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+    from tpu_jordan_torch.ops.gj_fused_panel import panel_width
+    from tpu_jordan_torch.resilience import DEFAULT_POLICY, gate_threshold
+    from tpu_jordan_torch.serve import (ExecutorStore, HandleState,
+                                        HandleStore, JordanService,
+                                        bucket_for)
+
+    totals = dict.fromkeys(counters, 0)
+    failures = []
+    compiles = REGISTRY.counter("tpu_jordan_torch_compiles_total")
+    measured = REGISTRY.counter("tpu_jordan_torch_tuner_measurements_total")
+    rungs = REGISTRY.counter("tpu_jordan_torch_recovery_rungs_total")
+
+    def reset():
+        for mod in counters.values():
+            mod.reset_launches()
+
+    def read():
+        got = {k: counters[k].launches for k in totals}
+        for k in totals:
+            totals[k] += got[k]
+        return got
+
+    def capacitance(k, dtype):
+        """(probe body, probe calls a solve, kernel launches a call) of the
+        k × k capacitance solve."""
+        mk = min(default_block_size(k), k)
+        body = probe_mod.probe_body(mk, dtype)
+        per_call = (2 * mk // panel_width(mk) + 1
+                    if body == "gj_probe_fused_panel" else 1)
+        return body, k // mk, per_call
+
+    def want(**bodies):
+        out = dict.fromkeys(counters, 0)
+        for name, count in bodies.items():
+            out[name] += count
+        return out
+
+    def inv_diff(x, ref):
+        return float((x - ref).abs().sum(-1).max()
+                     / ref.abs().sum(-1).max())
+
+    def smw_vs_fp64(inv0, inv1, u, v):
+        """The served update's inverse ``inv1`` against an fp64 SMW of the
+        same committed inverse ``inv0`` and factors on the card (plain
+        torch, ``torch.linalg.solve`` for the capacitance), as ∞-norms
+        relative to the correction ‖X_ref − X₀‖∞: a missing or transposed
+        correction reads ≈ 1, fp32 rounding ≈ 1e-6."""
+        x0 = inv0.double()
+        ud, vd = (torch.from_numpy(f).to(x0.device, torch.float64)
+                  for f in (u, v))
+        w = x0 @ ud
+        s = torch.eye(ud.shape[1], dtype=x0.dtype, device=x0.device)
+        y = torch.linalg.solve(s + vd.T @ w, vd.T @ x0)
+        corr = w @ y
+        c = float(corr.abs().sum(-1).max())
+        err = float((inv1.double() - (x0 - corr)).abs().sum(-1).max())
+        del x0, w, y, corr
+        return {"vs_fp64_over_correction": err / c,
+                "correction_over_inverse": c / float(
+                    inv0.double().abs().sum(-1).max())}
+
+    # (a) the cap-1 update lanes at the 8192 row, one handle a rank.
+    n, m, gen, dname, ranks, updates = HANDLES_ROW
+    dtype = getattr(torch, dname)
+    np_dtype = np.dtype(dname)
+    a_host = generate(gen, (n, n), dtype, device="cpu")
+    inv_body, inv_nr = probe_mod.probe_body(m, dtype), -(-n // m)
+    for k in ranks:
+        body, nr_cap, per_call = capacitance(k, dtype)
+        kw = dict(dtype=dtype, batch_cap=1, block_size=m,
+                  shared_handles=HandleStore(),
+                  shared_executors=ExecutorStore())
+        t0 = time.perf_counter()
+        with JordanService(**kw) as svc, JordanService(
+                update_drift_budget_factor=0.0, **kw) as forced:
+            for s in (svc, forced):
+                s.warmup(update_shapes=[(n, k)])
+            c0, m0 = compiles.total(), measured.total()
+            reset()
+            ref = svc.invert(a_host, resident=True, handle_id=f"u{k}",
+                             timeout=600)
+            got_create = read()
+            rng = np.random.default_rng(k)
+            scale = 1.0 / np.sqrt(float(n) * k)
+            outcomes, exec_ms, rels, bad_launches = [], [], [], []
+            gated_kept = smw_check = None
+            # The forced rung first, then the stream: the final resident
+            # inverse carries the stream's SMW updates.
+            for i in range(-1, updates):
+                st = svc.handles.get(ref.handle_id)
+                # A commit replaces the state's tensors, never edits them.
+                inv_before = st.inverse
+                target = forced if i < 0 else svc
+                if i == updates // 2:
+                    u, v = singular_factors(st.inverse[0].cpu().numpy(), n,
+                                            k, np_dtype)
+                    kept = (st.version, st.a.clone(), st.inverse.clone())
+                else:
+                    u, v = ((rng.standard_normal((n, k)) * scale)
+                            .astype(np_dtype) for _ in range(2))
+                    kept = None
+                r0 = rungs.total()
+                reset()
+                res = target.submit_update(ref, u, v).result(600)
+                got = read()
+                fired = int(rungs.total() - r0)
+                expect = want(**{body: nr_cap})
+                expect[inv_body] += fired * inv_nr
+                if got != expect:
+                    bad_launches.append({"update": i, "launches": got,
+                                         "expected": expect})
+                outcomes.append(res.update_outcome)
+                rels.append(res.rel_residual)
+                if res.update_outcome == "refreshed":
+                    exec_ms.append(res.execute_seconds * 1e3)
+                if i == 0:
+                    smw_check = smw_vs_fp64(
+                        inv_before, svc.handles.get(ref.handle_id).inverse,
+                        u, v)
+                del inv_before
+                if kept is not None:
+                    st = svc.handles.get(ref.handle_id)
+                    gated_kept = (res.update_outcome == "gated"
+                                  and st.version == kept[0]
+                                  and torch.equal(st.a, kept[1])
+                                  and torch.equal(st.inverse, kept[2]))
+                    del kept
+            # The final resident inverse against a fresh invert of the
+            # mutated matrix through the warm invert lane.
+            st = svc.handles.get(ref.handle_id)
+            met = batch_metrics(st.a[None], st.inverse[None])
+            res_rel = float(met["rel_residual"][0])
+            kappa = float(met["kappa"][0])
+            reset()
+            fresh = [svc.submit(st.a[:n, :n]).result(600) for _ in range(3)]
+            got_fresh = read()
+            diff = inv_diff(st.inverse[:n, :n], fresh[0].inverse)
+            gate = gate_threshold(DEFAULT_POLICY, n, kappa, dtype)
+            stats = svc.stats()
+            builds = int(compiles.total() - c0)
+            measurements = int(measured.total() - m0)
+            handle = stats["handles"][ref.handle_id]
+        applied = sum(o != "gated" for o in outcomes)
+        row = {"phase": "handles", "check": "update_lane", "n": n, "m": m,
+               "rank": k, "generator": gen, "dtype": dname,
+               "outcomes": outcomes, "rel_residuals": rels,
+               "update_execute_ms_median": statistics.median(exec_ms),
+               "reinvert_execute_ms_median": statistics.median(
+                   r.execute_seconds * 1e3 for r in fresh),
+               "capacitance_probe": body, "capacitance_calls": nr_cap,
+               "kernel_launches_per_call": per_call,
+               "resident_rel_residual": res_rel, "gate": gate,
+               "kappa_inf": kappa, "fresh_rel_residual": max(
+                   r.rel_residual for r in fresh),
+               "resident_vs_fresh": diff, "gated_kept_bits": gated_kept,
+               "smw_check": smw_check,
+               "version": handle["version"], "drift": handle["drift"],
+               "builds_after_warmup": builds,
+               "measurements": measurements,
+               "update_requests": stats["workloads"]["update"]["requests"],
+               "create_launches": got_create, "fresh_launches": got_fresh,
+               "bad_launches": bad_launches,
+               "seconds": time.perf_counter() - t0}
+        emit(row)
+        checks = {
+            "accounted": (len(outcomes) == updates + 1
+                          and row["update_requests"] == updates),
+            "refreshed": "refreshed" in outcomes[1:],
+            "gated": "gated" in outcomes[1:],
+            "gated_kept_bits": bool(gated_kept),
+            "forced_rung": outcomes[0] == "re_inverted",
+            "smw_vs_fp64": (outcomes[1] == "refreshed" and smw_check[
+                "vs_fp64_over_correction"] <= SMW_FP64_TOL),
+            "version": handle["version"] == applied,
+            "warm": builds == 0 and measurements == 0,
+            "launches": not bad_launches
+                        and got_create == want(**{inv_body: inv_nr})
+                        and got_fresh == want(**{inv_body: 3 * inv_nr}),
+            "resident_gate": res_rel < gate and all(
+                r.rel_residual < gate for r in fresh),
+        }
+        if not all(checks.values()):
+            failures.append({"update_lane": k, "checks": checks})
+        del ref, st, fresh, met
+        torch.cuda.empty_cache()
+    del a_host
+
+    # (b) the batched lane: distinct handles in one launch, a follower.
+    n, m, k, cap = HANDLES_BATCH_ROW
+    body, nr_cap, _ = capacitance(k, dtype)
+    store, executors = HandleStore(), ExecutorStore()
+    kw = dict(dtype=dtype, block_size=m, shared_handles=store,
+              shared_executors=executors)
+    mats = [generate("rand", (n, n), dtype, row_offset=i * n,
+                     col_offset=i * n, device="cpu") for i in range(cap)]
+    with JordanService(batch_cap=cap, **kw) as svc:
+        svc.warmup(update_shapes=[(n, k)])
+        reset()
+        refs = [svc.invert(x, resident=True, handle_id=f"b{i}",
+                           timeout=600) for i, x in enumerate(mats)]
+        got_create = read()
+    twin = HandleStore()
+    for r in refs:
+        st = store.get(r.handle_id)
+        twin.create(HandleState(r.handle_id, st.n, st.bucket_n, st.dtype,
+                                st.a.clone(), st.inverse.clone()))
+    rng = np.random.default_rng(cap)
+    scale = 1.0 / np.sqrt(float(n) * k)
+    rounds = ((0, 1, 2, 3), (1, 2, 1))
+    ups = [[tuple((rng.standard_normal((n, k)) * scale).astype(np_dtype)
+                  for _ in range(2)) for _ in rnd] for rnd in rounds]
+    batched, batch_got, batch_ms = [], [], []
+    for rnd, factors in zip(rounds, ups):
+        with JordanService(batch_cap=cap, autostart=False, **kw) as svc:
+            svc.warmup(update_shapes=[(n, k)])
+            futs = [svc.submit_update(refs[t], u, v)
+                    for t, (u, v) in zip(rnd, factors)]
+            reset()
+            svc.start()
+            batched.append([f.result(600) for f in futs])
+            batch_got.append(read())
+            lane = svc.stats()["buckets"][f"update:{n}:k{k}"]
+            batch_ms.append(lane["execute_ms"])
+    single, single_ms = [], []
+    with JordanService(batch_cap=1, shared_handles=twin, dtype=dtype,
+                       block_size=m, shared_executors=executors) as svc:
+        svc.warmup(update_shapes=[(n, k)])
+        reset()
+        for rnd, factors in zip(rounds, ups):
+            single.append([svc.update(refs[t], u, v, timeout=600)
+                           for t, (u, v) in zip(rnd, factors)])
+        single_got = read()
+        single_ms = [r.execute_seconds * 1e3 for rr in single for r in rr]
+    agree = []
+    for rr_b, rr_1 in zip(batched, single):
+        for b, one in zip(rr_b, rr_1):
+            agree.append({"outcome": (b.update_outcome, one.update_outcome),
+                          "singular": (b.singular, one.singular),
+                          "version": (b.handle_version, one.handle_version),
+                          "diff": inv_diff(b.inverse, one.inverse),
+                          "tolerance": BATCH_VS_CAP1_TOL})
+    follower_ok = (batched[1][2].handle_version
+                   == batched[1][0].handle_version + 1)
+    row = {"phase": "handles", "check": "batched_lane", "n": n, "m": m,
+           "rank": k, "batch_cap": cap, "rounds": rounds,
+           "create_launches": got_create, "launches": batch_got,
+           "cap1_launches": single_got,
+           "batch_execute_ms": batch_ms,
+           "cap1_execute_ms_median": statistics.median(single_ms),
+           "agreement": agree, "follower_version_ok": follower_ok}
+    emit(row)
+    n_updates = sum(len(r) for r in rounds)
+    # Each resident invert is its own batch: Nr probe calls.
+    create_want = want(**{probe_mod.probe_body(m, dtype): cap * (n // m)})
+    if not (got_create == create_want
+            and batch_got == [want(**{body: nr_cap}),
+                          want(**{body: 2 * nr_cap})]
+            and single_got == want(**{body: n_updates * nr_cap})
+            and follower_ok
+            and all(a["outcome"][0] == a["outcome"][1]
+                    and a["singular"][0] == a["singular"][1]
+                    and a["version"][0] == a["version"][1]
+                    and a["diff"] <= a["tolerance"] for a in agree)):
+        failures.append({"batched_lane": row})
+    del refs, batched, single, mats, store, twin
+    torch.cuda.empty_cache()
+
+    # The complex update: a complex64 handle (from the augmented engine;
+    # the invert lanes are real, as in the JAX package) through the update
+    # lane's complex capacitance solve.
+    n, m, k = HANDLES_COMPLEX_ROW
+    cdtype = torch.complex64
+    a = generate("crand", (n, n), cdtype, device="cuda")
+    inv, sing = block_jordan_invert(a, block_size=m, global_scale=True)
+    bucket = bucket_for(n)
+    a_pad = torch.eye(bucket, dtype=cdtype, device="cuda")
+    inv_pad = a_pad.clone()
+    a_pad[:n, :n], inv_pad[:n, :n] = a, inv
+    store = HandleStore()
+    ref = store.create(HandleState("c", n, bucket, "complex64", a_pad,
+                                   inv_pad))
+    rng = np.random.default_rng(n)
+    u, v = ((rng.standard_normal((n, k)) + 1j * rng.standard_normal((n, k)))
+            .astype(np.complex64) / np.sqrt(float(n) * k) for _ in range(2))
+    c_body, c_nr, _ = capacitance(k, cdtype)
+    with JordanService(dtype=cdtype, batch_cap=1, block_size=m,
+                       shared_handles=store) as svc:
+        # The complex invert lanes are refused, so the update lane alone.
+        svc.executors.get(bucket, 1, m, workload="update", rhs=k)
+        reset()
+        res = svc.update(ref, u, v, timeout=600)
+        got = read()
+    gate = gate_threshold(DEFAULT_POLICY, n, res.kappa, cdtype)
+    row = {"phase": "handles", "check": "complex_update", "n": n, "m": m,
+           "rank": k, "dtype": "complex64", "singular_invert": bool(sing),
+           "outcome": res.update_outcome, "rel_residual": res.rel_residual,
+           "gate": gate, "execute_ms": res.execute_seconds * 1e3,
+           "launches": got}
+    emit(row)
+    if (bool(sing) or res.update_outcome != "refreshed"
+            or not res.rel_residual < gate
+            or got != want(**{c_body: c_nr})):
+        failures.append({"complex_update": row})
+    del a, inv, a_pad, inv_pad, store, ref, res
+    torch.cuda.empty_cache()
+
+    # (c) the CLI's capacity demo, through its checker.
+    n, m = CAPACITY_DEMO_ROW
+    out = io.StringIO()
+    reset()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = cli([str(n), str(m), "--capacity-demo"])
+    got = read()
+    lines = out.getvalue().strip().splitlines()
+    rep = json.loads(lines[-1]) if rc == 0 and lines else {}
+    verdict = (check_tool("check_capacity.py", stdin=json.dumps(rep))
+               if rc == 0 else None)
+    # Three resident inverts (the fourth is refused before any launch) and
+    # one rank-8 update (the one of the evicted handle fails typed).
+    expect = want(**{probe_mod.probe_body(m, dtype): 3 * (-(-n // m))})
+    expect[capacitance(8, dtype)[0]] += 1
+    row = {"phase": "handles", "check": "capacity_demo", "n": n, "m": m,
+           "exit": rc, "check_capacity": verdict,
+           "budget_evictions": rep.get("budget_evictions"),
+           "handles_alive": rep.get("handles_alive"),
+           "compiles_on_capacity_path": rep.get("compiles_on_capacity_path"),
+           "elapsed_s": rep.get("elapsed_s"), "launches": got,
+           "expected": expect}
+    emit(row)
+    if rc != 0 or got != expect:
+        failures.append({"capacity_demo": row})
+    if failures:
+        raise AssertionError(f"handles failed its checks: {failures}")
+    return totals
+
+
 def phase_overlap(torch):
     """profile_solve's device-time split of the OVERLAP_ROWS rows: the
     probe, GEMM and other ms, the idle share and the overlap (the kernels'
@@ -3151,6 +3570,10 @@ def main(argv=None) -> int:
         for name, count in phase_serve(torch, launch_counters()).items():
             launches[name] = launches.get(name, 0) + count
     seconds["serve"] = time.perf_counter() - start - sum(seconds.values())
+    if "handles" in phases:
+        for name, count in phase_handles(torch, launch_counters()).items():
+            launches[name] = launches.get(name, 0) + count
+    seconds["handles"] = time.perf_counter() - start - sum(seconds.values())
     if "knife_edge" in phases:
         phase_knife_edge(torch)
     if "cluster_sweep" in phases:

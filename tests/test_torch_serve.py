@@ -10,8 +10,9 @@ noise, which the two packages' product orders make differ by up to ~2×);
 ``block_jordan_solve_batched`` picks every element's ``block_jordan_solve``
 pivots; the stats snapshot has the JAX keys and
 counts; the CLI's exit codes are the JAX CLI's.  The executor cache, the
-micro-batcher's lifecycle and the refusals of later items are pinned on the
-port alone.
+micro-batcher's lifecycle, the resident-handle surfaces (held to the JAX
+package in ``test_torch_update_serve.py``) and the mesh-lane refusals are
+pinned on the port alone.
 """
 
 import threading
@@ -507,16 +508,110 @@ def test_cli_serve_demo_runs_and_exits_zero(capsys):
     assert "stats" not in rep and rep["compiles_on_request_path"] == 0
 
 
-# ---- refusals of later items ---------------------------------------------
+# ---- the resident-handle surfaces (item 14b) and the mesh refusals --------
+
+def _resident(svc, n=8, hid=None):
+    a = np.eye(n, dtype=np.float32) * 2
+    return svc.invert(a, resident=True, handle_id=hid, timeout=60)
+
+
+def _uv(n=8, k=2):
+    rng = np.random.default_rng(12)
+    return (rng.standard_normal((n, k)).astype(np.float32) * 0.1,
+            rng.standard_normal((n, k)).astype(np.float32) * 0.1)
+
+
+def _check_resident(svc):
+    ref = _resident(svc, hid="r")
+    assert ref.handle_id == "r" and ref.bucket_n == 64
+    assert ref.result.workload == "invert" and not ref.result.singular
+    st = svc.handles.get("r")
+    assert st.a.shape == (64, 64) and st.version == 0
+    torch.testing.assert_close(st.inverse[:8, :8], torch.eye(8) / 2)
+
+
+def _check_update(svc):
+    ref = _resident(svc)
+    u, v = _uv()
+    res = svc.update(ref, u, v, timeout=60)
+    assert res.workload == "update" and res.update_outcome == "refreshed"
+    want = np.linalg.inv(2 * np.eye(8) + u.astype(np.float64) @ v.T)
+    assert np.abs(res.inverse.numpy() - want).max() < 1e-5
+
+
+def _check_submit_update(svc):
+    ref = _resident(svc)
+    u, v = _uv(k=1)
+    res = svc.submit_update(ref, u[:, 0], v[:, 0]).result(60)
+    assert res.handle_version == 1 and res.handle is ref
+    assert svc.stats()["handles"][ref.handle_id]["version"] == 1
+
+
+def _check_project(svc):
+    proj = svc.project_capacity(shapes=[64], update_shapes=[(48, 8)])
+    assert set(proj) == {"invert:64:b2", "invert:64:b1", "update:64:b1:k8",
+                         "update:64:b2:k8"}
+    assert proj["invert:64:b2"] == projected_lane_bytes(64, 2, "float32")
+    assert svc.stats()["totals"]["compiles"] == 0
+
+
+def _check_warmup(svc):
+    out = svc.warmup(update_shapes=[(48, 8)])
+    assert out == {64: "inplace", "update:64:k8": "smw_update"}
+    assert svc.stats()["totals"]["compiles"] == 4
+
+
+def _check_update_lane(svc):
+    ex, source = svc.executors.get_info(64, 2, workload="update", rhs=8)
+    assert source == "compiled" and ex.key.engine == "smw_update"
+    assert ex.key.workload == "update" and ex.key.rhs == 8
+
+
+def _check_stats(svc):
+    _resident(svc, hid="s")
+    snap = svc.stats()
+    assert snap["handles"]["s"]["nbytes"] == 2 * 64 * 64 * 4
+    assert snap["handle_budget"]["max_bytes"] is None
+
+
+@pytest.mark.parametrize("check", [
+    _check_resident, _check_update, _check_submit_update, _check_project,
+    _check_warmup, _check_update_lane, _check_stats,
+])
+def test_resident_handle_surfaces_work(check):
+    with JordanService(batch_cap=2, max_wait_ms=0.5, device=CPU) as svc:
+        check(svc)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"shared_handles": "store"},
+    {"handle_budget_bytes": 1 << 20},
+    {"update_drift_budget_factor": 2.0},
+    {"update_drift_budget_factor": 0.0, "handle_budget_bytes": 1 << 20},
+])
+def test_resident_handle_options_work_at_construction(kwargs):
+    from tpu_jordan_torch.serve import HandleStore
+
+    if kwargs.get("shared_handles") == "store":
+        kwargs = {"shared_handles": HandleStore()}
+    with JordanService(batch_cap=1, max_wait_ms=0.5, device=CPU,
+                       **kwargs) as svc:
+        if "shared_handles" in kwargs:
+            assert svc.handles is kwargs["shared_handles"]
+        budget = kwargs.get("handle_budget_bytes")
+        assert svc.handles.budget_snapshot()["max_bytes"] == budget
+        ref = _resident(svc)
+        u, v = _uv()
+        res = svc.update(ref, u, v, timeout=60)
+        want = ("re_inverted"
+                if kwargs.get("update_drift_budget_factor") == 0.0
+                else "refreshed")
+        assert res.update_outcome == want
+
 
 @pytest.mark.parametrize("call,item", [
-    (lambda s: s.invert(np.eye(8, dtype=np.float32), resident=True), "14b"),
-    (lambda s: s.update(None, None, None), "14b"),
-    (lambda s: s.submit_update(None, None, None), "14b"),
-    (lambda s: s.project_capacity(shapes=[64]), "14b"),
-    (lambda s: s.warmup(update_shapes=[(64, 8)]), "14b"),
     (lambda s: s.warmup(mesh_shapes=[(64, 8)]), "15"),
-    (lambda s: s.executors.get_info(64, 2, workload="update", rhs=8), "14b"),
+    (lambda s: s.project_capacity(mesh_shapes=[(64, 8)]), "15"),
     (lambda s: s.executors.get_info(64, 2, mesh="p8"), "15"),
 ])
 def test_later_items_are_refused_typed_on_the_service(call, item):
@@ -526,9 +621,6 @@ def test_later_items_are_refused_typed_on_the_service(call, item):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"shared_handles": object()}, "14b"),
-    ({"handle_budget_bytes": 1 << 20}, "14b"),
-    ({"update_drift_budget_factor": 2.0}, "14b"),
     ({"mesh_shapes": ("2x4",)}, "15"),
     ({"lane_budget_bytes": 1 << 20}, "15"),
 ])

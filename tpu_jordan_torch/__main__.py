@@ -41,9 +41,14 @@ requests (n, n/2, n/4) through a warmed ``serve.JordanService``
 a request was singular); ``--chaos-demo`` serves one seeded stream twice,
 fault-free and under a ``FaultPlan`` (``--chaos-seed``), and prints one
 JSON line for ``tools/check_chaos.py`` (exit 2 on silent corruption).
+``--capacity-demo`` runs one warmed service under a resident-handle byte
+budget (n the handle size, m the block size, ``--chaos-seed`` the fixtures)
+and prints one JSON line for ``tools/check_capacity.py`` (exit 2 on
+unmetered residency or a silent eviction).
 ``--quiet`` drops the bulky parts of the demos' reports (the per-lane
-stats, the fault log); elsewhere it is the default, non-verbose output.
-The serving flags apply to the two demos only.
+stats, the fault log, the per-handle rows); elsewhere it is the default,
+non-verbose output.  The serving flags apply to the serve and chaos demos
+only.
 """
 
 from __future__ import annotations
@@ -176,10 +181,26 @@ def _parser() -> argparse.ArgumentParser:
                          "carried a typed error, with every injected fault "
                          "accounted for (exit 2 on silent corruption; "
                          "tools/check_chaos.py validates the report)")
+    ap.add_argument("--capacity-demo", action="store_true",
+                    help="run the capacity acceptance demo "
+                         "(obs/capacity.capacity_demo): a warmed service "
+                         "under a resident-handle byte budget — lane bytes "
+                         "projected before any build, resident creates "
+                         "fill the budget, the next create evicts the "
+                         "least-recently-served handle (journey hop and "
+                         "capacity_eviction event), an all-pinned "
+                         "admission is the typed CapacityExceededError at "
+                         "submit, and the ledger reconciles bytes_created "
+                         "== bytes_live + bytes_evicted per class; prints "
+                         "ONE JSON line (exit 2 = unmetered residency or a "
+                         "silent eviction; tools/check_capacity.py "
+                         "validates).  n is the handle size, m the block "
+                         "size; --chaos-seed seeds the fixtures")
     ap.add_argument("--chaos-seed", type=int, default=0, metavar="S",
-                    help="--numerics-demo: the fixture's seed; "
-                         "--chaos-demo: the FaultPlan and request-stream "
-                         "seed (default 0; same seed = the same run)")
+                    help="--numerics-demo/--capacity-demo: the fixtures' "
+                         "seed; --chaos-demo: the FaultPlan and "
+                         "request-stream seed (default 0; same seed = the "
+                         "same run)")
     ap.add_argument("--serve-requests", type=int, default=64, metavar="R",
                     help="--serve-demo/--chaos-demo: requests to submit "
                          "(default 64)")
@@ -331,6 +352,8 @@ def _main(argv, state) -> int:
         resolve_precision(args.precision, args.refine)
         if args.quiet and args.verbose:
             raise UsageError("--quiet and --verbose contradict each other")
+        if args.capacity_demo:
+            return _capacity_demo(args)
         if args.numerics_demo:
             if args.serve_demo or args.chaos_demo:
                 raise UsageError("--numerics-demo, --chaos-demo and "
@@ -447,6 +470,52 @@ def _numerics_demo(args) -> int:
         print(f"unexplained degradation rung(s): "
               f"{report['unexplained_rungs']} — no causally preceding "
               f"numerics_spike", file=sys.stderr)
+        return 2
+    return 0
+
+
+def _capacity_demo(args) -> int:
+    """``--capacity-demo``: one JSON line; exit 2 on unmetered residency or
+    a silent eviction.  The JAX CLI's flag contract."""
+    import json
+
+    if args.serve_demo or args.chaos_demo or args.numerics_demo:
+        raise UsageError("--capacity-demo, --chaos-demo, --serve-demo and "
+                         "--numerics-demo are distinct modes; pick one")
+    if args.file is not None:
+        raise UsageError("--capacity-demo runs on a single device "
+                         "(gathered output, deterministic seeded fixtures)")
+    if args.batch > 1 or args.tune or args.group != 0:
+        raise UsageError("--capacity-demo takes no --batch/--tune/--group")
+    if args.workload != "invert":
+        raise UsageError("--capacity-demo streams resident-invert + update "
+                         "requests; --workload does not apply")
+    if args.numerics != "off":
+        raise UsageError("--capacity-demo's ledger semantics are pinned; "
+                         "--numerics does not apply")
+    if args.plan_cache is not None:
+        raise UsageError("--capacity-demo resolves its lanes through the "
+                         "cost-only ladder; --plan-cache does not apply")
+    if (args.serve_requests != 64 or args.batch_cap != 8
+            or args.max_wait_ms != 2.0):
+        raise UsageError("--capacity-demo streams its own fixed "
+                         "resident-invert/update mix (cap-1 lanes); "
+                         "--serve-requests/--batch-cap/--max-wait-ms do not "
+                         "apply")
+    from .obs.capacity import capacity_demo
+
+    report = capacity_demo(n=args.n, block_size=args.m, seed=args.chaos_seed,
+                           dtype=args.dtype, device=args.device)
+    if args.quiet:
+        # The checker needs the ledger and the black-box slice; the
+        # per-handle rows are operator color.
+        report.pop("handles", None)
+    print(json.dumps(report))
+    if report["silent_capacity"]:
+        print(f"silent capacity violation: unmetered="
+              f"{report['unmetered_components']}, budget_evictions="
+              f"{report['budget_evictions']} vs {len(report['evictions'])} "
+              f"recorded events", file=sys.stderr)
         return 2
     return 0
 

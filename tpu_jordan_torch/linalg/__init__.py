@@ -13,8 +13,8 @@ from .engine import (block_jordan_solve, block_jordan_solve_batched,
                      solve_batch_metrics)
 from .update import (DRIFT_BUDGET_FACTOR, UpdateResult, as_update_factors,
                      drift_budget, drift_exceeded, reinvert_fresh,
-                     smw_update, smw_update_with_metrics, solve_update,
-                     update_flops)
+                     smw_update, smw_update_batched_with_metrics,
+                     smw_update_with_metrics, solve_update, update_flops)
 
 __all__ = [
     "ASSUME", "DRIFT_BUDGET_FACTOR", "LstsqResult", "SOLVE_ENGINES",
@@ -22,6 +22,7 @@ __all__ = [
     "auto_solve_engine", "block_jordan_solve", "block_jordan_solve_batched",
     "block_jordan_solve_fori",
     "drift_budget", "drift_exceeded", "lstsq", "reinvert_fresh",
-    "resolve_solve_engine", "smw_update", "smw_update_with_metrics",
+    "resolve_solve_engine", "smw_update", "smw_update_batched_with_metrics",
+    "smw_update_with_metrics",
     "solve_batch_metrics", "solve_system", "solve_update", "update_flops",
 ]

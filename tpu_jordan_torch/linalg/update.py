@@ -17,10 +17,13 @@ Hermitian update is the caller's U = conj(V)).
 
 :func:`smw_update_with_metrics` mutates A, updates the inverse and
 re-verifies ‖A_new·X_new − I‖∞ against the mutated matrix
-(``driver.batch_metrics``).  Per-update residuals accumulate into a drift
-budget (:func:`drift_budget`): past ``DRIFT_BUDGET_FACTOR`` gate-widths, or
-on a failed gate, :func:`solve_update` with a policy fires the "re_invert"
-rung, a fresh elimination of the mutated matrix that resets the drift.
+(``driver.batch_metrics``); :func:`smw_update_batched_with_metrics` does so
+for a stack of distinct resident pairs (the serve update lanes' executor,
+one pair at batch cap 1), with one capacitance probe call a superstep for
+the stack.  Per-update residuals accumulate into a drift budget
+(:func:`drift_budget`): past ``DRIFT_BUDGET_FACTOR`` gate-widths, or on a
+failed gate, :func:`solve_update` with a policy fires the "re_invert" rung,
+a fresh elimination of the mutated matrix that resets the drift.
 
 Zero-padded columns of U and V are exact: they add nothing to U·Vᵀ, make
 the capacitance [[S, 0], [0, I]] and drop out of the correction.
@@ -52,7 +55,7 @@ from ..obs.spans import timed_blocking
 from ..ops.jordan_inplace import _SUB_FP32
 from ..resilience import faults as _faults
 from ..resilience.policy import ResiliencePolicy
-from .engine import block_jordan_solve
+from .engine import block_jordan_solve, block_jordan_solve_batched
 
 #: How many gate-widths of accumulated per-update drift a resident inverse
 #: may carry before the "re_invert" rung fires even though the latest
@@ -132,6 +135,43 @@ def smw_update_with_metrics(a, inv, u, v, n_real=None):
     met = batch_metrics(a_new[None], inv_new[None].to(a_new.dtype), nr)
     return (a_new, inv_new, singular, met["kappa"][0],
             met["rel_residual"][0])
+
+
+def smw_update_batched(inv: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """:func:`smw_update` of a (B, n, n) stack of inverses with (B, n, k)
+    factors: the three n×n·k products are one ``bmm``/``baddbmm`` each, and
+    the B capacitance systems S_i·Y_i = Z_i go through
+    :func:`~.engine.block_jordan_solve_batched`, one probe call a superstep
+    for the whole batch, each element with the pivots it picks alone.
+    Returns ``(inv_new, singular)``, singular a (B,) bool tensor."""
+    if inv.dtype in _SUB_FP32:
+        inv_new, singular = smw_update_batched(inv.float(), u.float(),
+                                               v.float())
+        return inv_new.to(inv.dtype), singular
+    u = u.to(inv.dtype)
+    v = v.to(inv.dtype)
+    k = u.shape[-1]
+    vt = v.transpose(-1, -2)
+    w = torch.bmm(inv, u)                                      # A⁻¹U
+    z = torch.bmm(vt, inv)                                     # VᵀA⁻¹
+    eye = torch.eye(k, dtype=inv.dtype, device=inv.device)
+    s = torch.baddbmm(eye.expand(inv.shape[0], k, k), vt, w)
+    y, singular = block_jordan_solve_batched(s, z)
+    return torch.baddbmm(inv, w, y, alpha=-1), singular
+
+
+def smw_update_batched_with_metrics(a, inv, u, v, n_real):
+    """The batched twin of :func:`smw_update_with_metrics` (the JAX package
+    maps the single update over the batch): every element of the (B, N, N)
+    stacks ``a`` and ``inv`` gets its own (N, K) factors and its own
+    ``n_real`` ((B,) ints) row mask, and comes back with its own singular
+    flag, κ∞ and rel_residual as (B,) tensors.  An inert filler slot
+    (identity A and A⁻¹, zero U and V, n_real = 0) stays the identity and
+    touches no real element's flags."""
+    a_new = torch.baddbmm(a, u.to(a.dtype), v.to(a.dtype).transpose(-1, -2))
+    inv_new, singular = smw_update_batched(inv, u, v)
+    met = batch_metrics(a_new, inv_new.to(a_new.dtype), n_real)
+    return a_new, inv_new, singular, met["kappa"], met["rel_residual"]
 
 
 @dataclass

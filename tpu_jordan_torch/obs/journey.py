@@ -10,6 +10,9 @@ its life appends a timestamped journey event:
   event               recorded by
   ==================  =================================================
   submit              the journey log, at context creation
+  capacity_evict      the handle store's budget admission, per handle
+                      it evicted for this resident invert (handle,
+                      bytes, cause)
   reject              the service, on a typed submit-time rejection
   enqueue             the micro-batcher's bounded-queue admission
   breaker_fast_fail   the batcher's circuit-breaker fast-fail
@@ -20,7 +23,13 @@ its life appends a timestamped journey event:
   retry               the dispatcher's per-batch retry (attempt, error)
   deadline            the typed deadline failure (phase: queue | execute)
   batch_failure       a terminal batch error fanned to this rider
-  served              the result fan-out (singular, seconds)
+  recovery_rung       an update's re_invert rung (cause, passed)
+  update              an update's judged outcome (refreshed |
+                      re_inverted | gated, version, drift)
+  typed_failure       an update rider's own typed error (an unknown
+                      handle, an unrecovered gate, a mixed rider)
+  served              the result fan-out (singular, seconds; an
+                      update's outcome and version)
   result              TERMINAL: outcome ok|error, written by close()
   ==================  =================================================
 

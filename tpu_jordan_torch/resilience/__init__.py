@@ -2,8 +2,8 @@
 degradation ladder and the retry policy (``degrade.py``, ``policy.py``),
 the deterministic fault points (``faults.py``) and superstep
 checkpoint/resume (``checkpoint.py``), and the serving pieces: typed
-deadlines and the circuit breaker (``policy.py``).  Counterpart of the JAX
-package's ``resilience/``."""
+deadlines, the circuit breaker and the capacity refusal (``policy.py``).
+Counterpart of the JAX package's ``resilience/``."""
 
 from . import faults
 from .checkpoint import (
@@ -37,6 +37,7 @@ from .faults import (
 )
 from .policy import (
     DEFAULT_POLICY,
+    CapacityExceededError,
     CircuitBreaker,
     CircuitOpenError,
     DeadlineExceededError,
@@ -49,7 +50,7 @@ from .policy import (
     retryable,
 )
 
-__all__ = ["CheckpointCorruptError", "CheckpointError", "CheckpointKey",
+__all__ = ["CapacityExceededError", "CheckpointCorruptError", "CheckpointError", "CheckpointKey",
            "CheckpointMismatchError", "CheckpointNotFoundError",
            "CheckpointStore", "CheckpointUnsupportedError",
            "CircuitBreaker", "CircuitOpenError", "DeadlineExceededError",

@@ -26,8 +26,8 @@ port of the JAX package's ``resilience/policy.py``.
 Every retry is counted in ``tpu_jordan_torch_retries_total`` (labeled by
 component, with the affected request as the series' exemplar when the
 caller names one) and recorded as a ``retry`` flight-recorder event.
-``CapacityExceededError`` comes with the resident handles (ROADMAP.md Queue
-A item 14b).
+:class:`CapacityExceededError` is the resident-handle budget's typed
+refusal at submit (``serve/handles.py``).
 """
 
 from __future__ import annotations
@@ -76,6 +76,16 @@ class ResultCorruptionError(ArithmeticError):
     finite ones are promised): the typed form of silent corruption, raised
     so the retry policy can act instead of a wrong answer reaching a
     caller."""
+
+
+class CapacityExceededError(MemoryError):
+    """A resident-bytes budget refused an admission: the requested
+    residency does not fit under the :class:`~..obs.capacity.
+    CapacityBudget` ceiling and nothing evictable is left (everything is
+    pinned).  Raised at submit, before any device launch, so an
+    over-budget ``invert(resident=True)`` is a typed answer, never an
+    out-of-memory error mid-launch.  Evict or unpin a handle
+    (``HandleStore.evict``/``unpin``), or raise the budget, and retry."""
 
 
 class ResidualGateError(ArithmeticError):

@@ -1,7 +1,7 @@
-"""Serving: a dynamic-batching inversion and solve service on one card.
-Counterpart of the JAX package's ``serve/`` core (ROADMAP.md Queue A item
-14a; the resident handles and update lanes are item 14b, the mesh lanes
-item 15):
+"""Serving: a dynamic-batching inversion, solve and update service on one
+card.  Counterpart of the JAX package's ``serve/`` (ROADMAP.md Queue A
+items 14a and 14b; the mesh lanes are item 15, the fleet and
+``update_demo`` item 14d):
 
   * ``executors``: requests round up to power-of-two n-buckets (exact by
     identity padding); one executor per (bucket, batch_cap, dtype, engine,
@@ -12,28 +12,43 @@ item 15):
     run through the batched engines, and fan per-element results back to
     per-request futures; retries, the integrity gate, deadlines and
     per-lane circuit breakers under a ``ResiliencePolicy``.
+  * ``handles``: the resident (A, A⁻¹) pairs on the device
+    (:class:`HandleStore`, per-handle transactions, the capacity budget's
+    LRU eviction and typed refusal); the update lanes of ``batcher`` apply
+    rank-k SMW updates to them, one per launch or a batch of distinct
+    handles in one.
   * ``service``: :class:`JordanService` (``submit(a)``, ``submit(a, b)``,
-    ``invert``, ``solve_system``, warmup, draining close), ``serve_demo``
-    and ``chaos_demo`` (the CLI's ``--serve-demo`` and ``--chaos-demo``).
+    ``invert`` with ``resident=True``, ``update``/``submit_update``,
+    ``solve_system``, ``project_capacity``, warmup, draining close),
+    ``serve_demo`` and ``chaos_demo`` (the CLI's ``--serve-demo`` and
+    ``--chaos-demo``; ``--capacity-demo`` is ``obs.capacity``'s).
   * ``stats``: per-lane counters and latency percentiles.
 """
 
 from ..resilience.policy import (CircuitOpenError, DeadlineExceededError,
                                  ResultCorruptionError)
-from .batcher import (InvertResult, MicroBatcher, ServiceClosedError,
-                      ServiceOverloadedError)
+from ..resilience.policy import CapacityExceededError
+from .batcher import (InvertResult, MicroBatcher, MixedUpdateBatchError,
+                      ServiceClosedError, ServiceOverloadedError)
 from .executors import (MIN_BUCKET_N, MIN_UPDATE_K, BucketExecutor,
                         ExecutorCache, ExecutorKey, ExecutorStore,
                         bucket_for, k_bucket_for, lane_label,
                         projected_lane_bytes, rhs_bucket_for)
+from .handles import (HandleRef, HandleState, HandleStore,
+                      UnknownHandleError, build_handle_store,
+                      create_resident_handle, resident_handle_bytes)
 from .service import (JordanService, chaos_demo, compare_outcomes,
                       serve_demo)
 from .stats import ServeStats
 
 __all__ = [
-    "InvertResult", "MicroBatcher", "ServiceClosedError",
-    "ServiceOverloadedError",
-    "CircuitOpenError", "DeadlineExceededError", "ResultCorruptionError",
+    "InvertResult", "MicroBatcher", "MixedUpdateBatchError",
+    "ServiceClosedError", "ServiceOverloadedError",
+    "CapacityExceededError", "CircuitOpenError", "DeadlineExceededError",
+    "ResultCorruptionError",
+    "HandleRef", "HandleState", "HandleStore", "UnknownHandleError",
+    "build_handle_store", "create_resident_handle",
+    "resident_handle_bytes",
     "MIN_BUCKET_N", "MIN_UPDATE_K", "BucketExecutor", "ExecutorCache",
     "ExecutorKey", "ExecutorStore", "bucket_for", "k_bucket_for",
     "lane_label", "projected_lane_bytes", "rhs_bucket_for",

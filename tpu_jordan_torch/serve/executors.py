@@ -1,6 +1,6 @@
 """The shape-bucketed executor cache.  Counterpart of the JAX package's
-``serve/executors.py`` (its update build comes with ROADMAP.md Queue A item
-14b, its mesh lanes with item 15).
+``serve/executors.py`` (its mesh lanes come with ROADMAP.md Queue A item
+15).
 
 Requests are rounded UP to power-of-two n-buckets (:func:`bucket_for`);
 identity padding makes the rounding exact (``ops/padding.py``: the padded
@@ -17,7 +17,10 @@ measurements``, the per-lane ``compiles`` stat).
 A lane's run does the whole batch job: the padded stack through the batched
 engine, then the per-element accuracy (``driver.batch_metrics``,
 ``linalg.solve_batch_metrics``) on the device, so the batcher fans κ∞ and
-rel_residual to every rider from the same launch sequence.
+rel_residual to every rider from the same launch sequence.  An update lane
+(workload ``"update"``, engine ``smw_update``) applies rank-k SMW updates to
+resident pairs and re-verifies each against its mutated matrix
+(``linalg.update``).
 """
 
 from __future__ import annotations
@@ -62,8 +65,8 @@ def rhs_bucket_for(k: int) -> int:
     return 1 << max(0, int(k - 1).bit_length())
 
 
-#: The smallest update-lane rank bucket (the update lanes come with item
-#: 14b; the rounding is shared with the solve lanes).
+#: The smallest update-lane rank bucket: a smaller rank updates exactly,
+#: zero-padded to 8 (the rounding is shared with the solve lanes).
 MIN_UPDATE_K = 8
 
 
@@ -154,8 +157,11 @@ class BucketExecutor:
     n_real)`` (solve lanes) takes the identity-padded (batch_cap, N, N)
     stack (and the zero-padded (batch_cap, N, rhs) RHS stack) on the
     lane's device and returns device tensors: (inverses or solutions,
-    singular flags, κ∞, rel_residual).  It never writes its inputs, so a
-    retry re-runs on the same stacks.
+    singular flags, κ∞, rel_residual).  An update lane's ``run(a, inv, u,
+    v, n_real)`` takes (batch_cap, N, N) pair stacks and (batch_cap, N, K)
+    factor stacks and returns (a_new, inv_new, singular, κ∞,
+    rel_residual).  It never writes its inputs, so a retry
+    re-runs on the same stacks.
 
     Departure from the JAX package: the ``grouped`` and ``augmented``
     invert lanes run their single-matrix engines element by element (the
@@ -177,10 +183,17 @@ class BucketExecutor:
         _faults.fire("compile")
         key = self.key
         dtype = resolve_dtype(key.dtype)
-        fn = (self._invert_fn(dtype) if key.workload == "invert"
-              else self._solve_fn())
+        if key.workload == "update":
+            fn = self._update_fn()
+            # The capacitance solve's probe (k bucket rows, its default
+            # block size) is what an update launches.
+            m = min(default_block_size(key.rhs), key.rhs)
+        else:
+            fn = (self._invert_fn(dtype) if key.workload == "invert"
+                  else self._solve_fn())
+            m = key.block_size
         if self.device.type == "cuda":
-            _load_probe_library(key.block_size, dtype)
+            _load_probe_library(m, dtype)
         return fn
 
     def _invert_fn(self, dtype):
@@ -239,6 +252,20 @@ class BucketExecutor:
             return x, sing, met["kappa_est"], met["rel_residual"]
 
         return fn
+
+    def _update_fn(self):
+        """The update lane: SMW rank-k updates of a (batch_cap, N, N)
+        stack of distinct pairs, re-verified against the mutated matrices
+        (``smw_update_batched_with_metrics``: one capacitance probe call a
+        superstep for the stack, where the JAX package maps the single
+        update over the batch)."""
+        from ..linalg.update import smw_update_batched_with_metrics
+
+        if self.key.engine != "smw_update":
+            raise UsageError(
+                f"engine {self.key.engine!r} is not an update-lane engine "
+                f"(smw_update is the one registered update engine)")
+        return smw_update_batched_with_metrics
 
     def run(self, *args):
         return self._fn(*args)
@@ -360,7 +387,8 @@ class ExecutorCache:
         """(engine, plan) of a lane: an explicit invert engine as given,
         else the tuner's ladder at the batched, workload-scoped point (a
         service with an explicit invert engine still resolves its solve
-        lanes through the ladder)."""
+        and update lanes through the ladder; ``smw_update`` is the one
+        update engine)."""
         if self.engine != "auto" and workload == "invert":
             return self.engine, None
         point = TunePoint.create(bucket_n, block_size, self.dtype,
@@ -383,11 +411,7 @@ class ExecutorCache:
         """``get`` and how the executor was obtained: ``"cached"`` (this
         cache's view), ``"shared_store"`` (another cache built it) or
         ``"compiled"`` (this call built it); the dispatcher stamps it on
-        each rider's journey.  Update lanes (item 14b) and mesh lanes
-        (item 15) are refused typed."""
-        if workload == "update":
-            raise UsageError("the update lanes come with the resident "
-                             "handles (ROADMAP.md Queue A item 14b)")
+        each rider's journey.  Mesh lanes (item 15) are refused typed."""
         if mesh != "single":
             raise UsageError(f"mesh lanes ({mesh!r}) are the distributed "
                              f"path (ROADMAP.md Queue A item 15)")
@@ -402,9 +426,9 @@ class ExecutorCache:
             key = ExecutorKey(bucket_n, batch_cap, self.dtype, engine, m,
                               workload, rhs)
             ex = self._executors.get(key)
-        # Invert lanes are labeled by the bare bucket, solve lanes by
-        # "solve:<bucket>:k<rhs>", so a solve build never counts as an
-        # invert bucket's.
+        # Invert lanes are labeled by the bare bucket, solve and update
+        # lanes by "<workload>:<bucket>:k<rhs>", so their builds never
+        # count as an invert bucket's.
         label = (bucket_n if workload == "invert"
                  else f"{workload}:{bucket_n}:k{rhs}")
         if ex is not None:

@@ -1,7 +1,6 @@
 """``JordanService``: the serving surface, and the serve and chaos demos.
-Counterpart of the JAX package's ``serve/service.py`` without the resident
-handles and the capacity budget (ROADMAP.md Queue A item 14b) and the mesh
-lanes (item 15), which it refuses typed.
+Counterpart of the JAX package's ``serve/service.py`` without the mesh lanes
+(ROADMAP.md Queue A item 15), which it refuses typed.
 
 Callers ``submit()`` (n, n) matrices, or a matrix and right-hand sides, and
 get futures.  Requests round up to power-of-two buckets (exact by identity
@@ -12,8 +11,15 @@ cache, so a warm server performs zero measurements and zero builds.
 
   * **Admission control**: the queue is bounded (``max_queue``); a full
     queue raises :class:`ServiceOverloadedError` at submit.
-  * **Warmup**: ``warmup(shapes=, solve_shapes=)`` builds the lanes those
-    requests land in, so the first request never pays a build.
+  * **Warmup**: ``warmup(shapes=, solve_shapes=, update_shapes=)`` builds
+    the lanes those requests land in, so the first request never pays a
+    build; ``project_capacity`` gives each lane's bytes before any build.
+  * **Resident handles**: ``invert(a, resident=True)`` keeps the (A, A⁻¹)
+    pair on the device in the handle store (``handles.py``) and returns a
+    ``HandleRef``; ``update(ref, u, v)`` applies a rank-k SMW update
+    through the update lanes.  With ``handle_budget_bytes`` the store
+    evicts least-recently-served unpinned handles to admit a new one, or
+    refuses it with the typed ``CapacityExceededError`` at submit.
   * **Per-element verification**: every result carries κ∞ and
     rel_residual from its batch's run and its element's singular flag; a
     singular request never poisons its batch-mates.
@@ -40,30 +46,23 @@ from ..interop import resolve_device, resolve_dtype
 from ..obs.journey import JourneyLog
 from ..resilience.policy import DEFAULT_POLICY
 from .batcher import InvertResult, MicroBatcher
-from .executors import ExecutorCache, bucket_for, rhs_bucket_for
+from .executors import (ExecutorCache, bucket_for, k_bucket_for,
+                        rhs_bucket_for)
+from .handles import HandleRef
 from .stats import ServeStats
 
-#: Constructor options of the JAX service that come with a later item.
-_LATER_OPTIONS = {
-    "shared_handles": "14b", "handle_budget_bytes": "14b",
-    "update_drift_budget_factor": "14b",
-    "mesh_shapes": "15", "lane_budget_bytes": "15",
-}
+
+def _refuse(what: str) -> None:
+    """The typed refusal of a mesh-lane option or call (item 15)."""
+    raise UsageError(f"{what} belongs to the distributed mesh lanes, not "
+                     f"ported yet (ROADMAP.md Queue A item 15)")
 
 
-def _refuse(what: str, item: str) -> None:
-    area = ("resident handles and the update lanes" if item == "14b"
-            else "the distributed mesh lanes")
-    raise UsageError(f"{what} belongs to {area}, not ported yet "
-                     f"(ROADMAP.md Queue A item {item})")
-
-
-def _refuse_later(options: dict) -> None:
-    """A typed refusal of every given option of a later item: none is
-    silently ignored."""
+def _refuse_mesh(**options) -> None:
+    """Refuse every given mesh-lane option: none is silently ignored."""
     for name, value in options.items():
         if value is not None and value != ():
-            _refuse(name, _LATER_OPTIONS[name])
+            _refuse(name)
 
 
 class JordanService:
@@ -99,11 +98,16 @@ class JordanService:
       metric_labels: extra labels on every mirrored metric series.
       numerics: "off" (nothing added to the dispatch path) or "summary";
         "trace" is refused as the JAX package refuses it.
+      shared_handles: a ``HandleStore`` shared with other services (its
+        budget is its own); None: a private store.
+      handle_budget_bytes: the resident-bytes ceiling of the private store
+        (``obs.capacity.CapacityBudget``); refused with ``shared_handles``.
+      update_drift_budget_factor: gate-widths of accumulated drift a
+        resident inverse may carry before the re_invert rung fires (None:
+        ``linalg.update.DRIFT_BUDGET_FACTOR``).
 
-    The JAX service's ``shared_handles``, ``handle_budget_bytes`` and
-    ``update_drift_budget_factor`` (item 14b) and ``mesh_shapes`` and
-    ``lane_budget_bytes`` (item 15) are refused with a typed UsageError
-    when given.
+    The JAX service's ``mesh_shapes`` and ``lane_budget_bytes`` (item 15)
+    are refused with a typed UsageError when given.
     """
 
     def __init__(self, engine: str = "auto", plan_cache=None,
@@ -119,12 +123,8 @@ class JordanService:
                  shared_handles=None, handle_budget_bytes=None,
                  update_drift_budget_factor=None, mesh_shapes=(),
                  lane_budget_bytes=None):
-        _refuse_later({"shared_handles": shared_handles,
-                       "handle_budget_bytes": handle_budget_bytes,
-                       "update_drift_budget_factor":
-                           update_drift_budget_factor,
-                       "mesh_shapes": tuple(mesh_shapes),
-                       "lane_budget_bytes": lane_budget_bytes})
+        _refuse_mesh(mesh_shapes=tuple(mesh_shapes),
+                     lane_budget_bytes=lane_budget_bytes)
         from ..obs.numerics import resolve_mode
 
         self.numerics = resolve_mode(numerics)
@@ -143,6 +143,13 @@ class JordanService:
         self.telemetry = telemetry
         self.policy = DEFAULT_POLICY if policy == "default" else policy
         self.default_deadline_ms = default_deadline_ms
+        from .handles import build_handle_store
+
+        # The resident (A, A⁻¹) pairs the update lanes mutate.
+        self.handles = build_handle_store(shared_handles,
+                                          handle_budget_bytes,
+                                          "the service")
+        self._handle_seq = 0
         self._stats = ServeStats(labels=metric_labels)
         self.executors = ExecutorCache(
             engine=engine, plan_cache=plan_cache, dtype=self.dtype,
@@ -154,7 +161,8 @@ class JordanService:
             max_wait_ms=max_wait_ms, max_queue=max_queue,
             block_size=block_size, autostart=autostart,
             telemetry=telemetry, policy=self.policy,
-            numerics=self.numerics)
+            numerics=self.numerics, handles=self.handles,
+            update_drift_budget_factor=update_drift_budget_factor)
         # Request journeys, always on: ids in submit order, every hop
         # mirrored into the flight recorder.
         self.journey = JourneyLog(prefix="req")
@@ -229,15 +237,116 @@ class JordanService:
 
     def invert(self, a, timeout: float | None = None,
                deadline_ms: float | None = None, resident: bool = False,
-               handle_id: str | None = None) -> InvertResult:
+               handle_id: str | None = None):
         """Submit and wait; raises SingularMatrixError when THIS request's
         element was flagged (``submit`` reports the flag instead).
-        ``resident=True`` (a resident handle) comes with item 14b."""
-        if resident or handle_id is not None:
-            _refuse("invert(resident=True)", "14b")
-        res = self.submit(a, deadline_ms=deadline_ms).result(timeout)
+
+        ``resident=True`` also installs the (A, A⁻¹) pair as a resident
+        handle (on the service's device) and returns its
+        :class:`~.handles.HandleRef` (``ref.result`` is the
+        ``InvertResult``); ``handle_id`` names it (default ``h<N>``; an
+        existing id is replaced).  With a budget on the handle store the
+        handle's 2·bucket²·itemsize bytes are admitted BEFORE the invert is
+        submitted: LRU unpinned handles are evicted (a ``capacity_evict``
+        hop each on this request's journey), or the typed
+        ``CapacityExceededError`` is raised here and nothing launches."""
+        if not resident:
+            res = self.submit(a, deadline_ms=deadline_ms).result(timeout)
+            if res.singular:
+                raise SingularMatrixError("singular matrix")
+            return res
+        from .handles import resident_handle_bytes
+
+        a = self._host(a)
+        if a.dim() != 2 or a.shape[0] != a.shape[1]:
+            raise ValueError(f"expected a square (n, n) matrix, "
+                             f"got shape {tuple(a.shape)}")
+        n = a.shape[0]
+        bucket = bucket_for(n)
+        ctx = self.journey.new(n, bucket, workload="invert")
+        try:
+            self.handles.ensure_capacity(
+                resident_handle_bytes(bucket, self.dtype),
+                hop=ctx.event, replacing=handle_id)
+            fut = self.submit(a, deadline_ms=deadline_ms, _ctx=ctx)
+        except Exception as e:
+            ctx.close("error", error=type(e).__name__)
+            raise
+        fut.add_done_callback(ctx.close_from_future)
+        res = fut.result(timeout)
         if res.singular:
             raise SingularMatrixError("singular matrix")
+        return self._create_handle(a, res, handle_id)
+
+    def _create_handle(self, a, res: InvertResult,
+                       handle_id: str | None) -> HandleRef:
+        """Install one resident handle from a completed invert
+        (``handles.create_resident_handle``)."""
+        from .handles import create_resident_handle
+
+        if handle_id is None:
+            with self._close_lock:
+                self._handle_seq += 1
+                handle_id = f"h{self._handle_seq}"
+        return create_resident_handle(self.handles, self.dtype, a, res,
+                                      handle_id)
+
+    def submit_update(self, handle: HandleRef, u, v,
+                      deadline_ms: float | None = None,
+                      _ctx=None) -> Future:
+        """Queue one rank-k update A ← A + U·Vᵀ of a resident handle: its
+        inverse refreshed by Sherman–Morrison–Woodbury in O(n²k) and
+        re-verified against the mutated matrix in the same run, the drift
+        budget deciding when the re_invert rung pays a fresh elimination.
+        ``u`` and ``v`` are (n,) or (n, k); only they cross to the device.
+        The future resolves to an :class:`InvertResult` with
+        ``workload="update"``, the committed ``handle_version`` and
+        ``drift``, and ``update_outcome`` (refreshed, re_inverted or
+        gated).  Typed rejections as ``submit``'s."""
+        from ..linalg.update import as_update_factors
+
+        if not isinstance(handle, HandleRef):
+            raise ValueError(f"update() takes the HandleRef returned by "
+                             f"invert(resident=True), got "
+                             f"{type(handle).__name__}")
+        n = handle.n
+        u, v, k = as_update_factors(u, v, n, self.dtype, device="cpu")
+        kb = k_bucket_for(k)
+        bucket = handle.bucket_n
+        padded_u = torch.zeros((bucket, kb), dtype=self.dtype)
+        padded_u[:n, :k] = u
+        padded_v = torch.zeros((bucket, kb), dtype=self.dtype)
+        padded_v[:n, :k] = v
+        if deadline_ms is None:
+            deadline_ms = self.default_deadline_ms
+        own_ctx = _ctx is None
+        ctx = (self.journey.new(n, bucket, workload="update")
+               if own_ctx else _ctx)
+        try:
+            fut = self._batcher.submit(
+                None, n, bucket,
+                deadline_s=(None if deadline_ms is None
+                            else float(deadline_ms) / 1e3),
+                ctx=ctx, workload="update", rhs=kb, k=k, handle=handle,
+                padded_u=padded_u, padded_v=padded_v)
+        except Exception as e:
+            if own_ctx:
+                ctx.close("error", error=type(e).__name__)
+            raise
+        if own_ctx:
+            fut.add_done_callback(ctx.close_from_future)
+        return fut
+
+    def update(self, handle: HandleRef, u, v, timeout: float | None = None,
+               deadline_ms: float | None = None) -> InvertResult:
+        """``submit_update`` and wait; raises SingularMatrixError when the
+        mutation made the matrix singular (the handle is untouched)."""
+        res = self.submit_update(handle, u, v,
+                                 deadline_ms=deadline_ms).result(timeout)
+        if res.singular:
+            raise SingularMatrixError(
+                "singular matrix (rank-k update destroyed rank; "
+                "resident state unchanged)")
         return res
 
     def solve_system(self, a, b, timeout: float | None = None,
@@ -249,32 +358,58 @@ class JordanService:
             raise SingularMatrixError("singular matrix")
         return res
 
-    def submit_update(self, *args, **kwargs):
-        """Resident-inverse updates come with item 14b."""
-        _refuse("submit_update", "14b")
-
-    def update(self, *args, **kwargs):
-        """Resident-inverse updates come with item 14b."""
-        _refuse("update", "14b")
-
-    def project_capacity(self, *args, **kwargs):
-        """The capacity projection comes with item 14b."""
-        _refuse("project_capacity", "14b")
-
     # ---- lifecycle ---------------------------------------------------
+
+    def project_capacity(self, shapes=(), solve_shapes=(),
+                         update_shapes=(), mesh_shapes=()) -> dict:
+        """The argument + output bytes of every lane the given request mix
+        would open (:meth:`warmup`'s vocabulary: an (n, k) update shape
+        opens n's invert lane, its cap-1 re_invert twin and the cap-1 and
+        batch-cap update lanes), computed with nothing built; each is
+        recorded on ``tpu_jordan_torch_capacity_projected_lane_bytes``.
+        ``mesh_shapes`` (item 15) is refused when given."""
+        from ..obs import capacity as _capacity
+        from .executors import lane_label, projected_lane_bytes
+
+        _refuse_mesh(mesh_shapes=tuple(mesh_shapes))
+        cap = self.batch_cap
+        out = {}
+
+        def project(workload, bucket, batch_cap, rhs=0):
+            label = lane_label(workload, bucket, batch_cap, rhs)
+            out[label] = projected_lane_bytes(bucket, batch_cap, self.dtype,
+                                              workload, rhs)
+            _capacity.record_projection(label, out[label])
+
+        for n in shapes:
+            project("invert", bucket_for(int(n)), cap)
+        for n, k in solve_shapes:
+            project("solve", bucket_for(int(n)), cap,
+                    rhs_bucket_for(int(k)))
+        for n, k in update_shapes:
+            b, kb = bucket_for(int(n)), k_bucket_for(int(k))
+            project("invert", b, cap)
+            if cap != 1:
+                project("invert", b, 1)      # the re_invert rung's lane
+            project("update", b, 1, kb)
+            if cap != 1:
+                project("update", b, cap, kb)
+        return out
 
     def warmup(self, shapes=(), solve_shapes=(), update_shapes=(),
                mesh_shapes=()) -> dict:
         """Build the executors of every lane the given request sizes
-        (``shapes``) and (n, k) solves (``solve_shapes``) land in; returns
-        {lane: resolved engine}.  After a warmup covering the live mix the
-        serve path performs zero builds and zero measurements.
-        ``update_shapes`` (item 14b) and ``mesh_shapes`` (item 15) are
-        refused when given."""
-        if tuple(update_shapes):
-            _refuse("update_shapes", "14b")
-        if tuple(mesh_shapes):
-            _refuse("mesh_shapes", "15")
+        (``shapes``), (n, k) solves (``solve_shapes``) and (n, k) updates
+        (``update_shapes``: n's invert lane, its cap-1 twin that the
+        re_invert rung runs, and the cap-1 and batch-cap update lanes,
+        whose build loads the capacitance probe's kernel) land in, each
+        projected first (:meth:`project_capacity`); returns {lane:
+        resolved engine}.  After a warmup covering the live mix the serve
+        path performs zero builds and zero measurements.  ``mesh_shapes``
+        (item 15) is refused when given."""
+        self.project_capacity(shapes=shapes, solve_shapes=solve_shapes,
+                              update_shapes=update_shapes,
+                              mesh_shapes=mesh_shapes)
         out = {}
         for n in shapes:
             b = bucket_for(int(n))
@@ -288,6 +423,17 @@ class JordanService:
                                     self._batcher.block_size,
                                     workload="solve", rhs=rhs)
             out[f"solve:{b}:k{rhs}"] = ex.key.engine
+        for n, k in update_shapes:
+            b, kb = bucket_for(int(n)), k_bucket_for(int(k))
+            m = self._batcher.block_size
+            out[b] = self.executors.get(b, self.batch_cap, m).key.engine
+            if self.batch_cap != 1:
+                self.executors.get(b, 1, m)
+            ex = self.executors.get(b, 1, m, workload="update", rhs=kb)
+            out[f"update:{b}:k{kb}"] = ex.key.engine
+            if self.batch_cap != 1:
+                self.executors.get(b, self.batch_cap, m, workload="update",
+                                   rhs=kb)
         return out
 
     def start(self) -> None:
@@ -322,7 +468,8 @@ class JordanService:
     def stats(self) -> dict:
         """Per-lane counters and latency percentiles (``serve/stats.py``),
         the resolved engine of each built lane, the tuner's measurement
-        count, the queue depth and the breakers' states."""
+        count, the queue depth, the resident handles and their budget, and
+        the breakers' states."""
         snap = self._stats.snapshot()
         snap["engines"] = {
             (f"{k.bucket_n}" if k.workload == "invert"
@@ -337,6 +484,8 @@ class JordanService:
         snap["measurements"] = self.executors.measurements
         snap["batch_cap"] = self.batch_cap
         snap["queued"] = self._batcher.queued
+        snap["handles"] = self.handles.snapshot()
+        snap["handle_budget"] = self.handles.budget_snapshot()
         snap["breakers"] = {str(b): s for b, s
                             in self.executors.breaker_states().items()}
         return snap
@@ -362,7 +511,7 @@ def serve_demo(n: int, block_size: int | None = None, requests: int = 64,
     from ..ops import generate
 
     if workers not in (1, None):
-        _refuse("workers", "15")
+        _refuse("workers")
     dev = resolve_device(device)
     dtype = resolve_dtype(dtype)
     sizes = sorted({max(1, n), max(1, n // 2), max(1, n // 4)},
