@@ -203,10 +203,52 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    update at 1024, rank 8 (``gj_probe[c64]``, one call).  The CLI's
    ``--capacity-demo`` at CAPACITY_DEMO_ROW: exit 0 and
    ``tools/check_capacity.py`` exit 0.
-11. ``kernels``: every ported kernel with its launches on its path (the
-   solve, tune, telemetry, resilience, serve and handles rows; the
-   variants' engine runs of ``reference``), the complex bodies of
-   ``gj_probe.cu`` as ``gj_probe[c64]`` and ``gj_probe[c128]``.
+11. ``fleet``: the replica fleet on the card (``phase_fleet``):
+   ``fleet_demo`` at FLEET_DEMO_ROW (2048/m128 fp32, the mix {2048,
+   1024}, 64 requests, batch cap 8, 3 replicas, 2 seeded kills) for
+   FLEET_SEEDS, each with ``--slo-report``'s monitor, then the CLI's
+   ``--fleet-demo --slo-report --quiet`` once: ``tools/check_fleet.py``
+   and ``tools/check_slo.py`` exit 0, every chaos response bit-equal to
+   the fault-free replay or typed, zero builds and measurements after
+   warmup, warm replacements = deaths, no replica judged wedged, the
+   ledger's ``outstanding`` 0, and panel-probe launches = Σ batches × Nr
+   plus the warm batches' (every fleet warmup runs one inert batch of
+   each lane on each replica's dispatcher thread: Nr panel calls an
+   invert or solve lane, one capacitance call an update lane); printed:
+   the 1- and 3-replica requests/s, ``scaling_x``, p50/p99 execute by
+   bucket, the cross-replica spread.  Then FLEET_UPDATE_ROW: a resident
+   2048 handle and 8 rank-1 updates through a 3-replica fleet at the
+   default 1.0 s liveness deadline, fault-free and under a seeded
+   ``replica_kill``: versions 1..8, every update's inverse and the final
+   resident inverse bit-equal to the replay, nothing judged wedged,
+   capacitance (``gj_probe``) calls = updates plus the warm batches'.
+12. ``lpqp``: the LP/QP drivers on the card (``phase_lpqp``): the CLI's
+   ``--lp-demo`` at each of LP_DEMO_ROWS (512 and 48, m 128, fp64, 3
+   replicas, 2 kills, batch cap 4) through ``tools/check_lp.py``: at 48
+   exit 0; at 512 its only complaints may be the ill QP leg's
+   non-convergence and the silent-divergence flag it sets (the
+   reference's own driver, ROADMAP.md Queue C).  Held at both, claim by
+   claim: the other legs converged, no typed error and no mismatch,
+   every update accounted, the zero-budget leg all ``re_inverted``, the
+   chaos fingerprint and every iterate equal to the replay with deaths =
+   restarts = kills, the batched lane amortizing, zero builds and
+   measurements after warmup, nothing outstanding or wedged, and the
+   launches: capacitance (``gj_probe``) calls = the updates of every
+   leg, panel calls = Nr × (creates + solves + rungs), each plus the
+   warm batches'.  Then LP_TIMED_ROW, one ``solve_lp`` of
+   ``lp_instance(m=1024)`` through a warm 3-replica fleet at the default
+   liveness deadline, ``solve_every=16``: converged, ``obj_rel_err`` ≤
+   1e-8, capacitance calls = updates, panel calls = Nr × (1 + solves +
+   rungs), each plus the warm batches', and the per-iteration wall's
+   median and p90 with its split (the update's round trip and its
+   execute, the inverse's copy to the host, the verification solve, the
+   host's pricing).
+13. ``kernels``: every ported kernel with its launches on its path (the
+   solve, tune, telemetry, resilience, serve, handles, fleet and lpqp
+   rows; the variants' engine runs of ``reference``), the complex bodies
+   of ``gj_probe.cu`` as ``gj_probe[c64]`` and ``gj_probe[c128]``; with
+   the fleet and lpqp phases, each kernel's launches in each of them
+   (``launches_by_phase``).
 
 Not run by default: ``--phases knife_edge`` records that fp32 absdiff
 8192/m384 elimination through the grouped engine, with the kernel and with
@@ -232,7 +274,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("toolchain", "kernel_vs_plain", "reference", "solve", "tune",
-          "overlap", "telemetry", "resilience", "serve", "handles")
+          "overlap", "telemetry", "resilience", "serve", "handles", "fleet",
+          "lpqp")
 EXTRA_PHASES = ("knife_edge", "cluster_sweep", "batch_fp32")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
@@ -598,6 +641,28 @@ SMW_FP64_TOL = 1e-3
 #: products in another grouping; the card read 4.2e-8).
 BATCH_VS_CAP1_TOL = 1e-5
 CAPACITY_DEMO_ROW = (2048, 128)
+
+# The fleet phase: fleet_demo at (n, m, requests, batch_cap, replicas,
+# kills), fp32, on the chaos demo's seeded standard-normal stream of sizes
+# {n, n/2} (the serve demo's width), for FLEET_SEEDS, then the CLI's
+# --fleet-demo once.
+FLEET_DEMO_ROW = (2048, 128, 64, 8, 3, 2)
+FLEET_SEEDS = (0, 1)
+# A resident handle's update stream through the fleet at (n, m, updates,
+# kills), rand fp32, fault-free and under seeded replica_kill.
+FLEET_UPDATE_ROW = (2048, 128, 8, 1)
+# The lpqp phase: the CLI's --lp-demo at each of LP_DEMO_ROWS (n, m,
+# replicas, kills, batch_cap, the driver legs allowed not to converge),
+# fp64; one solve_lp at LP_TIMED_ROW (m, cond, solve_every, replicas), fp64.
+# The reference's active-set driver stops short of its own KKT gate on the
+# ill QP family from n = 64 on (both packages on the CPU at 64 and 128:
+# tests/test_torch_lpqp.py; ROADMAP.md Queue C), so at 512 tools/check_lp.py
+# may complain of qp_ill's non-convergence and of the silent-divergence
+# flag it sets, and of nothing else: the phase holds every other claim the
+# flag summarizes itself.  At 48 every leg converges and the checker exits 0.
+LP_DEMO_ROWS = ((512, 128, 3, 2, 4, ("qp_ill",)),
+                (48, 128, 3, 2, 4, ()))
+LP_TIMED_ROW = (1024, "well", 16, 3)
 
 # The probe variants: (kernel launch counter key, wrapper, plain twin).
 VARIANTS = {"gj_probe_inplace": ("inplace", "gj_probe_inplace",
@@ -3252,6 +3317,526 @@ def phase_handles(torch, counters):
     return totals
 
 
+def _wedged_deaths(counter) -> float:
+    """Replica deaths the supervisor's liveness deadline caused, so far."""
+    return sum(v for k, v in counter.series().items()
+               if dict(k).get("reason") == "wedged")
+
+
+def _warm_series() -> dict:
+    """The inert warm batches run so far, by lane (the series of
+    ``tpu_jordan_torch_serve_warm_batches_total``)."""
+    from tpu_jordan_torch.obs.metrics import REGISTRY
+
+    return dict(REGISTRY.counter(
+        "tpu_jordan_torch_serve_warm_batches_total").series())
+
+
+def _warm_launches(torch, counters, before: dict) -> dict:
+    """The kernel launches of the inert warm batches run since ``before``
+    (``_warm_series()`` then): Nr probe calls a warm invert or solve
+    batch, ceil(k / m) capacitance calls a warm update batch."""
+    from tpu_jordan_torch.config import default_block_size
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+
+    want = dict.fromkeys(counters, 0)
+    for key, v in _warm_series().items():
+        count = int(v - before.get(key, 0))
+        if not count:
+            continue
+        lb = dict(key)
+        dtype = getattr(torch, lb["dtype"])
+        if lb["workload"] == "update":
+            rows = int(lb["rhs"])
+            mm = min(default_block_size(rows), rows)
+        else:
+            rows = int(lb["bucket"])
+            mm = min(int(lb["block"]), rows)
+        want[probe_mod.probe_body(mm, dtype)] += count * -(-rows // mm)
+    return want
+
+
+def _execute_samples(series_before: dict, hist) -> tuple[dict, dict]:
+    """The execute-seconds samples each lane's histogram series gained
+    since ``series_before`` (its counts then): ({bucket: samples pooled
+    over the replicas}, {"bucket@r<slot>": the series' largest, ms})."""
+    out: dict = {}
+    worst: dict = {}
+    for key, res in hist.series().items():
+        new = res.count - series_before.get(key, 0)
+        if new > 0:
+            labels = dict(key)
+            fresh = res.samples[-new:]
+            out.setdefault(labels.get("bucket"), []).extend(fresh)
+            worst[f"{labels.get('bucket')}@r{labels.get('replica')}"] = (
+                max(fresh) * 1e3)
+    return out, worst
+
+
+def phase_fleet(torch, counters):
+    """The replica fleet on the card (the module docstring's phase 11):
+    ``fleet_demo`` at FLEET_DEMO_ROW for FLEET_SEEDS and the CLI's
+    ``--fleet-demo --slo-report --quiet`` once, each run with the kernels'
+    counts set to 0 just before it and read just after.  Returns the counts
+    summed over the runs."""
+    import contextlib
+    import io
+    import tempfile
+
+    from tpu_jordan_torch.__main__ import main as cli
+    from tpu_jordan_torch.fleet import fleet_demo
+    from tpu_jordan_torch.obs.metrics import REGISTRY, percentiles
+    from tpu_jordan_torch.obs.recorder import RECORDER
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+
+    n, m, requests, cap, replicas, kills = FLEET_DEMO_ROW
+    totals = dict.fromkeys(counters, 0)
+    failures = []
+    exec_hist = REGISTRY.histogram("tpu_jordan_torch_serve_execute_seconds")
+    batches = REGISTRY.counter("tpu_jordan_torch_serve_batches_total")
+    deaths = REGISTRY.counter("tpu_jordan_torch_fleet_replica_deaths_total")
+
+    def run(fn):
+        """One driven run: counts reset before, read after; the batches it
+        dispatched per bucket, its execute samples and its wedge verdicts."""
+        for mod in counters.values():
+            mod.reset_launches()
+        seen = {k: r.count for k, r in exec_hist.series().items()}
+        b0 = dict(batches.series())
+        wedged0 = _wedged_deaths(deaths)
+        warm0 = _warm_series()
+        mark = RECORDER.total
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        finally:
+            got = {k: counters[k].launches for k in totals}
+            for k in totals:
+                totals[k] += got[k]
+        wall = time.perf_counter() - t0
+        per_bucket: dict = {}
+        for key, v in batches.series().items():
+            d = v - b0.get(key, 0.0)
+            if d and "workload" not in dict(key):      # invert lanes
+                bucket = int(dict(key)["bucket"])
+                per_bucket[bucket] = per_bucket.get(bucket, 0) + int(d)
+        warm = _warm_launches(torch, counters, warm0)
+        want = dict(warm)
+        for bucket, count in per_bucket.items():
+            mm = min(m, bucket)
+            want[probe_mod.probe_body(mm, torch.float32)] += (
+                count * -(-bucket // mm))
+        wedged = _wedged_deaths(deaths) - wedged0
+        stale = [e for e in RECORDER.since(mark)
+                 if e["kind"] == "heartbeat_stale"]
+        samples, worst = _execute_samples(seen, exec_hist)
+        execute = {b: {k: (None if v is None else v * 1e3)
+                       for k, v in percentiles(s).items() if k != "p95"}
+                   for b, s in sorted(samples.items())}
+        return out, {"launches": got, "expected": want,
+                     "warm_launches": warm,
+                     "batches": per_bucket, "wall_s": wall,
+                     "wedged_deaths": wedged, "heartbeat_stale": len(stale),
+                     "execute_ms": execute, "execute_max_ms": worst}
+
+    def verdicts_of(tag, *args, **kw):
+        """Both checkers' verdicts; a failed one is recorded, not raised,
+        so the row still prints."""
+        out = {}
+        for tool in ("check_fleet.py", "check_slo.py"):
+            try:
+                out[tool] = check_tool(tool, *args, **kw)
+            except AssertionError as e:
+                out[tool] = f"FAILED: {e}"[:2000]
+                failures.append({tag: out[tool]})
+        return out
+
+    def judge(rep, tag):
+        chaos = rep["chaos"]
+        typed = sum(rep["typed_errors"].values())
+        checks = {
+            "bits_or_typed": (not rep["mismatches"]
+                              and rep["matched_bitwise"] + typed
+                              == rep["requests"]),
+            "zero_builds_after_warmup":
+                chaos["compiles_delta_after_warmup"] == 0,
+            "zero_measurements": rep["plan_cache"]["measurements"] == 0,
+            "replacements_equal_deaths":
+                chaos["restarts"] == chaos["deaths"] >= kills,
+            "outstanding_zero": rep["ledger"]["outstanding"] == 0,
+        }
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            failures.append({tag: bad})
+        return checks
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for seed in FLEET_SEEDS:
+            rep, info = run(lambda: fleet_demo(
+                n=n, replicas=replicas, requests=requests, batch_cap=cap,
+                kills=kills, seed=seed, block_size=m, dtype=torch.float32,
+                slo_report=True))
+            path = os.path.join(tmp, f"fleet{seed}.json")
+            with open(path, "w") as f:
+                json.dump(rep, f)
+            verdicts = verdicts_of(f"seed {seed}", path)
+            thr, chaos = rep["throughput"], rep["chaos"]
+            emit({"phase": "fleet", "check": "fleet_demo", "n": n, "m": m,
+                  "requests": requests, "batch_cap": cap,
+                  "replicas": replicas, "kills": kills, "seed": seed,
+                  "single_rps": thr["single_rps"],
+                  "fleet_rps": thr["fleet_rps"],
+                  "scaling_x": thr["scaling_x"],
+                  "scaling_floor": thr["scaling_floor"],
+                  "p99_ms": {k: thr[k] for k in ("single_p99_ms",
+                                                 "fleet_p99_ms",
+                                                 "chaos_p99_ms",
+                                                 "p99_bound_ms")},
+                  "exec_spread": {
+                      "p99_spread": thr["exec_spread"]["p99_spread"],
+                      "p99_ms": {r: d["exec_ms"]["p99"] for r, d in
+                                 thr["exec_spread"]["replicas"].items()}},
+                  "execute_ms_by_bucket": info["execute_ms"],
+                  "execute_max_ms_by_lane": info["execute_max_ms"],
+                  "batches": info["batches"],
+                  "kills_injected": chaos["kills_injected"],
+                  "deaths": chaos["deaths"], "restarts": chaos["restarts"],
+                  "reroutes": chaos["reroutes"],
+                  "matched_bitwise": rep["matched_bitwise"],
+                  "typed_errors": rep["typed_errors"],
+                  "singular_flagged": rep["singular_flagged"],
+                  "ledger": rep["ledger"],
+                  "checks": judge(rep, f"seed {seed}"),
+                  "wedged_deaths": info["wedged_deaths"],
+                  "heartbeat_stale": info["heartbeat_stale"],
+                  "slo_healthy": rep["slo"]["healthy"],
+                  "elapsed_s": rep["elapsed_s"], "wall_s": info["wall_s"],
+                  "launches": info["launches"],
+                  "expected": info["expected"],
+                  "warm_launches": info["warm_launches"],
+                  "verdicts": verdicts})
+            if info["launches"] != info["expected"]:
+                failures.append({"seed": seed,
+                                 "launches": info["launches"],
+                                 "expected": info["expected"]})
+            if info["wedged_deaths"] or info["heartbeat_stale"]:
+                failures.append({"seed": seed, "wedged": info})
+
+    def cli_run():
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli([str(n), str(m), "--fleet-demo", "--slo-report",
+                      "--quiet"])
+        return rc, out.getvalue().strip().splitlines()
+
+    def update_stream(plan):
+        """FLEET_UPDATE_ROW's stream: a resident invert through a warm
+        fleet, then rank-1 updates, under ``plan`` (None: fault-free);
+        (each update's outcome, version and inverse bytes, the final
+        resident inverse's bytes, the injections)."""
+        import contextlib as _ctx
+
+        import numpy as np
+
+        from tpu_jordan_torch.fleet import JordanFleet
+        from tpu_jordan_torch.ops import generate
+        from tpu_jordan_torch.resilience import (ResiliencePolicy,
+                                                 RetryPolicy, activate)
+
+        nu, mu, count, _ = FLEET_UPDATE_ROW
+        rng = np.random.default_rng(nu)
+        muts = [(rng.standard_normal((nu, 1)).astype(np.float32) * 0.01,
+                 rng.standard_normal((nu, 1)).astype(np.float32) * 0.01)
+                for _ in range(count)]
+        a = generate("rand", (nu, nu), torch.float32, device="cpu")
+        with JordanFleet(replicas=replicas, dtype=torch.float32,
+                         batch_cap=1, block_size=mu, stable_after_s=0.2,
+                         policy=ResiliencePolicy(retry=RetryPolicy(
+                             max_retries=4, backoff_s=0.0))) as fleet:
+            fleet.warmup([nu], update_shapes=[(nu, 1)])
+            with (activate(plan) if plan is not None
+                  else _ctx.nullcontext()):
+                ref = fleet.invert(a, resident=True, timeout=600)
+                outs = []
+                for u, v in muts:
+                    res = fleet.update(ref, u, v, timeout=600)
+                    outs.append((res.update_outcome, res.handle_version,
+                                 res.inverse.cpu().numpy().tobytes()))
+            final = fleet.handles.get(ref.handle_id).inverse
+            final = final.cpu().numpy().tobytes()
+            ledger = fleet.stats()["ledger"]
+        return outs, final, ledger
+
+    from tpu_jordan_torch.resilience import FaultPlan
+
+    nu, mu, count, kills_u = FLEET_UPDATE_ROW
+    (base, base_final, _), info_b = run(lambda: update_stream(None))
+    plan = FaultPlan.seeded(0, points={"replica_kill": (kills_u,
+                                                        count + 1)})
+    (chaos, chaos_final, ledger), info_c = run(lambda: update_stream(plan))
+    rungs = sum(o[0] == "re_inverted" for o in base + chaos)
+    from tpu_jordan_torch.serve import bucket_for
+
+    nr = -(-bucket_for(nu) // mu)
+    want = {k: info_b["warm_launches"][k] + info_c["warm_launches"][k]
+            for k in counters}
+    want["gj_probe"] += 2 * count
+    want[probe_mod.probe_body(mu, torch.float32)] += (2 + rungs) * nr
+    got = {k: info_b["launches"][k] + info_c["launches"][k] for k in want}
+    row = {"phase": "fleet", "check": "fleet_update", "n": nu, "m": mu,
+           "liveness_deadline_s": 1.0,
+           "updates": count, "kills_injected": plan.injected_total,
+           "outcomes": [o[0] for o in chaos],
+           "versions": [o[1] for o in chaos],
+           "bits_equal_replay": (chaos == base
+                                 and chaos_final == base_final),
+           "ledger": ledger, "launches": got, "expected": want,
+           "wall_s": info_b["wall_s"] + info_c["wall_s"],
+           "wedged_deaths": info_b["wedged_deaths"]
+           + info_c["wedged_deaths"]}
+    emit(row)
+    if not (row["bits_equal_replay"] and plan.injected_total == kills_u
+            and row["versions"] == list(range(1, count + 1))
+            and ledger["outstanding"] == 0 and got == want
+            and not row["wedged_deaths"]):
+        failures.append({"fleet_update": {k: row[k] for k in (
+            "kills_injected", "versions", "bits_equal_replay", "launches",
+            "expected", "wedged_deaths")}})
+
+    (rc, lines), info = run(cli_run)
+    rep = json.loads(lines[-1]) if rc == 0 and lines else None
+    verdicts = (verdicts_of("cli", stdin=lines[-1]) if rep is not None
+                else None)
+    emit({"phase": "fleet", "check": "fleet_cli", "exit": rc,
+          "scaling_x": rep and rep["throughput"]["scaling_x"],
+          "checks": rep and judge(rep, "cli"),
+          "launches": info["launches"], "expected": info["expected"],
+          "wall_s": info["wall_s"], "verdicts": verdicts})
+    if rc != 0 or info["launches"] != info["expected"]:
+        failures.append({"fleet_cli": rc, "launches": info["launches"],
+                         "expected": info["expected"]})
+    if not (totals["gj_probe_fused_panel"] and totals["gj_probe"]):
+        failures.append({"fleet_launches": totals})
+    if failures:
+        raise AssertionError(f"fleet failed its checks: {failures}")
+    return totals
+
+
+def phase_lpqp(torch, counters):
+    """The LP/QP drivers on the card (the module docstring's phase 12): the
+    CLI's ``--lp-demo`` at each of LP_DEMO_ROWS through
+    ``tools/check_lp.py``, then LP_TIMED_ROW's ``solve_lp`` through a warm
+    fleet, each with the kernels' counts set to 0 just before it and read
+    just after.  Returns the counts summed over the runs."""
+    import contextlib
+    import io
+    import statistics
+
+    import numpy as np
+
+    from tpu_jordan_torch.__main__ import main as cli
+    from tpu_jordan_torch.config import default_block_size
+    from tpu_jordan_torch.fleet import JordanFleet
+    from tpu_jordan_torch.lpqp import lp_instance, solve_lp
+    from tpu_jordan_torch.obs.metrics import REGISTRY
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+    from tpu_jordan_torch.serve import bucket_for, k_bucket_for
+
+    totals = dict.fromkeys(counters, 0)
+    failures = []
+    deaths = REGISTRY.counter("tpu_jordan_torch_fleet_replica_deaths_total")
+
+    def counted(fn):
+        for mod in counters.values():
+            mod.reset_launches()
+        w0 = _wedged_deaths(deaths)
+        warm0 = _warm_series()
+        try:
+            return fn()
+        finally:
+            counted.last = {k: counters[k].launches for k in totals}
+            counted.wedged = _wedged_deaths(deaths) - w0
+            counted.warm = _warm_launches(torch, counters, warm0)
+            for k in totals:
+                totals[k] += counted.last[k]
+
+    # (1) the CLI's demo through its checker, at each row.
+    for n, m, replicas, kills, cap, may_fail in LP_DEMO_ROWS:
+        def demo():
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                rc = cli([str(n), str(m), "--lp-demo", "--dtype", "float64",
+                          "--replicas", str(replicas), "--kills",
+                          str(kills), "--batch-cap", str(cap), "--quiet"])
+            return rc, out.getvalue().strip().splitlines()
+
+        t0 = time.perf_counter()
+        rc, lines = counted(demo)
+        wall = time.perf_counter() - t0
+        got = counted.last
+        rep = json.loads(lines[-1]) if rc in (0, 2) and lines else None
+        if rep is None:
+            failures.append({"lp_demo": n, "exit": rc})
+            continue
+        out = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "tools", "check_lp.py"),
+             "-"], input=lines[-1], capture_output=True, text=True)
+        complaints = [ln for ln in out.stderr.splitlines() if ln.strip()]
+        allowed = {f"FAIL -: {leg}: driver did not converge"
+                   for leg in may_fail}
+        if may_fail:
+            allowed.add("SILENT-DIVERGENCE -: silent_divergence flagged "
+                        "by the demo itself")
+        legs, bat, chaos = rep["legs"], rep["batched"], rep["chaos"]
+        drift = rep["drift_probe"]
+        # What the silent-divergence flag summarizes, held here claim by
+        # claim, so an allowed leg's non-convergence is all it can carry.
+        claims = {
+            "checker": (out.returncode in ((0, 2) if may_fail else (0,))
+                        and set(complaints) <= allowed),
+            "other_legs_converged": all(
+                leg["converged"] for name, leg in legs.items()
+                if name not in may_fail),
+            "no_errors_or_mismatches": (not rep["errors"]
+                                        and not rep["mismatches"]),
+            "updates_accounted": all(
+                sum(r["ledger"].values()) == r["updates"]
+                for r in (*legs.values(), drift)),
+            "drift_all_re_inverted": (drift["converged"]
+                                      and drift["ledger"]["re_inverted"]
+                                      == drift["updates"] > 0),
+            "chaos_bits_equal": (chaos["fingerprint_bitmatch"]
+                                 and chaos["iterates_matched"]
+                                 == chaos["iterates_total"]
+                                 and chaos["kills_injected"] == kills
+                                 and chaos["deaths"] == chaos["restarts"]
+                                 == kills),
+            "batched_amortizes": (bat["occupancy"] > 1
+                                  and bat["amortized_beats_one_per_launch"]),
+            "zero_builds_and_measurements": (
+                rep["compiles_after_warmup"] == 0
+                and rep["measurements_after_warmup"] == 0
+                and chaos["compiles_delta_after_warmup"] == 0
+                and bat["compiles_delta"] == 0),
+            "outstanding_zero": rep["fleet_ledger"]["outstanding"] == 0,
+            "nothing_wedged": counted.wedged == 0,
+        }
+        # Launches.  The capacitance probe (k bucket 8) once a launched
+        # update: every driver leg, the drift probe, the chaos replay and
+        # chaos runs (equal streams), the batched leg's cap-1 updates and
+        # one call a batched launch.  The panel probe Nr times a resident
+        # invert, a verification solve or a re_invert rung: each leg's
+        # create, solves and rungs (an LP verifies every pivot, so the
+        # drift and chaos legs' solves are their updates), and the batched
+        # leg's cap creates.  Plus the fleets' inert warm batches.
+        bucket = bucket_for(n)
+        mb = min(m, bucket)
+        nr = -(-bucket // mb)
+        chaos_updates = sum(chaos["ledger"].values())
+        want_cap = (sum(leg["updates"] for leg in legs.values())
+                    + drift["updates"] + 2 * chaos_updates
+                    + bat["rounds"] * (bat["batch_cap"] + 1))
+        want_panel = nr * (
+            sum(1 + leg["solves"] + leg["ledger"]["re_inverted"]
+                for leg in legs.values())
+            + 1 + drift["updates"] + drift["ledger"]["re_inverted"]
+            + 2 * (1 + chaos_updates + chaos["ledger"]["re_inverted"])
+            + bat["batch_cap"])
+        kb = k_bucket_for(1)
+        want = dict(counted.warm)
+        want[probe_mod.probe_body(min(default_block_size(kb), kb),
+                                  torch.float64)] += want_cap
+        want[probe_mod.probe_body(mb, torch.float64)] += want_panel
+        claims["launches"] = got == want
+        emit({"phase": "lpqp", "check": "lp_demo", "n": n, "m": m,
+              "replicas": replicas, "kills": kills, "batch_cap": cap,
+              "exit": rc,
+              "legs": {k: {f: v[f] for f in (
+                  "converged", "iterations", "updates", "solves", "ledger",
+                  "obj_rel_err", "kkt_rel_final", "kkt_threshold")}
+                  for k, v in legs.items()},
+              "drift_probe": drift,
+              "chaos": {k: v for k, v in chaos.items() if k != "faults"},
+              "batched": bat,
+              "compiles_after_warmup": rep["compiles_after_warmup"],
+              "measurements_after_warmup":
+                  rep["measurements_after_warmup"],
+              "fleet_ledger": rep["fleet_ledger"],
+              "silent_divergence": rep["silent_divergence"],
+              "wedged_deaths": counted.wedged,
+              "elapsed_s": rep["elapsed_s"], "wall_s": wall,
+              "launches": got, "expected": want,
+              "warm_launches": counted.warm,
+              "check_lp": {"exit": out.returncode,
+                           "out": out.stdout.strip(),
+                           "complaints": complaints,
+                           "allowed": sorted(allowed)},
+              "claims": claims})
+        if not all(claims.values()):
+            failures.append({"lp_demo": n, "claims": [
+                k for k, ok in claims.items() if not ok]})
+
+    # (2) one timed LP through a warm fleet at the default liveness
+    # deadline.
+    mt, cond, solve_every, replicas_t = LP_TIMED_ROW
+    prob = lp_instance(m=mt, cond=cond)
+
+    def timed():
+        with JordanFleet(replicas=replicas_t, dtype=torch.float64,
+                         batch_cap=1, max_wait_ms=0.5,
+                         stable_after_s=0.2) as fleet:
+            fleet.warmup([mt], update_shapes=[(mt, 1)],
+                         solve_shapes=[(mt, 1)])
+            t0 = time.perf_counter()
+            report = solve_lp(prob, fleet, solve_every=solve_every)
+            return report, time.perf_counter() - t0, fleet.stats()["ledger"]
+
+    report, wall, ledger = counted(timed)
+    got = counted.last
+    d = report.to_dict()
+    tm = {k: np.asarray(v) * 1e3 for k, v in report.timing.items()}
+    it_ms = tm["iteration_s"]
+    # Probe calls: one capacitance call (k bucket 8: gj_probe.cu) an
+    # update; Nr of the lanes' block size for the resident invert, each
+    # verification solve and each re_invert rung; the warm batches.
+    mb = min(default_block_size(mt), mt)
+    want = dict(counted.warm)
+    want["gj_probe"] += report.updates
+    want[probe_mod.probe_body(mb, torch.float64)] += (
+        1 + report.solves + report.ledger["re_inverted"]) * -(-mt // mb)
+    row = {"phase": "lpqp", "check": "lp_timed", "m": mt, "cond": cond,
+           "dtype": "float64", "replicas": replicas_t,
+           "solve_every": solve_every, "liveness_deadline_s": 1.0,
+           "converged": report.converged, "iterations": report.iterations,
+           "updates": report.updates, "solves": report.solves,
+           "ledger": report.ledger, "obj_rel_err": d["obj_rel_err"],
+           "kkt_rel_final": report.kkt_rel_final,
+           "kkt_threshold": report.kkt_threshold,
+           "iteration_ms": {"median": float(np.median(it_ms)),
+                            "p90": float(np.percentile(it_ms, 90))},
+           "split_median_ms": {k: float(np.median(tm[k])) for k in (
+               "update_s", "execute_s", "copy_s", "verify_s", "host_s")},
+           "split_sum_ms": {k: float(tm[k].sum()) for k in tm},
+           "verify_median_ms": (float(statistics.median(
+               v for v in tm["verify_s"] if v > 0))
+               if report.solves else None),
+           "wall_s": wall, "fleet_ledger": ledger,
+           "wedged_deaths": counted.wedged,
+           "launches": got, "expected": want}
+    emit(row)
+    if not (report.converged and d["obj_rel_err"] <= 1e-8
+            and ledger["outstanding"] == 0 and not counted.wedged
+            and got == want):
+        failures.append({"lp_timed": {k: row[k] for k in (
+            "converged", "obj_rel_err", "launches", "expected",
+            "wedged_deaths")}})
+    if failures:
+        raise AssertionError(f"lpqp failed its checks: {failures}")
+    return totals
+
+
 def phase_overlap(torch):
     """profile_solve's device-time split of the OVERLAP_ROWS rows: the
     probe, GEMM and other ms, the idle share and the overlap (the kernels'
@@ -3574,6 +4159,13 @@ def main(argv=None) -> int:
         for name, count in phase_handles(torch, launch_counters()).items():
             launches[name] = launches.get(name, 0) + count
     seconds["handles"] = time.perf_counter() - start - sum(seconds.values())
+    by_phase = {}
+    for name, phase in (("fleet", phase_fleet), ("lpqp", phase_lpqp)):
+        if name in phases:
+            by_phase[name] = phase(torch, launch_counters())
+            for kernel, count in by_phase[name].items():
+                launches[kernel] = launches.get(kernel, 0) + count
+        seconds[name] = time.perf_counter() - start - sum(seconds.values())
     if "knife_edge" in phases:
         phase_knife_edge(torch)
     if "cluster_sweep" in phases:
@@ -3600,7 +4192,10 @@ def main(argv=None) -> int:
             "bound_ms": rep.get("bound_ms"),
             "bound_by": rep.get("bound_by"),
             "library_ms": rep.get("library_ms"),
-            "shape": shape, "dtype": rep.get("dtype", rep.get("mode"))})
+            "shape": shape, "dtype": rep.get("dtype", rep.get("mode")),
+            **({"launches_by_phase": {p: c.get(name, 0)
+                                      for p, c in by_phase.items()}}
+               if by_phase else {})})
     emit({"phase": "wall", "seconds": seconds,
           "total_s": time.perf_counter() - start})
     print(smi(), flush=True)

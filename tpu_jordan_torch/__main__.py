@@ -45,10 +45,22 @@ JSON line for ``tools/check_chaos.py`` (exit 2 on silent corruption).
 budget (n the handle size, m the block size, ``--chaos-seed`` the fixtures)
 and prints one JSON line for ``tools/check_capacity.py`` (exit 2 on
 unmetered residency or a silent eviction).
+``--fleet-demo`` serves one seeded stream through a 1-replica and a
+``--replicas``-replica ``fleet.JordanFleet``, then again under ``--kills``
+seeded ``replica_kill`` faults, and prints one JSON line for
+``tools/check_fleet.py`` (exit 2 on silent loss; ``--scaling-floor`` the
+fleet/single throughput floor, ``--slo-report`` embeds the burn-rate SLO
+evaluation for ``tools/check_slo.py``).  ``--lp-demo`` runs the LP/QP
+drivers (``lpqp.lp_demo``) through a replica fleet and prints one JSON line
+for ``tools/check_lp.py`` (exit 2 on silent divergence; ``--dtype
+float64`` required, ``--batch-cap`` sizes the batched update leg).
+``--autoscale-demo``, ``--update-demo``, ``--updates`` and ``--rank`` are
+ROADMAP.md Queue A item 14d's and ``--workers`` other than 1 item 15's:
+refused with exit 1.
 ``--quiet`` drops the bulky parts of the demos' reports (the per-lane
 stats, the fault log, the per-handle rows); elsewhere it is the default,
-non-verbose output.  The serving flags apply to the serve and chaos demos
-only.
+non-verbose output.  The serving flags apply to the serve, chaos and
+fleet demos (``--batch-cap`` also to the LP demo).
 """
 
 from __future__ import annotations
@@ -65,6 +77,15 @@ from .resilience.policy import ResidualGateError
 from .serve.batcher import ServiceClosedError, ServiceOverloadedError
 
 _USAGE = "usage: python -m tpu_jordan_torch n m [<file>]"
+
+
+def _workers_arg(s: str):
+    """'8' -> 8 workers on a 1D mesh; '2x4' -> a (2, 4) 2D mesh (the JAX
+    CLI's vocabulary; anything but 1 is item 15's and refused)."""
+    if "x" in s:
+        pr, pc = s.split("x", 1)
+        return (int(pr), int(pc))
+    return int(s)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -196,20 +217,80 @@ def _parser() -> argparse.ArgumentParser:
                          "silent eviction; tools/check_capacity.py "
                          "validates).  n is the handle size, m the block "
                          "size; --chaos-seed seeds the fixtures")
+    ap.add_argument("--fleet-demo", action="store_true",
+                    help="run the supervised replica-pool demo "
+                         "(tpu_jordan_torch.fleet.fleet_demo): "
+                         "single-replica vs --replicas-replica throughput "
+                         "on one deterministic mixed stream, then the SAME "
+                         "stream under --kills seeded replica_kill faults "
+                         "(the supervisor warm-replaces each victim from "
+                         "the shared executor store and read-only plan "
+                         "cache: zero builds, zero measurements; the "
+                         "router re-queues its queued work); prints ONE "
+                         "JSON line proving every response bit-matched "
+                         "the fault-free replay or carried a typed error "
+                         "(exit 2 on silent loss; tools/check_fleet.py "
+                         "validates)")
+    ap.add_argument("--lp-demo", action="store_true",
+                    help="run the LP/QP driver demo "
+                         "(tpu_jordan_torch.lpqp.lp_demo): four seeded "
+                         "driver runs (LP well/ill by revised simplex, QP "
+                         "well/ill by primal active set) streaming "
+                         "resident-invert + rank-k update + verification "
+                         "solve traffic through a warmed replica fleet, a "
+                         "zero-drift-budget probe, a seeded replica_kill "
+                         "run that must bit-match its fault-free replay, "
+                         "and the batched update lane at --batch-cap "
+                         "distinct handles; prints ONE JSON line (exit 2 "
+                         "on silent divergence; tools/check_lp.py "
+                         "validates).  n is the LP/QP dimension, m the "
+                         "block size; requires --dtype float64")
+    ap.add_argument("--autoscale-demo", action="store_true",
+                    help="the autoscaler demo: ROADMAP.md Queue A item "
+                         "14d, not ported yet (exit 1)")
+    ap.add_argument("--update-demo", action="store_true",
+                    help="the resident-update demo: ROADMAP.md Queue A "
+                         "item 14d, not ported yet (exit 1)")
+    ap.add_argument("--rank", type=int, default=32, metavar="K",
+                    help="--update-demo's rank (item 14d; exit 1)")
+    ap.add_argument("--updates", type=int, default=8, metavar="M",
+                    help="--update-demo's stream length (item 14d; exit 1)")
+    ap.add_argument("--replicas", type=int, default=3, metavar="N",
+                    help="--fleet-demo/--lp-demo: replica slots in the "
+                         "pool (default 3; >= 2)")
+    ap.add_argument("--kills", type=int, default=2, metavar="K",
+                    help="--fleet-demo/--lp-demo: seeded replica_kill "
+                         "injections (default 2)")
+    ap.add_argument("--scaling-floor", type=float, default=None,
+                    metavar="X",
+                    help="--fleet-demo: the minimum fleet/single "
+                         "throughput ratio the checker enforces (default "
+                         "0.6: replicas share one device)")
+    ap.add_argument("--slo-report", action="store_true",
+                    help="--fleet-demo: embed a multi-window burn-rate SLO "
+                         "evaluation (availability per bucket and "
+                         "fleet-wide, demo-scaled window pairs) in the "
+                         "report, validated by tools/check_slo.py")
+    ap.add_argument("--workers", type=_workers_arg, default=1,
+                    help="devices in the mesh (the JAX CLI's flag): "
+                         "anything but 1 is the distributed path, "
+                         "ROADMAP.md Queue A item 15 (exit 1)")
     ap.add_argument("--chaos-seed", type=int, default=0, metavar="S",
                     help="--numerics-demo/--capacity-demo: the fixtures' "
-                         "seed; --chaos-demo: the FaultPlan and "
-                         "request-stream seed (default 0; same seed = the "
-                         "same run)")
+                         "seed; --chaos-demo/--fleet-demo/--lp-demo: the "
+                         "FaultPlan and request-stream seed (default 0; "
+                         "same seed = the same run)")
     ap.add_argument("--serve-requests", type=int, default=64, metavar="R",
-                    help="--serve-demo/--chaos-demo: requests to submit "
-                         "(default 64)")
+                    help="--serve-demo/--chaos-demo/--fleet-demo: requests "
+                         "to submit (default 64)")
     ap.add_argument("--batch-cap", type=int, default=8, metavar="B",
-                    help="--serve-demo/--chaos-demo: max requests fused "
-                         "into one lane run (default 8)")
+                    help="--serve-demo/--chaos-demo/--fleet-demo: max "
+                         "requests fused into one lane run; --lp-demo: the "
+                         "batched update leg's handles (default 8)")
     ap.add_argument("--max-wait-ms", type=float, default=2.0, metavar="MS",
-                    help="--serve-demo/--chaos-demo: how long the oldest "
-                         "request waits for batch-mates (default 2.0)")
+                    help="--serve-demo/--chaos-demo/--fleet-demo: how long "
+                         "the oldest request waits for batch-mates "
+                         "(default 2.0)")
     ap.add_argument("--quiet", action="store_true",
                     help="--serve-demo/--chaos-demo: drop the per-lane "
                          "stats and the fault log from the report")
@@ -323,6 +404,11 @@ def _main(argv, state) -> int:
             raise ValueError("--serve-requests/--batch-cap must be >= 1")
         if args.max_wait_ms < 0:
             raise ValueError("--max-wait-ms must be non-negative")
+        w = args.workers
+        if (w <= 0 if isinstance(w, int) else w[0] <= 0 or w[1] <= 0):
+            raise ValueError("workers must be positive")
+        if args.rank < 1 or args.updates < 3:
+            raise ValueError("--rank must be >= 1 and --updates >= 3")
     except SystemExit as e:
         if e.code == 0:      # --help is not a usage error
             return 0
@@ -352,8 +438,25 @@ def _main(argv, state) -> int:
         resolve_precision(args.precision, args.refine)
         if args.quiet and args.verbose:
             raise UsageError("--quiet and --verbose contradict each other")
+        if args.workers != 1:
+            raise UsageError("workers > 1 is the distributed path, not "
+                             "ported yet (ROADMAP.md Queue A item 15)")
+        if args.autoscale_demo or args.update_demo:
+            raise UsageError("--autoscale-demo and --update-demo are not "
+                             "ported yet (ROADMAP.md Queue A item 14d)")
+        if args.rank != 32 or args.updates != 8:
+            raise UsageError("--rank/--updates apply to --update-demo, not "
+                             "ported yet (ROADMAP.md Queue A item 14d)")
         if args.capacity_demo:
             return _capacity_demo(args)
+        if args.lp_demo:
+            return _lp_demo(args, telemetry)
+        if args.fleet_demo:
+            return _fleet_demo(args, telemetry)
+        if args.slo_report:
+            raise UsageError("--slo-report is a --fleet-demo leg (the "
+                             "burn-rate monitor evaluates the fleet's "
+                             "request-outcome series)")
         if args.numerics_demo:
             if args.serve_demo or args.chaos_demo:
                 raise UsageError("--numerics-demo, --chaos-demo and "
@@ -479,9 +582,11 @@ def _capacity_demo(args) -> int:
     a silent eviction.  The JAX CLI's flag contract."""
     import json
 
-    if args.serve_demo or args.chaos_demo or args.numerics_demo:
-        raise UsageError("--capacity-demo, --chaos-demo, --serve-demo and "
-                         "--numerics-demo are distinct modes; pick one")
+    if (args.serve_demo or args.chaos_demo or args.numerics_demo
+            or args.fleet_demo or args.lp_demo):
+        raise UsageError("--capacity-demo, --fleet-demo, --lp-demo, "
+                         "--chaos-demo, --serve-demo and --numerics-demo "
+                         "are distinct modes; pick one")
     if args.file is not None:
         raise UsageError("--capacity-demo runs on a single device "
                          "(gathered output, deterministic seeded fixtures)")
@@ -493,6 +598,10 @@ def _capacity_demo(args) -> int:
     if args.numerics != "off":
         raise UsageError("--capacity-demo's ledger semantics are pinned; "
                          "--numerics does not apply")
+    if args.slo_report:
+        raise UsageError("--slo-report is a --fleet-demo leg (the burn-rate "
+                         "monitor evaluates the fleet's request-outcome "
+                         "series)")
     if args.plan_cache is not None:
         raise UsageError("--capacity-demo resolves its lanes through the "
                          "cost-only ladder; --plan-cache does not apply")
@@ -502,6 +611,11 @@ def _capacity_demo(args) -> int:
                          "resident-invert/update mix (cap-1 lanes); "
                          "--serve-requests/--batch-cap/--max-wait-ms do not "
                          "apply")
+    if (args.replicas != 3 or args.kills != 2
+            or args.scaling_floor is not None):
+        raise UsageError("--replicas/--kills/--scaling-floor are "
+                         "--fleet-demo/--lp-demo flags; --capacity-demo runs "
+                         "one service under a handle budget")
     from .obs.capacity import capacity_demo
 
     report = capacity_demo(n=args.n, block_size=args.m, seed=args.chaos_seed,
@@ -516,6 +630,121 @@ def _capacity_demo(args) -> int:
               f"{report['unmetered_components']}, budget_evictions="
               f"{report['budget_evictions']} vs {len(report['evictions'])} "
               f"recorded events", file=sys.stderr)
+        return 2
+    return 0
+
+
+def _fleet_demo(args, telemetry) -> int:
+    """``--fleet-demo``: one JSON line; exit 2 on silent loss.  The JAX
+    CLI's flag contract."""
+    import json
+
+    from .driver import LATER_ENGINES
+    from .fleet import fleet_demo
+
+    if args.serve_demo or args.chaos_demo or args.numerics_demo:
+        raise UsageError("--fleet-demo, --chaos-demo, --serve-demo and "
+                         "--numerics-demo are distinct modes; pick one")
+    if args.numerics != "off":
+        raise UsageError("--fleet-demo's replay-compare semantics are "
+                         "pinned; --numerics does not apply (use "
+                         "--serve-demo --numerics summary, or solve with "
+                         "--numerics)")
+    if args.workload != "invert":
+        raise UsageError("--fleet-demo streams invert requests; --workload "
+                         "does not apply")
+    if args.file is not None:
+        raise UsageError("--fleet-demo runs on a single device (gathered "
+                         "output, deterministic built-in fixtures)")
+    if args.batch > 1 or args.tune:
+        raise UsageError("--fleet-demo takes no --batch/--tune")
+    if args.group != 0 or args.engine in LATER_ENGINES:
+        raise UsageError("--fleet-demo engines are single-device (auto "
+                         "resolution); --group does not apply")
+    if args.replicas < 2:
+        raise UsageError("--fleet-demo needs --replicas >= 2")
+    if args.kills < 1:
+        raise UsageError("--fleet-demo needs --kills >= 1")
+    report = fleet_demo(
+        n=args.n, replicas=args.replicas, requests=args.serve_requests,
+        batch_cap=args.batch_cap, max_wait_ms=args.max_wait_ms,
+        kills=args.kills, seed=args.chaos_seed, block_size=args.m,
+        dtype=args.dtype, plan_cache=args.plan_cache,
+        scaling_floor=args.scaling_floor, telemetry=telemetry,
+        slo_report=args.slo_report, device=args.device)
+    if args.quiet:
+        report["chaos"]["faults"].pop("log", None)
+    print(json.dumps(report))
+    if report["silent_loss"]:
+        print(f"silent loss under replica_kill chaos: "
+              f"{len(report['mismatches'])} mismatches, ledger "
+              f"{report['ledger']}", file=sys.stderr)
+        return 2
+    return 0
+
+
+def _lp_demo(args, telemetry) -> int:
+    """``--lp-demo``: one JSON line; exit 2 on silent divergence.  The JAX
+    CLI's flag contract."""
+    import json
+
+    from .lpqp.demo import lp_demo
+
+    if (args.serve_demo or args.chaos_demo or args.fleet_demo
+            or args.numerics_demo):
+        raise UsageError("--lp-demo, --capacity-demo, --fleet-demo, "
+                         "--chaos-demo, --serve-demo and --numerics-demo "
+                         "are distinct modes; pick one")
+    if args.file is not None:
+        raise UsageError("--lp-demo runs on a single device against its "
+                         "own seeded LP/QP instances; file input, "
+                         "--workers and --no-gather do not apply")
+    if args.batch > 1 or args.tune or args.group != 0:
+        raise UsageError("--lp-demo takes no --batch/--tune/--group")
+    if args.engine != "auto" or args.refine:
+        raise UsageError("--lp-demo resolves its lanes through the "
+                         "cost-only ladder; --engine/--refine do not apply")
+    if args.workload != "invert" or args.rhs != 1:
+        raise UsageError("--lp-demo streams its own resident-invert + "
+                         "update + solve mix; --workload/--rhs do not apply")
+    if args.numerics != "off":
+        raise UsageError("--lp-demo's convergence re-derivation semantics "
+                         "are pinned; --numerics does not apply")
+    if args.slo_report or args.plan_cache is not None:
+        raise UsageError("--slo-report/--plan-cache do not apply to "
+                         "--lp-demo")
+    if args.serve_requests != 64 or args.max_wait_ms != 2.0:
+        raise UsageError("--lp-demo issues the drivers' own sequential "
+                         "request stream; --serve-requests/--max-wait-ms do "
+                         "not apply (--batch-cap IS honored: it sizes the "
+                         "batched update lane)")
+    if args.scaling_floor is not None:
+        raise UsageError("--scaling-floor is a --fleet-demo flag (the "
+                         "throughput-ratio floor); --lp-demo measures "
+                         "batched-lane amortization instead")
+    if args.replicas < 2:
+        raise UsageError("--lp-demo needs --replicas >= 2")
+    if args.kills < 1:
+        raise UsageError("--lp-demo needs --kills >= 1")
+    if args.batch_cap < 2:
+        raise UsageError("--lp-demo's batched update lanes measure "
+                         "amortization at occupancy > 1; --batch-cap must "
+                         "be >= 2")
+    if args.dtype != "float64":
+        raise UsageError("--lp-demo iterates Bland pricing / active-set "
+                         "multipliers on the resident inverse; float32 "
+                         "reduced-cost noise makes the termination tests "
+                         "ill-posed — pass --dtype float64")
+    report = lp_demo(n=args.n, block_size=args.m, seed=args.chaos_seed,
+                     replicas=args.replicas, kills=args.kills,
+                     batch_cap=args.batch_cap, dtype=args.dtype,
+                     telemetry=telemetry, device=args.device)
+    if args.quiet:
+        report["chaos"]["faults"].pop("log", None)
+    print(json.dumps(report))
+    if report["silent_divergence"]:
+        print(f"silent divergence: errors={report['errors']}, "
+              f"mismatches={len(report['mismatches'])}", file=sys.stderr)
         return 2
     return 0
 

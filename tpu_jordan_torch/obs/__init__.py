@@ -15,15 +15,16 @@
   * ``capacity``: the ledger of resident bytes per class;
   * ``recorder``: the always-on bounded flight recorder;
   * ``journey``: per-request journeys of the serving stack, their outcome
-    ledger and their Chrome-trace lanes.
+    ledger and their Chrome-trace lanes;
+  * ``slo``: declarative SLOs and the multi-window burn-rate monitor the
+    fleet demo's ``--slo-report`` leg evaluates.
 
-The SLO monitor comes with the fleet (ROADMAP.md Queue A item 14d); the
-communication and work inventories with the distributed engines (item
-15).
+The communication and work inventories come with the distributed engines
+(ROADMAP.md Queue A item 15).
 """
 
 from . import (capacity, export, hwcost, journey, metrics, numerics,
-               recorder, spans)
+               recorder, slo, spans)
 from .export import (to_chrome_trace, to_json_line, to_prometheus,
                      write_chrome_trace, write_metrics)
 from .hwcost import (ExecutableCost, attach_execute_cost, executable_cost,
@@ -35,12 +36,13 @@ from .metrics import (NAME_RE, REGISTRY, Counter, Gauge, Histogram,
 from .numerics import (NumericsReport, SpikeThresholds, numerics_demo,
                        record_spikes)
 from .recorder import RECORDER, FlightRecorder, record
+from .slo import SLOMonitor, SLOSpec, bucket_specs
 from .spans import (NULL, NullTelemetry, Span, Telemetry, attribute_phases,
                     attribute_phases_measured, timed_blocking)
 
 __all__ = [
     "capacity", "export", "hwcost", "journey", "metrics", "numerics",
-    "recorder", "spans",
+    "recorder", "slo", "spans",
     "to_chrome_trace", "to_json_line", "to_prometheus",
     "write_chrome_trace", "write_metrics",
     "ExecutableCost", "attach_execute_cost", "executable_cost",
@@ -50,6 +52,7 @@ __all__ = [
     "MetricsRegistry", "Reservoir", "counter", "gauge", "histogram",
     "percentiles",
     "RECORDER", "FlightRecorder", "record",
+    "SLOMonitor", "SLOSpec", "bucket_specs",
     "NULL", "NullTelemetry", "Span", "Telemetry", "attribute_phases",
     "attribute_phases_measured", "timed_blocking",
 ]

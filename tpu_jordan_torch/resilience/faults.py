@@ -41,6 +41,9 @@ The point names are the JAX package's (``POINTS``).  Wired in the port:
   measure             ``tuning/measure.measure_direct``, every timed call
   plan_cache_write    ``tuning/plan_cache.PlanCache.save`` (simulates a
                       full disk or a read-only directory)
+  replica_kill        a fleet replica's admission guard
+                      (``fleet/replica.py``), once per routed request:
+                      the replica dies and the router re-dispatches
   preempt             the segment boundaries of the checkpointed
                       runners (``resilience/checkpoint.py``), after the
                       previous boundary's checkpoint is durable
@@ -52,9 +55,9 @@ kernels under ``csrc/`` are built and loaded once per process
 the engine (the resolved engine callable, and on the card the kernel
 load), fired once per entry call where the JAX entry compiles, so a
 seeded plan's per-point call counts (``FaultPlan.calls``) equal the JAX
-package's on the same call sequence.  ``replica_kill`` comes with the
-fleet (ROADMAP.md Queue A item 14d), the distributed entries' sites with
-item 15.
+package's on the same call sequence.  ``replica_kill`` fires on a fleet
+replica's admission path (``fleet/replica.py``); the distributed entries'
+sites come with ROADMAP.md Queue A item 15.
 
 A point with no active plan costs one module-global ``is None`` check.
 Every fired injection increments ``tpu_jordan_torch_faults_injected_total``

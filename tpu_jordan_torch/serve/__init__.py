@@ -1,7 +1,7 @@
 """Serving: a dynamic-batching inversion, solve and update service on one
 card.  Counterpart of the JAX package's ``serve/`` (ROADMAP.md Queue A
-items 14a and 14b; the mesh lanes are item 15, the fleet and
-``update_demo`` item 14d):
+items 14a and 14b; the mesh lanes are item 15, ``update_demo`` item 14d;
+the replica fleet over these services is ``tpu_jordan_torch.fleet``):
 
   * ``executors``: requests round up to power-of-two n-buckets (exact by
     identity padding); one executor per (bucket, batch_cap, dtype, engine,
@@ -22,7 +22,8 @@ items 14a and 14b; the mesh lanes are item 15, the fleet and
     ``solve_system``, ``project_capacity``, warmup, draining close),
     ``serve_demo`` and ``chaos_demo`` (the CLI's ``--serve-demo`` and
     ``--chaos-demo``; ``--capacity-demo`` is ``obs.capacity``'s).
-  * ``stats``: per-lane counters and latency percentiles.
+  * ``stats``: per-lane counters and latency percentiles, and the
+    fleet's cross-replica execute spread.
 """
 
 from ..resilience.policy import (CircuitOpenError, DeadlineExceededError,
@@ -39,7 +40,7 @@ from .handles import (HandleRef, HandleState, HandleStore,
                       create_resident_handle, resident_handle_bytes)
 from .service import (JordanService, chaos_demo, compare_outcomes,
                       serve_demo)
-from .stats import ServeStats
+from .stats import ServeStats, cross_replica_spread
 
 __all__ = [
     "InvertResult", "MicroBatcher", "MixedUpdateBatchError",
@@ -53,5 +54,5 @@ __all__ = [
     "ExecutorKey", "ExecutorStore", "bucket_for", "k_bucket_for",
     "lane_label", "projected_lane_bytes", "rhs_bucket_for",
     "JordanService", "chaos_demo", "compare_outcomes", "serve_demo",
-    "ServeStats",
+    "ServeStats", "cross_replica_spread",
 ]

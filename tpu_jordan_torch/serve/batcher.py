@@ -192,6 +192,9 @@ class MicroBatcher:
         # its pick/wait cycle, ``_busy`` is True while it executes a batch.
         self._ticks = 0
         self._busy = False
+        # (fn, future) pairs the dispatcher runs between batches
+        # (``run_on_dispatcher``).
+        self._calls: deque = deque()
         if autostart:
             self.start()
 
@@ -286,9 +289,13 @@ class MicroBatcher:
                     ).inc()
                 else:
                     self._thread = None
-            elif self._queued:
-                # Never started: drain inline on the caller's thread.
-                self._loop()
+            else:
+                # Never started: drop the warm calls of a dispatcher that
+                # never ran, and drain the queue inline on this thread.
+                with self._cv:
+                    self._calls.clear()
+                if self._queued:
+                    self._loop()
 
     def reap(self, join_timeout_s: float | None = 0.0) -> bool:
         """Retry the join of a dispatcher a bounded ``close`` abandoned.
@@ -309,6 +316,23 @@ class MicroBatcher:
             "abandoned dispatcher threads joined by a later reap()",
         ).inc()
         return True
+
+    def run_on_dispatcher(self, fn) -> None:
+        """Run ``fn()`` on the dispatcher thread before its next batch:
+        the fleet's warmup pays the thread's first launches this way.  A
+        running dispatcher runs it now and the caller waits (its exception
+        raised here); one not started yet runs it first thing at
+        ``start()``, and the caller does not wait.  Not a batch: the
+        dispatcher reports itself idle (``progress()``) while it runs."""
+        fut = Future()
+        with self._cv:
+            if self._closing:
+                raise ServiceClosedError("service is closed")
+            self._calls.append((fn, fut))
+            self._cv.notify()
+            running = self._thread is not None
+        if running:
+            fut.result()
 
     @property
     def queued(self) -> int:
@@ -352,10 +376,14 @@ class MicroBatcher:
 
     def _loop(self) -> None:
         while True:
+            call = None
             with self._cv:
                 self._busy = False
                 self._ticks += 1
                 while True:
+                    if self._calls:
+                        call = self._calls.popleft()
+                        break
                     now = time.perf_counter()
                     picked = self._pick(now)
                     if picked is not None:
@@ -378,6 +406,13 @@ class MicroBatcher:
                     if self._closing and self._queued == 0:
                         return
                     self._cv.wait(self._next_deadline(now))
+            if call is not None:
+                fn, fut = call
+                try:
+                    fut.set_result(fn())
+                except BaseException as e:          # noqa: BLE001
+                    fut.set_exception(e)
+                continue
             for req in batch:
                 req.hop("dispatch", cause=cause, occupancy=len(batch))
             self._execute(lane, batch, now)

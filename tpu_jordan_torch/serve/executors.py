@@ -270,10 +270,34 @@ class BucketExecutor:
     def run(self, *args):
         return self._fn(*args)
 
+    def inert_args(self) -> tuple:
+        """The lane's arguments with every slot an inert filler, on its
+        device: identity matrices, zero right-hand sides and factors,
+        n_real 0 (what the empty slots of a partial batch hold)."""
+        key, dev = self.key, self.device
+        dtype = resolve_dtype(key.dtype)
+        cap, n = key.batch_cap, key.bucket_n
+        eye = torch.eye(n, dtype=dtype).repeat(cap, 1, 1).to(dev)
+        n_real = torch.zeros((cap,), dtype=torch.int64, device=dev)
+        if key.workload == "invert":
+            return eye, n_real
+        zeros = torch.zeros((cap, n, key.rhs), dtype=dtype, device=dev)
+        if key.workload == "update":
+            return eye, eye.clone(), zeros, zeros.clone(), n_real
+        return eye, zeros, n_real
+
+    def warm(self) -> None:
+        """One run on :meth:`inert_args`, its flags and numbers read back
+        to the host as a served batch reads them: the calling thread pays
+        its first launches of the lane here, not on a request."""
+        out = self.run(*self.inert_args())
+        for t in out[-3:]:
+            t.cpu()
+
 
 class ExecutorStore:
     """A thread-safe home for built :class:`BucketExecutor` objects that
-    several caches may share (the fleet's replicas, item 14d): an executor
+    several caches may share (the fleet's replicas): an executor
     is built at most once per key across them.  ``get_or_build`` serializes
     builds on a per-key lock, so builds of different keys proceed
     concurrently; a failed build installs nothing."""
@@ -301,6 +325,15 @@ class ExecutorStore:
                 self._executors[key] = ex
             self._meter(key)
             return ex, True
+
+    def entries(self):
+        """[(key, executor)] of every built executor."""
+        with self._lock:
+            return list(self._executors.items())
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._executors)
 
     def _meter(self, key: ExecutorKey) -> None:
         """One ``executor_lanes`` capacity entry per executor, at its

@@ -43,6 +43,7 @@ import torch
 
 from ..errors import SingularMatrixError, UsageError
 from ..interop import resolve_device, resolve_dtype
+from ..obs import metrics as _obs_metrics
 from ..obs.journey import JourneyLog
 from ..resilience.policy import DEFAULT_POLICY
 from .batcher import InvertResult, MicroBatcher
@@ -50,6 +51,11 @@ from .executors import (ExecutorCache, bucket_for, k_bucket_for,
                         rhs_bucket_for)
 from .handles import HandleRef
 from .stats import ServeStats
+
+_M_WARM_BATCHES = _obs_metrics.counter(
+    "tpu_jordan_torch_serve_warm_batches_total",
+    "inert batches run on a dispatcher thread by warmup(run=True), one a "
+    "lane: their kernel launches are warmup's, no request's")
 
 
 def _refuse(what: str) -> None:
@@ -397,7 +403,7 @@ class JordanService:
         return out
 
     def warmup(self, shapes=(), solve_shapes=(), update_shapes=(),
-               mesh_shapes=()) -> dict:
+               mesh_shapes=(), run: bool = False) -> dict:
         """Build the executors of every lane the given request sizes
         (``shapes``), (n, k) solves (``solve_shapes``) and (n, k) updates
         (``update_shapes``: n's invert lane, its cap-1 twin that the
@@ -405,36 +411,53 @@ class JordanService:
         whose build loads the capacitance probe's kernel) land in, each
         projected first (:meth:`project_capacity`); returns {lane:
         resolved engine}.  After a warmup covering the live mix the serve
-        path performs zero builds and zero measurements.  ``mesh_shapes``
+        path performs zero builds and zero measurements.  ``run=True``
+        also runs one inert batch of each of those lanes on the dispatcher
+        thread (counted in ``tpu_jordan_torch_serve_warm_batches_total``),
+        so no request pays the thread's first launches.  ``mesh_shapes``
         (item 15) is refused when given."""
         self.project_capacity(shapes=shapes, solve_shapes=solve_shapes,
                               update_shapes=update_shapes,
                               mesh_shapes=mesh_shapes)
         out = {}
+        lanes = {}
+
+        def get(b, cap, **kw):
+            ex = self.executors.get(b, cap, self._batcher.block_size, **kw)
+            lanes.setdefault(ex.key, ex)
+            return ex
+
         for n in shapes:
             b = bucket_for(int(n))
-            ex = self.executors.get(b, self.batch_cap,
-                                    self._batcher.block_size)
-            out[b] = ex.key.engine
+            out[b] = get(b, self.batch_cap).key.engine
         for n, k in solve_shapes:
             b = bucket_for(int(n))
             rhs = rhs_bucket_for(int(k))
-            ex = self.executors.get(b, self.batch_cap,
-                                    self._batcher.block_size,
-                                    workload="solve", rhs=rhs)
+            ex = get(b, self.batch_cap, workload="solve", rhs=rhs)
             out[f"solve:{b}:k{rhs}"] = ex.key.engine
         for n, k in update_shapes:
             b, kb = bucket_for(int(n)), k_bucket_for(int(k))
-            m = self._batcher.block_size
-            out[b] = self.executors.get(b, self.batch_cap, m).key.engine
+            out[b] = get(b, self.batch_cap).key.engine
             if self.batch_cap != 1:
-                self.executors.get(b, 1, m)
-            ex = self.executors.get(b, 1, m, workload="update", rhs=kb)
+                get(b, 1)
+            ex = get(b, 1, workload="update", rhs=kb)
             out[f"update:{b}:k{kb}"] = ex.key.engine
             if self.batch_cap != 1:
-                self.executors.get(b, self.batch_cap, m, workload="update",
-                                   rhs=kb)
+                get(b, self.batch_cap, workload="update", rhs=kb)
+        if run:
+            self._batcher.run_on_dispatcher(
+                lambda: self._warm_lanes(lanes.values()))
         return out
+
+    def _warm_lanes(self, lanes) -> None:
+        """One inert batch of each lane on the calling thread, counted."""
+        for ex in lanes:
+            ex.warm()
+            key = ex.key
+            _M_WARM_BATCHES.inc(
+                workload=key.workload, bucket=str(key.bucket_n),
+                cap=str(key.batch_cap), block=str(key.block_size),
+                rhs=str(key.rhs), dtype=key.dtype, **self._stats._labels)
 
     def start(self) -> None:
         """Start the dispatcher (a no-op with ``autostart=True``)."""

@@ -1,6 +1,6 @@
 """Per-lane serving counters and latency percentiles.  Counterpart of the
-JAX package's ``serve/stats.py`` (its ``ServeStats``; the fleet's
-``cross_replica_spread`` comes with ROADMAP.md Queue A item 14d).
+JAX package's ``serve/stats.py``: ``ServeStats`` and the fleet's
+``cross_replica_spread``.
 
 One :class:`ServeStats` rides a :class:`~.service.JordanService` for its
 whole life; every mutation happens under one lock, because the writers are
@@ -213,3 +213,30 @@ class ServeStats:
                 "workloads": workloads,
                 "labels": dict(self._labels),
                 "exec_ms": _percentiles(exec_samples)}
+
+
+def cross_replica_spread(snapshots) -> dict:
+    """The fleet's cross-replica execute-latency spread: given per-replica
+    :meth:`ServeStats.snapshot` dicts, the max-over-min ratio of their
+    pooled execute p99s, readable off ``JordanFleet.stats()`` without a
+    scrape.  A replica is named by its snapshot's ``labels["replica"]``
+    (the fleet stamps it at spawn), else by list position.  Fewer than two
+    replicas with samples is ``judged: False``, never a made-up spread."""
+    replicas = {}
+    for i, snap in enumerate(snapshots):
+        rep = str((snap.get("labels") or {}).get("replica", i))
+        replicas[rep] = {
+            "exec_ms": snap.get("exec_ms") or _percentiles(()),
+            "batches": (snap.get("totals") or {}).get("batches", 0),
+        }
+    p99 = {r: d["exec_ms"].get("p99") for r, d in replicas.items()}
+    live = {r: v for r, v in p99.items() if v}
+    out: dict = {"replicas": replicas, "judged": len(live) >= 2,
+                 "p99_spread": None, "max_replica": None,
+                 "min_replica": None}
+    if out["judged"]:
+        mx = max(live, key=lambda r: live[r])
+        mn = min(live, key=lambda r: live[r])
+        out.update({"p99_spread": round(live[mx] / live[mn], 4),
+                    "max_replica": mx, "min_replica": mn})
+    return out
