@@ -243,14 +243,52 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    median and p90 with its split (the update's round trip and its
    execute, the inverse's copy to the host, the verification solve, the
    host's pricing).
-13. ``kernels``: every ported kernel with its launches on its path (the
-   solve, tune, telemetry, resilience, serve, handles, fleet and lpqp
-   rows; the variants' engine runs of ``reference``), the complex bodies
+13. ``autoscale``: the CLI's ``--autoscale-demo`` at AUTOSCALE_ROW
+   (2048/m128 fp32, ``--replicas 3 --serve-requests 64``): exit 0,
+   ``tools/check_autoscale.py`` exit 0, at least one ``scale_up``, the
+   fleet back at its floor, ``pre_shed_count`` ≥ 1, one build (the
+   warmup's lane) and none after it, panel-probe launches = Σ batches × Nr
+   plus the warm batches'.
+14. ``update_demo``: the CLI's ``--update-demo`` at UPDATE_DEMO_ROW
+   (2048/m128, rank 32, 8 updates, 3 replicas, 1 kill) in fp32 and fp64:
+   exit 0 (or exit 1 when ``tools/check_update.py``'s only complaints are
+   the two that follow from update ``updates // 2``, the rank-destroying
+   one, having been committed, as the report's outcomes show: ROADMAP.md
+   Queue C's knife edge); every update accounted in both ledgers, zero
+   builds on the warm path and in the chaos leg, the drift rung fired, the
+   update beating the re-invert, kills ≥ 1 and deaths ≥ kills, the chaos
+   bits equal to the replay, ``outstanding`` 0, and capacitance
+   (``gj_probe``) launches = update-lane batches × ⌈k/m⌉ plus the warm
+   batches'.  The checker's verdict is printed.
+15. ``distributed``: the 1D engines over ``torch.distributed``.  One world
+   of 4 ranks sharing the card (``gloo``, by the backend rule: NCCL
+   refuses two ranks on one card) runs DIST_ROWS (4096²/m128 absdiff fp32,
+   the paper's fixture at the README's size, and 8192²/m384 absdiff fp64)
+   through inplace, lookahead, grouped k=2, swapfree and auto, after one
+   warm-up run of the row (a rank's first run pays its process's first
+   launches), each held: its
+   pivots equal to the single-device in-place engine's on the card (the
+   padded tail's self-pivots aside), its ring residual under the gate,
+   each rank's probe launches equal to the steps at which it held a live
+   candidate, and its time (the slowest rank's CUDA events: 4 ranks
+   sharing one card on gloo, not a scaling figure) beside the
+   single-device engine's.  One world of 1 rank on ``nccl`` at
+   DIST_NCCL_ROW (8192²/m384 rand fp32), run twice (the second timed):
+   pivots equal, residual under the gate, probe launches = Nr.  The
+   CLI's ``4096 128 --workers 4``: exit 0.
+16. ``kernels``: every ported kernel with its launches on its path (the
+   solve, tune, telemetry, resilience, serve, handles, fleet, lpqp,
+   autoscale, update_demo and distributed rows, the last counted by the
+   ranks; the variants' engine runs of ``reference``), the complex bodies
    of ``gj_probe.cu`` as ``gj_probe[c64]`` and ``gj_probe[c128]``; with
-   the fleet and lpqp phases, each kernel's launches in each of them
-   (``launches_by_phase``).
+   the fleet phase and those after it, each kernel's launches in each of
+   them (``launches_by_phase``).
 
-Not run by default: ``--phases knife_edge`` records that fp32 absdiff
+Not run by default: ``--phases toolchain,nccl4`` (on a host with four
+cards) runs the distributed phase's 4-rank world with a card a rank,
+which the backend rule puts on nccl (every pivot sequence, residual and
+launch count held as there), and the CLI's ``4096 128 --workers 4``.
+``--phases knife_edge`` records that fp32 absdiff
 8192/m384 elimination through the grouped engine, with the kernel and with
 the plain probe: which side of the knife edge each lands on.
 ``--phases batch_fp32`` runs the batch tiers in fp32 and records the
@@ -275,8 +313,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("toolchain", "kernel_vs_plain", "reference", "solve", "tune",
           "overlap", "telemetry", "resilience", "serve", "handles", "fleet",
-          "lpqp")
-EXTRA_PHASES = ("knife_edge", "cluster_sweep", "batch_fp32")
+          "lpqp", "autoscale", "update_demo", "distributed")
+EXTRA_PHASES = ("knife_edge", "cluster_sweep", "batch_fp32", "nccl4")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
 # fp32 outside the tensor cores, fp64 through the tensor cores (the
@@ -663,6 +701,25 @@ FLEET_UPDATE_ROW = (2048, 128, 8, 1)
 LP_DEMO_ROWS = ((512, 128, 3, 2, 4, ("qp_ill",)),
                 (48, 128, 3, 2, 4, ()))
 LP_TIMED_ROW = (1024, "well", 16, 3)
+
+# The autoscale phase: the CLI's --autoscale-demo at (n, m, replicas,
+# requests), fp32 (the fleet demo's width).
+AUTOSCALE_ROW = (2048, 128, 3, 64)
+# The update_demo phase: --update-demo at (n, m, rank, updates, replicas,
+# kills), the JAX CLI's defaults, in each of UPDATE_DEMO_DTYPES.
+UPDATE_DEMO_ROW = (2048, 128, 32, 8, 3, 1)
+UPDATE_DEMO_DTYPES = ("float32", "float64")
+# check_update.py's complaints that follow from the rank-destroying update
+# having been committed (the recipe's knife edge, ROADMAP.md Queue C).
+UPDATE_KNIFE_EDGE = ("shows no gated/typed outcome",)
+# The distributed phase: (n, m, generator, dtype) through each engine on 4
+# ranks sharing the card, and one rank on nccl.
+DIST_ROWS = ((4096, 128, "absdiff", "float32"),
+             (8192, 384, "absdiff", "float64"))
+DIST_ENGINES = ("inplace", "lookahead", "grouped", "swapfree", "auto")
+DIST_WORKERS = 4
+DIST_NCCL_ROW = (8192, 384, "rand", "float32")
+DIST_DEADLINE_S = 600
 
 # The probe variants: (kernel launch counter key, wrapper, plain twin).
 VARIANTS = {"gj_probe_inplace": ("inplace", "gj_probe_inplace",
@@ -3837,6 +3894,355 @@ def phase_lpqp(torch, counters):
     return totals
 
 
+def _run_cli(argv) -> tuple[int, list]:
+    """The CLI in this process, its stdout captured: (exit code, lines)."""
+    import contextlib
+    import io
+
+    from tpu_jordan_torch.__main__ import main as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = cli([str(a) for a in argv])
+    return rc, out.getvalue().strip().splitlines()
+
+
+def _batches_since(before: dict) -> dict:
+    """The serve batches dispatched since ``before`` (the batches counter's
+    series then), by (workload, lane label)."""
+    from tpu_jordan_torch.obs.metrics import REGISTRY
+
+    out: dict = {}
+    for key, v in REGISTRY.counter(
+            "tpu_jordan_torch_serve_batches_total").series().items():
+        d = int(v - before.get(key, 0.0))
+        if d:
+            lb = dict(key)
+            lane = (lb.get("workload", "invert"), lb["bucket"])
+            out[lane] = out.get(lane, 0) + d
+    return out
+
+
+def _warm_lanes(before: dict) -> int:
+    """The distinct lanes whose inert warm batches ran since ``before``."""
+    lanes = set()
+    for key, v in _warm_series().items():
+        if v - before.get(key, 0):
+            lb = dict(key)
+            lb.pop("replica", None)
+            lanes.add(tuple(sorted(lb.items())))
+    return len(lanes)
+
+
+def phase_autoscale(torch, counters):
+    """The CLI's ``--autoscale-demo`` on the card (the module docstring's
+    phase 13), with the kernels' counts set to 0 just before it and read
+    just after.  Returns the counts."""
+    from tpu_jordan_torch.obs.metrics import REGISTRY
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+
+    n, m, replicas, requests = AUTOSCALE_ROW
+    builds = REGISTRY.counter("tpu_jordan_torch_compiles_total")
+    b0 = dict(REGISTRY.counter(
+        "tpu_jordan_torch_serve_batches_total").series())
+    warm0 = _warm_series()
+    c0 = builds.total()
+    for mod in counters.values():
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    rc, lines = _run_cli([n, m, "--autoscale-demo", "--replicas", replicas,
+                          "--serve-requests", requests])
+    wall = time.perf_counter() - t0
+    got = {k: counters[k].launches for k in counters}
+    want = _warm_launches(torch, counters, warm0)
+    batches = _batches_since(b0)
+    for (workload, bucket), count in batches.items():
+        mm = min(m, int(bucket))
+        want[probe_mod.probe_body(mm, torch.float32)] += (
+            count * -(-int(bucket) // mm))
+    rep = json.loads(lines[-1]) if rc == 0 and lines else None
+    try:
+        verdict = check_tool("check_autoscale.py", stdin=lines[-1])
+    except (AssertionError, IndexError) as e:
+        verdict = f"FAILED: {e}"[:2000]
+    warm_lanes = _warm_lanes(warm0)
+    kinds = rep["actions_by_kind"] if rep else {}
+    checks = {
+        "exit_0": rc == 0,
+        "checker_0": not verdict.startswith("FAILED"),
+        "scale_up": kinds.get("scale_up", 0) >= 1,
+        "drained_to_floor": bool(rep) and kinds.get("drain", 0) >= 1
+        and rep["ready_trajectory"][-1] == rep["floor"],
+        "pre_shed": bool(rep) and rep["pre_shed_count"] >= 1,
+        "builds_after_warmup_0": builds.total() - c0 == warm_lanes,
+        "launches": got == want,
+    }
+    emit({"phase": "autoscale", "row": list(AUTOSCALE_ROW), "exit": rc,
+          "checks": checks, "verdict": verdict,
+          "actions_by_kind": kinds,
+          "ready_trajectory": rep and rep["ready_trajectory"],
+          "pre_shed_count": rep and rep["pre_shed_count"],
+          "builds": builds.total() - c0, "warm_lanes": warm_lanes,
+          "batches": {f"{w}:{b}": c for (w, b), c in batches.items()},
+          "launches": got, "expected": want, "wall_s": wall,
+          "elapsed_s": rep and rep["elapsed_s"]})
+    if not all(checks.values()):
+        raise AssertionError(f"autoscale failed its checks: {checks}")
+    return got
+
+
+def phase_update_demo(torch, counters):
+    """The CLI's ``--update-demo`` on the card in each of
+    UPDATE_DEMO_DTYPES (the module docstring's phase 14), the kernels'
+    counts set to 0 just before each run and read just after.  Returns the
+    counts summed over the runs."""
+    from tpu_jordan_torch.config import default_block_size
+    from tpu_jordan_torch.obs.metrics import REGISTRY
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+    from tpu_jordan_torch.serve.executors import k_bucket_for
+
+    n, m, rank, updates, replicas, kills = UPDATE_DEMO_ROW
+    kb = k_bucket_for(rank)
+    mk = min(default_block_size(kb), kb)
+    totals = dict.fromkeys(counters, 0)
+    failures = []
+    for dt in UPDATE_DEMO_DTYPES:
+        dtype = getattr(torch, dt)
+        b0 = dict(REGISTRY.counter(
+            "tpu_jordan_torch_serve_batches_total").series())
+        warm0 = _warm_series()
+        for mod in counters.values():
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        rc, lines = _run_cli([n, m, "--update-demo", "--rank", rank,
+                              "--updates", updates, "--replicas", replicas,
+                              "--kills", kills, "--dtype", dt, "--quiet"])
+        wall = time.perf_counter() - t0
+        got = {k: counters[k].launches for k in counters}
+        for k in totals:
+            totals[k] += got[k]
+        warm = _warm_launches(torch, counters, warm0)
+        batches = _batches_since(b0)
+        upd = sum(c for (w, _), c in batches.items() if w == "update")
+        inv = {b: c for (w, b), c in batches.items() if w == "invert"}
+        body = probe_mod.probe_body(mk, dtype)
+        want_cap = warm[body] + upd * -(-kb // mk)
+        rep = json.loads(lines[-1]) if rc == 0 and lines else None
+        if rep is None:
+            failures.append({dt: f"exit {rc}"})
+            emit({"phase": "update_demo", "dtype": dt, "exit": rc})
+            continue
+        out = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "tools", "check_update.py"),
+             "-"], input=lines[-1], capture_output=True, text=True)
+        complaints = [ln for ln in out.stderr.splitlines()
+                      if ln.startswith(("FAIL", "STALE"))]
+        mid = updates // 2
+        committed = any(rep[leg]["outcomes"][mid][1]
+                        in ("refreshed", "re_inverted")
+                        for leg in ("serve", "chaos"))
+        knife_edge_only = (out.returncode == 1 and committed and all(
+            any(p in c for p in UPDATE_KNIFE_EDGE) for c in complaints))
+        serve, chaos = rep["serve"], rep["chaos"]
+        checks = {
+            "exit_0": rc == 0,
+            "checker": out.returncode == 0 or knife_edge_only,
+            "ledgers": all(sum(rep[leg]["ledger"].values()) == updates
+                           for leg in ("serve", "chaos")),
+            "builds_0": (serve["compiles_on_update_path"] == 0
+                         and serve["measurements"] == 0
+                         and chaos["compiles_delta_after_warmup"] == 0),
+            "drift_rung": (serve["drift_rung"]["outcome"] == "re_inverted"
+                           and serve["drift_rung"]["rungs_fired"] >= 1),
+            "update_beats_reinvert":
+                rep["latency"]["update_beats_reinvert"],
+            "kills": (chaos["kills_injected"] >= 1
+                      and chaos["deaths"] >= chaos["kills_injected"]),
+            "bits_equal_replay": (chaos["final_inverse_bitmatch_replay"]
+                                  and not rep["mismatches"]),
+            "outstanding_0": rep["fleet_ledger"]["outstanding"] == 0,
+            "capacitance_launches": got[body] == want_cap,
+        }
+        emit({"phase": "update_demo", "dtype": dt,
+              "row": list(UPDATE_DEMO_ROW), "exit": rc, "checks": checks,
+              "checker_exit": out.returncode, "checker_complaints":
+              complaints, "mid_update_committed": committed,
+              "serve_outcomes": serve["outcomes"],
+              "chaos_ledger": chaos["ledger"], "latency": rep["latency"],
+              "verification": rep["verification"],
+              "kills": chaos["kills_injected"], "deaths": chaos["deaths"],
+              "update_batches": upd, "invert_batches": inv,
+              "launches": got, "capacitance_expected": want_cap,
+              "warm_launches": warm, "wall_s": wall,
+              "elapsed_s": rep["elapsed_s"]})
+        if not all(checks.values()):
+            failures.append({dt: checks})
+    if failures:
+        raise AssertionError(f"update_demo failed its checks: {failures}")
+    return totals
+
+
+def _live_steps(Nr: int, p: int, k: int, engine: str, pivots) -> list:
+    """The supersteps at which rank k holds a live candidate: a row >= t
+    (swap engines), or a row not yet retired (swap-free: the physical rows
+    its swap-coordinate pivots retire)."""
+    bpw = Nr // p
+    if engine != "swapfree":
+        return [t for t in range(Nr) if (bpw - 1) * p + k >= t]
+    rows, retired, out = list(range(Nr)), 0, []
+    for t, s in enumerate(pivots):
+        if retired < bpw:
+            out.append(t)
+        if rows[s] % p == k:
+            retired += 1
+        rows[t], rows[s] = rows[s], rows[t]
+    return out
+
+
+def phase_distributed(torch, counters, own_cards: bool = False):
+    """The 1D engines over torch.distributed on the card (the module
+    docstring's phase 15); with ``own_cards`` (``--phases nccl4``, on four
+    cards) the same world with a card a rank, which the backend rule puts
+    on nccl, and the CLI, without the 1-rank world.  The launches are
+    counted by the ranks (each rank's counts are read before and after its
+    engine run); returns them summed over the ranks."""
+    from tpu_jordan_torch.driver import resolve_invert_engine
+    from tpu_jordan_torch.ops import block_jordan_invert_inplace, generate
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+    from tpu_jordan_torch.parallel import run_calls, run_workers
+    from tpu_jordan_torch.parallel.dist_solve import (DistSpec,
+                                                      solve_rank_summary)
+    from tpu_jordan_torch.parallel.layout import CyclicLayout
+    from tpu_jordan_torch.resilience import DEFAULT_POLICY, gate_threshold
+
+    p = DIST_WORKERS
+    phase = "nccl4" if own_cards else "distributed"
+    if own_cards and torch.cuda.device_count() < p:
+        raise AssertionError(f"nccl4 needs {p} cards, found "
+                             f"{torch.cuda.device_count()}")
+    want_backend = "nccl" if own_cards else "gloo"
+    world = f"{p} ranks, " + ("a card each" if own_cards else "one card")
+    totals = dict.fromkeys(counters, 0)
+    failures = []
+    refs = {}
+    for row in DIST_ROWS + (() if own_cards else (DIST_NCCL_ROW,)):
+        n, m, gen, dt = row
+        a = generate(gen, (n, n), getattr(torch, dt), device="cuda")
+        block_jordan_invert_inplace(a, block_size=m)          # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, sing, st = block_jordan_invert_inplace(a, block_size=m,
+                                                  collect_stats=True)
+        torch.cuda.synchronize()
+        refs[row] = (st["pivot_block"].tolist(), bool(sing),
+                     (time.perf_counter() - t0) * 1e3)
+        del a, st
+    torch.cuda.empty_cache()
+
+    def judge(row, engine, ranks, world_p):
+        n, m, gen, dt = row
+        dtype = getattr(torch, dt)
+        lay = CyclicLayout.create(n, m, world_p)
+        ref_piv = refs[row][0]
+        head = ranks[0]
+        body = probe_mod.probe_body(m, dtype)
+        kappa = head["norm_a"] * head["norm_x"]
+        rel = head["residual"] / head["norm_a"]
+        gate = gate_threshold(DEFAULT_POLICY, n, kappa, dtype)
+        pivots_ok = all(r["pivots"] == head["pivots"] for r in ranks) and (
+            head["pivots"] == ref_piv + list(range(len(ref_piv), lay.Nr)))
+        steps_ok = all(
+            r["probe_steps"] == _live_steps(lay.Nr, world_p, r["rank"],
+                                            engine, head["pivots"])
+            and r["launches"].get(body, 0) == len(r["probe_steps"])
+            and sum(r["launches"].values()) == len(r["probe_steps"])
+            for r in ranks)
+        for r in ranks:
+            for k, c in r["launches"].items():
+                totals[k] += c
+        checks = {"not_singular": not head["singular"],
+                  "pivots_equal_single": pivots_ok,
+                  "residual_gate": rel <= gate,
+                  "probe_launches_live_steps": steps_ok}
+        row_out = {"n": n, "m": m, "generator": gen, "dtype": dt,
+                   "engine": engine, "ranks": world_p,
+                   "backend": head["backend"],
+                   "backend_reason": head["backend_reason"],
+                   "checks": checks, "rel_residual": rel, "gate": gate,
+                   "kappa": kappa, "ms": head["elapsed"] * 1e3,
+                   "single_device_ms": refs[row][2],
+                   "launches": [r["launches"].get(body, 0) for r in ranks]}
+        if not all(checks.values()):
+            failures.append(row_out)
+        return row_out
+
+    calls, labels = [], []
+    for row in DIST_ROWS:
+        n, m, gen, dt = row
+        # A first, warm-up run of the row: a rank's first engine run pays
+        # its process's first launches (cuBLAS handles, module loads).
+        for eng in ("warm",) + DIST_ENGINES:
+            engine, grp = eng, (2 if eng == "grouped" else 0)
+            if eng == "warm":
+                engine = "inplace"
+            if eng == "auto":
+                engine, grp, _ = resolve_invert_engine(
+                    "auto", 0, n, m, getattr(torch, dt), workers=p,
+                    device="cuda")
+            calls.append((solve_rank_summary,
+                          (DistSpec(n, m, gen, dt, engine, grp,
+                                    gather=False),)))
+            labels.append((row, eng, engine))
+    t0 = time.perf_counter()
+    results = run_workers(p, run_calls, calls, deadline_s=DIST_DEADLINE_S,
+                          device_type="cuda")
+    world_s = time.perf_counter() - t0
+    for i, (row, eng, engine) in enumerate(labels):
+        out = judge(row, engine, [results[r][i] for r in range(p)], p)
+        if out["backend"] != want_backend:
+            failures.append({"backend": out["backend"], "want":
+                             want_backend})
+        emit({"phase": phase, "world": world, "requested": eng, **out})
+    emit({"phase": phase, "world_s": world_s,
+          "note": ("ms: the slowest rank's CUDA events; "
+                   + ("a card a rank over nccl" if own_cards else
+                      "4 ranks share one card over gloo, not a scaling "
+                      "figure"))})
+    if own_cards:
+        return _distributed_cli(phase, p, totals, failures)
+
+    t0 = time.perf_counter()
+    n, m, gen, dt = DIST_NCCL_ROW
+    spec = DistSpec(n, m, gen, dt, "inplace", 0, gather=False)
+    (res,) = run_workers(1, run_calls, [(solve_rank_summary, (spec,))] * 2,
+                         deadline_s=DIST_DEADLINE_S, device_type="cuda")
+    warm = judge(DIST_NCCL_ROW, "inplace", res[:1], 1)
+    out = judge(DIST_NCCL_ROW, "inplace", res[1:], 1)
+    out["warm_ms"] = warm["ms"]
+    if out["backend"] != "nccl":
+        failures.append({"nccl_world": out["backend"]})
+    emit({"phase": "distributed", "world": "1 rank", **out,
+          "world_s": time.perf_counter() - t0})
+
+    return _distributed_cli(phase, p, totals, failures)
+
+
+def _distributed_cli(phase: str, p: int, totals: dict, failures: list):
+    """The CLI's ``4096 128 --workers p`` (exit 0), then the phase's
+    verdict; returns ``totals``."""
+    t0 = time.perf_counter()
+    rc, lines = _run_cli([4096, 128, "--workers", p])
+    emit({"phase": phase, "check": "cli", "argv":
+          f"4096 128 --workers {p}", "exit": rc, "out": lines[-4:],
+          "wall_s": time.perf_counter() - t0})
+    if rc != 0:
+        failures.append({"cli": rc, "out": lines[-4:]})
+    if failures:
+        raise AssertionError(f"{phase} failed its checks: {failures}")
+    return totals
+
+
 def phase_overlap(torch):
     """profile_solve's device-time split of the OVERLAP_ROWS rows: the
     probe, GEMM and other ms, the idle share and the overlap (the kernels'
@@ -4160,12 +4566,22 @@ def main(argv=None) -> int:
             launches[name] = launches.get(name, 0) + count
     seconds["handles"] = time.perf_counter() - start - sum(seconds.values())
     by_phase = {}
-    for name, phase in (("fleet", phase_fleet), ("lpqp", phase_lpqp)):
+    for name, phase in (("fleet", phase_fleet), ("lpqp", phase_lpqp),
+                        ("autoscale", phase_autoscale),
+                        ("update_demo", phase_update_demo),
+                        ("distributed", phase_distributed)):
         if name in phases:
             by_phase[name] = phase(torch, launch_counters())
             for kernel, count in by_phase[name].items():
                 launches[kernel] = launches.get(kernel, 0) + count
         seconds[name] = time.perf_counter() - start - sum(seconds.values())
+    if "nccl4" in phases:
+        by_phase["nccl4"] = phase_distributed(torch, launch_counters(),
+                                              own_cards=True)
+        for kernel, count in by_phase["nccl4"].items():
+            launches[kernel] = launches.get(kernel, 0) + count
+        seconds["nccl4"] = time.perf_counter() - start - sum(
+            seconds.values())
     if "knife_edge" in phases:
         phase_knife_edge(torch)
     if "cluster_sweep" in phases:

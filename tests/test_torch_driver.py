@@ -272,7 +272,7 @@ def test_no_gpu_raises_instead_of_running_on_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"workers": 2},
+    {"workers": 2, "engine": "augmented"},
     {"workers": (2, 4)},
     {"gather": False},
     {"numerics": "trace", "engine": "augmented"},

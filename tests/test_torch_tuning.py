@@ -168,7 +168,7 @@ def test_point_takes_the_backend_from_the_device():
     assert tregistry.TunePoint.create(64, device=torch.device(
         "cpu")).chip is None
     with pytest.raises(UsageError, match="item 15"):
-        tregistry.TunePoint.create(64, workers=8)
+        tregistry.TunePoint.create(64, workers=(2, 4))
     with pytest.raises(ValueError, match="workload"):
         tregistry.TunePoint.create(64, workload="serve")
 
@@ -249,13 +249,13 @@ def test_registry_is_the_engine_vocabulary():
     assert (tdriver.GROUPED_MIN_SINGLE_CHIP_N
             == jregistry.GROUPED_MIN_SINGLE_CHIP_N)
     assert set(jregistry.REGISTRY) - set(tregistry.REGISTRY) == {
-        "swapfree", "solve_sharded", "solve_lookahead_sharded"}
+        "solve_sharded", "solve_lookahead_sharded"}
     for name, cfg in tregistry.REGISTRY.items():
         ref = jregistry.REGISTRY[name]
         assert (cfg.engine, cfg.group, cfg.workload) == (
             ref.engine, ref.group, ref.workload)
     with pytest.raises(UsageError, match="item 15"):
-        tdriver.resolve_engine("swapfree", 0)
+        tdriver.resolve_invert_engine("swapfree", 0, 64, workers=1)
 
 
 def test_fused_update_engine_is_priced_only_on_the_card():

@@ -54,9 +54,23 @@ evaluation for ``tools/check_slo.py``).  ``--lp-demo`` runs the LP/QP
 drivers (``lpqp.lp_demo``) through a replica fleet and prints one JSON line
 for ``tools/check_lp.py`` (exit 2 on silent divergence; ``--dtype
 float64`` required, ``--batch-cap`` sizes the batched update leg).
-``--autoscale-demo``, ``--update-demo``, ``--updates`` and ``--rank`` are
-ROADMAP.md Queue A item 14d's and ``--workers`` other than 1 item 15's:
-refused with exit 1.
+``--autoscale-demo`` drives a burst → idle → recovery trace through a
+floor-sized fleet under ``fleet.FleetAutoscaler`` (``--replicas`` the
+ceiling) and prints one JSON line for ``tools/check_autoscale.py`` (exit 2
+on a silent p99 breach); ``--update-demo`` streams ``--updates``
+rank-``--rank`` updates of a resident inverse through a service and a
+fleet under ``--kills`` seeded kills and prints one JSON line for
+``tools/check_update.py`` (exit 2 on a silently stale inverse).
+
+Distributed: ``--workers p`` runs the 1D row-block-cyclic engines
+(``engine`` inplace, lookahead, grouped with ``--group``, swapfree, or
+auto) on p ranks of ``torch.distributed``, spawned here, one card each
+where there are enough (``parallel/launch.py``); ``--no-gather`` leaves
+the inverse in the ranks' cyclic blocks and prints its corner.
+``--distributed`` joins a world launched outside (``torchrun``: ``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) as one of its ranks
+instead of spawning.  A ``PRxPC`` mesh (item 15c), file input at p > 1
+(item 15b) and ``--engine augmented`` at p > 1 (item 15d) exit 1.
 ``--quiet`` drops the bulky parts of the demos' reports (the per-lane
 stats, the fault log, the per-handle rows); elsewhere it is the default,
 non-verbose output.  The serving flags apply to the serve, chaos and
@@ -69,8 +83,9 @@ import argparse
 import os
 import sys
 
-from .driver import LATER_ENGINES
 from .errors import DeviceUnavailableError, SingularMatrixError, UsageError
+from .parallel.group import MeshSizeError
+from .parallel.launch import WorkerError
 from .tuning.registry import ENGINES
 from .io import MatrixReadError
 from .resilience.policy import ResidualGateError
@@ -78,10 +93,14 @@ from .serve.batcher import ServiceClosedError, ServiceOverloadedError
 
 _USAGE = "usage: python -m tpu_jordan_torch n m [<file>]"
 
+#: The demo modes: each runs single-device services of its own.
+_DEMOS = ("autoscale_demo", "update_demo", "capacity_demo", "lp_demo",
+          "fleet_demo", "numerics_demo", "chaos_demo", "serve_demo")
+
 
 def _workers_arg(s: str):
-    """'8' -> 8 workers on a 1D mesh; '2x4' -> a (2, 4) 2D mesh (the JAX
-    CLI's vocabulary; anything but 1 is item 15's and refused)."""
+    """'8' -> 8 ranks of the 1D layout; '2x4' -> a (2, 4) 2D mesh (the JAX
+    CLI's vocabulary; the 2D layout is item 15c's and refused)."""
     if "x" in s:
         pr, pc = s.split("x", 1)
         return (int(pr), int(pc))
@@ -128,11 +147,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--refine", type=int, default=0,
                     help="Newton-Schulz refinement steps")
     ap.add_argument("--engine", default="auto",
-                    choices=list(ENGINES) + list(LATER_ENGINES),
+                    choices=list(ENGINES),
                     help="elimination engine: 'auto' = autotuned "
                          "selection (plan cache -> registry cost "
-                         "ranking -> --tune measured tuning); the names "
-                         "of a later slice are refused with exit 1")
+                         "ranking -> --tune measured tuning); 'swapfree' "
+                         "= the implicit-permutation distributed engine "
+                         "(--workers p only)")
     ap.add_argument("--group", type=int, default=0,
                     help="delayed-group size for the grouped engines "
                          "(default 2)")
@@ -246,15 +266,32 @@ def _parser() -> argparse.ArgumentParser:
                          "validates).  n is the LP/QP dimension, m the "
                          "block size; requires --dtype float64")
     ap.add_argument("--autoscale-demo", action="store_true",
-                    help="the autoscaler demo: ROADMAP.md Queue A item "
-                         "14d, not ported yet (exit 1)")
+                    help="run the SLO-driven autoscaler demo "
+                         "(tpu_jordan_torch.fleet.autoscale_demo): a seeded "
+                         "burst -> idle -> recovery trace through a "
+                         "1-replica fleet whose FleetAutoscaler scales up "
+                         "on burn (to --replicas), pre-sheds typed before "
+                         "a breach and drains to the floor when idle; "
+                         "prints ONE JSON line carrying every decision "
+                         "with its burn evidence (exit 2 on a silent p99 "
+                         "breach; tools/check_autoscale.py validates)")
     ap.add_argument("--update-demo", action="store_true",
-                    help="the resident-update demo: ROADMAP.md Queue A "
-                         "item 14d, not ported yet (exit 1)")
+                    help="run the resident-inverse update demo "
+                         "(tpu_jordan_torch.serve.update_demo): a warmed "
+                         "service streams --updates rank---rank updates of "
+                         "one resident inverse (one rank-destroying, one "
+                         "through a zero drift budget), times the warm "
+                         "update against a warm re-invert, then replays "
+                         "the stream through a --replicas fleet under "
+                         "--kills seeded replica kills; prints ONE JSON "
+                         "line (exit 2 on a silently stale inverse; "
+                         "tools/check_update.py validates)")
     ap.add_argument("--rank", type=int, default=32, metavar="K",
-                    help="--update-demo's rank (item 14d; exit 1)")
+                    help="--update-demo: the rank k of each update "
+                         "(default 32; k <= n/8)")
     ap.add_argument("--updates", type=int, default=8, metavar="M",
-                    help="--update-demo's stream length (item 14d; exit 1)")
+                    help="--update-demo: updates in the stream (default "
+                         "8; >= 3)")
     ap.add_argument("--replicas", type=int, default=3, metavar="N",
                     help="--fleet-demo/--lp-demo: replica slots in the "
                          "pool (default 3; >= 2)")
@@ -272,9 +309,22 @@ def _parser() -> argparse.ArgumentParser:
                          "fleet-wide, demo-scaled window pairs) in the "
                          "report, validated by tools/check_slo.py")
     ap.add_argument("--workers", type=_workers_arg, default=1,
-                    help="devices in the mesh (the JAX CLI's flag): "
-                         "anything but 1 is the distributed path, "
-                         "ROADMAP.md Queue A item 15 (exit 1)")
+                    help="ranks of the 1D row-block-cyclic layout (the "
+                         "reference's mpirun -np): p processes of "
+                         "torch.distributed, one card each where there are "
+                         "enough; PRxPC (the 2D layout, ROADMAP.md Queue A "
+                         "item 15c) exits 1")
+    ap.add_argument("--gather", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="--no-gather keeps the inverse as the ranks' "
+                         "cyclic blocks (distributed runs): the verbose "
+                         "print shows its corner from the owning blocks")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join a torch.distributed world launched outside "
+                         "(torchrun: RANK, WORLD_SIZE, MASTER_ADDR, "
+                         "MASTER_PORT) as one of its ranks instead of "
+                         "spawning --workers ranks (the analog of "
+                         "MPI_Init, main.cpp:69); rank 0 prints")
     ap.add_argument("--chaos-seed", type=int, default=0, metavar="S",
                     help="--numerics-demo/--capacity-demo: the fixtures' "
                          "seed; --chaos-demo/--fleet-demo/--lp-demo: the "
@@ -428,6 +478,17 @@ def _main(argv, state) -> int:
     from .driver import solve, solve_batch
     from .ops.refine import resolve_precision
 
+    if args.distributed:
+        # Joins the world before any device work (MPI_Init being argv's
+        # first consumer, main.cpp:69).
+        from .parallel.group import distributed_init
+
+        try:
+            distributed_init(args.device)
+        except MeshSizeError as e:
+            print(e, file=sys.stderr)
+            return 2
+
     telemetry = None
     if args.metrics_out or args.trace_json:
         # One span collector for the whole run.
@@ -438,15 +499,21 @@ def _main(argv, state) -> int:
         resolve_precision(args.precision, args.refine)
         if args.quiet and args.verbose:
             raise UsageError("--quiet and --verbose contradict each other")
-        if args.workers != 1:
-            raise UsageError("workers > 1 is the distributed path, not "
-                             "ported yet (ROADMAP.md Queue A item 15)")
-        if args.autoscale_demo or args.update_demo:
-            raise UsageError("--autoscale-demo and --update-demo are not "
-                             "ported yet (ROADMAP.md Queue A item 14d)")
-        if args.rank != 32 or args.updates != 8:
-            raise UsageError("--rank/--updates apply to --update-demo, not "
-                             "ported yet (ROADMAP.md Queue A item 14d)")
+        demo = next((f"--{name.replace('_', '-')}" for name in _DEMOS
+                     if getattr(args, name)), None)
+        if demo is not None and (args.workers != 1 or not args.gather
+                                 or args.distributed):
+            raise UsageError(
+                f"{demo} runs single-device services; --workers, "
+                f"--no-gather and --distributed are the distributed invert "
+                f"path (ROADMAP.md Queue A item 15a) and do not apply")
+        if not args.update_demo and (args.rank != 32 or args.updates != 8):
+            raise UsageError("--rank/--updates apply to --update-demo (the "
+                             "resident-inverse update run)")
+        if args.autoscale_demo:
+            return _autoscale_demo(args, telemetry)
+        if args.update_demo:
+            return _update_demo(args, telemetry)
         if args.capacity_demo:
             return _capacity_demo(args)
         if args.lp_demo:
@@ -484,8 +551,9 @@ def _main(argv, state) -> int:
         if args.workload != "invert":
             return _workload(args, telemetry)
         if args.batch > 1:
-            if args.file is not None:
-                raise UsageError("--batch requires generator input")
+            if args.file is not None or args.workers != 1 or not args.gather:
+                raise UsageError("--batch requires generator input on a "
+                                 "single device (gathered output)")
             if args.engine != "auto" or args.group != 0:
                 raise UsageError("--batch uses the batched engine; "
                                  "--engine/--group do not apply")
@@ -507,7 +575,8 @@ def _main(argv, state) -> int:
             result = solve(n=args.n, block_size=args.m, file=args.file,
                            generator=args.generator, dtype=args.dtype,
                            refine=args.refine, precision=args.precision,
-                           device=args.device,
+                           device=args.device, workers=args.workers,
+                           gather=args.gather,
                            verbose=args.verbose, engine=args.engine,
                            group=args.group, tune=args.tune,
                            plan_cache=args.plan_cache, telemetry=telemetry,
@@ -527,6 +596,11 @@ def _main(argv, state) -> int:
     except DeviceUnavailableError as e:
         print(e, file=sys.stderr)
         return 2
+    except (MeshSizeError, WorkerError) as e:
+        # A world that cannot launch or a rank that failed: the analog of
+        # mpirun failing, a runtime error.
+        print(e, file=sys.stderr)
+        return 2
     except (ServiceOverloadedError, ServiceClosedError) as e:
         # Serving runtime failures are runtime errors, not usage.
         print(e, file=sys.stderr)
@@ -537,6 +611,8 @@ def _main(argv, state) -> int:
     finally:
         _write_telemetry(args.metrics_out, args.trace_json, telemetry)
         _write_capacity(args.capacity_report)
+    if result.rank != 0:
+        return 0      # a --distributed rank other than 0 prints nothing
     if not args.verbose:
         print(f"glob_time: {result.elapsed:.2f}")
         print(f"residual: {result.residual:e}")
@@ -634,12 +710,127 @@ def _capacity_demo(args) -> int:
     return 0
 
 
+def _autoscale_demo(args, telemetry) -> int:
+    """``--autoscale-demo``: one JSON line; exit 2 on a silent p99 breach.
+    The JAX CLI's flag contract."""
+    import json
+
+    from .fleet.autoscaler import autoscale_demo
+
+    if (args.serve_demo or args.chaos_demo or args.fleet_demo
+            or args.numerics_demo or args.update_demo or args.capacity_demo
+            or args.lp_demo):
+        raise UsageError("--autoscale-demo is a distinct mode; pick one "
+                         "demo")
+    if args.file is not None:
+        raise UsageError("--autoscale-demo runs single-device replicas "
+                         "against its own seeded burst trace; file input "
+                         "does not apply")
+    if args.batch > 1 or args.tune or args.group != 0:
+        raise UsageError("--autoscale-demo takes no --batch/--tune/--group")
+    if args.engine != "auto" or args.refine:
+        raise UsageError("--autoscale-demo resolves engines through the "
+                         "cost-only ladder; --engine/--refine do not apply")
+    if args.workload != "invert" or args.rhs != 1:
+        raise UsageError("--autoscale-demo streams invert requests; "
+                         "--workload/--rhs do not apply")
+    if args.numerics != "off":
+        raise UsageError("--autoscale-demo's burn-evidence semantics are "
+                         "pinned; --numerics does not apply")
+    if args.slo_report or args.plan_cache is not None:
+        raise UsageError("--slo-report/--plan-cache do not apply to "
+                         "--autoscale-demo (it builds its own demo-scaled "
+                         "monitor)")
+    if args.replicas < 2:
+        raise UsageError("--autoscale-demo needs --replicas >= 2 (the "
+                         "scale-up ceiling; the floor is 1)")
+    if args.kills != 2 or args.scaling_floor is not None:
+        raise UsageError("--kills/--scaling-floor are --fleet-demo flags; "
+                         "the autoscaler demo injects no faults")
+    report = autoscale_demo(
+        n=args.n, requests=args.serve_requests, floor=1,
+        ceiling=args.replicas, batch_cap=args.batch_cap,
+        max_wait_ms=args.max_wait_ms, seed=args.chaos_seed,
+        block_size=args.m, dtype=args.dtype, telemetry=telemetry,
+        device=args.device)
+    if args.quiet:
+        report.pop("slo_final", None)
+    print(json.dumps(report))
+    if report["silent_p99_breach"]:
+        print("silent p99 breach: a tick saw risk signals with pre-shed "
+              "off and no capacity action", file=sys.stderr)
+        return 2
+    return 0
+
+
+def _update_demo(args, telemetry) -> int:
+    """``--update-demo``: one JSON line; exit 2 on a silently stale
+    inverse.  The JAX CLI's flag contract."""
+    import json
+
+    from .serve.update_demo import update_demo
+
+    if (args.serve_demo or args.chaos_demo or args.fleet_demo
+            or args.numerics_demo):
+        raise UsageError("--update-demo, --fleet-demo, --chaos-demo, "
+                         "--serve-demo and --numerics-demo are distinct "
+                         "modes; pick one")
+    if args.file is not None:
+        raise UsageError("--update-demo runs on a single device (gathered "
+                         "output, deterministic seeded fixtures)")
+    if args.batch > 1 or args.tune:
+        raise UsageError("--update-demo takes no --batch/--tune")
+    if args.group != 0 or args.engine == "swapfree":
+        raise UsageError("--update-demo engines are single-device (auto "
+                         "resolution); --group does not apply")
+    if args.workload != "invert":
+        raise UsageError("--update-demo streams resident-invert + update "
+                         "requests; --workload does not apply")
+    if args.numerics != "off":
+        raise UsageError("--update-demo's replay-compare semantics are "
+                         "pinned; --numerics does not apply")
+    if args.slo_report:
+        raise UsageError("--slo-report is a --fleet-demo leg (the burn-rate "
+                         "monitor evaluates the fleet's request-outcome "
+                         "series)")
+    if (args.serve_requests != 64 or args.batch_cap != 8
+            or args.max_wait_ms != 2.0):
+        raise UsageError("--update-demo streams --updates sequential "
+                         "mutations (cap-1 lanes); --serve-requests/"
+                         "--batch-cap/--max-wait-ms do not apply")
+    if args.plan_cache is not None or args.scaling_floor is not None:
+        raise UsageError("--update-demo resolves its lanes through the "
+                         "cost-only ladder and measures update-vs-reinvert "
+                         "latency directly; --plan-cache/--scaling-floor do "
+                         "not apply")
+    if args.replicas < 2:
+        raise UsageError("--update-demo needs --replicas >= 2")
+    if args.kills < 1:
+        raise UsageError("--update-demo needs --kills >= 1")
+    if args.rank > args.n // 8:
+        raise UsageError("--update-demo needs --rank <= n/8 (the documented "
+                         "regime where the update's FLOPs beat the fresh "
+                         "invert's)")
+    report = update_demo(
+        n=args.n, block_size=args.m, rank=args.rank, updates=args.updates,
+        replicas=args.replicas, kills=args.kills, seed=args.chaos_seed,
+        dtype=args.dtype, telemetry=telemetry, device=args.device)
+    if args.quiet:
+        report["chaos"]["faults"].pop("log", None)
+    print(json.dumps(report))
+    if report["silent_stale"]:
+        print(f"silently stale resident inverse: "
+              f"{len(report['mismatches'])} mismatches, gate_passes="
+              f"{report['verification']['gate_passes']}", file=sys.stderr)
+        return 2
+    return 0
+
+
 def _fleet_demo(args, telemetry) -> int:
     """``--fleet-demo``: one JSON line; exit 2 on silent loss.  The JAX
     CLI's flag contract."""
     import json
 
-    from .driver import LATER_ENGINES
     from .fleet import fleet_demo
 
     if args.serve_demo or args.chaos_demo or args.numerics_demo:
@@ -658,7 +849,7 @@ def _fleet_demo(args, telemetry) -> int:
                          "output, deterministic built-in fixtures)")
     if args.batch > 1 or args.tune:
         raise UsageError("--fleet-demo takes no --batch/--tune")
-    if args.group != 0 or args.engine in LATER_ENGINES:
+    if args.group != 0 or args.engine == "swapfree":
         raise UsageError("--fleet-demo engines are single-device (auto "
                          "resolution); --group does not apply")
     if args.replicas < 2:
@@ -854,6 +1045,10 @@ def _workload(args, telemetry=None) -> int:
     if args.batch > 1:
         raise UsageError("--workload solve/lstsq and --batch are distinct "
                          "modes; pick one")
+    if args.workload == "lstsq" and (args.workers != 1 or not args.gather):
+        raise UsageError("--workload lstsq runs on a single device "
+                         "(gathered output); --workload solve is the "
+                         "distributed one")
     if args.engine != "auto" or args.group != 0:
         raise UsageError("--workload solve/lstsq resolve their engine "
                          "through the workload-scoped auto ladder "
@@ -879,6 +1074,7 @@ def _workload(args, telemetry=None) -> int:
                             device=dev)
         result = solve_system(amat, bmat, block_size=args.m,
                               assume=args.assume, tune=args.tune,
+                              workers=args.workers, gather=args.gather,
                               plan_cache=args.plan_cache, device=dev,
                               telemetry=telemetry, numerics=args.numerics,
                               verbose=args.verbose)

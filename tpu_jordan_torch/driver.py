@@ -35,6 +35,15 @@ Complex dtypes (complex64, complex128) run single-device on the augmented
 engine, as in the JAX package: ``engine="auto"`` resolves to it and every
 real-only engine is refused (:func:`complex_engine`).  Residuals, norms and
 κ∞ are real.
+
+``workers=p`` runs the 1D row-block-cyclic engines (``parallel/``) on p
+ranks of ``torch.distributed``: spawned here (``parallel/launch.py``), or,
+when this process already belongs to a world of p ranks (``--distributed``
+under ``torchrun``), as this process's rank.  Each rank generates its
+strip, the engine is timed between CUDA events on every rank (``elapsed``
+is the slowest rank's), and the residual is the ring GEMM's.  The JAX
+package attaches its ``comm``/``work`` observatories to the execute span;
+they come with ROADMAP.md Queue A item 15b.
 """
 
 from __future__ import annotations
@@ -81,11 +90,11 @@ __all__ = ["ENGINES", "GROUPED_MIN_SINGLE_CHIP_N", "MAX_UNROLL_NR",
 
 # ENGINES (the invert vocabulary, "auto" first), PALLAS_ENGINES (the
 # fused-update engines) and GROUPED_MIN_SINGLE_CHIP_N come from the
-# registry (tuning/registry.py).  The JAX package's other engines arrive
-# with later slices of the port (ROADMAP.md, Queue A).
-LATER_ENGINES = {
-    "swapfree": "Queue A item 15",
-}
+# registry (tuning/registry.py).
+
+#: Seconds a distributed world may run before its ranks are killed and the
+#: solve fails naming the rank (``parallel.launch.WorkerError``).
+WORLD_DEADLINE_S = 1800.0
 
 
 @dataclass
@@ -110,6 +119,16 @@ class SolveResult:
     trace: object | None = None
     # obs.numerics.NumericsReport with numerics="summary"/"trace".
     numerics: object | None = None
+    # Distributed solves with gather=False: each rank's (bpw, m, N) blocks
+    # of the inverse in cyclic row order (rank order), and their layout.
+    inverse_blocks: list | None = None
+    layout: object | None = None
+    # Distributed solves: this process's rank (0 when the ranks were
+    # spawned here) and one summary a rank (pivots, the steps it probed,
+    # its kernels' launches, elapsed, backend and the backend rule's
+    # reason, device).
+    rank: int = 0
+    ranks: list | None = None
 
     @property
     def rel_residual(self) -> float | None:
@@ -123,10 +142,6 @@ def resolve_engine(engine: str, group: int, n: int | None = None):
     "auto" (with group 0) is what :func:`resolve_invert_engine` picks for
     an fp32 CPU call at the default block size with no plan cache.  The
     fused-update engines are grouped engines with the same default k=2."""
-    if engine in LATER_ENGINES:
-        raise UsageError(
-            f"engine={engine!r} is not ported yet (ROADMAP.md "
-            f"{LATER_ENGINES[engine]}); choose from {'/'.join(ENGINES)}")
     if engine not in ENGINES:
         raise UsageError(f"unknown engine {engine!r}; choose from "
                          f"{'/'.join(ENGINES)}")
@@ -140,6 +155,8 @@ def resolve_engine(engine: str, group: int, n: int | None = None):
     if group > 1 and engine == "augmented":
         raise UsageError("the augmented reference-parity engine has no "
                          "grouped variant")
+    if group > 1 and engine == "swapfree":
+        raise UsageError("the swap-free engine has no grouped variant")
     if engine == "lookahead":
         # group >= 2 selects the grouped probe-ahead twin.
         return "lookahead", (group if group > 1 else 0)
@@ -167,6 +184,10 @@ def resolve_invert_engine(engine: str, group: int, n: int,
     ``select`` span of ``telemetry``.  Returns ``(engine, group, plan)``,
     ``plan`` None for an explicit engine."""
     engine, group = resolve_engine(engine, group)
+    if engine == "swapfree" and workers == 1:
+        raise UsageError("engine='swapfree' is a distributed engine (its win "
+                         "is collective bytes, ROADMAP.md Queue A item "
+                         "15a); use workers=p")
     if resolve_dtype(dtype).is_complex and engine != "auto":
         engine, group = complex_engine(engine, group)
     refuse_tune_for_explicit_engine(engine, tune, plan_cache)
@@ -272,20 +293,42 @@ def refuse_tune_for_explicit_engine(engine: str, tune, plan_cache):
                          "(an explicit engine leaves nothing to tune)")
 
 
-def refuse_later_options(workers, gather, policy, dtype):
-    """Options of the JAX package's solve that later slices bring: each
-    is refused with the slice that brings it, never silently ignored."""
+def refuse_later_options(workers, gather, policy, dtype, *, engine=None,
+                         file=None, workers_item: str | None = None):
+    """Options of the JAX package's entries that later slices bring: each
+    is refused with the Queue A item that brings it, never silently
+    ignored.  On ``driver.solve`` (``workers_item`` None) those are a
+    (pr, pc) mesh (item 15c), file input at p > 1 (15b) and the augmented
+    engine at p > 1 (15d); complex dtypes stay single-device, as in the
+    JAX package.  An entry whose distributed form is a later item names it
+    in ``workers_item`` (``linalg.solve_system``: 15b, ``JordanSolver``:
+    15d)."""
     distributed = isinstance(workers, tuple) or workers != 1
     if distributed and dtype is not None and resolve_dtype(dtype).is_complex:
         raise UsageError("complex dtypes run single-device (the distributed "
-                         "scatter/collective paths are real-dtype); workers "
-                         "must be 1 (ROADMAP.md Queue A item 15)")
-    if distributed:
-        raise UsageError("workers > 1 is the distributed path, not ported "
-                         "yet (ROADMAP.md Queue A item 15)")
-    if not gather:
+                         "scatter/collective paths are real-dtype, as in the "
+                         "JAX package; ROADMAP.md Queue A item 15 ports no "
+                         "complex path); workers must be 1")
+    if isinstance(workers, tuple):
+        raise UsageError("a (pr, pc) mesh is the 2D block-cyclic layout, not "
+                         "ported yet (ROADMAP.md Queue A item 15c)")
+    if distributed and workers_item is not None:
+        raise UsageError(f"workers > 1 on this entry is not ported yet "
+                         f"(ROADMAP.md Queue A item {workers_item})")
+    if distributed and engine == "augmented":
+        raise UsageError("engine='augmented' at workers > 1 is the "
+                         "pre-shard_map reference-parity engine "
+                         "(sharded_jordan.py), not ported yet (ROADMAP.md "
+                         "Queue A item 15d); use inplace, lookahead, "
+                         "grouped or swapfree")
+    if distributed and file is not None:
+        raise UsageError("file input at workers > 1 is the streamed strip "
+                         "scatter (scatter_stream.py, io.MatrixStripReader), "
+                         "not ported yet (ROADMAP.md Queue A item 15b)")
+    if not gather and not distributed:
         raise UsageError("gather=False is only supported on distributed "
-                         "paths (ROADMAP.md Queue A item 15)")
+                         "paths (workers > 1; ROADMAP.md Queue A item "
+                         f"{workers_item or '15a'})")
     if policy is not None and not isinstance(policy, ResiliencePolicy):
         raise UsageError("policy must be a tpu_jordan_torch.resilience."
                          "ResiliencePolicy")
@@ -391,7 +434,13 @@ def solve(
     """Invert an n x n matrix from a file or a generator and verify it.
 
     Runs on the CUDA card unless ``device="cpu"``; without a card it
-    raises DeviceUnavailableError.  ``dtype`` may be complex64 or
+    raises DeviceUnavailableError.  ``workers=p`` runs the 1D
+    row-block-cyclic engines on p ranks (module docstring; ``engine``
+    "auto", "inplace", "lookahead", "grouped" or "swapfree"): the gathered
+    inverse comes back on the CPU, ``gather=False`` leaves it in
+    ``inverse_blocks`` (one CPU tensor a rank) with its ``layout``, and
+    ``ranks`` holds each rank's pivots, probe steps, launches and time.
+    ``dtype`` may be complex64 or
     complex128 (then ``engine`` is "auto" or "augmented", which run the
     augmented engine).  ``engine="auto"`` resolves through the tuner
     (``tuning.auto_select``): a hit in the JSON plan cache ``plan_cache``,
@@ -422,8 +471,22 @@ def solve(
     engine).  Raises SingularMatrixError like the reference's -2 path
     (main.cpp:435-437); file errors propagate from read_matrix_file.
     """
-    refuse_later_options(workers, gather, policy, dtype)
+    refuse_later_options(workers, gather, policy, dtype, engine=engine,
+                         file=file)
     dev = resolve_device(device)
+    if workers != 1:
+        tel = telemetry if telemetry is not None else _NULL_TEL
+        with tel.span("solve", n=n, workers=str(workers),
+                      generator=generator) as root:
+            res = _solve_distributed(
+                n, block_size, generator, dtype=dtype, refine=refine,
+                workers=workers, device=dev, verbose=verbose, gather=gather,
+                precision=precision, engine=engine, group=group,
+                plan_cache=plan_cache, tune=tune, tel=tel,
+                numerics=numerics, policy=policy)
+        if telemetry is not None:
+            res.trace = root
+        return res
 
     def load(dt):
         if file is not None:
@@ -435,6 +498,146 @@ def solve(
         refine=refine, device=dev, verbose=verbose, precision=precision,
         engine=engine, group=group, tune=tune, plan_cache=plan_cache,
         telemetry=telemetry, policy=policy, numerics=numerics)
+
+
+def _solve_distributed(n, block_size, generator, *, dtype, refine, workers,
+                       device, verbose, gather, precision, engine, group,
+                       plan_cache, tune, tel, numerics, policy=None):
+    """:func:`solve` at ``workers=p``: the JAX package's
+    ``_solve_distributed_core`` on the 1D layout, one process per rank.
+    As there, the ``compile`` fault point fires under the policy's retry
+    and ``execute`` fires unretried; no residual gate (the JAX distributed
+    core has none)."""
+    import torch.distributed as dist
+
+    from .obs.numerics import resolve_mode
+    from .parallel.dist_solve import DistSpec, solve_rank
+    from .parallel.launch import run_workers
+
+    p = int(workers)
+    if p < 1:
+        raise UsageError("workers must be >= 1")
+    numerics = resolve_mode(numerics)
+    if numerics == "trace":
+        raise UsageError(
+            "numerics='trace' instruments the single-device unrolled "
+            "engines (the per-superstep stats are host-visible there); "
+            "distributed solves support numerics='summary'")
+    if precision == "mixed" and not gather:
+        raise UsageError(
+            "precision='mixed' requires gather=True: it implies >=2 "
+            "Newton-Schulz steps, which run on the gathered inverse")
+    if refine and not gather:
+        raise UsageError("refine requires gather=True (it runs on the "
+                         "gathered inverse)")
+    if tune:
+        raise UsageError("tune=True at workers > 1 measures distributed "
+                         "engines in worlds of ranks, not ported yet "
+                         "(ROADMAP.md Queue A item 15b); the cost ranking "
+                         "and a plan cache apply")
+    dtype = resolve_dtype(dtype)
+    if block_size is None:
+        block_size = default_block_size(n)
+    _, refine = resolve_precision(precision, refine)
+    engine, group, plan = resolve_invert_engine(
+        engine, group, n, block_size, dtype, tune=False,
+        plan_cache=plan_cache, workers=p, gather=gather, device=device,
+        telemetry=tel)
+    if engine in PALLAS_ENGINES:
+        raise UsageError(
+            f"engine={engine!r} is a single-device fused-kernel engine (the "
+            "fused update kernel has no sharded variant); use "
+            "engine='grouped' on distributed meshes")
+    refuse_later_options(p, gather, None, dtype, engine=engine)
+    if engine == "lookahead" and group > 1:
+        raise UsageError("the grouped lookahead engine is single-device; "
+                         "lookahead at workers > 1 is the plain 1D engine's "
+                         "probe-ahead twin")
+    m = min(block_size, n)
+    if -(-n // m) > MAX_UNROLL_NR and engine == "lookahead":
+        raise UsageError(
+            f"engine='lookahead' is unrolled-only in the JAX package, whose "
+            f"limit the port keeps, and Nr={-(-n // m)} exceeds "
+            f"MAX_UNROLL_NR={MAX_UNROLL_NR}; use engine='inplace'")
+    spec = DistSpec(n=n, m=m, generator=generator,
+                    dtype=str(dtype).removeprefix("torch."), engine=engine,
+                    group_k=group, gather=gather, refine=refine)
+    if verbose:
+        from .utils.printing import print_corner
+
+        print("A")
+        print_corner(generate(generator, (min(n, 10), min(n, 10)), dtype))
+    def ready():
+        # The compile analogue (resilience/faults.py): the world's spec.
+        _faults.fire("compile")
+        return spec
+
+    spec = (policy.retry.call(ready, component="solve.compile")
+            if policy is not None else ready())
+    _faults.fire("execute")
+    with tel.span("world", workers=p) as wsp:
+        if dist.is_initialized():
+            from .parallel.group import current_group
+
+            grp = current_group(device.type)
+            if grp.world_size != p:
+                from .parallel.group import MeshSizeError
+
+                raise MeshSizeError(
+                    f"workers={p} but this process's world has "
+                    f"{grp.world_size} ranks")
+            results = [solve_rank(grp, spec)]
+        else:
+            results = run_workers(p, solve_rank, spec,
+                                  deadline_s=WORLD_DEADLINE_S,
+                                  device_type=device.type)
+    head = results[0]
+    elapsed = max(r["elapsed"] for r in results)
+    wsp.attrs["backend"] = head["backend"]
+    esp = wsp.child("execute", wsp.t_start, wsp.t_start + elapsed,
+                    clock="cuda_event" if device.type == "cuda" else "host",
+                    engine=engine)
+    _solve_metrics(n, elapsed, esp, singular=head["singular"])
+    if head["singular"]:
+        raise SingularMatrixError("singular matrix")
+    lay = None
+    blocks = None
+    if not gather and results[0]["blocks"] is not None:
+        from .parallel.layout import CyclicLayout
+
+        lay = CyclicLayout.create(n, m, p)
+        blocks = [r["blocks"] for r in results]
+    norm_a = head["norm_a"]
+    kappa = norm_a * head["norm_x"]
+    inv = head["inverse"]
+    if verbose:
+        from .parallel.sharded_inplace import inverse_corner_1d
+        from .utils.printing import print_corner
+
+        print(f"glob_time: {elapsed:.2f}")
+        print("inverse matrix:\n")
+        if inv is not None:
+            print_corner(inv)
+        elif blocks is not None:
+            print_corner(inverse_corner_1d(blocks, lay, n))
+        print(f"residual: {head['residual']:e}")
+        print(f"kappa_inf: {kappa:e}")
+    res = SolveResult(
+        inverse=inv, elapsed=elapsed, residual=head["residual"], n=n,
+        block_size=m,
+        gflops=(2.0 * n**3 / elapsed / 1e9) if elapsed > 0 else 0.0,
+        kappa=kappa, engine=engine, group=group, plan=plan,
+        device=f"{device.type} x{p} ({head['backend']})", _norm_a=norm_a,
+        inverse_blocks=blocks, layout=lay, rank=head["rank"],
+        ranks=[{k: v for k, v in r.items() if k not in ("inverse",
+                                                         "blocks")}
+               for r in results])
+    if numerics != "off":
+        res.numerics = _numerics_report(
+            "summary", n=n, block_size=m, engine=engine,
+            residual=res.residual, norm_a=norm_a, kappa=kappa, dtype=dtype,
+            policy=None)
+    return res
 
 
 def _solve_traced(n, block_size, load, generator, *, dtype, device,

@@ -1,6 +1,5 @@
 """The supervised serving replica pool.  Counterpart of the JAX package's
-``fleet/`` (ROADMAP.md Queue A item 14d's fleet core; the autoscaler,
-``FleetAutoscaler`` and ``--autoscale-demo``, is the rest of the item):
+``fleet/`` (ROADMAP.md Queue A item 14d):
 
   * ``replica``: one worker wrapping its own
     :class:`~..serve.service.JordanService` (dispatcher, bounded queue,
@@ -20,9 +19,14 @@
     per-slot lineage and the cross-replica spread in ``stats()``;
   * ``demo``: ``fleet_demo``, the ``--fleet-demo`` run, judged by
     ``tools/check_fleet.py`` (and its ``slo`` block by
-    ``tools/check_slo.py``).
+    ``tools/check_slo.py``);
+  * ``autoscaler``: :class:`FleetAutoscaler`, the SLO-driven control loop
+    over the pool's ``grow``/``drain_slot`` and the router's pre-shed
+    flag, and ``autoscale_demo``, the ``--autoscale-demo`` run, judged by
+    ``tools/check_autoscale.py``.
 """
 
+from .autoscaler import FleetAutoscaler, autoscale_demo
 from .demo import fleet_demo
 from .pool import JordanFleet
 from .replica import Replica, ReplicaKilledError
@@ -30,6 +34,6 @@ from .router import Router
 from .supervisor import Supervisor
 
 __all__ = [
-    "JordanFleet", "Replica", "ReplicaKilledError", "Router", "Supervisor",
-    "fleet_demo",
+    "FleetAutoscaler", "JordanFleet", "Replica", "ReplicaKilledError", "Router", "Supervisor",
+    "autoscale_demo", "fleet_demo",
 ]

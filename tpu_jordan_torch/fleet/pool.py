@@ -250,7 +250,7 @@ class JordanFleet:
             1 for s in self._slots
             if s.replica is not None and s.replica.state == READY)))
 
-    # ---- capacity changes (the autoscaler's calls, item 14d) ---------
+    # ---- capacity changes (FleetAutoscaler's calls) ------------------
 
     def ready_count(self) -> int:
         """Replicas currently READY."""

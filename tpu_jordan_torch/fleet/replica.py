@@ -167,7 +167,7 @@ class Replica:
         after that boundary's checkpoint is durable; the router re-queues
         and the next replica resumes from the store.  ``ckpt`` is the spec
         dict: ``store``, ``run_id``, ``cadence`` and optionally ``engine``
-        and ``block_size`` (``mesh`` is item 15's)."""
+        and ``block_size`` (``mesh`` is item 15d's)."""
         self._admit(ctx)
         from concurrent.futures import Future
 

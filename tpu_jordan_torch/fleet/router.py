@@ -136,8 +136,7 @@ class Router:
         self.max_reroutes = max(1, int(max_reroutes))
         #: Pre-shed flag: NEW submissions are shed typed at the front door
         #: (``shed{reason="pre_shed"}``, journey-hopped) while in-flight
-        #: work and death re-queues finish.  The autoscaler that sets it
-        #: is ROADMAP.md Queue A item 14d.
+        #: work and death re-queues finish.  ``FleetAutoscaler`` sets it.
         self.pre_shed = False
 
     def _check_pre_shed(self, req: _FleetRequest) -> None:

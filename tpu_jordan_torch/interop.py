@@ -66,3 +66,24 @@ def from_numpy(arrays, device=None, dtype=None):
     if isinstance(arrays, (tuple, list)):
         return tuple(one(x) for x in arrays)
     return one(arrays)
+
+
+def split_cyclic_blocks(blocks, p: int) -> list:
+    """The JAX package's (Nr, m, N) cyclic block tensor (worker-major
+    storage, ``parallel/layout.py``), as a numpy array, split into the p
+    ranks' (Nr/p, m, N) shards in rank order: rank k's blocks are rows
+    ``[k·Nr/p, (k+1)·Nr/p)``."""
+    blocks = np.asarray(blocks)
+    if blocks.shape[0] % p:
+        raise ValueError(f"{blocks.shape[0]} block rows do not split over "
+                         f"{p} ranks")
+    return list(np.split(blocks, p, axis=0))
+
+
+def join_cyclic_blocks(shards) -> np.ndarray:
+    """The inverse of :func:`split_cyclic_blocks`: the ranks' shards (numpy
+    arrays or tensors, rank order) as one (Nr, m, N) numpy array in the JAX
+    package's cyclic storage order."""
+    return np.concatenate([s.detach().cpu().numpy()
+                           if isinstance(s, torch.Tensor) else np.asarray(s)
+                           for s in shards], axis=0)

@@ -17,7 +17,7 @@ Every call counts in ``tpu_jordan_torch_workload_requests_total`` and
 crosses the ``compile``, ``execute`` and ``result_corrupt_nan`` fault
 points (``resilience/faults.py``).  The JAX
 package's distributed solves (complex ones included) are refused by name
-(ROADMAP.md Queue A item 15).  Complex A and B flow through the engine,
+(ROADMAP.md Queue A item 15b).  Complex A and B flow through the engine,
 the residual (every norm is of |z|) and the gate; lstsq forms the
 conjugate transpose.
 """
@@ -46,9 +46,9 @@ from .engine import block_jordan_solve, block_jordan_solve_fori
 
 ASSUME = ("general", "spd")
 # SOLVE_ENGINES comes from the registry; the distributed engines arrive
-# with item 15.
-_LATER_SOLVE_ENGINES = {"solve_sharded": "Queue A item 15",
-                        "solve_lookahead": "Queue A item 15"}
+# with item 15b.
+_LATER_SOLVE_ENGINES = {"solve_sharded": "Queue A item 15b",
+                        "solve_lookahead": "Queue A item 15b"}
 
 _M_WORKLOAD = _obs_metrics.counter(
     "tpu_jordan_torch_workload_requests_total",
@@ -220,14 +220,15 @@ def solve_system(
     before any rung.  ``check=False`` reports a singular system on
     ``result.singular`` with ``x=None`` instead of raising
     SingularMatrixError.  ``workers`` and ``gather`` other than the
-    single-device values are refused by name (item 15).  A and B may be
+    single-device values are refused by name (item 15b).  A and B may be
     complex64 or complex128.  Counterpart of the JAX package's
     ``solve_system``."""
     from ..obs.numerics import resolve_mode
 
     refuse_later_options(workers, gather, policy,
                          dtype if dtype is not None else getattr(a, "dtype",
-                                                                 None))
+                                                                 None),
+                         workers_item="15b")
     numerics = resolve_mode(numerics)
     if numerics == "trace" and assume == "spd":
         raise UsageError(
@@ -415,7 +416,8 @@ def lstsq(
     Counterpart of the JAX package's ``lstsq``."""
     refuse_later_options(1, True, policy,
                          dtype if dtype is not None else getattr(a, "dtype",
-                                                                 None))
+                                                                 None),
+                         workers_item="15b")
     dev = resolve_device(device)
     a = from_numpy(a, dev, None if dtype is None else resolve_dtype(dtype))
     if a.dim() != 2:

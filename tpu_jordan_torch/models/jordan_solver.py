@@ -10,7 +10,7 @@ resolves once, through the tuner, at construction.  The first
 (``resilience/faults.py``), where the JAX solver compiles, and every
 ``invert`` the ``execute`` point inside the policy's retry.  Single device;
 the JAX constructor's distributed fields are kept and refused by name
-(ROADMAP.md Queue A item 15).
+(ROADMAP.md Queue A item 15d).
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ class JordanSolver:
     (engine="auto"), and an ``execute`` span for every :meth:`invert`
     with its analytical rate (2n³); without it ``invert`` is timed by
     nothing; ``device`` the card unless "cpu".  ``workers > 1`` and
-    ``gather=False`` (item 15) are refused by name.  Counterpart of the
+    ``gather=False`` (item 15d) are refused by name.  Counterpart of the
     JAX package's ``models.JordanSolver``."""
 
     n: int
@@ -74,7 +74,7 @@ class JordanSolver:
         from ..ops.refine import resolve_precision
 
         refuse_later_options(self.workers, self.gather, self.policy,
-                             self.dtype)
+                             self.dtype, workers_item="15d")
         self.dtype = resolve_dtype(self.dtype)
         self._device = resolve_device(self.device)
         if self.block_size is None:

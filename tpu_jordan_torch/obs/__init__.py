@@ -19,8 +19,8 @@
   * ``slo``: declarative SLOs and the multi-window burn-rate monitor the
     fleet demo's ``--slo-report`` leg evaluates.
 
-The communication and work inventories come with the distributed engines
-(ROADMAP.md Queue A item 15).
+The communication and work inventories of the distributed engines come
+with ROADMAP.md Queue A item 15b.
 """
 
 from . import (capacity, export, hwcost, journey, metrics, numerics,

@@ -33,10 +33,10 @@ its life appends a timestamped journey event:
   result              TERMINAL: outcome ok|error, written by close()
   ==================  =================================================
 
-The fleet's hops (``route``, ``shed``, ``requeue``, ``fault``) and the mesh
-lanes' ``mesh_admitted`` come with those layers (ROADMAP.md Queue A items
-14d and 15); :data:`EXPLANATORY_HOPS` already names the fleet's, as the
-checker's copy does.
+The fleet's hops (``route``, ``shed``, ``requeue``, ``fault``) are written
+by ``fleet/router.py``; the mesh lanes' ``mesh_admitted`` comes with them
+(ROADMAP.md Queue A item 15d).  :data:`EXPLANATORY_HOPS` names the fleet's,
+as the checker's copy does.
 
 Every event is mirrored into the always-on flight recorder
 (``obs/recorder.py``, kind ``journey``) with the same timestamp, so a

@@ -1,0 +1,142 @@
+"""The launcher of a world of ranks: ``run_workers(p, fn, *args)``.  It has
+no counterpart in the JAX package, which is single-controller (one process
+drives the whole mesh under ``shard_map``): the port runs one process per
+rank, the reference's ``mpirun -np p``.
+
+  * p ranks are spawned in the ``spawn`` context (the parent may hold
+    threads and a CUDA context, so never ``fork``);
+  * the rendezvous is a ``FileStore`` in a temporary directory: no TCP
+    port, so two worlds on one host (test workers) never collide;
+  * rank r runs on ``cuda:r % device_count`` (or the CPU, with an equal
+    share of the host's cores as intra-op threads), with the backend of
+    ``group.backend_rule``;
+  * each rank's return value is written to a file in that directory and
+    read back by the parent (no pipe to drain before a join);
+  * the parent waits under ``deadline_s``.  When a rank raises, or the
+    deadline passes, the parent kills every rank still alive and raises
+    :class:`WorkerError` naming the rank (the first to fail, or those that
+    never reported).
+
+On the card the kernels the ranks launch are built in the parent first
+(``_build.build``, one ``nvcc`` per source, all at once), so the p ranks
+load them and none compiles.
+"""
+
+from __future__ import annotations
+
+import multiprocessing as mp
+import os
+import pickle
+import shutil
+import tempfile
+import time
+import traceback
+
+#: The CUDA sources a rank's probe may launch.
+RANK_KERNELS = ("gj_probe", "gj_probe_fused_panel")
+
+
+class WorkerError(RuntimeError):
+    """A rank of a world failed or hung; ``rank`` names it (the first to
+    fail), ``detail`` carries its traceback or the deadline."""
+
+    def __init__(self, rank, detail: str):
+        self.rank = rank
+        self.detail = detail
+        super().__init__(f"rank {rank} of the world failed: {detail}")
+
+
+def _child(rank: int, p: int, root: str, device_type: str, fn, args):
+    """One rank: join the world over the file store, run ``fn(group,
+    *args)``, write its result (or its traceback) to ``root``."""
+    import torch.distributed as dist
+
+    from .group import init_group
+
+    status = os.path.join(root, f"rank{rank}")
+    try:
+        import torch
+
+        if device_type == "cpu":
+            # CPU ranks share the host's cores instead of each taking all.
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // p))
+        store = torch.distributed.FileStore(os.path.join(root, "store"), p)
+        group = init_group(rank, p, device_type, store=store)
+        payload = ("ok", fn(group, *args))
+    except BaseException as e:                      # noqa: BLE001
+        payload = ("error", f"{type(e).__name__}: {e}\n"
+                            f"{traceback.format_exc()}")
+    # Report first: a failed rank's peers may sit in a collective that
+    # never completes, and the parent kills them on this report.
+    with open(status + ".tmp", "wb") as f:
+        pickle.dump(payload, f)
+    os.replace(status + ".tmp", status)
+    if payload[0] == "ok" and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def run_workers(p: int, fn, *args, deadline_s: float = 600.0,
+                device_type: str = "cuda") -> list:
+    """Run ``fn(group, *args)`` on each of ``p`` spawned ranks; returns the
+    ranks' results in rank order.  ``fn`` must be importable by path (a
+    module-level function of this package), and its arguments and result
+    picklable.  Raises :class:`WorkerError` when a rank raises or the
+    world outlives ``deadline_s``."""
+    if p < 1:
+        raise ValueError("p must be >= 1")
+    if device_type == "cuda":
+        from .._build import build
+
+        build(RANK_KERNELS)
+    ctx = mp.get_context("spawn")
+    root = tempfile.mkdtemp(prefix="tpu_jordan_torch_world_")
+    procs = []
+    try:
+        for r in range(p):
+            proc = ctx.Process(target=_child,
+                               args=(r, p, root, device_type, fn, args),
+                               name=f"tpu-jordan-torch-rank{r}",
+                               daemon=True)
+            proc.start()
+            procs.append(proc)
+        results: dict[int, object] = {}
+        deadline = time.monotonic() + deadline_s
+        while len(results) < p:
+            for r in range(p):
+                path = os.path.join(root, f"rank{r}")
+                if r in results or not os.path.exists(path):
+                    if (r not in results and not procs[r].is_alive()
+                            and not os.path.exists(path)):
+                        raise WorkerError(
+                            r, f"exited with code {procs[r].exitcode} "
+                               f"before reporting")
+                    continue
+                with open(path, "rb") as f:
+                    kind, out = pickle.load(f)
+                if kind == "error":
+                    raise WorkerError(r, out)
+                results[r] = out
+            if len(results) < p:
+                if time.monotonic() > deadline:
+                    late = [r for r in range(p) if r not in results]
+                    raise WorkerError(
+                        late[0], f"no report within {deadline_s:g} s "
+                                 f"(ranks {late} still running)")
+                time.sleep(0.01)
+        for proc in procs:
+            proc.join(timeout=max(1.0, deadline - time.monotonic()))
+        return [results[r] for r in range(p)]
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+        for proc in procs:
+            proc.join(timeout=10)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_calls(group, calls) -> list:
+    """Run ``calls`` (``[(fn, args), ...]``, each ``fn(group, *args)``) in
+    order on this rank: one world for many cases, as the tests and the
+    chip smoke use it (``run_workers(p, run_calls, calls)``)."""
+    return [fn(group, *args) for fn, args in calls]

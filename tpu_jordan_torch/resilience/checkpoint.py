@@ -34,7 +34,7 @@ supersteps are recomputed.
 The engine names are the JAX package's: ``unrolled`` and ``fori`` both run
 the port's one in-place loop (eager PyTorch needs no fori twin), and
 ``grouped`` the delayed-group-update loop.  The distributed runners wait
-for the distributed engines (ROADMAP.md Queue A item 15).
+for the distributed engines (ROADMAP.md Queue A item 15b).
 """
 
 from __future__ import annotations
@@ -121,7 +121,7 @@ class CheckpointKey:
     run_id: str
     workload: str          # "invert" | "solve"
     engine: str            # "unrolled" | "fori" | "grouped"
-    topology: str          # "single" (distributed: Queue A item 15)
+    topology: str          # "single" (distributed: Queue A item 15b)
     n: int
     m: int
     Nr: int                # padded block-row count
@@ -402,7 +402,7 @@ def _check_flavor(workload: str, engine: str, distributed: bool, dtype,
     if distributed:
         raise CheckpointUnsupportedError(
             "mesh/workers: the distributed checkpoint runners come with "
-            "the distributed engines (ROADMAP.md Queue A item 15); "
+            "the distributed engines (ROADMAP.md Queue A item 15b); "
             "checkpointing runs single-device")
     if engine not in SINGLE_ENGINES:
         raise CheckpointUnsupportedError(
@@ -479,7 +479,7 @@ def checkpointed_invert(a, block_size=None, *, store: CheckpointStore,
     is a bool.  ``resume_from=run_id`` re-enters at the last durable
     boundary (typed refusals for a missing, corrupt or mismatched
     checkpoint).  ``mesh``/``workers`` (the distributed runners) are
-    refused until ROADMAP.md Queue A item 15.  Counterpart of the JAX
+    refused until ROADMAP.md Queue A item 15b.  Counterpart of the JAX
     package's ``checkpointed_invert``; products run in full precision (the
     JAX package's ``Precision.HIGHEST``)."""
     return _run_checkpointed(

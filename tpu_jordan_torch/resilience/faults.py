@@ -56,8 +56,10 @@ the engine (the resolved engine callable, and on the card the kernel
 load), fired once per entry call where the JAX entry compiles, so a
 seeded plan's per-point call counts (``FaultPlan.calls``) equal the JAX
 package's on the same call sequence.  ``replica_kill`` fires on a fleet
-replica's admission path (``fleet/replica.py``); the distributed entries'
-sites come with ROADMAP.md Queue A item 15.
+replica's admission path (``fleet/replica.py``).  ``driver.solve`` at
+``workers=p`` fires ``compile`` (under the policy's retry) and then
+``execute`` (not retried) in the calling process before the world starts,
+where the JAX distributed core fires them.
 
 A point with no active plan costs one module-global ``is None`` check.
 Every fired injection increments ``tpu_jordan_torch_faults_injected_total``

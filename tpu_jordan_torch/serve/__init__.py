@@ -1,7 +1,7 @@
 """Serving: a dynamic-batching inversion, solve and update service on one
 card.  Counterpart of the JAX package's ``serve/`` (ROADMAP.md Queue A
-items 14a and 14b; the mesh lanes are item 15, ``update_demo`` item 14d;
-the replica fleet over these services is ``tpu_jordan_torch.fleet``):
+items 14a, 14b and 14d; the mesh lanes are item 15d; the replica fleet
+over these services is ``tpu_jordan_torch.fleet``):
 
   * ``executors``: requests round up to power-of-two n-buckets (exact by
     identity padding); one executor per (bucket, batch_cap, dtype, engine,
@@ -23,7 +23,10 @@ the replica fleet over these services is ``tpu_jordan_torch.fleet``):
     ``serve_demo`` and ``chaos_demo`` (the CLI's ``--serve-demo`` and
     ``--chaos-demo``; ``--capacity-demo`` is ``obs.capacity``'s).
   * ``stats``: per-lane counters and latency percentiles, and the
-    fleet's cross-replica execute spread.
+    fleet's cross-replica execute spread;
+  * ``update_demo``: the ``--update-demo`` run (a service's update ledger,
+    warm update against re-invert, a fleet's kills against the replay),
+    judged by ``tools/check_update.py``.
 """
 
 from ..resilience.policy import (CircuitOpenError, DeadlineExceededError,
@@ -41,6 +44,7 @@ from .handles import (HandleRef, HandleState, HandleStore,
 from .service import (JordanService, chaos_demo, compare_outcomes,
                       serve_demo)
 from .stats import ServeStats, cross_replica_spread
+from .update_demo import update_demo
 
 __all__ = [
     "InvertResult", "MicroBatcher", "MixedUpdateBatchError",
@@ -54,5 +58,5 @@ __all__ = [
     "ExecutorKey", "ExecutorStore", "bucket_for", "k_bucket_for",
     "lane_label", "projected_lane_bytes", "rhs_bucket_for",
     "JordanService", "chaos_demo", "compare_outcomes", "serve_demo",
-    "ServeStats", "cross_replica_spread",
+    "ServeStats", "cross_replica_spread", "update_demo",
 ]

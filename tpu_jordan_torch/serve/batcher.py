@@ -1,6 +1,6 @@
 """The dynamic micro-batcher.  Counterpart of the JAX package's
 ``serve/batcher.py``, with its invert, solve and update lanes (the mesh
-lanes come with ROADMAP.md Queue A item 15).
+lanes come with ROADMAP.md Queue A item 15d).
 
 A thread-safe request queue grouped by lane plus ONE dispatcher thread.  A
 lane dispatches when it can fill a batch (``batch_cap`` requests), when its

@@ -83,7 +83,7 @@ class ExecutorKey:
     """What a lane's executor depends on: bucket, batch capacity, dtype,
     the RESOLVED engine (never "auto"), the pivot block size, and for solve
     lanes the workload and the RHS bucket.  ``mesh`` is the topology axis
-    of the JAX key; only ``"single"`` is served here (item 15)."""
+    of the JAX key; only ``"single"`` is served here (item 15d)."""
 
     bucket_n: int
     batch_cap: int
@@ -444,10 +444,10 @@ class ExecutorCache:
         """``get`` and how the executor was obtained: ``"cached"`` (this
         cache's view), ``"shared_store"`` (another cache built it) or
         ``"compiled"`` (this call built it); the dispatcher stamps it on
-        each rider's journey.  Mesh lanes (item 15) are refused typed."""
+        each rider's journey.  Mesh lanes (item 15d) are refused typed."""
         if mesh != "single":
             raise UsageError(f"mesh lanes ({mesh!r}) are the distributed "
-                             f"path (ROADMAP.md Queue A item 15)")
+                             f"path (ROADMAP.md Queue A item 15d)")
         m = min(block_size if block_size is not None
                 else default_block_size(bucket_n), bucket_n)
         with self._lock:

@@ -1,6 +1,6 @@
 """``JordanService``: the serving surface, and the serve and chaos demos.
 Counterpart of the JAX package's ``serve/service.py`` without the mesh lanes
-(ROADMAP.md Queue A item 15), which it refuses typed.
+(ROADMAP.md Queue A item 15d), which it refuses typed.
 
 Callers ``submit()`` (n, n) matrices, or a matrix and right-hand sides, and
 get futures.  Requests round up to power-of-two buckets (exact by identity
@@ -59,9 +59,9 @@ _M_WARM_BATCHES = _obs_metrics.counter(
 
 
 def _refuse(what: str) -> None:
-    """The typed refusal of a mesh-lane option or call (item 15)."""
+    """The typed refusal of a mesh-lane option or call (item 15d)."""
     raise UsageError(f"{what} belongs to the distributed mesh lanes, not "
-                     f"ported yet (ROADMAP.md Queue A item 15)")
+                     f"ported yet (ROADMAP.md Queue A item 15d)")
 
 
 def _refuse_mesh(**options) -> None:
@@ -112,7 +112,7 @@ class JordanService:
         resident inverse may carry before the re_invert rung fires (None:
         ``linalg.update.DRIFT_BUDGET_FACTOR``).
 
-    The JAX service's ``mesh_shapes`` and ``lane_budget_bytes`` (item 15)
+    The JAX service's ``mesh_shapes`` and ``lane_budget_bytes`` (item 15d)
     are refused with a typed UsageError when given.
     """
 
@@ -373,7 +373,7 @@ class JordanService:
         opens n's invert lane, its cap-1 re_invert twin and the cap-1 and
         batch-cap update lanes), computed with nothing built; each is
         recorded on ``tpu_jordan_torch_capacity_projected_lane_bytes``.
-        ``mesh_shapes`` (item 15) is refused when given."""
+        ``mesh_shapes`` (item 15d) is refused when given."""
         from ..obs import capacity as _capacity
         from .executors import lane_label, projected_lane_bytes
 
@@ -415,7 +415,7 @@ class JordanService:
         also runs one inert batch of each of those lanes on the dispatcher
         thread (counted in ``tpu_jordan_torch_serve_warm_batches_total``),
         so no request pays the thread's first launches.  ``mesh_shapes``
-        (item 15) is refused when given."""
+        (item 15d) is refused when given."""
         self.project_capacity(shapes=shapes, solve_shapes=solve_shapes,
                               update_shapes=update_shapes,
                               mesh_shapes=mesh_shapes)
@@ -527,7 +527,7 @@ def serve_demo(n: int, block_size: int | None = None, requests: int = 64,
     latency percentiles, the build and measurement counters (zero on the
     request path of a warm server), the worst rel_residual, the wall time,
     and the runtime fingerprint.  ``workers`` other than 1 (a mesh lane)
-    is item 15's."""
+    is item 15d's."""
     import time
 
     from ..obs import hwcost as _hwcost

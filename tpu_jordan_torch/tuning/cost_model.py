@@ -12,12 +12,20 @@ Per superstep t of Nr (N = Nr·m, k the delayed-group size, j = t mod k):
   * glue (swaps, normalize, row writes): half a state pass, or in a group
     half a pass per k steps plus 12·m·N bytes a step.
 
+On p ranks of the 1D layout (the JAX comm model's pc = 1 terms) each rank
+eliminates N/p rows and probes max(1, (Nr − t)//p) candidates a step, and
+the collectives add, per step, three latency-only scalar reductions, the
+(m, m) H and the two (m, N) row broadcasts (the grouped engines: one
+stacked (2m, N + k·m + m) row buffer; the swap-free engine: the pivot row
+alone, then one point-to-point row permutation and twice the probe), each
+``S·(p − 1)/p`` bytes over the link rate plus a latency.
+
 The terms rank engines; they are not a wall-clock promise.  The tuner
 records measured/projected drift on every trial, so a constant that goes
-stale shows.  The mesh terms (collectives, link bandwidth) come with the
-distributed engines (ROADMAP.md Queue A item 15).  The CPU backend ranks
-with the same H100 model, as the JAX package ranks the CPU with its one
-calibrated chip.
+stale shows.  The link constants are the data sheet's NVLink rate and the
+JAX model's per-collective latency: no multi-card run has measured them
+(ROADMAP.md Queue B).  The CPU backend ranks with the same H100 model, as
+the JAX package ranks the CPU with its one calibrated chip.
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ class Chip:
     #: ((m, seconds per candidate-element pass), ...), two or more by
     #: ascending m: the probe's measured time of one m×m candidate over m³.
     probe: tuple
+    link: float = 450e9      # per-direction bytes/s to a peer card
+    latency: float = 2e-6    # seconds per collective
 
 
 # One NVIDIA H100 80GB HBM3 at a 700.00 W power limit, the port's own rows:
@@ -48,7 +58,12 @@ H100 = Chip(
     # 80GB HBM3, 700.00 W): (32, 128) fp32 0.2051 ms and (22, 384) fp32
     # 1.2548 ms, over nc·m³.
     probe=((128, 0.2051e-3 / (32 * 128**3)),
-           (384, 1.2548e-3 / (22 * 384**3))))
+           (384, 1.2548e-3 / (22 * 384**3))),
+    # NVLink 4 on the H100 SXM data sheet: 900 GB/s to the host's other
+    # cards, 450 GB/s each way; the latency is the JAX comm model's
+    # (benchmarks/comm_model.py LATENCY), not measured on a card.
+    link=450e9,
+    latency=2e-6)
 
 CHIPS = {H100.name: H100}
 
@@ -68,27 +83,52 @@ def probe_seconds_per_pass(chip: Chip, m: int) -> float:
     return c0 * (m / m0) ** slope
 
 
-def predict(n: int, m: int, chip: Chip, group: int = 1) -> dict:
-    """Projected seconds of one single-device elimination of an n×n matrix
-    with block size m: ``{"elim", "probe", "glue", "total"}``.
-    ``group=k > 1`` models the delayed-group-update engines."""
+def _allreduce(nbytes: float, p: int, chip: Chip) -> float:
+    """A collective of ``nbytes`` over p ranks (0 on one rank)."""
+    return 0.0 if p == 1 else nbytes * (p - 1) / p / chip.link + chip.latency
+
+
+def predict(n: int, m: int, chip: Chip, group: int = 1, p: int = 1,
+            swapfree: bool = False) -> dict:
+    """Projected seconds of one elimination of an n×n matrix with block
+    size m on p ranks of the 1D layout (p = 1: one device):
+    ``{"elim", "probe", "comm", "glue", "total"}``.  ``group=k > 1``
+    models the delayed-group-update engines, ``swapfree`` the swap-free
+    engine (no grouped variant)."""
+    if swapfree and group > 1:
+        raise ValueError("swapfree has no grouped variant")
     Nr = -(-n // m)
     N = Nr * m
+    rows = N / p
     k = max(1, min(group, Nr))
     c_probe = probe_seconds_per_pass(chip, m)
-    elim = probe = glue = 0.0
+    elim = probe = comm = glue = 0.0
     for t in range(Nr):
         j = t % k
-        fl = 2.0 * N * m * N
-        rmw = 2.0 * N * N * 4
+        fl = 2.0 * rows * m * N
+        rmw = 2.0 * rows * N * 4
         if k == 1:
             elim += max(fl / chip.gemm, rmw / chip.hbm)
             glue += 0.5 * rmw / chip.hbm
         else:
             elim += max(fl / chip.gemm, rmw / k / chip.hbm)
-            eager = 2.0 * N * (j * m) * m + 2.0 * m * (j * m) * N
+            eager = 2.0 * rows * (j * m) * m + 2.0 * m * (j * m) * N
             elim += eager / chip.gemm
             glue += (0.5 * rmw / k + 3 * 4 * m * N) / chip.hbm
-        probe += c_probe * (Nr - t) * m**3
-    return {"elim": elim, "probe": probe, "glue": glue,
-            "total": elim + probe + glue}
+        probe += c_probe * max(1, (Nr - t) // p) * m**3
+        if p > 1:
+            comm += 3 * chip.latency               # the pivot reduction
+            comm += _allreduce(4 * m * m, p, chip)  # H
+            if swapfree:
+                comm += _allreduce(4 * m * N, p, chip)
+            elif k == 1:
+                comm += 2 * _allreduce(4 * m * N, p, chip)
+            else:
+                comm += _allreduce(4 * 2 * m * (N + k * m + m), p, chip)
+    if swapfree and p > 1:
+        # The one row permutation after the loop, and the full-window
+        # probe of the alive rows.
+        comm += (p // 2) * (4.0 * rows * N / chip.link + chip.latency)
+        probe *= 2.0
+    return {"elim": elim, "probe": probe, "comm": comm, "glue": glue,
+            "total": elim + probe + comm + glue}

@@ -6,11 +6,11 @@ predicate over the tuning point and a cost hook on the H100 cost model
 
 The legality predicates and the cost multipliers are the JAX package's.
 The driver's and the CLI's engine vocabularies derive from this registry.
-The distributed configurations (``swapfree``, ``solve_sharded``,
-``solve_lookahead_sharded``) and the distributed cost floor
-(``COST_MODEL_FLOOR_N``) come with ROADMAP.md Queue A item 15: their JAX
-predicates are false at every single-device point, so no candidate set
-changes without them.
+A point on p ranks of the 1D layout ranks the 1D engines (``swapfree``
+among them) on the cost model's mesh terms, with the JAX package's
+distributed cost floor (``COST_MODEL_FLOOR_N``).  The distributed solve
+configurations (``solve_sharded``, ``solve_lookahead_sharded``) come with
+ROADMAP.md Queue A item 15b, the 2D points with item 15c.
 
 Cost hooks rank; they are not wall-clock truth.  The tuner records
 measured/projected drift whenever it measures.
@@ -30,6 +30,11 @@ from . import cost_model as _cost_model
 # are outside the model), so cost-only ranking keeps the plain engine and
 # the measuring tuner never measures it there.
 GROUPED_MIN_SINGLE_CHIP_N = 8192
+
+# Below this n a distributed point keeps the plain in-place engine: the
+# model's engine differences there are smaller than its noise (the JAX
+# package's floor).
+COST_MODEL_FLOOR_N = 2048
 
 # The workloads a tuning point selects an engine for.  lstsq routes
 # through solve_system on the normal equations, so its choice is a solve
@@ -71,7 +76,8 @@ class TunePoint:
         """The point of a call.  ``backend`` and ``chip`` come from
         ``device``, the call's resolved device ("cuda" with the card's
         chip, or "cpu"); with neither a device nor a backend the point is
-        a CPU point.  ``workers`` other than 1 is refused (item 15)."""
+        a CPU point.  ``workers`` is 1 or a rank count p of the 1D layout;
+        a (pr, pc) mesh is refused (item 15c)."""
         import torch
 
         from ..config import default_block_size
@@ -80,9 +86,11 @@ class TunePoint:
 
         if block_size is None:
             block_size = default_block_size(n)
-        if isinstance(workers, tuple) or int(workers) != 1:
-            raise UsageError("workers > 1 is the distributed path, not "
-                             "ported yet (ROADMAP.md Queue A item 15)")
+        if isinstance(workers, tuple):
+            raise UsageError("a (pr, pc) mesh is the 2D layout, not ported "
+                             "yet (ROADMAP.md Queue A item 15c)")
+        if int(workers) < 1:
+            raise UsageError("workers must be >= 1")
         if backend is None:
             backend = (torch.device(device).type if device is not None
                        else "cpu")
@@ -93,7 +101,8 @@ class TunePoint:
                              f"from {'/'.join(WORKLOADS)}")
         return cls(n=int(n), block_size=int(min(block_size, n)),
                    dtype=str(resolve_dtype(dtype)).removeprefix("torch."),
-                   workers=1, gather=bool(gather), backend=backend,
+                   workers=int(workers), gather=bool(gather),
+                   backend=backend,
                    chip=chip, batch=int(batch), workload=str(workload))
 
     @property
@@ -130,15 +139,18 @@ def _chip_for(point: TunePoint) -> _cost_model.Chip:
     return _cost_model.CHIPS[name]
 
 
-def _predict(point: TunePoint, group: int = 1) -> dict:
+def _predict(point: TunePoint, group: int = 1,
+             swapfree: bool = False) -> dict:
     return _cost_model.predict(point.n, point.block_size, _chip_for(point),
-                               group=group)
+                               group=group, p=point.workers,
+                               swapfree=swapfree)
 
 
-def projected_seconds(point: TunePoint, group: int = 1) -> float:
+def projected_seconds(point: TunePoint, group: int = 1,
+                      swapfree: bool = False) -> float:
     """The cost model's projected seconds for one engine at a point: the
     backing of every cost hook below."""
-    return _predict(point, group)["total"]
+    return _predict(point, group, swapfree)["total"]
 
 
 def probe_overlap_headroom(point: TunePoint) -> float:
@@ -160,6 +172,10 @@ def _cost_grouped(pt: TunePoint) -> float:
     if not pt.distributed and pt.n < GROUPED_MIN_SINGLE_CHIP_N:
         return math.inf                      # the dispatch prior
     return projected_seconds(pt, group=2)
+
+
+def _cost_swapfree(pt: TunePoint) -> float:
+    return projected_seconds(pt, swapfree=True)
 
 
 def _cost_augmented(pt: TunePoint) -> float:
@@ -216,6 +232,10 @@ def _real_dtype(pt: TunePoint) -> bool:
     return not pt.dtype.startswith("complex")
 
 
+def _distributed_only(pt: TunePoint) -> bool:
+    return pt.distributed and _real_dtype(pt)
+
+
 def _legal_solve(pt: TunePoint) -> bool:
     # The [A | B] solve engine: single-device, unrolled reach, any dtype.
     return not pt.distributed and _nr(pt) <= MAX_UNROLL_NR
@@ -248,8 +268,14 @@ def _legal_lookahead(pt: TunePoint) -> bool:
 
 
 def _cost_lookahead(pt: TunePoint) -> float:
-    # Single device: priced just above the plain engine until measured
-    # evidence promotes it; inside tune=True's survivor cut.
+    # Distributed: the probe and its reduction come off the superstep's
+    # critical path, so the projection loses the overlappable term,
+    # bounded by the trailing eliminate it hides under.  Single device:
+    # priced just above the plain engine until measured evidence promotes
+    # it; inside tune=True's survivor cut.
+    if pt.distributed:
+        r = _predict(pt)
+        return r["total"] - min(r["probe"], r["elim"])
     return 1.01 * projected_seconds(pt)
 
 
@@ -274,6 +300,11 @@ CONFIGS: tuple[EngineConfig, ...] = (
         "augmented", "augmented", 0, _always, _cost_augmented,
         "~4N^3 reference-parity path (global singularity scale); the one "
         "complex-capable invert engine"),
+    EngineConfig(
+        "swapfree", "swapfree", 0, _distributed_only, _cost_swapfree,
+        "implicit-permutation engine: no row-t broadcast, one "
+        "point-to-point row permutation after the loop; distributed, "
+        "either gather mode"),
     EngineConfig(
         "grouped_pallas", "grouped_pallas", 2, _legal_grouped_pallas,
         _cost_grouped_pallas,
@@ -349,8 +380,13 @@ def candidates(point: TunePoint) -> list[EngineConfig]:
 
 def select_by_cost(point: TunePoint) -> EngineConfig:
     """The cost-model pick: what ``engine="auto"`` runs with no plan in
-    the cache and no measurement asked for."""
+    the cache and no measurement asked for.  Below ``COST_MODEL_FLOOR_N``
+    a distributed point keeps the plain in-place engine."""
     cands = candidates(point)
     if not cands:
         raise ValueError(f"no legal engine at {point}")
+    if point.distributed and point.n < COST_MODEL_FLOOR_N:
+        for c in cands:
+            if c.name == "inplace":
+                return c
     return cands[0]

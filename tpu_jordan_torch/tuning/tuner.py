@@ -65,8 +65,9 @@ def measure_config(point: TunePoint, cfg: EngineConfig,
             "(smw_update is its one engine; the serve update lanes "
             "resolve cost-only)")
     if point.distributed:
-        raise UsageError("workers > 1 is the distributed path, not ported "
-                         "yet (ROADMAP.md Queue A item 15)")
+        raise UsageError("measuring a distributed configuration runs a "
+                         "world of ranks per trial, not ported yet "
+                         "(ROADMAP.md Queue A item 15b)")
     dev = torch.device(point.backend)
     dtype = resolve_dtype(point.dtype)
     n, m = point.n, point.block_size
