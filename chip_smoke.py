@@ -276,18 +276,46 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    DIST_NCCL_ROW (8192²/m384 rand fp32), run twice (the second timed):
    pivots equal, residual under the gate, probe launches = Nr.  The
    CLI's ``4096 128 --workers 4``: exit 0.
-16. ``kernels``: every ported kernel with its launches on its path (the
+16. ``dist_workloads``: the rest of the 1D distributed path on 4 ranks
+   sharing the card (gloo).  File input (DIST_FILE_ROW, 4096²/m128
+   absdiff fp32): the matrix written to a text file in a temporary
+   directory, ``driver.solve(file=..., workers=4, gather=False)``: pivots
+   equal to the single-device in-place engine's, the residual under the
+   gate, each rank's probe launches equal to its live steps, each rank's
+   largest strip ≤ m rows; then the CLI's ``4096 128 <file> --workers 4``
+   (exit 0).  The [A | B] solve (DIST_SOLVE_ROW, 8192²/m384 rand fp32,
+   K = 1): one world runs ``solve_sharded`` (a warm-up, then timed) and
+   ``solve_lookahead`` on each rank's strips, and ``solve_sharded`` on the
+   same A and B in fp64, each held to the single-device ``solve_system``
+   on the same A and B: the backward error under the solve gate, probe
+   launches = live steps, the fp64 pivots equal to the single device's and
+   the fp32 engines' pivots equal to each other (fp32 keys may part from
+   the single device's at a near tie: ROADMAP.md Queue C); its time (the
+   slowest rank's) beside the single-device one; then the CLI's
+   ``8192 384 --workload solve --generator rand --workers 4`` (exit 0, its
+   printed backward error under its printed gate).  The checkpointed solve
+   (DIST_CKPT_ROW, 6000²/m300 rand fp32, K = 16, cadence 5: m = 300 has no
+   panel width, so every rank runs ``gj_probe.cu``): uninterrupted, then
+   preempted by a seeded fault at the third boundary and resumed; X's bits
+   equal, the stored file in the JAX format (key fields, array shapes),
+   the launches of the two halves equal to the live steps; checkpoint
+   bytes and write seconds recorded.  ``tune=True`` (DIST_TUNE_ROW,
+   4096/m128 fp32): the trials (median, spread) and the engine chosen; a
+   second call hits the plan cache and measures nothing.
+17. ``kernels``: every ported kernel with its launches on its path (the
    solve, tune, telemetry, resilience, serve, handles, fleet, lpqp,
-   autoscale, update_demo and distributed rows, the last counted by the
-   ranks; the variants' engine runs of ``reference``), the complex bodies
-   of ``gj_probe.cu`` as ``gj_probe[c64]`` and ``gj_probe[c128]``; with
+   autoscale, update_demo, distributed and dist_workloads rows, the last
+   two counted by the ranks; the variants' engine runs of ``reference``),
+   the complex bodies of ``gj_probe.cu`` as ``gj_probe[c64]`` and
+   ``gj_probe[c128]``; with
    the fleet phase and those after it, each kernel's launches in each of
    them (``launches_by_phase``).
 
 Not run by default: ``--phases toolchain,nccl4`` (on a host with four
 cards) runs the distributed phase's 4-rank world with a card a rank,
 which the backend rule puts on nccl (every pivot sequence, residual and
-launch count held as there), and the CLI's ``4096 128 --workers 4``.
+launch count held as there), the dist_workloads phase's [A | B] solve leg
+in the same way, and the CLI's ``4096 128 --workers 4``.
 ``--phases knife_edge`` records that fp32 absdiff
 8192/m384 elimination through the grouped engine, with the kernel and with
 the plain probe: which side of the knife edge each lands on.
@@ -313,7 +341,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("toolchain", "kernel_vs_plain", "reference", "solve", "tune",
           "overlap", "telemetry", "resilience", "serve", "handles", "fleet",
-          "lpqp", "autoscale", "update_demo", "distributed")
+          "lpqp", "autoscale", "update_demo", "distributed",
+          "dist_workloads")
 EXTRA_PHASES = ("knife_edge", "cluster_sweep", "batch_fp32", "nccl4")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
@@ -720,6 +749,16 @@ DIST_ENGINES = ("inplace", "lookahead", "grouped", "swapfree", "auto")
 DIST_WORKERS = 4
 DIST_NCCL_ROW = (8192, 384, "rand", "float32")
 DIST_DEADLINE_S = 600
+# The dist_workloads phase on DIST_WORKERS ranks: the paper's file input at
+# the README's size (n, m, generator of the file's values, dtype); the
+# [A | B] solve at the CLI's --workload solve width (n, m, generator,
+# dtype, K); the checkpointed solve at an m with no panel width (n, m,
+# generator, dtype, K, cadence, the boundary at which the seeded preempt
+# fires); tune=True at (n, m, dtype).
+DIST_FILE_ROW = (4096, 128, "absdiff", "float32")
+DIST_SOLVE_ROW = (8192, 384, "rand", "float32", 1)
+DIST_CKPT_ROW = (6000, 300, "rand", "float32", 16, 5, 3)
+DIST_TUNE_ROW = (4096, 128, "float32")
 
 # The probe variants: (kernel launch counter key, wrapper, plain twin).
 VARIANTS = {"gj_probe_inplace": ("inplace", "gj_probe_inplace",
@@ -4210,6 +4249,7 @@ def phase_distributed(torch, counters, own_cards: bool = False):
                       "4 ranks share one card over gloo, not a scaling "
                       "figure"))})
     if own_cards:
+        _dist_solve_leg(torch, p, totals, failures, phase)
         return _distributed_cli(phase, p, totals, failures)
 
     t0 = time.perf_counter()
@@ -4240,6 +4280,400 @@ def _distributed_cli(phase: str, p: int, totals: dict, failures: list):
         failures.append({"cli": rc, "out": lines[-4:]})
     if failures:
         raise AssertionError(f"{phase} failed its checks: {failures}")
+    return totals
+
+
+def _rank_checks(ranks, Nr: int, p: int, body: str, ref_piv=None):
+    """(pivots_ok, steps_ok) of one world's rank outcomes: one pivot
+    sequence on every rank, equal to ``ref_piv`` (the single-device
+    engine's) plus the padded tail's self-pivots when given; each rank's
+    probe steps the steps at which it held a live candidate, and its
+    launches of ``body`` those steps, of no other kernel none."""
+    head = ranks[0]
+    pivots_ok = all(r.get("pivots") == head.get("pivots") for r in ranks)
+    if ref_piv is not None:
+        pivots_ok = pivots_ok and (
+            head["pivots"] == ref_piv + list(range(len(ref_piv), Nr)))
+    steps_ok = all(
+        r["probe_steps"] == _live_steps(Nr, p, r["rank"], "inplace", None)
+        and r["launches"].get(body, 0) == len(r["probe_steps"])
+        and sum(r["launches"].values()) == len(r["probe_steps"])
+        for r in ranks)
+    return pivots_ok, steps_ok
+
+
+def _add_launches(totals: dict, ranks) -> None:
+    for r in ranks:
+        for k, c in r["launches"].items():
+            totals[k] = totals.get(k, 0) + c
+
+
+def _dist_file_leg(torch, p: int, tmp: str, totals: dict, failures: list):
+    """Leg 1: the matrix written to a text file, then driver.solve(file=,
+    workers=p, gather=False) and the CLI on it."""
+    from tpu_jordan_torch.driver import solve
+    from tpu_jordan_torch.io import write_matrix_file
+    from tpu_jordan_torch.ops import block_jordan_invert_inplace, generate
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+    from tpu_jordan_torch.parallel.launch import last_world
+    from tpu_jordan_torch.parallel.layout import CyclicLayout
+    from tpu_jordan_torch.resilience import DEFAULT_POLICY, gate_threshold
+
+    n, m, gen, dt = DIST_FILE_ROW
+    dtype = getattr(torch, dt)
+    path = os.path.join(tmp, f"{gen}{n}.txt")
+    t0 = time.perf_counter()
+    write_matrix_file(path, generate(gen, (n, n), torch.float64).numpy())
+    write_s = time.perf_counter() - t0
+    a = generate(gen, (n, n), dtype, device="cuda")
+    _, sing, st = block_jordan_invert_inplace(a, block_size=m,
+                                              collect_stats=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    block_jordan_invert_inplace(a, block_size=m)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3
+    ref_piv = st["pivot_block"].tolist()
+    del a, st
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = solve(n, m, file=path, workers=p, gather=False)
+    wall = time.perf_counter() - t0
+    split = last_world()
+    lay = CyclicLayout.create(n, m, p)
+    body = probe_mod.probe_body(m, dtype)
+    pivots_ok, steps_ok = _rank_checks(res.ranks, lay.Nr, p, body, ref_piv)
+    gate = gate_threshold(DEFAULT_POLICY, n, res.kappa, dtype)
+    _add_launches(totals, res.ranks)
+    checks = {"single_not_singular": not bool(sing),
+              "pivots_equal_single": pivots_ok,
+              "residual_gate": res.rel_residual <= gate,
+              "probe_launches_live_steps": steps_ok,
+              "strip_rows_le_m": all(0 < r["strip_rows_max"] <= m
+                                     for r in res.ranks)}
+    out = {"phase": "dist_workloads", "leg": "file", "n": n, "m": m,
+           "generator": gen, "dtype": dt, "ranks": p,
+           "backend": res.ranks[0]["backend"], "checks": checks,
+           "file_bytes": os.path.getsize(path), "write_s": write_s,
+           "strip_rows_max": [r["strip_rows_max"] for r in res.ranks],
+           "rel_residual": res.rel_residual, "gate": gate,
+           "kappa": res.kappa, "ms": res.elapsed * 1e3,
+           "single_device_ms": single_ms, "world_wall_s": wall,
+           "world_split_s": split,
+           "launches": [r["launches"].get(body, 0) for r in res.ranks]}
+    t0 = time.perf_counter()
+    rc, lines = _run_cli([n, m, path, "--workers", p])
+    out["cli"] = {"argv": f"{n} {m} <file> --workers {p}", "exit": rc,
+                  "out": lines[-3:], "wall_s": time.perf_counter() - t0}
+    checks["cli_exit_0"] = rc == 0
+    emit(out)
+    if not all(checks.values()):
+        failures.append(out)
+
+
+def _parting_step(piv, ref_piv):
+    """The first superstep at which two pivot sequences part (None when
+    equal over the reference's length)."""
+    return next((t for t, (x, y) in enumerate(zip(piv, ref_piv)) if x != y),
+                None)
+
+
+def _dist_solve_leg(torch, p: int, totals: dict, failures: list,
+                    phase: str):
+    """Leg 2: one world of p ranks runs solve_sharded (a warm-up, then
+    timed) and solve_lookahead at DIST_SOLVE_ROW, and solve_sharded on the
+    same A and B in fp64; each held to the single-device solve on the same
+    A and B.  Then the CLI's --workload solve --workers p."""
+    from tpu_jordan_torch.linalg import block_jordan_solve, solve_system
+    from tpu_jordan_torch.ops import generate
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+    from tpu_jordan_torch.ops.padding import pad_with_identity
+    from tpu_jordan_torch.ops.residual import solve_residual_stats
+    from tpu_jordan_torch.parallel import run_calls, run_workers
+    from tpu_jordan_torch.parallel.dist_solve import (DistSolveSpec,
+                                                      solve_system_rank)
+    from tpu_jordan_torch.parallel.launch import last_world
+    from tpu_jordan_torch.parallel.layout import CyclicLayout
+    from tpu_jordan_torch.parallel.sharded_inplace import (
+        gather_solution_1d, scatter_rhs_1d)
+    from tpu_jordan_torch.resilience import (DEFAULT_POLICY,
+                                             solve_gate_threshold)
+    from tpu_jordan_torch.resilience.degrade import backward_error
+
+    n, m, gen, dt, k = DIST_SOLVE_ROW
+    lay = CyclicLayout.create(n, m, p)
+    runs = (("solve_sharded", dt), ("solve_sharded", dt),
+            ("solve_lookahead", dt), ("solve_sharded", "float64"))
+    ops, refs, per_rank = {}, {}, [([],) for _ in range(p)]
+    for dname in (dt, "float64"):
+        dtype = getattr(torch, dname)
+        A = generate(gen, (n, n), dtype, device="cuda")
+        B = generate(gen, (n, k), dtype, row_offset=n, device="cuda")
+        solve_system(A, B, block_size=m)                          # warm
+        ref = solve_system(A, B, block_size=m)
+        _, _, st = block_jordan_solve(A, B, block_size=m,
+                                      collect_stats=True)
+        refs[dname] = (ref, st["pivot_block"].tolist())
+        ops[dname] = (A, B)
+        ap = pad_with_identity(A.cpu(), lay.N).reshape(lay.Nr, m, lay.N)
+        bh = B.cpu()
+        for r in range(p):
+            a_r = ap[r::p].contiguous().numpy()
+            b_r = scatter_rhs_1d(bh, lay, r).numpy()
+            per_rank[r][0].extend(
+                (solve_system_rank, (DistSolveSpec(n, m, dname, e), a_r,
+                                     b_r))
+                for e, d in runs if d == dname)
+        del ap, bh, st
+    # Rank-call order follows the dtype loop: the fp32 runs, then fp64.
+    runs = tuple(sorted(runs, key=lambda ed: ed[1] != dt))
+    t0 = time.perf_counter()
+    results = run_workers(p, run_calls, per_rank=per_rank,
+                          deadline_s=DIST_DEADLINE_S, device_type="cuda")
+    world_s = time.perf_counter() - t0
+    split = last_world()
+    pivots = {}
+    for i, (engine, dname) in enumerate(runs):
+        dtype = getattr(torch, dname)
+        A, B = ops[dname]
+        ref, ref_piv = refs[dname]
+        ranks = [results[r][i] for r in range(p)]
+        body = probe_mod.probe_body(m, dtype)
+        x = gather_solution_1d([r["x_blocks"] for r in ranks], lay,
+                               n).to("cuda")
+        rel = backward_error(*solve_residual_stats(A, x, B))
+        gate = solve_gate_threshold(DEFAULT_POLICY, n, dtype)
+        same_piv, steps_ok = _rank_checks(ranks, lay.Nr, p, body)
+        piv = ranks[0]["pivots"]
+        pivots.setdefault(dname, piv)
+        _add_launches(totals, ranks)
+        checks = {"not_singular": not any(r["singular"] for r in ranks),
+                  "pivots_equal_across_ranks": same_piv,
+                  "backward_error_gate": rel <= gate,
+                  "probe_launches_live_steps": steps_ok}
+        if dname == "float64":
+            # fp64 keys carry ~1e-16·κ(block) of noise, far under their
+            # spread: the pivots are the single-device engine's exactly.
+            checks["pivots_equal_single"] = (
+                piv == ref_piv + list(range(len(ref_piv), lay.Nr)))
+        else:
+            # fp32 keys carry ~1e-7·κ(block): two runs whose GEMMs round
+            # differently (a rank's strip is another cuBLAS shape) may part
+            # at a near tie.  Held: both engines take the same pivots.
+            checks["pivots_equal_across_engines"] = piv == pivots[dname]
+        out = {"phase": phase, "leg": "solve", "engine": engine,
+               "warm_up": i == 0, "n": n, "m": m, "generator": gen,
+               "dtype": dname, "k": k, "ranks": p,
+               "backend": ranks[0]["backend"], "checks": checks,
+               "pivots_part_from_single_at": _parting_step(piv, ref_piv),
+               "rel_residual": rel, "gate": gate,
+               "ms": ranks[0]["elapsed"] * 1e3,
+               "single_device_ms": ref.elapsed * 1e3,
+               "single_device_engine": ref.engine,
+               "single_rel_residual": ref.rel_residual,
+               "x_max_rel_diff": float((x - ref.x).abs().max()
+                                       / ref.x.abs().max()),
+               "launches": [r["launches"].get(body, 0) for r in ranks]}
+        emit(out)
+        if not all(checks.values()):
+            failures.append(out)
+    emit({"phase": phase, "leg": "solve", "world_s": world_s,
+          "world_split_s": split,
+          "note": "ms: the slowest rank's CUDA events"
+                  + ("" if phase == "nccl4" else
+                     "; 4 ranks share one card over gloo, not a scaling "
+                     "figure")})
+    del ops, refs
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    argv = [n, m, "--workload", "solve", "--generator", gen, "--workers",
+            p]
+    rc, lines = _run_cli(argv)
+    rel_line = next((ln for ln in lines if ln.startswith("rel_residual")),
+                    "")
+    gate_ok = False
+    if rel_line:
+        val, cli_gate = rel_line.split()[1], rel_line.split()[-1].rstrip(")")
+        gate_ok = float(val) <= float(cli_gate)
+    out = {"phase": phase, "leg": "solve", "check": "cli",
+           "argv": " ".join(map(str, argv)), "exit": rc, "out": lines[-4:],
+           "wall_s": time.perf_counter() - t0,
+           "world_split_s": last_world()}
+    emit(out)
+    if rc != 0 or not gate_ok:
+        failures.append(out)
+
+
+def _dist_ckpt_leg(torch, p: int, tmp: str, totals: dict, failures: list):
+    """Leg 3: the checkpointed distributed solve, uninterrupted, then
+    preempted by a seeded fault at one boundary and resumed."""
+    from tpu_jordan_torch.ops import generate
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+    from tpu_jordan_torch.ops.residual import solve_residual_stats
+    from tpu_jordan_torch.parallel.launch import last_world
+    from tpu_jordan_torch.parallel.layout import CyclicLayout
+    from tpu_jordan_torch.resilience import (DEFAULT_POLICY, FaultPlan,
+                                             FaultSpec, activate,
+                                             solve_gate_threshold)
+    from tpu_jordan_torch.resilience.checkpoint import (
+        CheckpointStore, PreemptedError, checkpointed_solve)
+    from tpu_jordan_torch.resilience.degrade import backward_error
+
+    n, m, gen, dt, k, cad, hit = DIST_CKPT_ROW
+    dtype = getattr(torch, dt)
+    A = generate(gen, (n, n), dtype, device="cuda")
+    B = generate(gen, (n, k), dtype, row_offset=n, device="cuda")
+    lay = CyclicLayout.create(n, m, p)
+    body = probe_mod.probe_body(m, dtype)
+    store = CheckpointStore(os.path.join(tmp, "ckpt"))
+    kw = dict(store=store, cadence=cad, engine="fori", workers=p)
+    t0 = time.perf_counter()
+    x0, sing0, info0 = checkpointed_solve(A, B, m, run_id="dist_u", **kw)
+    wall0 = time.perf_counter() - t0
+    splits = {"uninterrupted": last_world()}
+    checks = {"body_is_gj_probe": body == "gj_probe",
+              "not_singular": not sing0}
+    ranks0 = info0["ranks"]
+    _, checks["probe_launches_live_steps"] = _rank_checks(
+        [dict(r, pivots=None) for r in ranks0], lay.Nr, p, body)
+    _add_launches(totals, ranks0)
+    rel = backward_error(*solve_residual_stats(A, x0, B))
+    gate = solve_gate_threshold(DEFAULT_POLICY, n, dtype)
+    checks["backward_error_gate"] = rel <= gate
+    plan = FaultPlan([FaultSpec("preempt", (hit,), "permanent")])
+    step, info_p = None, None
+    t0 = time.perf_counter()
+    with activate(plan):
+        try:
+            checkpointed_solve(A, B, m, run_id="dist_p", **kw)
+        except PreemptedError as e:
+            step, info_p = e.step, getattr(e, "info", None)
+    wall_p = time.perf_counter() - t0
+    splits["preempted"] = last_world()
+    checks["preempted_at_boundary"] = step == (hit - 1) * cad
+    key, stored_step, arrays = store.peek("dist_p")
+    checks["jax_format"] = (
+        key.topology == f"1d:{p}" and key.workload == "solve"
+        and key.engine == "fori" and (key.n, key.m, key.Nr, key.nrhs)
+        == (n, m, lay.Nr, k) and key.dtype == dt
+        and stored_step == step
+        and arrays["W"].shape == (lay.Nr, m, lay.N)
+        and arrays["X"].shape == (lay.Nr, m, k)
+        and arrays["singular"].shape == (p,)
+        and str(arrays["W"].dtype) == dt and "swaps" not in arrays)
+    t0 = time.perf_counter()
+    x1, _, info1 = checkpointed_solve(A, B, m, run_id="dist_p",
+                                      resume_from="dist_p", **kw)
+    wall1 = time.perf_counter() - t0
+    splits["resumed"] = last_world()
+    checks["resume_bits_equal"] = bool(torch.equal(x0, x1))
+    checks["resumed_at_step"] = (info1["start_step"] == step
+                                 and info1["resumed"])
+    # The preempted and the resumed worlds probed every live step once.
+    parts = [r for info in (info_p, info1) if info for r in info["ranks"]]
+    for r in parts:
+        for kk, c in r["launches"].items():
+            totals[kk] = totals.get(kk, 0) + c
+    checks["split_launches_live_steps"] = all(
+        sorted(sum((q["probe_steps"] for q in parts if q["rank"] == rk),
+                   [])) == _live_steps(lay.Nr, p, rk, "inplace", None)
+        and sum(q["launches"].get(body, 0) for q in parts
+                if q["rank"] == rk) == len(_live_steps(lay.Nr, p, rk,
+                                                       "inplace", None))
+        for rk in range(p))
+    checks["ledger_invariant"] = store.ledger()["invariant_holds"]
+    out = {"phase": "dist_workloads", "leg": "checkpoint", "n": n, "m": m,
+           "generator": gen, "dtype": dt, "k": k, "ranks": p,
+           "cadence": cad, "preempt_call": hit, "checks": checks,
+           "rel_residual": rel, "gate": gate,
+           "ckpt_bytes": info0["ckpt_bytes_last"],
+           "ckpt_writes": info0["ckpt_written"],
+           "ckpt_write_s": info0["ckpt_write_seconds"],
+           "wall_s": {"uninterrupted": wall0, "preempted": wall_p,
+                      "resumed": wall1},
+           "world_split_s": splits,
+           "launches": [r["launches"].get(body, 0) for r in ranks0]}
+    emit(out)
+    if not all(checks.values()):
+        failures.append(out)
+
+
+def _dist_tune_leg(torch, p: int, tmp: str, totals: dict, failures: list):
+    """Leg 4: driver.solve(tune=True) at p ranks, then the same call again,
+    which must hit the plan cache and measure nothing."""
+    from tpu_jordan_torch.driver import solve
+    from tpu_jordan_torch.parallel.launch import last_world
+    from tpu_jordan_torch.resilience import DEFAULT_POLICY, gate_threshold
+    from tpu_jordan_torch.tuning import tuner as tuner_mod
+
+    n, m, dt = DIST_TUNE_ROW
+    cache = os.path.join(tmp, "plans.json")
+    out = {"phase": "dist_workloads", "leg": "tune", "n": n, "m": m,
+           "dtype": dt, "ranks": p, "calls": []}
+    results = []
+    for _ in range(2):
+        meas0 = tuner_mod._M_MEASUREMENTS.total()
+        hits0 = tuner_mod._M_HITS.total()
+        t0 = time.perf_counter()
+        res = solve(n, m, dtype=dt, workers=p, tune=True, plan_cache=cache)
+        results.append(res)
+        _add_launches(totals, res.ranks)
+        out["calls"].append({
+            "engine": res.engine, "source": res.plan.source,
+            "measurements": tuner_mod._M_MEASUREMENTS.total() - meas0,
+            "cache_hits": tuner_mod._M_HITS.total() - hits0,
+            "ms": res.elapsed * 1e3, "wall_s": time.perf_counter() - t0,
+            "world_split_s": last_world()})
+    first, second = out["calls"]
+    out["trials"] = [{"config": t["config"],
+                      "median_ms": t["measured"] * 1e3,
+                      "spread_pct": t["spread_pct"],
+                      "projected_ms": (None if t["projected"] is None
+                                       else t["projected"] * 1e3)}
+                     for t in results[0].plan.trials]
+    out["checks"] = {
+        "measured": first["source"] == "measured"
+        and first["measurements"] == len(out["trials"]) > 0,
+        "second_call_hits_cache": second["cache_hits"] == 1
+        and second["measurements"] == 0
+        and second["engine"] == first["engine"],
+        "residual_gate": all(
+            r.rel_residual <= gate_threshold(DEFAULT_POLICY, n, r.kappa,
+                                             getattr(torch, dt))
+            for r in results)}
+    emit(out)
+    if not all(out["checks"].values()):
+        failures.append(out)
+
+
+def phase_dist_workloads(torch, counters):
+    """The rest of the 1D distributed path on DIST_WORKERS ranks sharing
+    the card (gloo): the file input, the [A | B] solves, the checkpointed
+    solve and tune=True (the module docstring's phase 16).  Returns the
+    ranks' launches summed."""
+    import shutil
+    import tempfile
+
+    p = DIST_WORKERS
+    totals = dict.fromkeys(counters, 0)
+    failures = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        t0 = time.perf_counter()
+        _dist_file_leg(torch, p, tmp, totals, failures)
+        legs = {"file": time.perf_counter() - t0}
+        _dist_solve_leg(torch, p, totals, failures, "dist_workloads")
+        legs["solve"] = time.perf_counter() - t0 - sum(legs.values())
+        _dist_ckpt_leg(torch, p, tmp, totals, failures)
+        legs["checkpoint"] = time.perf_counter() - t0 - sum(legs.values())
+        _dist_tune_leg(torch, p, tmp, totals, failures)
+        legs["tune"] = time.perf_counter() - t0 - sum(legs.values())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "dist_workloads", "legs_s": legs})
+    if failures:
+        raise AssertionError(f"dist_workloads failed its checks: "
+                             f"{failures}")
     return totals
 
 
@@ -4569,7 +5003,8 @@ def main(argv=None) -> int:
     for name, phase in (("fleet", phase_fleet), ("lpqp", phase_lpqp),
                         ("autoscale", phase_autoscale),
                         ("update_demo", phase_update_demo),
-                        ("distributed", phase_distributed)):
+                        ("distributed", phase_distributed),
+                        ("dist_workloads", phase_dist_workloads)):
         if name in phases:
             by_phase[name] = phase(torch, launch_counters())
             for kernel, count in by_phase[name].items():

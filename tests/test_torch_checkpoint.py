@@ -417,7 +417,9 @@ class TestRefusals:
             checkpointed_invert(a, 8, store=store, run_id="t:bf",
                                 cadence=2, engine="fori", device="cpu")
 
-    @pytest.mark.parametrize("kw", [{"mesh": object()}, {"workers": 2}])
+    # {"mesh": object()} and {"workers": 2} were item 15b's refusals; the
+    # 1D runners are ported, so the ids hold the 2D mesh (item 15c).
+    @pytest.mark.parametrize("kw", [{"mesh": (2, 2)}, {"workers": (2, 4)}])
     def test_distributed_unsupported_names_item_15(self, store, kw):
         with pytest.raises(CheckpointUnsupportedError, match="item 15"):
             checkpointed_invert(_mat(32), 8, store=store, run_id="t:d",

@@ -266,9 +266,15 @@ def test_flag_contract():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"engine": "solve_sharded"}, "item 15"),
-    ({"engine": "solve_lookahead"}, "item 15"),
-    ({"workers": 2}, "item 15"),
+    # The first three ids are kept from when these were the distributed
+    # solve's refusals (item 15b, now ported): they hold the refusals
+    # that remain, in the JAX package's words.
+    pytest.param({"engine": "solve_sharded"}, "pass workers=p",
+                 id="kwargs0-item 15"),
+    pytest.param({"engine": "solve_lookahead"}, "pass workers=p",
+                 id="kwargs1-item 15"),
+    pytest.param({"workers": 2, "assume": "spd"}, "pivot-free fast path",
+                 id="kwargs2-item 15"),
     ({"workers": (2, 2)}, "item 15"),
     ({"gather": False}, "item 15"),
     pytest.param({"numerics": "trace", "engine": "solve_fori"},

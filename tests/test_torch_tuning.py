@@ -238,7 +238,7 @@ def test_legality_and_picks_match_jax(n, m, dt):
 def test_registry_is_the_engine_vocabulary():
     """Every (engine, workload) pair is registered once; the driver's,
     the CLI's and linalg's vocabularies derive from the registry; the JAX
-    registry has exactly the port's configs plus the distributed ones."""
+    registry has exactly the port's configs."""
     from tpu_jordan_torch.linalg import SOLVE_ENGINES
 
     pairs = [(c.engine, c.workload) for c in tregistry.CONFIGS]
@@ -248,8 +248,7 @@ def test_registry_is_the_engine_vocabulary():
     assert tdriver.PALLAS_ENGINES == jregistry.PALLAS_ENGINES
     assert (tdriver.GROUPED_MIN_SINGLE_CHIP_N
             == jregistry.GROUPED_MIN_SINGLE_CHIP_N)
-    assert set(jregistry.REGISTRY) - set(tregistry.REGISTRY) == {
-        "solve_sharded", "solve_lookahead_sharded"}
+    assert set(jregistry.REGISTRY) == set(tregistry.REGISTRY)
     for name, cfg in tregistry.REGISTRY.items():
         ref = jregistry.REGISTRY[name]
         assert (cfg.engine, cfg.group, cfg.workload) == (
@@ -717,7 +716,7 @@ def test_measure_config_refusals():
     assert str(e.value) == ref
     dist = tregistry.TunePoint(64, 8, "float32", workers=8, backend="cpu")
     with pytest.raises(UsageError, match="item 15"):
-        ttuner.measure_config(dist, tregistry.get("inplace"))
+        ttuner.measure_config(dist, tregistry.get("augmented"))
     from tpu_jordan_torch.obs import Telemetry
 
     tel = Telemetry()

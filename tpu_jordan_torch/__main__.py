@@ -66,11 +66,14 @@ Distributed: ``--workers p`` runs the 1D row-block-cyclic engines
 (``engine`` inplace, lookahead, grouped with ``--group``, swapfree, or
 auto) on p ranks of ``torch.distributed``, spawned here, one card each
 where there are enough (``parallel/launch.py``); ``--no-gather`` leaves
-the inverse in the ranks' cyclic blocks and prints its corner.
-``--distributed`` joins a world launched outside (``torchrun``: ``RANK``,
-``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) as one of its ranks
-instead of spawning.  A ``PRxPC`` mesh (item 15c), file input at p > 1
-(item 15b) and ``--engine augmented`` at p > 1 (item 15d) exit 1.
+the inverse in the ranks' cyclic blocks and prints its corner.  With a
+``file`` each rank streams its own strips from it; ``--tune`` measures the
+distributed engines, each in one world of ranks; ``--workload solve
+--workers p [--no-gather]`` solves on the ranks (``--workload lstsq`` stays
+single-device, exit 1).  ``--distributed`` joins a world launched outside
+(``torchrun``: ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``)
+as one of its ranks instead of spawning (the invert path).  A ``PRxPC``
+mesh (item 15c) and ``--engine augmented`` at p > 1 (item 15d) exit 1.
 ``--quiet`` drops the bulky parts of the demos' reports (the per-lane
 stats, the fault log, the per-handle rows); elsewhere it is the default,
 non-verbose output.  The serving flags apply to the serve, chaos and

@@ -41,13 +41,18 @@ ranks of ``torch.distributed``: spawned here (``parallel/launch.py``), or,
 when this process already belongs to a world of p ranks (``--distributed``
 under ``torchrun``), as this process's rank.  Each rank generates its
 strip, the engine is timed between CUDA events on every rank (``elapsed``
-is the slowest rank's), and the residual is the ring GEMM's.  The JAX
-package attaches its ``comm``/``work`` observatories to the execute span;
-they come with ROADMAP.md Queue A item 15b.
+is the slowest rank's), and the residual is the ring GEMM's.  With a
+``file`` each rank streams its own strips from it (``parallel/
+scatter_stream.py``: one strip of host memory at a time, no scatter from a
+root) and re-reads them for the verification.  ``tune=True`` measures the
+distributed engines, each in one world of ranks.  The JAX package attaches
+its ``comm``/``work`` observatories to the execute span; they come with
+ROADMAP.md Queue A item 15e.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from functools import partial
 
@@ -56,7 +61,8 @@ import torch
 from .config import MAX_UNROLL_NR, default_block_size
 from .errors import SingularMatrixError, UsageError
 from .interop import from_numpy, resolve_device, resolve_dtype
-from .io import read_matrix_file
+from .io import (MatrixReadError, MatrixStripReader, read_matrix_corner,
+                 read_matrix_file)
 from .ops import (
     batched_jordan_invert,
     block_jordan_invert,
@@ -294,15 +300,14 @@ def refuse_tune_for_explicit_engine(engine: str, tune, plan_cache):
 
 
 def refuse_later_options(workers, gather, policy, dtype, *, engine=None,
-                         file=None, workers_item: str | None = None):
+                         workers_item: str | None = None):
     """Options of the JAX package's entries that later slices bring: each
     is refused with the Queue A item that brings it, never silently
-    ignored.  On ``driver.solve`` (``workers_item`` None) those are a
-    (pr, pc) mesh (item 15c), file input at p > 1 (15b) and the augmented
-    engine at p > 1 (15d); complex dtypes stay single-device, as in the
-    JAX package.  An entry whose distributed form is a later item names it
-    in ``workers_item`` (``linalg.solve_system``: 15b, ``JordanSolver``:
-    15d)."""
+    ignored.  On ``driver.solve`` and ``linalg.solve_system``
+    (``workers_item`` None) those are a (pr, pc) mesh (item 15c) and the
+    augmented engine at p > 1 (15d); complex dtypes stay single-device, as
+    in the JAX package.  An entry whose distributed form is a later item
+    names it in ``workers_item`` (``JordanSolver``: 15d)."""
     distributed = isinstance(workers, tuple) or workers != 1
     if distributed and dtype is not None and resolve_dtype(dtype).is_complex:
         raise UsageError("complex dtypes run single-device (the distributed "
@@ -321,10 +326,6 @@ def refuse_later_options(workers, gather, policy, dtype, *, engine=None,
                          "(sharded_jordan.py), not ported yet (ROADMAP.md "
                          "Queue A item 15d); use inplace, lookahead, "
                          "grouped or swapfree")
-    if distributed and file is not None:
-        raise UsageError("file input at workers > 1 is the streamed strip "
-                         "scatter (scatter_stream.py, io.MatrixStripReader), "
-                         "not ported yet (ROADMAP.md Queue A item 15b)")
     if not gather and not distributed:
         raise UsageError("gather=False is only supported on distributed "
                          "paths (workers > 1; ROADMAP.md Queue A item "
@@ -471,18 +472,17 @@ def solve(
     engine).  Raises SingularMatrixError like the reference's -2 path
     (main.cpp:435-437); file errors propagate from read_matrix_file.
     """
-    refuse_later_options(workers, gather, policy, dtype, engine=engine,
-                         file=file)
+    refuse_later_options(workers, gather, policy, dtype, engine=engine)
     dev = resolve_device(device)
     if workers != 1:
         tel = telemetry if telemetry is not None else _NULL_TEL
         with tel.span("solve", n=n, workers=str(workers),
                       generator=generator) as root:
             res = _solve_distributed(
-                n, block_size, generator, dtype=dtype, refine=refine,
-                workers=workers, device=dev, verbose=verbose, gather=gather,
-                precision=precision, engine=engine, group=group,
-                plan_cache=plan_cache, tune=tune, tel=tel,
+                n, block_size, generator, file=file, dtype=dtype,
+                refine=refine, workers=workers, device=dev, verbose=verbose,
+                gather=gather, precision=precision, engine=engine,
+                group=group, plan_cache=plan_cache, tune=tune, tel=tel,
                 numerics=numerics, policy=policy)
         if telemetry is not None:
             res.trace = root
@@ -500,19 +500,21 @@ def solve(
         telemetry=telemetry, policy=policy, numerics=numerics)
 
 
-def _solve_distributed(n, block_size, generator, *, dtype, refine, workers,
-                       device, verbose, gather, precision, engine, group,
-                       plan_cache, tune, tel, numerics, policy=None):
+def _solve_distributed(n, block_size, generator, *, file, dtype, refine,
+                       workers, device, verbose, gather, precision, engine,
+                       group, plan_cache, tune, tel, numerics, policy=None):
     """:func:`solve` at ``workers=p``: the JAX package's
     ``_solve_distributed_core`` on the 1D layout, one process per rank.
     As there, the ``compile`` fault point fires under the policy's retry
     and ``execute`` fires unretried; no residual gate (the JAX distributed
-    core has none)."""
+    core has none).  A ``file`` is opened here first (FileNotFoundError
+    before any rank starts); a rank that cannot parse its strips fails the
+    world, which surfaces as MatrixReadError, the reference's -2."""
     import torch.distributed as dist
 
     from .obs.numerics import resolve_mode
     from .parallel.dist_solve import DistSpec, solve_rank
-    from .parallel.launch import run_workers
+    from .parallel.launch import WorkerError, run_workers
 
     p = int(workers)
     if p < 1:
@@ -530,17 +532,15 @@ def _solve_distributed(n, block_size, generator, *, dtype, refine, workers,
     if refine and not gather:
         raise UsageError("refine requires gather=True (it runs on the "
                          "gathered inverse)")
-    if tune:
-        raise UsageError("tune=True at workers > 1 measures distributed "
-                         "engines in worlds of ranks, not ported yet "
-                         "(ROADMAP.md Queue A item 15b); the cost ranking "
-                         "and a plan cache apply")
     dtype = resolve_dtype(dtype)
     if block_size is None:
         block_size = default_block_size(n)
     _, refine = resolve_precision(precision, refine)
+    if file is not None:
+        # The reference's -1 "cannot open", before any rank starts.
+        MatrixStripReader(file, n).close()
     engine, group, plan = resolve_invert_engine(
-        engine, group, n, block_size, dtype, tune=False,
+        engine, group, n, block_size, dtype, tune=tune,
         plan_cache=plan_cache, workers=p, gather=gather, device=device,
         telemetry=tel)
     if engine in PALLAS_ENGINES:
@@ -561,12 +561,16 @@ def _solve_distributed(n, block_size, generator, *, dtype, refine, workers,
             f"MAX_UNROLL_NR={MAX_UNROLL_NR}; use engine='inplace'")
     spec = DistSpec(n=n, m=m, generator=generator,
                     dtype=str(dtype).removeprefix("torch."), engine=engine,
-                    group_k=group, gather=gather, refine=refine)
+                    group_k=group, gather=gather, refine=refine,
+                    file=None if file is None else os.path.abspath(file))
     if verbose:
         from .utils.printing import print_corner
 
         print("A")
-        print_corner(generate(generator, (min(n, 10), min(n, 10)), dtype))
+        print_corner(
+            from_numpy(read_matrix_corner(file, n), "cpu", dtype)
+            if file is not None
+            else generate(generator, (min(n, 10), min(n, 10)), dtype))
     def ready():
         # The compile analogue (resilience/faults.py): the world's spec.
         _faults.fire("compile")
@@ -588,9 +592,15 @@ def _solve_distributed(n, block_size, generator, *, dtype, refine, workers,
                     f"{grp.world_size} ranks")
             results = [solve_rank(grp, spec)]
         else:
-            results = run_workers(p, solve_rank, spec,
-                                  deadline_s=WORLD_DEADLINE_S,
-                                  device_type=device.type)
+            try:
+                results = run_workers(p, solve_rank, spec,
+                                      deadline_s=WORLD_DEADLINE_S,
+                                      device_type=device.type)
+            except WorkerError as e:
+                if file is not None and e.detail.startswith(
+                        MatrixReadError.__name__):
+                    raise MatrixReadError(f"cannot read {file}") from e
+                raise
     head = results[0]
     elapsed = max(r["elapsed"] for r in results)
     wsp.attrs["backend"] = head["backend"]

@@ -1,13 +1,21 @@
-"""Matrix file input.
+"""Matrix file input and output.
 
 Replacement for ``read_matrix`` (main.cpp:209-282): the file format is n*n
-whitespace-separated decimal numbers, row-major.  This is the plain Python
-token reader; the file is parsed on the host and the caller moves the array
-to its device.
+whitespace-separated decimal numbers, row-major.  ``read_matrix_file``
+parses the whole file on the host (the single-device path);
+:class:`MatrixStripReader` reads it one strip of rows at a time, so a rank
+of the distributed path holds O(n·m) of it, never O(n²) (the reference's
+root rank reads one block-row buffer at a time, main.cpp:242-276).  This is
+the plain Python chunked tokenizer of the JAX package's ``io.py``; its
+native stream (``native.py``) is ROADMAP.md Queue A item 15d.
 
 Error contract mirrors the reference's collective error codes
 (main.cpp:231-237, 277): -1 "cannot open" -> FileNotFoundError, -2 "cannot
 read" -> MatrixReadError.
+
+The strip readers of this process keep a witness: the largest number of
+rows one ``read_rows`` call ever held (:func:`strip_peak_rows`), which the
+distributed path reports per rank.
 """
 
 from __future__ import annotations
@@ -18,6 +26,20 @@ import numpy as np
 class MatrixReadError(ValueError):
     """File exists but does not contain n*n parseable numbers (the
     reference's -2 "cannot read" path, main.cpp:255, 277)."""
+
+
+_PEAK_ROWS = 0
+
+
+def strip_peak_rows() -> int:
+    """The most rows any :class:`MatrixStripReader` of this process held at
+    once since the last :func:`reset_strip_peak`."""
+    return _PEAK_ROWS
+
+
+def reset_strip_peak() -> None:
+    global _PEAK_ROWS
+    _PEAK_ROWS = 0
 
 
 def read_matrix_file(path: str, n: int, dtype=np.float64) -> np.ndarray:
@@ -37,3 +59,98 @@ def read_matrix_file(path: str, n: int, dtype=np.float64) -> np.ndarray:
     except ValueError as e:
         raise MatrixReadError(f"cannot read {path}") from e
     return vals.reshape(n, n).astype(dtype)
+
+
+def write_matrix_file(path: str, a) -> None:
+    """Write a matrix in the reference's format (whitespace-separated,
+    row-major, 17 significant digits, so the values round-trip)."""
+    np.savetxt(path, np.asarray(a), fmt="%.17g")
+
+
+def read_matrix_corner(path: str, n: int, dtype=np.float64,
+                       k: int = 10) -> np.ndarray:
+    """Top-left min(n, k) corner of the matrix in ``path`` (the
+    print_matrix gather, main.cpp:297-341), reading only its first k
+    rows."""
+    k = min(n, k)
+    with MatrixStripReader(path, n, dtype) as reader:
+        return np.ascontiguousarray(reader.read_rows(k)[:, :k])
+
+
+class MatrixStripReader:
+    """Incremental row-strip reader: ``read_rows(r)`` returns the next r
+    full rows as an (r, n) array.  The file is tokenized ``_CHUNK``
+    characters at a time; a token that straddles a chunk's end is carried
+    as the tail into the next chunk.  A context manager; raises
+    FileNotFoundError / MatrixReadError like ``read_matrix_file``."""
+
+    _CHUNK = 1 << 20
+
+    def __init__(self, path: str, n: int, dtype=np.float64):
+        self.path = path
+        self.n = n
+        self.dtype = dtype
+        self.max_rows = 0
+        self._tail = ""
+        self._pending: list[str] = []
+        self._pos = 0
+        try:
+            self._fh = open(path)
+        except OSError as e:
+            raise FileNotFoundError(f"cannot open {path}") from e
+
+    def read_rows(self, nrows: int) -> np.ndarray:
+        """Next ``nrows`` full rows as an (nrows, n) array."""
+        global _PEAK_ROWS
+        self.max_rows = max(self.max_rows, nrows)
+        _PEAK_ROWS = max(_PEAK_ROWS, nrows)
+        count = nrows * self.n
+        vals = self._read_tokens(count)
+        if vals.size < count:
+            raise MatrixReadError(f"cannot read {self.path}")
+        return vals.reshape(nrows, self.n).astype(self.dtype)
+
+    def _read_tokens(self, count: int) -> np.ndarray:
+        out = np.empty(count, dtype=np.float64)
+        got = 0
+        while got < count:
+            avail = len(self._pending) - self._pos
+            if avail:
+                take = min(count - got, avail)
+                try:
+                    out[got:got + take] = self._pending[
+                        self._pos:self._pos + take]
+                except ValueError as e:
+                    raise MatrixReadError(
+                        f"cannot read {self.path}") from e
+                self._pos += take
+                got += take
+                continue
+            chunk = self._fh.read(self._CHUNK)
+            if not chunk:
+                # Flush the carried partial token, then EOF.
+                if self._tail:
+                    self._pending, self._pos = [self._tail], 0
+                    self._tail = ""
+                    continue
+                break
+            data = self._tail + chunk
+            if data[-1].isspace():
+                self._tail = ""
+                self._pending = data.split()
+            else:
+                toks = data.split()
+                self._tail = toks.pop() if toks else ""
+                self._pending = toks
+            self._pos = 0
+        return out[:got]
+
+    def close(self):
+        self._fh.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

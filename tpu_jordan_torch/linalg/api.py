@@ -1,7 +1,7 @@
 """``solve_system`` and ``lstsq``: the solve workloads as typed results.
 
-The single-device part of the JAX package's ``linalg/api.py``, for real and
-complex dtypes:
+The JAX package's ``linalg/api.py``: for real and complex dtypes on one
+device, and for real dtypes on p ranks of the 1D layout:
 the engine choice (``resolve_solve_engine``, with "auto" resolved by the
 tuner at a workload-scoped point: plan cache, cost ranking, measurement
 with ``tune=True``), the solve timed with
@@ -15,11 +15,25 @@ the card unless ``device="cpu"``.  ``telemetry`` records a
 ``NumericsReport`` ("summary", or "trace" on the unrolled [A | B] engine).
 Every call counts in ``tpu_jordan_torch_workload_requests_total`` and
 crosses the ``compile``, ``execute`` and ``result_corrupt_nan`` fault
-points (``resilience/faults.py``).  The JAX
-package's distributed solves (complex ones included) are refused by name
-(ROADMAP.md Queue A item 15b).  Complex A and B flow through the engine,
-the residual (every norm is of |z|) and the gate; lstsq forms the
-conjugate transpose.
+points (``resilience/faults.py``; a distributed solve the first two, as
+in the JAX package).  Complex A and B flow through the engine, the
+residual (every norm is of |z|) and the gate; lstsq forms the conjugate
+transpose.
+
+``workers=p`` solves on p ranks (``solve_sharded``, or its probe-ahead
+twin ``solve_lookahead``; ``parallel/sharded_inplace.py``).  The caller's A
+and B are split in this process into each rank's strips (identity-padded
+A, zero-padded B, in the compute dtype), and each rank reads only its own,
+from a file of its own in the world's temporary directory
+(``run_workers(per_rank=...)``): no rank is sent the whole matrix.  The
+ranks return their rows of X, which is assembled here (it is O(n·k)) and
+verified against the caller's A and B, in either gather mode;
+``gather=False`` also keeps the rows as ``x_blocks``.  The policy's refine
+rung re-runs the distributed solve on the residual (a world of its own:
+the first one has ended), and a recovered X is cut into ``x_blocks``
+again.  The ``solve_system`` span tree of a distributed solve has
+``scatter``, ``world`` (with ``execute``), ``gather``, ``residual`` and
+``recover`` children.  A (pr, pc) mesh is ROADMAP.md Queue A item 15c.
 """
 
 from __future__ import annotations
@@ -45,10 +59,8 @@ from ..tuning.tuner import auto_select
 from .engine import block_jordan_solve, block_jordan_solve_fori
 
 ASSUME = ("general", "spd")
-# SOLVE_ENGINES comes from the registry; the distributed engines arrive
-# with item 15b.
-_LATER_SOLVE_ENGINES = {"solve_sharded": "Queue A item 15b",
-                        "solve_lookahead": "Queue A item 15b"}
+#: The distributed solve engines (SOLVE_ENGINES comes from the registry).
+DIST_SOLVE_ENGINES = ("solve_sharded", "solve_lookahead")
 
 _M_WORKLOAD = _obs_metrics.counter(
     "tpu_jordan_torch_workload_requests_total",
@@ -84,6 +96,14 @@ class SolveSystemResult:
     device: str = ""
     trace: object | None = None   # obs.spans.Span root ("solve_system")
     numerics: object | None = None  # obs.numerics.NumericsReport
+    workers: object = 1           # the ranks the solve ran on
+    # gather=False distributed solves: each rank's (bpw, m, k) rows of X in
+    # cyclic order (rank order), and their layout.
+    x_blocks: list | None = None
+    layout: object | None = None
+    # Distributed solves: one summary a rank (pivots, the steps it probed,
+    # its kernels' launches, elapsed, backend and the rule's reason).
+    ranks: list | None = None
     _norm_a: float | None = None
     _norm_x: float | None = None
     _norm_b: float | None = None
@@ -128,11 +148,6 @@ def resolve_solve_engine(engine: str, assume: str):
     if assume not in ASSUME:
         raise UsageError(f"unknown assume {assume!r}; choose from "
                          f"{'/'.join(ASSUME)}")
-    if engine in _LATER_SOLVE_ENGINES:
-        raise UsageError(
-            f"engine={engine!r} is the distributed [A | B] elimination, "
-            f"not ported yet (ROADMAP.md {_LATER_SOLVE_ENGINES[engine]}); "
-            f"choose from {'/'.join(SOLVE_ENGINES)}")
     if engine not in SOLVE_ENGINES:
         raise UsageError(
             f"unknown solve engine {engine!r}; choose from "
@@ -143,6 +158,15 @@ def resolve_solve_engine(engine: str, assume: str):
             "engine='solve_spd' is the pivot-free path and requires "
             "the assume='spd' promise (skipping pivoting on a general "
             "matrix is unsound)")
+    if engine == "solve_lookahead" and assume == "spd":
+        raise UsageError(
+            "engine='solve_lookahead' overlaps the pivot-condition "
+            "probe with the trailing eliminate; the assume='spd' "
+            "pivot-free path has nothing to probe ahead — legal "
+            "lookahead engines are engine='solve_lookahead' "
+            "(assume='general', workers>1) and driver.solve "
+            "engine='lookahead'; under spd use engine='solve_spd' or "
+            "'auto'")
     return engine, ("solve_spd" if assume == "spd" else "solve")
 
 
@@ -219,17 +243,34 @@ def solve_system(
     ``solve_fori``, in the JAX package's words); its spikes are recorded
     before any rung.  ``check=False`` reports a singular system on
     ``result.singular`` with ``x=None`` instead of raising
-    SingularMatrixError.  ``workers`` and ``gather`` other than the
-    single-device values are refused by name (item 15b).  A and B may be
-    complex64 or complex128.  Counterpart of the JAX package's
-    ``solve_system``."""
+    SingularMatrixError.  ``workers=p`` solves on p ranks (module
+    docstring): "auto" resolves at the distributed point to
+    ``solve_lookahead`` (``solve_sharded`` beyond MAX_UNROLL_NR); real
+    dtypes, the pivoting path and ``numerics="summary"`` only, as in the
+    JAX package.  ``gather=False`` (p > 1 only)
+    also returns each rank's rows of X as ``x_blocks`` with their
+    ``layout``; ``result.ranks`` holds each rank's pivots, probe steps,
+    launches and time.  A and B may be complex64 or complex128 on one
+    device.  Counterpart of the JAX package's ``solve_system``."""
     from ..obs.numerics import resolve_mode
 
     refuse_later_options(workers, gather, policy,
                          dtype if dtype is not None else getattr(a, "dtype",
-                                                                 None),
-                         workers_item="15b")
+                                                                 None))
+    if int(workers) < 1:
+        raise UsageError("workers must be >= 1")
+    distributed = workers != 1
+    if distributed and assume == "spd":
+        raise UsageError(
+            "assume='spd' is the single-device pivot-free fast "
+            "path; the distributed [A | B] elimination pivots "
+            "(workers must be 1, or drop the spd promise)")
     numerics = resolve_mode(numerics)
+    if numerics == "trace" and distributed:
+        raise UsageError(
+            "numerics='trace' instruments the single-device unrolled "
+            "engines (the per-superstep stats are host-visible there); "
+            "distributed solves support numerics='summary'")
     if numerics == "trace" and assume == "spd":
         raise UsageError(
             "numerics='trace' traces the condition-based pivot probe; "
@@ -237,6 +278,23 @@ def solve_system(
             "candidate per superstep) — use numerics='summary', or "
             "assume='general'")
     engine, workload = resolve_solve_engine(engine, assume)
+    if engine == "solve_sharded" and not distributed:
+        raise UsageError(
+            "engine='solve_sharded' is the distributed [A | B] "
+            "elimination (its win is the mesh); pass workers=p or "
+            "workers=(pr, pc)")
+    if engine == "solve_lookahead" and not distributed:
+        raise UsageError(
+            "engine='solve_lookahead' is the probe-ahead distributed "
+            "[A | B] elimination; it is not wired on the single-device "
+            "augmented engine — pass workers=p or workers=(pr, pc), "
+            "or use engine='solve_aug'/'auto' single-device (for "
+            "inverses, driver.solve engine='lookahead')")
+    if distributed and engine not in ("auto",) + DIST_SOLVE_ENGINES:
+        raise UsageError(
+            f"engine={engine!r} is a single-device solve engine; "
+            f"distributed points run engine='solve_sharded' or "
+            f"'solve_lookahead' (or 'auto', which resolves there)")
     refuse_tune_for_explicit_engine(engine, tune, plan_cache)
     dev = resolve_device(device)
     tel = telemetry if telemetry is not None else _NULL_TEL
@@ -266,9 +324,14 @@ def solve_system(
                 "host-visible stats twin); use a larger block_size so "
                 "Nr <= MAX_UNROLL_NR, or numerics='summary'")
         count_workload(workload)
-        result = _solve_system_impl(a, b2, n, k, m, dtype, engine, workload,
-                                    plan, tel, policy, numerics, check,
-                                    verbose, dev)
+        if engine in DIST_SOLVE_ENGINES:
+            result = _solve_system_dist_impl(
+                a, b2, n, k, m, dtype, int(workers), gather, engine,
+                workload, plan, tel, policy, numerics, check, verbose, dev)
+        else:
+            result = _solve_system_impl(a, b2, n, k, m, dtype, engine,
+                                        workload, plan, tel, policy,
+                                        numerics, check, verbose, dev)
     if telemetry is not None:
         result.trace = root
     if squeezed and result.x is not None:
@@ -362,6 +425,141 @@ def _solve_system_impl(a, b2, n, k, m, dtype, engine, workload, plan, tel,
         _norm_a=norm_a, _norm_x=norm_x, _norm_b=norm_b)
 
 
+def _solve_system_dist_impl(a, b2, n, k, m, dtype, p, gather, engine,
+                            workload, plan, tel, policy, numerics, check,
+                            verbose, dev):
+    """The distributed solve (the JAX package's ``_solve_system_dist_impl``
+    on the 1D layout, one process per rank): each rank's strips of [A | B]
+    in the compute dtype, the ranks' elimination, X assembled here and
+    verified densely against the caller's A and B.  The ``compile`` fault
+    point fires under the policy's retry, ``execute`` unretried, and no
+    other, as there."""
+    import torch.distributed as dist
+
+    from ..driver import WORLD_DEADLINE_S
+    from ..ops.padding import pad_with_identity
+    from ..parallel.dist_solve import DistSolveSpec, solve_system_rank
+    from ..parallel.launch import run_workers
+    from ..parallel.layout import CyclicLayout
+    from ..parallel.sharded_inplace import (compile_sharded_jordan_solve,
+                                            gather_solution_1d,
+                                            scatter_rhs_1d)
+
+    if dist.is_initialized():
+        raise UsageError(
+            "solve_system(workers=p) spawns its own world of ranks; a "
+            "process of a world launched outside (--distributed) runs "
+            "the distributed invert")
+    work = torch.float32 if dtype.itemsize < 4 else dtype
+    lay = CyclicLayout.create(n, m, p)
+    # The JAX compile's refusal (solve_lookahead is unrolled-only), before
+    # any rank starts.
+    compile_sharded_jordan_solve(lay, lookahead=engine == "solve_lookahead")
+    with tel.span("scatter"):
+        ap = pad_with_identity(a.to(work).cpu(), lay.N)
+        ap = ap.reshape(lay.Nr, lay.m, lay.N)
+        a_strips = [ap[r::p].contiguous().numpy() for r in range(p)]
+        del ap
+
+    def ready():
+        # The compile analogue (resilience/faults.py): the world's spec.
+        _faults.fire("compile")
+        return DistSolveSpec(n=n, m=m,
+                             dtype=str(work).removeprefix("torch."),
+                             engine=engine)
+
+    spec = (policy.retry.call(ready, component="solve_system.compile")
+            if policy is not None else ready())
+
+    def world(rhs):
+        rhs = rhs.to(work).cpu()
+        return run_workers(
+            p, solve_system_rank, spec,
+            per_rank=[(a_strips[r], scatter_rhs_1d(rhs, lay, r).numpy())
+                      for r in range(p)],
+            deadline_s=WORLD_DEADLINE_S, device_type=dev.type)
+
+    def assemble(results):
+        return (gather_solution_1d([r["x_blocks"] for r in results], lay,
+                                   n).to(device=dev, dtype=dtype),
+                any(r["singular"] for r in results))
+
+    _faults.fire("execute")
+    with tel.span("world", workers=p) as wsp:
+        results = world(b2)
+    elapsed = max(r["elapsed"] for r in results)
+    wsp.attrs["backend"] = results[0]["backend"]
+    esp = wsp.child("execute", wsp.t_start, wsp.t_start + elapsed,
+                    clock="cuda_event" if dev.type == "cuda" else "host",
+                    engine=engine, workload=workload)
+    flops = _hwcost.baseline_workload_flops(n, workload, k=k)
+    if elapsed > 0:
+        esp.attrs["gflops"] = round(flops / elapsed / 1e9, 3)
+    _hwcost.attach_execute_cost(esp, _hwcost.executable_cost(),
+                                analytical_flops=flops)
+    _obs_metrics.histogram(
+        "tpu_jordan_torch_solve_seconds",
+        "timed elimination seconds (the glob_time analog)",
+    ).observe(elapsed, workload=workload)
+    ranks = [{key: v for key, v in r.items() if key != "x_blocks"}
+             for r in results]
+    common = dict(n=n, k=k, block_size=m, engine=engine, workload=workload,
+                  plan=plan, workers=p, ranks=ranks)
+    with tel.span("gather", gathered=gather):
+        x, singular = assemble(results)
+        xb = None if gather else [r["x_blocks"].to(dtype) for r in results]
+    if singular:
+        _obs_metrics.counter("tpu_jordan_torch_singular_total",
+                             "solves/requests flagged singular"
+                             ).inc(component="solve_system")
+        if check:
+            raise SingularMatrixError("singular matrix")
+        return SolveSystemResult(x=None, elapsed=elapsed,
+                                 residual=float("inf"), gflops=0.0,
+                                 singular=True, device=str(dev), **common)
+    with tel.span("residual"):
+        stats = solve_residual_stats(a, x, b2)
+    residual, norm_a, norm_x, norm_b = stats
+    nreport = None
+    if numerics != "off":
+        nreport = _solve_numerics(
+            n, m, engine, workload, backward_error(*stats),
+            (norm_a * norm_x / norm_b) if norm_b else None, norm_a, dtype,
+            policy)
+    recovery = ()
+    if policy is not None:
+        def rerun(_a, r):
+            # The refine rung: the distributed solve again, on the
+            # residual right-hand side.
+            return assemble(world(r))
+
+        def fresh(aa, bb, pivot_free):
+            # Deeper rungs: a fresh single-device solve, as in the JAX
+            # package's ladder.
+            return solve_engine_fn(auto_solve_engine(
+                n, m, "solve_spd" if pivot_free else "solve"), m)(aa, bb)
+
+        x, stats, recovery = solve_recover(
+            policy, tel, a=a, b=b2, x=x, stats=stats, n=n, dtype=dtype,
+            spd=False, rerun=rerun, fresh=fresh, workload=workload)
+        if recovery and not gather:
+            # A rung replaced X: cut the recovered solution into the
+            # ranks' rows again, never hand out the pre-recovery blocks.
+            xh = x.cpu()
+            xb = [scatter_rhs_1d(xh, lay, r) for r in range(p)]
+    residual, norm_a, norm_x, norm_b = stats
+    if verbose:
+        print(f"glob_time: {elapsed:.2f}")
+        print(f"residual: {residual:e}")
+    return SolveSystemResult(
+        x=x, elapsed=elapsed, residual=residual,
+        gflops=(flops / elapsed / 1e9) if elapsed > 0 else 0.0,
+        singular=False, kappa_est=(norm_a * norm_x / norm_b) if norm_b
+        else None, recovery=recovery, device=str(x.device),
+        numerics=nreport, x_blocks=xb, layout=None if gather else lay,
+        _norm_a=norm_a, _norm_x=norm_x, _norm_b=norm_b, **common)
+
+
 def _solve_numerics(n, m, engine, workload, rel, kappa_est, norm_a, dtype,
                     policy, stats=None):
     """The solve's numerics record: the κ-free backward error, the
@@ -416,8 +614,7 @@ def lstsq(
     Counterpart of the JAX package's ``lstsq``."""
     refuse_later_options(1, True, policy,
                          dtype if dtype is not None else getattr(a, "dtype",
-                                                                 None),
-                         workers_item="15b")
+                                                                 None))
     dev = resolve_device(device)
     a = from_numpy(a, dev, None if dtype is None else resolve_dtype(dtype))
     if a.dim() != 2:

@@ -20,7 +20,7 @@
     fleet demo's ``--slo-report`` leg evaluates.
 
 The communication and work inventories of the distributed engines come
-with ROADMAP.md Queue A item 15b.
+with ROADMAP.md Queue A item 15e.
 """
 
 from . import (capacity, export, hwcost, journey, metrics, numerics,

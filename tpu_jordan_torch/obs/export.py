@@ -1,6 +1,4 @@
-"""Telemetry exporters.  Counterpart of the JAX package's ``obs/export.py``
-(its tiers 1 to 3; the kernel-level profiler capture comes with the first
-caller that reads it):
+"""Telemetry exporters.  Counterpart of the JAX package's ``obs/export.py``:
 
   * **One-line JSON** (:func:`to_json_line`): the metrics snapshot and the
      span trees, with a caller's extras, as one ``json.dumps`` line.
@@ -14,13 +12,19 @@ caller that reads it):
      (``obs/journey.async_trace_events``), for Perfetto
      (https://ui.perfetto.dev) or ``chrome://tracing``.  The CLI's
      ``--trace-json``.
+  * **Profiler capture** (:func:`profiler_trace`): a ``torch.profiler``
+     trace of a block (CPU activity, and the card's kernels when there is
+     a card), written as Chrome trace JSON; the JAX package's
+     ``jax.profiler`` tier.
 
-``tools/check_telemetry.py`` validates both.
+``tools/check_telemetry.py`` validates the first two.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 
 from . import metrics as _metrics
 
@@ -149,3 +153,26 @@ def write_chrome_trace(path: str, telemetry, journey_events=None) -> None:
     with open(path, "w") as f:
         json.dump(to_chrome_trace(telemetry,
                                   journey_events=journey_events), f)
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str | None = None):
+    """Capture a ``torch.profiler`` trace of the block into ``log_dir``
+    (``<tmp>/tpu_jordan_torch_trace`` by default) as ``trace.json``;
+    yields the directory.  The device tier: real kernel times, the ground
+    truth the modeled phase spans approximate."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(),
+                               "tpu_jordan_torch_trace")
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield log_dir
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

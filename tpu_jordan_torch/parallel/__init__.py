@@ -1,8 +1,9 @@
 """The distributed path: the paper's own layout, over ``torch.distributed``.
-Counterpart of the JAX package's ``parallel/`` (ROADMAP.md Queue A item
-15a: the 1D row-block-cyclic invert engines and the ring residual; the 2D
-layout is item 15c, the streamed file scatter and the distributed solves
-item 15b, the pre-shard_map engines item 15d).
+Counterpart of the JAX package's ``parallel/``: the 1D row-block-cyclic
+layout end to end (ROADMAP.md Queue A items 15a and 15b: the invert
+engines, the ring residual, the streamed file scatter, the [A | B] solves
+and the segment entries of the checkpointed runs).  The 2D layout is item
+15c, the pre-shard_map engines item 15d.
 
   * ``layout``: the cyclic index math (main.cpp:95-127) and permutations;
   * ``group``: :class:`WorkerGroup`, the backend rule and the transport
@@ -10,11 +11,15 @@ item 15b, the pre-shard_map engines item 15d).
   * ``launch``: ``run_workers``, p spawned ranks under a deadline (no JAX
     counterpart: the JAX package is single-controller);
   * ``generate``: each rank's strip of a generator's matrix;
+  * ``scatter_stream``: each rank's strip of a matrix file, read one strip
+    at a time;
   * ``sharded_inplace``: the inplace, lookahead, grouped and swap-free
-    engines (``invert_blocks``), the gather and the corner;
+    engines (``invert_blocks``), the solves (``solve_blocks``), the
+    segment entries, the gathers and the corner;
   * ``permute``: the swap-free engine's row permutation;
   * ``ring_gemm``: the systolic ring GEMM and the distributed residual;
-  * ``dist_solve``: one rank of ``driver.solve(workers=p)``.
+  * ``dist_solve``: one rank of ``driver.solve(workers=p)``, of
+    ``linalg.solve_system(workers=p)`` and of a distributed measurement.
 """
 
 from .generate import generate_shard, sharded_generate
@@ -24,16 +29,21 @@ from .launch import WorkerError, run_calls, run_workers
 from .layout import CyclicLayout, CyclicLayout2D
 from .ring_gemm import (distributed_residual, distributed_residual_blocks,
                         residual_shards, ring_gemm_blocks, ring_matmul)
-from .sharded_inplace import (ENGINES_1D, gather_inverse_inplace,
+from .scatter_stream import stream_scatter_1d
+from .sharded_inplace import (ENGINES_1D, compile_sharded_jordan_solve,
+                              gather_inverse_inplace, gather_solution_1d,
                               inverse_corner_1d, invert_blocks,
-                              invert_shards, to_identity_padded_blocks)
+                              invert_shards, scatter_rhs_1d, solve_blocks,
+                              to_identity_padded_blocks)
 
 __all__ = [
     "CyclicLayout", "CyclicLayout2D", "ENGINES_1D", "MeshSizeError",
     "TRANSPORT", "WorkerError", "WorkerGroup", "backend_rule",
-    "distributed_init", "distributed_residual",
-    "distributed_residual_blocks", "gather_inverse_inplace",
-    "generate_shard", "inverse_corner_1d", "invert_blocks", "invert_shards",
+    "compile_sharded_jordan_solve", "distributed_init",
+    "distributed_residual", "distributed_residual_blocks",
+    "gather_inverse_inplace", "gather_solution_1d", "generate_shard",
+    "inverse_corner_1d", "invert_blocks", "invert_shards",
     "residual_shards", "ring_gemm_blocks", "ring_matmul", "run_calls",
-    "run_workers", "sharded_generate", "to_identity_padded_blocks",
+    "run_workers", "scatter_rhs_1d", "sharded_generate", "solve_blocks",
+    "stream_scatter_1d", "to_identity_padded_blocks",
 ]

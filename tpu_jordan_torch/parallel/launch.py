@@ -10,12 +10,20 @@ rank, the reference's ``mpirun -np p``.
   * rank r runs on ``cuda:r % device_count`` (or the CPU, with an equal
     share of the host's cores as intra-op threads), with the backend of
     ``group.backend_rule``;
+  * each rank's own arguments (``per_rank``: its strips of a matrix) are
+    written to a file of its own in that directory, which the rank reads
+    once it runs: passed through the spawn pipe they would hold each
+    ``start`` until that child had imported torch, so the ranks would
+    start one after another;
   * each rank's return value is written to a file in that directory and
     read back by the parent (no pipe to drain before a join);
   * the parent waits under ``deadline_s``.  When a rank raises, or the
     deadline passes, the parent kills every rank still alive and raises
     :class:`WorkerError` naming the rank (the first to fail, or those that
-    never reported).
+    never reported);
+  * :func:`last_world` gives the wall split of this process's last world
+    (spawn, joining the group, the ranks' work, the exit), each the
+    slowest rank's, from the ranks' own clock readings.
 
 On the card the kernels the ranks launch are built in the parent first
 (``_build.build``, one ``nvcc`` per source, all at once), so the p ranks
@@ -36,6 +44,18 @@ import traceback
 RANK_KERNELS = ("gj_probe", "gj_probe_fused_panel")
 
 
+_LAST_WORLD: dict = {}
+
+
+def last_world() -> dict:
+    """Seconds of this process's last completed world: ``spawn_s`` (from
+    the first spawn to the last rank entering its body), ``join_s`` (the
+    slowest rank's group join), ``run_s`` (the slowest rank's ``fn``),
+    ``exit_s`` (from the last report to the last rank's exit) and
+    ``total_s``."""
+    return dict(_LAST_WORLD)
+
+
 class WorkerError(RuntimeError):
     """A rank of a world failed or hung; ``rank`` names it (the first to
     fail), ``detail`` carries its traceback or the deadline."""
@@ -46,26 +66,37 @@ class WorkerError(RuntimeError):
         super().__init__(f"rank {rank} of the world failed: {detail}")
 
 
-def _child(rank: int, p: int, root: str, device_type: str, fn, args):
-    """One rank: join the world over the file store, run ``fn(group,
+def _child(rank: int, p: int, root: str, device_type: str, fn, args,
+           own: str | None = None):
+    """One rank: read its own arguments from the file ``own`` (appended to
+    ``args``), join the world over the file store, run ``fn(group,
     *args)``, write its result (or its traceback) to ``root``."""
     import torch.distributed as dist
 
     from .group import init_group
 
     status = os.path.join(root, f"rank{rank}")
+    clock = [time.time()]
     try:
         import torch
+
+        if own is not None:
+            with open(own, "rb") as f:
+                args = args + pickle.load(f)
+            os.unlink(own)
 
         if device_type == "cpu":
             # CPU ranks share the host's cores instead of each taking all.
             torch.set_num_threads(max(1, (os.cpu_count() or 1) // p))
         store = torch.distributed.FileStore(os.path.join(root, "store"), p)
         group = init_group(rank, p, device_type, store=store)
-        payload = ("ok", fn(group, *args))
+        clock.append(time.time())
+        out = fn(group, *args)
+        clock.append(time.time())
+        payload = ("ok", out, clock)
     except BaseException as e:                      # noqa: BLE001
         payload = ("error", f"{type(e).__name__}: {e}\n"
-                            f"{traceback.format_exc()}")
+                            f"{traceback.format_exc()}", clock)
     # Report first: a failed rank's peers may sit in a collective that
     # never completes, and the parent kills them on this report.
     with open(status + ".tmp", "wb") as f:
@@ -76,14 +107,19 @@ def _child(rank: int, p: int, root: str, device_type: str, fn, args):
 
 
 def run_workers(p: int, fn, *args, deadline_s: float = 600.0,
-                device_type: str = "cuda") -> list:
+                device_type: str = "cuda", per_rank=None) -> list:
     """Run ``fn(group, *args)`` on each of ``p`` spawned ranks; returns the
-    ranks' results in rank order.  ``fn`` must be importable by path (a
-    module-level function of this package), and its arguments and result
-    picklable.  Raises :class:`WorkerError` when a rank raises or the
-    world outlives ``deadline_s``."""
+    ranks' results in rank order.  ``per_rank`` (a list of p tuples) adds
+    rank r's own arguments after ``args``: only rank r's process reads
+    them (a rank's strips of a matrix, never the whole).  ``fn`` must be
+    importable by path (a module-level function of this package), and its
+    arguments and result picklable.  Raises :class:`WorkerError` when a
+    rank raises or the world outlives ``deadline_s``."""
     if p < 1:
         raise ValueError("p must be >= 1")
+    if per_rank is not None and len(per_rank) != p:
+        raise ValueError(f"per_rank holds {len(per_rank)} entries for "
+                         f"{p} ranks")
     if device_type == "cuda":
         from .._build import build
 
@@ -91,12 +127,19 @@ def run_workers(p: int, fn, *args, deadline_s: float = 600.0,
     ctx = mp.get_context("spawn")
     root = tempfile.mkdtemp(prefix="tpu_jordan_torch_world_")
     procs = []
+    clocks = {}
+    t_launch = time.time()
     try:
         for r in range(p):
-            proc = ctx.Process(target=_child,
-                               args=(r, p, root, device_type, fn, args),
-                               name=f"tpu-jordan-torch-rank{r}",
-                               daemon=True)
+            own = None
+            if per_rank is not None:
+                own = os.path.join(root, f"args{r}")
+                with open(own, "wb") as f:
+                    pickle.dump(tuple(per_rank[r]), f,
+                                protocol=pickle.HIGHEST_PROTOCOL)
+            proc = ctx.Process(
+                target=_child, args=(r, p, root, device_type, fn, args, own),
+                name=f"tpu-jordan-torch-rank{r}", daemon=True)
             proc.start()
             procs.append(proc)
         results: dict[int, object] = {}
@@ -112,7 +155,7 @@ def run_workers(p: int, fn, *args, deadline_s: float = 600.0,
                                f"before reporting")
                     continue
                 with open(path, "rb") as f:
-                    kind, out = pickle.load(f)
+                    kind, out, clocks[r] = pickle.load(f)
                 if kind == "error":
                     raise WorkerError(r, out)
                 results[r] = out
@@ -123,8 +166,16 @@ def run_workers(p: int, fn, *args, deadline_s: float = 600.0,
                         late[0], f"no report within {deadline_s:g} s "
                                  f"(ranks {late} still running)")
                 time.sleep(0.01)
+        t_reported = time.time()
         for proc in procs:
             proc.join(timeout=max(1.0, deadline - time.monotonic()))
+        t_end = time.time()
+        _LAST_WORLD.clear()
+        _LAST_WORLD.update(
+            p=p, spawn_s=max(c[0] for c in clocks.values()) - t_launch,
+            join_s=max(c[1] - c[0] for c in clocks.values()),
+            run_s=max(c[2] - c[1] for c in clocks.values()),
+            exit_s=t_end - t_reported, total_s=t_end - t_launch)
         return [results[r] for r in range(p)]
     finally:
         for proc in procs:

@@ -1,8 +1,10 @@
-"""The 1D row-block-cyclic in-place invert engines, one process per rank.
-Counterpart of the invert family of the JAX package's
-``parallel/sharded_inplace.py`` (``compile_sharded_jordan_inplace``: the
-plain engine and its fori twin, the probe-ahead, grouped and swap-free
-engines), over ``torch.distributed`` instead of ``shard_map``.
+"""The 1D row-block-cyclic in-place engines, one process per rank.
+Counterpart of the JAX package's ``parallel/sharded_inplace.py``: the
+invert family (``compile_sharded_jordan_inplace``: the plain engine and its
+fori twin, the probe-ahead, grouped and swap-free engines), the [A | B]
+solves (``compile_sharded_jordan_solve``: ``solve_sharded`` and its
+probe-ahead twin ``solve_lookahead``) and the segment entries of the
+checkpointed runs, over ``torch.distributed`` instead of ``shard_map``.
 
 Each rank holds its (bpw, m, N) blocks of the identity-padded matrix:
 global block row ``s·p + k`` at slot s of rank k, columns whole
@@ -45,9 +47,17 @@ permutation is tracked on the host (``pos``/``ipos``, ties by swap
 coordinate), one pivot-row broadcast a step, and one point-to-point row
 permutation after the loop (``permute.py``).
 
+The solve (:func:`solve_blocks`) runs the same superstep on [A | B]: only
+A's live columns [t·m, N) and the rank's rows of X move, the pivot row
+and row t each go out as one stacked [A_live | X] row, prow_A and prow_X
+are separate products, and there is no unscramble.  The segment entries
+(:func:`inplace_segment_1d`, :func:`solve_segment_1d`,
+:func:`inplace_finalize_1d`) run supersteps [t0, t1) with the same step
+code as the monolithic loops, so a segmented run gives their bits.
+
 Every rank issues the same collectives in the same order on every path.
 The probe launches of a rank equal the steps at which it held a live
-candidate; ``invert_blocks`` returns those steps.
+candidate; the entries return those steps.
 """
 
 from __future__ import annotations
@@ -177,57 +187,158 @@ def _eliminate(Wloc, E, prow, cols=None):
         W2[:, cols].addmm_(E2, prow[:, cols], alpha=-1)
 
 
-def _plain_steps(Wloc, group, lay, eps, probe, lookahead: bool):
-    """The plain and probe-ahead loops; returns (singular, pivots,
-    probe_steps)."""
+def _inplace_step(Wloc, t: int, dec: _Decision, group, lay, singular,
+                  pivots: list, ahead=None):
+    """Superstep t of the in-place loop on this rank's blocks, from step
+    t's probe decision ``dec``: the reduction, the broadcasts, swap-by-copy,
+    normalize and eliminate, in place.  ``ahead(t + 1, cols)`` (the
+    lookahead engine) runs after the critical panel and its decision is
+    returned; without it the step returns None."""
+    p, m, N, Nr = lay.p, lay.m, lay.N, lay.Nr
+    k = group.rank
+    cs = slice(t * m, (t + 1) * m)
+    g_piv, kmin = _reduce(dec, group, Nr)
+    singular |= ~torch.isfinite(kmin)
+    pivots.append(g_piv)
+    row_piv, _, H = _pivot_broadcast(Wloc, dec, g_piv, group, lay)
+    row_t = (row_piv if g_piv == t
+             else _row_broadcast([Wloc], t, group, lay)[0])
+    if k == g_piv % p:
+        Wloc[g_piv // p] = row_t                    # swap-by-copy
+    prow = H @ row_piv
+    prow[:, cs] = H
+    own_t = k == t % p
+    E = Wloc[:, :, cs].clone()
+    if own_t:
+        E[t // p] = 0
+    Wloc[:, :, cs] = 0
+    nxt = None
+    if ahead is not None and t < Nr - 1:
+        c0 = (t + 1) * m
+        _eliminate(Wloc, E, prow, slice(c0, c0 + m))    # critical panel
+        nxt = ahead(t + 1, slice(c0, c0 + m))
+        _eliminate(Wloc, E, prow, slice(0, c0))         # trailing
+        if c0 + m < N:
+            _eliminate(Wloc, E, prow, slice(c0 + m, N))
+    else:
+        _eliminate(Wloc, E, prow)
+    if own_t:
+        Wloc[t // p] = prow
+    return nxt
+
+
+def _solve_step(Wloc, Xloc, t: int, dec: _Decision, group, lay, singular,
+                pivots: list, ahead=None):
+    """Superstep t of the [A | B] elimination on this rank's A blocks
+    ``Wloc`` and right-hand-side rows ``Xloc`` (the JAX package's
+    ``_solve_step`` and ``_solve_step_lookahead``), in place.  Only the
+    live columns [t·m, N) of A move; there is no in-place column
+    replacement and no unscramble.  The pivot row goes out as one stacked
+    [A_live | X | H] buffer, row t as one [A_live | X]; prow_A and prow_X
+    are separate products; the multipliers come from the post-swap column
+    t with row t excluded.  ``ahead`` as in :func:`_inplace_step`."""
     p, m, bpw, N, Nr = lay.p, lay.m, lay.blocks_per_worker, lay.N, lay.Nr
     k = group.rank
-    singular = torch.zeros(1, dtype=torch.bool, device=Wloc.device)
-    pivots, steps = [], []
+    lo = t * m
+    live, nrhs = N - lo, Xloc.shape[-1]
+    g_piv, kmin = _reduce(dec, group, Nr)
+    singular |= ~torch.isfinite(kmin)
+    pivots.append(g_piv)
+    owner, sp = g_piv % p, g_piv // p
+    buf = Wloc.new_empty((m, live + nrhs + m))
+    if k == owner:
+        buf[:, :live] = Wloc[sp, :, lo:]
+        buf[:, live:live + nrhs] = Xloc[sp]
+        buf[:, live + nrhs:] = dec.invs[sp - dec.s_live]
+    group.broadcast(buf, owner)
+    H = buf[:, live + nrhs:]
+    rp_A, rp_X = buf[:, :live], buf[:, live:live + nrhs]
+    if g_piv != t:
+        rt_A, rt_X = _row_broadcast([Wloc[:, :, lo:], Xloc], t, group, lay)
+        if k == owner:                                  # swap-by-copy
+            Wloc[sp, :, lo:] = rt_A
+            Xloc[sp] = rt_X
+    prow_A = H @ rp_A
+    prow_X = H @ rp_X
+    own_t = k == t % p
+    E = Wloc[:, :, lo:lo + m].clone()
+    if own_t:
+        E[t // p] = 0
+    E2 = E.view(bpw * m, m)
+    W2 = Wloc.view(bpw * m, N)
+    nxt = None
+    if ahead is not None and t < Nr - 1:
+        c0 = lo + m
+        W2[:, c0:c0 + m].addmm_(E2, prow_A[:, m:2 * m], alpha=-1)
+        nxt = ahead(t + 1, slice(c0, c0 + m))
+        W2[:, lo:c0].addmm_(E2, prow_A[:, :m], alpha=-1)
+        if c0 + m < N:
+            W2[:, c0 + m:].addmm_(E2, prow_A[:, 2 * m:], alpha=-1)
+    else:
+        W2[:, lo:].addmm_(E2, prow_A, alpha=-1)
+    Xloc.view(bpw * m, nrhs).addmm_(E2, prow_X, alpha=-1)
+    if own_t:
+        Wloc[t // p, :, lo:] = prow_A
+        Xloc[t // p] = prow_X
+    return nxt
+
+
+def _run_steps(step, Wloc, group, lay, eps, probe, lookahead: bool,
+               t0: int = 0, t1: int | None = None) -> list:
+    """Supersteps [t0, t1) of a plain or probe-ahead loop, ``step(t, dec,
+    ahead)`` being :func:`_inplace_step` or :func:`_solve_step` bound to
+    the rank's state.  Returns the steps this rank probed."""
+    p, m = lay.p, lay.m
+    t1 = lay.Nr if t1 is None else t1
+    k = group.rank
+    steps = []
     side = _SideProbe(Wloc.device) if lookahead else None
 
-    def probe_col(t, col):
+    def probe_col(t):
         s_live = _live_start(t, p, k)
-        return _probe(col[s_live:].contiguous(), t, lay, k, s_live, eps,
-                      probe, steps)
+        return _probe(Wloc[s_live:, :, t * m:(t + 1) * m].contiguous(), t,
+                      lay, k, s_live, eps, probe, steps)
 
-    dec = probe_col(0, Wloc[:, :, 0:m]) if lookahead else None
-    for t in range(Nr):
-        cs = slice(t * m, (t + 1) * m)
-        if lookahead:
-            dec = side.take(dec)
-        else:
-            dec = probe_col(t, Wloc[:, :, cs])
-        g_piv, kmin = _reduce(dec, group, Nr)
-        singular |= ~torch.isfinite(kmin)
-        pivots.append(g_piv)
-        row_piv, _, H = _pivot_broadcast(Wloc, dec, g_piv, group, lay)
-        row_t = (row_piv if g_piv == t
-                 else _row_broadcast([Wloc], t, group, lay)[0])
-        if k == g_piv % p:
-            Wloc[g_piv // p] = row_t                    # swap-by-copy
-        prow = H @ row_piv
-        prow[:, cs] = H
-        own_t = k == t % p
-        E = Wloc[:, :, cs].clone()
-        if own_t:
-            E[t // p] = 0
-        Wloc[:, :, cs] = 0
-        if lookahead and t < Nr - 1:
-            c0 = (t + 1) * m
-            nxt = slice(c0, c0 + m)
-            _eliminate(Wloc, E, prow, nxt)              # critical panel
-            s1 = _live_start(t + 1, p, k)
-            dec = side.launch(
-                lambda c: _probe(c, t + 1, lay, k, s1, eps, probe, steps),
-                Wloc[s1:, :, nxt].contiguous())
-            _eliminate(Wloc, E, prow, slice(0, c0))     # trailing
-            if c0 + m < N:
-                _eliminate(Wloc, E, prow, slice(c0 + m, N))
-        else:
-            _eliminate(Wloc, E, prow)
-        if own_t:
-            Wloc[t // p] = prow
+    def ahead(t, cols):
+        s1 = _live_start(t, p, k)
+        return side.launch(
+            lambda c: _probe(c, t, lay, k, s1, eps, probe, steps),
+            Wloc[s1:, :, cols].contiguous())
+
+    dec = probe_col(t0) if lookahead else None
+    for t in range(t0, t1):
+        dec = side.take(dec) if lookahead else probe_col(t)
+        dec = step(t, dec, ahead if lookahead else None)
+    return steps
+
+
+def _no_singular(Wloc):
+    return torch.zeros(1, dtype=torch.bool, device=Wloc.device)
+
+
+def _plain_steps(Wloc, group, lay, eps, probe, lookahead: bool,
+                 t0: int = 0, t1: int | None = None, singular=None):
+    """The plain and probe-ahead invert loops over supersteps [t0, t1);
+    returns (singular, pivots, probe_steps)."""
+    singular = _no_singular(Wloc) if singular is None else singular
+    pivots = []
+    steps = _run_steps(
+        lambda t, dec, ahead: _inplace_step(Wloc, t, dec, group, lay,
+                                            singular, pivots, ahead),
+        Wloc, group, lay, eps, probe, lookahead, t0, t1)
+    return singular, pivots, steps
+
+
+def _solve_loop(Wloc, Xloc, group, lay, eps, probe, lookahead: bool,
+                t0: int = 0, t1: int | None = None, singular=None):
+    """The plain and probe-ahead [A | B] loops over supersteps [t0, t1);
+    returns (singular, pivots, probe_steps)."""
+    singular = _no_singular(Wloc) if singular is None else singular
+    pivots = []
+    steps = _run_steps(
+        lambda t, dec, ahead: _solve_step(Wloc, Xloc, t, dec, group, lay,
+                                          singular, pivots, ahead),
+        Wloc, group, lay, eps, probe, lookahead, t0, t1)
     return singular, pivots, steps
 
 
@@ -454,3 +565,121 @@ def invert_shards(group, shards, lay: CyclicLayout, engine: str = "inplace",
         W, group, lay, engine=engine, group_k=group_k, probe=probe)
     return {"blocks": inv.cpu(), "singular": bool(singular.item()),
             "pivots": pivots, "probe_steps": steps}
+
+
+# --- The distributed [A | B] solve: X = A⁻¹B with no inverse formed.
+
+
+@upcast_sub_fp32
+def solve_blocks(blocks, rhs, group, lay: CyclicLayout,
+                 lookahead: bool = False, eps: float | None = None,
+                 probe=probe_blocks):
+    """Solve on this rank's (bpw, m, N) identity-padded A blocks and its
+    (bpw, m, k) zero-padded right-hand-side rows (neither is modified);
+    every rank of ``group`` calls it together.  Returns ``(x blocks,
+    singular, pivots, probe_steps)``: this rank's rows of X in cyclic
+    order.  ``lookahead`` takes the probe-ahead schedule (the same pivots
+    and the same collectives).  Counterpart of the JAX package's
+    ``compile_sharded_jordan_solve(...)(W, X)``."""
+    if eps is None:
+        eps = eps_for(blocks.dtype)
+    W = blocks.clone()
+    X = rhs.to(device=W.device, dtype=W.dtype).clone()
+    singular, pivots, steps = _solve_loop(W, X, group, lay, eps, probe,
+                                          lookahead)
+    return X, singular, pivots, steps
+
+
+def compile_sharded_jordan_solve(lay: CyclicLayout, eps: float | None = None,
+                                 probe=probe_blocks,
+                                 unroll: bool | None = None,
+                                 lookahead: bool = False):
+    """The 1D distributed solve for a layout, as ``run(group, W, X) -> (x
+    blocks, singular, pivots, probe_steps)``.  The JAX package compiles an
+    unrolled engine up to MAX_UNROLL_NR and a fori twin beyond; here both
+    are the one eager loop of :func:`solve_blocks`.  ``lookahead=True`` is
+    the probe-ahead engine, unrolled-only as in the JAX package: refused
+    above MAX_UNROLL_NR.  Counterpart of ``compile_sharded_jordan_solve``."""
+    from ..config import MAX_UNROLL_NR
+    from ..errors import UsageError
+
+    if unroll is None:
+        unroll = lay.Nr <= MAX_UNROLL_NR
+    if lookahead and not unroll:
+        raise UsageError(
+            f"engine='solve_lookahead' is unrolled-only (the critical-panel "
+            f"split needs static column offsets) and Nr={lay.Nr} exceeds "
+            f"MAX_UNROLL_NR={MAX_UNROLL_NR}; use engine='solve_sharded' (its "
+            f"fori twin covers any Nr) or a larger block_size")
+
+    def run(group, W, X):
+        return solve_blocks(W, X, group, lay, lookahead=lookahead, eps=eps,
+                            probe=probe)
+
+    return run
+
+
+def scatter_rhs_1d(b, lay: CyclicLayout, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s (bpw, m, k) rows of the (n, k) right-hand side ``b``
+    (a tensor or numpy array), zero-padded to N rows: the padding rows of X
+    stay exactly zero through the elimination.  Counterpart of the JAX
+    package's ``scatter_rhs_1d`` (a scatter there, the rank's own rows
+    here)."""
+    b = torch.as_tensor(b)
+    bp = b.new_zeros((lay.N, b.shape[-1]))
+    bp[:b.shape[0]] = b
+    return bp.view(lay.Nr, lay.m, -1)[rank::lay.p].contiguous()
+
+
+def gather_solution_1d(xb, lay: CyclicLayout, n: int) -> torch.Tensor:
+    """The (n, k) solution from the ranks' X blocks (a list in rank order,
+    or the (Nr, m, k) cyclic storage tensor): natural row order, padding
+    stripped.  Counterpart of the JAX package's ``gather_solution_1d``."""
+    from .layout import cyclic_scatter_perm
+
+    out = xb if isinstance(xb, torch.Tensor) else torch.cat(list(xb))
+    out = out.index_select(0, cyclic_scatter_perm(lay).to(out.device))
+    return out.reshape(lay.N, -1)[:n]
+
+
+# --- Segment entries of the checkpointed runs (resilience/checkpoint.py):
+# supersteps [t0, t1) with the monolithic loops' own step code; the
+# unscramble runs only in the finalize.
+
+
+def inplace_segment_1d(Wloc, singular, swaps, group, lay: CyclicLayout,
+                       t0: int, t1: int, eps: float | None = None,
+                       probe=probe_blocks) -> list:
+    """Supersteps [t0, t1) of the plain 1D invert on this rank's blocks
+    ``Wloc`` and its (1,) ``singular`` flag, in place; the pivots go to
+    ``swaps[t0:t1]`` (the rank's row of the (p, Nr) record, the same on
+    every rank).  Returns the steps this rank probed.  Counterpart of the
+    JAX package's ``_sharded_jordan_inplace_segment``."""
+    if eps is None:
+        eps = eps_for(Wloc.dtype)
+    _, pivots, steps = _plain_steps(Wloc, group, lay, eps, probe, False,
+                                    t0, t1, singular)
+    swaps[t0:t1] = torch.as_tensor(pivots, dtype=swaps.dtype)
+    return steps
+
+
+def solve_segment_1d(Wloc, Xloc, singular, group, lay: CyclicLayout,
+                     t0: int, t1: int, eps: float | None = None,
+                     probe=probe_blocks) -> list:
+    """Supersteps [t0, t1) of the 1D solve on this rank's ``Wloc``,
+    ``Xloc`` and ``singular``, in place; returns the steps this rank
+    probed.  Counterpart of the JAX package's
+    ``_sharded_jordan_solve_segment``."""
+    if eps is None:
+        eps = eps_for(Wloc.dtype)
+    _, _, steps = _solve_loop(Wloc, Xloc, group, lay, eps, probe, False,
+                              t0, t1, singular)
+    return steps
+
+
+def inplace_finalize_1d(Wloc, swaps, lay: CyclicLayout) -> torch.Tensor:
+    """The invert's unscramble after the last segment: the swap record as
+    one block-column permutation, applied rank-locally.  Counterpart of
+    the JAX package's ``_sharded_inplace_finalize``."""
+    return apply_col_perm(Wloc, compose_swap_perm(swaps.tolist(), lay.Nr),
+                          lay.m)

@@ -33,8 +33,23 @@ supersteps are recomputed.
 
 The engine names are the JAX package's: ``unrolled`` and ``fori`` both run
 the port's one in-place loop (eager PyTorch needs no fori twin), and
-``grouped`` the delayed-group-update loop.  The distributed runners wait
-for the distributed engines (ROADMAP.md Queue A item 15b).
+``grouped`` the delayed-group-update loop; the key records which name was
+asked for, as the file format does.
+
+``workers=p`` (``mesh=p`` is its alias) checkpoints the 1D distributed
+engines (topology ``"1d:p"``, engines ``unrolled``/``fori``) through the
+segment entries of ``parallel/sharded_inplace.py``.  Every segment of one
+call runs in one world of p ranks.  At each cadence boundary rank 0
+gathers the state and writes it in the JAX package's format (``W`` the
+global (Nr, m, N) blocks in cyclic storage order, ``X`` (Nr, m, k),
+``singular`` (p,), ``swaps`` (p, Nr) int32, every row the same history);
+on a resume each rank takes its own slots.  The fault plan lives in the
+caller's process: the boundaries are walked there first, in order, up to
+the first at which ``preempt`` fires, so a seeded plan sees the calls the
+single-device loop (and the JAX package) makes; the world runs the
+segments before that boundary, and the caller raises the typed error once
+their checkpoints are durable.  ``abort`` is checked before the world
+starts and after it ends.  A (pr, pc) mesh is ROADMAP.md Queue A item 15c.
 """
 
 from __future__ import annotations
@@ -62,6 +77,8 @@ FORMAT_VERSION = 1
 #: (state, swaps, t) tuple; the fused ``grouped_pallas*`` engines fuse
 #: across steps.
 SINGLE_ENGINES = ("unrolled", "fori", "grouped")
+#: The distributed runners' engine flavors (the JAX package's).
+DIST_ENGINES = ("unrolled", "fori")
 
 _M_WRITTEN = _obs_metrics.counter(
     "tpu_jordan_torch_ckpt_written_total",
@@ -121,7 +138,7 @@ class CheckpointKey:
     run_id: str
     workload: str          # "invert" | "solve"
     engine: str            # "unrolled" | "fori" | "grouped"
-    topology: str          # "single" (distributed: Queue A item 15b)
+    topology: str          # "single" | "1d:{p}"
     n: int
     m: int
     Nr: int                # padded block-row count
@@ -212,6 +229,19 @@ class CheckpointStore:
               arrays: dict[str, np.ndarray]) -> int:
         """Durably persist ``arrays`` as run ``key.run_id``'s state at
         superstep ``step``; returns the payload's byte count."""
+        nbytes, digest = self._write_file(key, step, arrays)
+        superseded = self._account_write(key)
+        self._observe_write(key, step, nbytes, digest, superseded)
+        return nbytes
+
+    def reload(self) -> None:
+        """Re-read the persisted ledger: after another process (a rank of
+        a distributed checkpointed run) wrote to this store."""
+        with self._lock:
+            self._load_ledger()
+
+    def _write_file(self, key: CheckpointKey, step: int, arrays):
+        """The file half of :meth:`write`: returns (bytes, sha256)."""
         buf = io.BytesIO()
         np.savez(buf, **{k: np.asarray(v) for k, v in arrays.items()})
         payload = buf.getvalue()
@@ -224,20 +254,32 @@ class CheckpointStore:
         _replace_atomically(
             self.root, ".ckpt.tmp", self._path(key.run_id),
             _MAGIC + len(header).to_bytes(4, "big") + header + payload)
+        return len(payload), digest
+
+    def _account_write(self, key: CheckpointKey) -> bool:
+        """The ledger half of :meth:`write`, persisted; True when the write
+        superseded a live token."""
         with self._lock:
-            if self._live.get(key.run_id):
+            superseded = bool(self._live.get(key.run_id))
+            if superseded:
                 # Supersede: the previous boundary's token is consumed.
                 self._counts["discarded"] += 1
-                _M_DISCARDED.inc()
             self._counts["written"] += 1
             self._live[key.run_id] = True
             self._persist_ledger_locked()
+        return superseded
+
+    @staticmethod
+    def _observe_write(key: CheckpointKey, step: int, nbytes: int,
+                       digest: str, superseded: bool) -> None:
+        """The counters and the flight recorder of one write."""
+        if superseded:
+            _M_DISCARDED.inc()
         _M_WRITTEN.inc()
         _recorder.record("ckpt_written", run_id=key.run_id,
-                         step=int(step), bytes=len(payload),
+                         step=int(step), bytes=int(nbytes),
                          sha=digest[:12], workload=key.workload,
                          topology=key.topology)
-        return len(payload)
 
     def _quarantine(self, run_id: str, reason: str) -> None:
         path = self._path(run_id)
@@ -397,17 +439,36 @@ def fingerprint(arr) -> str:
     return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
 
 
+def _topology(mesh, workers) -> tuple[str, int]:
+    """``(topology, p)`` of a call: "single" and 1, or "1d:{p}" and p for a
+    rank count p > 1 (``workers``, or its alias ``mesh``)."""
+    if mesh is not None and workers is not None and mesh != workers:
+        raise CheckpointMismatchError(
+            f"mesh={mesh!r} and workers={workers!r} name different "
+            f"topologies; pass one")
+    spec = workers if mesh is None else mesh
+    if spec is None or (isinstance(spec, int) and spec == 1):
+        return "single", 1
+    if isinstance(spec, tuple):
+        raise CheckpointUnsupportedError(
+            f"a (pr, pc) mesh {spec} is the 2D block-cyclic layout, whose "
+            f"segment entries are not ported yet (ROADMAP.md Queue A item "
+            f"15c); checkpoint on workers=p")
+    if not isinstance(spec, int) or spec < 1:
+        raise CheckpointUnsupportedError(
+            f"mesh/workers must be a rank count p of the 1D layout, got "
+            f"{spec!r}")
+    return f"1d:{spec}", spec
+
+
 def _check_flavor(workload: str, engine: str, distributed: bool, dtype,
                   spd: bool) -> None:
-    if distributed:
+    engines = DIST_ENGINES if distributed else SINGLE_ENGINES
+    if engine not in engines:
         raise CheckpointUnsupportedError(
-            "mesh/workers: the distributed checkpoint runners come with "
-            "the distributed engines (ROADMAP.md Queue A item 15b); "
-            "checkpointing runs single-device")
-    if engine not in SINGLE_ENGINES:
-        raise CheckpointUnsupportedError(
-            f"engine {engine!r} is not checkpointable on single-device "
-            f"topologies (supported: {'/'.join(SINGLE_ENGINES)}): "
+            f"engine {engine!r} is not checkpointable on "
+            f"{'distributed' if distributed else 'single-device'} "
+            f"topologies (supported: {'/'.join(engines)}): "
             f"swapfree/lookahead flavors carry pipeline state outside the "
             f"closed (state, swaps, t) tuple, and pallas grouped flavors "
             f"fuse across steps")
@@ -416,6 +477,11 @@ def _check_flavor(workload: str, engine: str, distributed: bool, dtype,
             "the SPD fast path has no pivot probe — no pivot record "
             "to snapshot and no singularity evidence to carry across "
             "a resume; checkpointing it is refused")
+    if dtype.is_complex and distributed:
+        raise CheckpointUnsupportedError(
+            "complex distributed flavors do not exist yet "
+            "(ROADMAP); checkpointing one cannot be meaningful — "
+            "refused rather than invented")
     if dtype.is_complex and workload == "invert":
         raise CheckpointUnsupportedError(
             f"complex inverts run the augmented engine, which has no "
@@ -478,10 +544,11 @@ def checkpointed_invert(a, block_size=None, *, store: CheckpointStore,
     ``block_jordan_invert_inplace_grouped`` with ``group``), ``singular``
     is a bool.  ``resume_from=run_id`` re-enters at the last durable
     boundary (typed refusals for a missing, corrupt or mismatched
-    checkpoint).  ``mesh``/``workers`` (the distributed runners) are
-    refused until ROADMAP.md Queue A item 15b.  Counterpart of the JAX
-    package's ``checkpointed_invert``; products run in full precision (the
-    JAX package's ``Precision.HIGHEST``)."""
+    checkpoint).  ``workers=p`` (or ``mesh=p``) runs the 1D distributed
+    engine on p ranks (module docstring; ``unrolled``/``fori``), whose
+    inverse bit-matches ``parallel.invert_blocks`` on the same world.
+    Counterpart of the JAX package's ``checkpointed_invert``; products run
+    in full precision (the JAX package's ``Precision.HIGHEST``)."""
     return _run_checkpointed(
         "invert", a, None, block_size, store=store, run_id=run_id,
         cadence=cadence, engine=engine, group=group, mesh=mesh,
@@ -495,9 +562,10 @@ def checkpointed_solve(a, b, block_size=None, *, store: CheckpointStore,
                        abort=None, spd: bool = False, device=None):
     """Solve ``a @ x = b`` with superstep checkpointing: the
     :func:`checkpointed_invert` contract for the solve state (A, X,
-    singular); ``x`` bit-matches ``linalg.block_jordan_solve``.  Real and
-    complex dtypes.  Counterpart of the JAX package's
-    ``checkpointed_solve``."""
+    singular); ``x`` bit-matches ``linalg.block_jordan_solve`` (with
+    ``workers=p``, ``parallel.solve_blocks`` on the same world).  Real and
+    complex dtypes on one device, real on p ranks.  Counterpart of the JAX
+    package's ``checkpointed_solve``."""
     return _run_checkpointed(
         "solve", a, b, block_size, store=store, run_id=run_id,
         cadence=cadence, engine=engine, group=0, mesh=mesh, workers=workers,
@@ -519,11 +587,11 @@ def _run_checkpointed(workload, a, b, block_size, *, store, run_id, cadence,
             f"resume_from={resume_from!r} does not name this run "
             f"({run_id!r}); a resume consumes exactly its own run's "
             f"checkpoint")
+    topology, p = _topology(mesh, workers)
     dev = resolve_device(device)
     a = from_numpy(a, dev, None)
     dtype = a.dtype
-    _check_flavor(workload, engine, mesh is not None or workers is not None,
-                  dtype, spd)
+    _check_flavor(workload, engine, p > 1, dtype, spd)
     if dev.type == "cuda":
         # Full fp32 products on the card, as driver.solve runs them.
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -536,6 +604,11 @@ def _run_checkpointed(workload, a, b, block_size, *, store, run_id, cadence,
         b = from_numpy(b, dev, dtype)
         b2 = b if b.dim() == 2 else b[:, None]
         nrhs = b2.shape[1]
+    if p > 1:
+        return _run_checkpointed_1d(
+            workload, a, b2, m, p, store=store, run_id=run_id,
+            cadence=cadence, engine=engine, resume_from=resume_from,
+            abort=abort, dev=dev)
 
     # The grouped cadence rounds UP to the group grid: the U/P panels live
     # within a group, so group boundaries are the only closed states.
@@ -680,3 +753,220 @@ def _run_segment(workload, engine, state, t0, t1, key: CheckpointKey, eps,
     else:
         invert_segment(state["V"], state["singular"], state["swaps"],
                        t0=t0, t1=t1, Nr=Nr, m=m, eps=eps)
+
+
+# --- The 1D distributed runner (topology "1d:p").
+
+
+def _dist_fresh_state(workload, a, b2, lay) -> dict:
+    """Superstep 0's state in the JAX package's 1D format (host numpy):
+    the identity-padded (Nr, m, N) blocks in cyclic storage order, X's
+    zero-padded (Nr, m, k) rows likewise, (p,) singular flags and, for an
+    invert, the (p, Nr) int32 swap record."""
+    from ..parallel.sharded_inplace import (scatter_rhs_1d,
+                                            to_identity_padded_blocks)
+
+    a = a.cpu()
+    p = lay.p
+    state = {"W": np.concatenate([to_identity_padded_blocks(a, lay, r)
+                                  .numpy() for r in range(p)])}
+    if workload == "solve":
+        b2 = b2.cpu()
+        state["X"] = np.concatenate([scatter_rhs_1d(b2, lay, r).numpy()
+                                     for r in range(p)])
+    state["singular"] = np.zeros((p,), bool)
+    if workload == "invert":
+        state["swaps"] = np.zeros((p, lay.Nr), np.int32)
+    return state
+
+
+def _dist_state_checked(workload, arrays, key: CheckpointKey, lay, dtype):
+    """A stored 1D state checked against the shapes and dtypes this call
+    needs."""
+    np_dtype = np.dtype(_dtype_name(dtype))
+    p, Nr, m, N = lay.p, lay.Nr, lay.m, lay.N
+    want = {"W": ((Nr, m, N), np_dtype), "singular": ((p,), np.dtype(bool))}
+    if workload == "solve":
+        want["X"] = ((Nr, m, key.nrhs), np_dtype)
+    else:
+        want["swaps"] = ((p, Nr), np.dtype(np.int32))
+    missing = set(want) - set(arrays)
+    if missing:
+        raise CheckpointMismatchError(
+            f"checkpoint for run {key.run_id!r} lacks state arrays "
+            f"{sorted(missing)}; refused")
+    for name, (shape, dt) in want.items():
+        arr = arrays[name]
+        if arr.shape != shape or arr.dtype != dt:
+            raise CheckpointMismatchError(
+                f"checkpoint array {name!r} is {arr.dtype}{arr.shape}, "
+                f"this call needs {dt}{shape}; refused")
+    return {name: arrays[name] for name in want}
+
+
+def _run_checkpointed_1d(workload, a, b2, m, p, *, store, run_id, cadence,
+                         engine, resume_from, abort, dev):
+    """:func:`_run_checkpointed` on p ranks of the 1D layout (module
+    docstring)."""
+    from ..driver import WORLD_DEADLINE_S
+    from ..parallel.launch import run_workers
+    from ..parallel.layout import CyclicLayout
+    from ..parallel.sharded_inplace import (gather_inverse_inplace,
+                                            gather_solution_1d)
+
+    n = a.shape[-1]
+    lay = CyclicLayout.create(n, m, p)
+    Nr, bpw = lay.Nr, lay.blocks_per_worker
+    nrhs = 0 if b2 is None else int(b2.shape[1])
+    topology = f"1d:{p}"
+    key = CheckpointKey(run_id=run_id, workload=workload, engine=engine,
+                        topology=topology, n=int(n), m=int(m), Nr=int(Nr),
+                        dtype=_dtype_name(a.dtype), nrhs=nrhs,
+                        cadence=int(cadence))
+    start, durable, resumed = 0, None, False
+    if resume_from is not None:
+        step, arrays = store.resume(key)
+        if not (0 <= step < Nr):
+            raise CheckpointMismatchError(
+                f"resume superstep {step} outside [0, {Nr}) for this "
+                f"layout; refused")
+        state = _dist_state_checked(workload, arrays, key, lay, a.dtype)
+        start, durable, resumed = step, step, True
+    else:
+        state = _dist_fresh_state(workload, a, b2, lay)
+    info = {"run_id": run_id, "workload": workload, "engine": engine,
+            "topology": topology, "n": int(n), "m": int(m), "Nr": int(Nr),
+            "cadence": int(cadence), "start_step": start,
+            "resumed": resumed, "segments_run": [], "segment_compiles": 0,
+            "ckpt_written": 0, "ckpt_bytes_last": 0,
+            "ckpt_write_seconds": []}
+
+    # The boundaries, walked in this process in the single-device loop's
+    # order up to the first preempt.
+    _check_abort(abort, run_id, durable)
+    segments, preempted, last = [], None, durable
+    for t0, t1 in _segments(start, Nr, cadence):
+        try:
+            _fire_preempt(run_id, last)
+        except PreemptedError as e:
+            preempted = e
+            break
+        segments.append((t0, t1))
+        if t1 < Nr:
+            last = t1
+    for t0, t1 in segments:
+        sig = ("seg", workload, engine, topology, int(n), int(m), int(Nr),
+               key.dtype, nrhs, t0, t1, dev.type)
+        if _note_segment(sig):
+            info["segment_compiles"] += 1
+    results = None
+    if segments:
+        spec = {"workload": workload, "n": int(n), "m": int(m),
+                "segments": segments, "key": key.to_json(),
+                "root": store.root, "finalize": preempted is None}
+        # W and X by the rank's slots, singular and swaps by its row.
+        shards = [{name: (arr[r * bpw:(r + 1) * bpw] if name in ("W", "X")
+                          else arr[r:r + 1])
+                   for name, arr in state.items()} for r in range(p)]
+        try:
+            results = run_workers(p, checkpoint_rank, spec,
+                                  per_rank=[(sh,) for sh in shards],
+                                  deadline_s=WORLD_DEADLINE_S,
+                                  device_type=dev.type)
+        finally:
+            # Rank 0 wrote to the store's ledger from its own process.
+            store.reload()
+        for step, nbytes, digest, superseded, secs in results[0]["written"]:
+            store._observe_write(key, step, nbytes, digest, superseded)
+            info["ckpt_written"] += 1
+            info["ckpt_bytes_last"] = nbytes
+            info["ckpt_write_seconds"].append(secs)
+        info["segments_run"] = segments
+        info["ranks"] = [{k: v for k, v in r.items() if k != "blocks"}
+                         for r in results]
+    if preempted is not None:
+        preempted.info = info           # what the world ran before it
+        raise preempted
+    _check_abort(abort, run_id, last)
+    fsig = ("fin", workload, engine, topology, int(n), int(m), int(Nr),
+            key.dtype, nrhs, dev.type)
+    if _note_segment(fsig):
+        info["segment_compiles"] += 1
+    singular = any(r["singular"] for r in results)
+    blocks = [r["blocks"] for r in results]
+    out = (gather_solution_1d(blocks, lay, n) if workload == "solve"
+           else gather_inverse_inplace(blocks, lay, n)).to(dev)
+    store.discard(run_id, reason="complete")
+    return out, singular, info
+
+
+def checkpoint_rank(group, spec: dict, shard: dict) -> dict:
+    """One rank of a distributed checkpointed run: the segments
+    ``spec["segments"]`` on the rank's slots of the state (``shard``:
+    numpy ``W``, ``X`` or ``swaps``, ``singular``), rank 0 gathering and
+    writing the state at every boundary before the last step; with
+    ``spec["finalize"]`` the rank's X rows or unscrambled inverse blocks
+    as ``blocks``.  Returns the rank's CPU outcome; rank 0's ``written``
+    lists (step, bytes, sha256, superseded, seconds) of its writes."""
+    import time
+
+    import torch
+
+    from ..config import eps_for
+    from ..parallel.dist_solve import _launches, gather_to_root
+    from ..parallel.layout import CyclicLayout
+    from ..parallel.sharded_inplace import (inplace_finalize_1d,
+                                            inplace_segment_1d,
+                                            solve_segment_1d)
+
+    dev = group.device
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    solve = spec["workload"] == "solve"
+    lay = CyclicLayout.create(spec["n"], spec["m"], group.world_size)
+    key = CheckpointKey.from_json(spec["key"])
+    W = torch.from_numpy(np.ascontiguousarray(shard["W"])).to(dev)
+    X = (torch.from_numpy(np.ascontiguousarray(shard["X"])).to(dev)
+         if solve else None)
+    singular = torch.from_numpy(shard["singular"].copy()).to(dev)
+    swaps = (None if solve
+             else torch.from_numpy(shard["swaps"][0].astype(np.int64)))
+    eps = eps_for(W.dtype)
+    store = CheckpointStore(spec["root"]) if group.rank == 0 else None
+    written, steps = [], []
+    before = _launches()
+    for t0, t1 in spec["segments"]:
+        if solve:
+            steps += solve_segment_1d(W, X, singular, group, lay, t0, t1,
+                                      eps)
+        else:
+            steps += inplace_segment_1d(W, singular, swaps, group, lay, t0,
+                                        t1, eps)
+        if t1 >= lay.Nr:
+            continue
+        h0 = time.perf_counter()
+        parts = {"W": gather_to_root(W, group, lay)}
+        if solve:
+            parts["X"] = gather_to_root(X, group, lay)
+        flags = gather_to_root(singular.to(torch.uint8), group, lay)
+        if store is not None:
+            arrays = {"W": parts["W"].cpu().numpy()}
+            if solve:
+                arrays["X"] = parts["X"].cpu().numpy()
+            arrays["singular"] = flags.cpu().numpy().astype(bool)
+            if not solve:
+                arrays["swaps"] = np.tile(
+                    swaps.numpy().astype(np.int32), (lay.p, 1))
+            nbytes, digest = store._write_file(key, t1, arrays)
+            superseded = store._account_write(key)
+            written.append((t1, nbytes, digest, superseded,
+                            time.perf_counter() - h0))
+    after = _launches()
+    out = {"rank": group.rank, "written": written, "probe_steps": steps,
+           "launches": {k: after[k] - before[k] for k in after},
+           "singular": bool(singular.any()), "backend": group.backend,
+           "blocks": None}
+    if spec["finalize"]:
+        out["blocks"] = (X if solve
+                         else inplace_finalize_1d(W, swaps, lay)).cpu()
+    return out

@@ -8,9 +8,12 @@ The legality predicates and the cost multipliers are the JAX package's.
 The driver's and the CLI's engine vocabularies derive from this registry.
 A point on p ranks of the 1D layout ranks the 1D engines (``swapfree``
 among them) on the cost model's mesh terms, with the JAX package's
-distributed cost floor (``COST_MODEL_FLOOR_N``).  The distributed solve
-configurations (``solve_sharded``, ``solve_lookahead_sharded``) come with
-ROADMAP.md Queue A item 15b, the 2D points with item 15c.
+distributed cost floor (``COST_MODEL_FLOOR_N``); a distributed "solve"
+point ranks the ``solve_sharded`` engine and its probe-ahead twin, the
+``solve_lookahead`` engine (registered, as in the JAX package, as the
+configuration ``solve_lookahead_sharded``).  The augmented engine is not a
+candidate at p > 1: its distributed form is ROADMAP.md Queue A item 15d.
+The 2D points are item 15c.
 
 Cost hooks rank; they are not wall-clock truth.  The tuner records
 measured/projected drift whenever it measures.
@@ -223,8 +226,10 @@ def _legal_grouped_pallas_bf16(pt: TunePoint) -> bool:
             and pt.dtype in ("bfloat16", "float16"))
 
 
-def _always(pt: TunePoint) -> bool:
-    return True
+def _legal_augmented(pt: TunePoint) -> bool:
+    # Any dtype on one device; the distributed augmented engine (the JAX
+    # package's sharded_jordan.py) is not ported (item 15d).
+    return not pt.distributed
 
 
 def _real_dtype(pt: TunePoint) -> bool:
@@ -279,6 +284,30 @@ def _cost_lookahead(pt: TunePoint) -> float:
     return 1.01 * projected_seconds(pt)
 
 
+def _legal_solve_sharded(pt: TunePoint) -> bool:
+    # The distributed [A | B] elimination: any p > 1, either gather mode
+    # (X is O(n·k) and always assembled), any Nr, real dtypes.
+    return pt.distributed and _real_dtype(pt)
+
+
+def _cost_solve_sharded(pt: TunePoint) -> float:
+    # The single-device solve's n³(1 + k/n)-against-2n³ discount on the
+    # distributed projection (the same superstep structure).
+    return 0.55 * projected_seconds(pt)
+
+
+def _legal_solve_lookahead(pt: TunePoint) -> bool:
+    # solve_sharded's legality narrowed to the unrolled reach.
+    return _legal_solve_sharded(pt) and _nr(pt) <= MAX_UNROLL_NR
+
+
+def _cost_solve_lookahead(pt: TunePoint) -> float:
+    # The solve discount on the overlap-discounted projection: strictly
+    # below solve_sharded wherever legal.
+    r = _predict(pt)
+    return 0.55 * (r["total"] - min(r["probe"], r["elim"]))
+
+
 def _legal_update(pt: TunePoint) -> bool:
     return not pt.distributed
 
@@ -297,7 +326,7 @@ CONFIGS: tuple[EngineConfig, ...] = (
         "grouped2", "grouped", 2, _real_dtype, _cost_grouped,
         "delayed group updates, k=2"),
     EngineConfig(
-        "augmented", "augmented", 0, _always, _cost_augmented,
+        "augmented", "augmented", 0, _legal_augmented, _cost_augmented,
         "~4N^3 reference-parity path (global singularity scale); the one "
         "complex-capable invert engine"),
     EngineConfig(
@@ -332,6 +361,20 @@ CONFIGS: tuple[EngineConfig, ...] = (
         "solve_aug_spd", "solve_aug", 0, _legal_solve, _cost_solve,
         "the pivoting solve engine at SPD points, the fallback",
         workload="solve_spd"),
+    EngineConfig(
+        "solve_sharded", "solve_sharded", 0, _legal_solve_sharded,
+        _cost_solve_sharded,
+        "the [A | B] elimination on p ranks of the 1D layout: the k "
+        "right-hand sides ride the pivot, row-broadcast and eliminate "
+        "supersteps, any Nr",
+        workload="solve"),
+    EngineConfig(
+        "solve_lookahead_sharded", "solve_lookahead", 0,
+        _legal_solve_lookahead, _cost_solve_lookahead,
+        "the distributed [A | B] elimination with step t+1's probe on a "
+        "side stream after the critical panel; the same pivots and "
+        "collectives as solve_sharded, unrolled-reach Nr",
+        workload="solve"),
     EngineConfig(
         "solve_fori", "solve_fori", 0, _legal_solve_fori,
         _cost_solve_fori,

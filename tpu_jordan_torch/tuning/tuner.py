@@ -17,6 +17,13 @@ Selection ladder (``Tuner.select``), cheapest evidence first:
 
 Whatever rung produced the plan, it is written back to an attached,
 writable cache, so the next selection at the same key is rung 1.
+
+A distributed point (p ranks of the 1D layout) measures each configuration
+in one world of p ranks (``parallel.dist_solve.measure_rank``): the
+warm-up and every sample run inside that world, each sample the slowest
+rank's time, so a spawn (0.34–0.63 s on the H100 machine, PERF.md §6, PR
+15) and a world's first run are never in a sample.  Its plans are keyed by
+the point's workers (``p4``).
 """
 
 from __future__ import annotations
@@ -51,7 +58,8 @@ def measure_config(point: TunePoint, cfg: EngineConfig,
     points run the solve engine on ``rand`` (``kms`` at SPD points) with
     one ``rand`` (``crand``) right-hand side, as the JAX tuner does.  No
     engine writes its input, so one matrix serves every sample.  On the
-    card each timed call ends in a synchronize."""
+    card each timed call ends in a synchronize.  A distributed point runs
+    :func:`measure_distributed`."""
     import torch
 
     from ..driver import invert
@@ -65,9 +73,7 @@ def measure_config(point: TunePoint, cfg: EngineConfig,
             "(smw_update is its one engine; the serve update lanes "
             "resolve cost-only)")
     if point.distributed:
-        raise UsageError("measuring a distributed configuration runs a "
-                         "world of ranks per trial, not ported yet "
-                         "(ROADMAP.md Queue A item 15b)")
+        return measure_distributed(point, cfg, samples=samples)
     dev = torch.device(point.backend)
     dtype = resolve_dtype(point.dtype)
     n, m = point.n, point.block_size
@@ -96,6 +102,38 @@ def measure_config(point: TunePoint, cfg: EngineConfig,
         return out
 
     return measure_direct(call, samples=samples)
+
+
+def measure_distributed(point: TunePoint, cfg: EngineConfig,
+                        samples: int = 5, warmup: int = 1) -> Measurement:
+    """Measure one configuration at a distributed point in ONE world of
+    ``point.workers`` ranks on the point's device type: the ranks' warm-up
+    and ``samples`` timed runs (``parallel.dist_solve.measure_rank``, each
+    sample the slowest rank's CUDA-event time), reduced by the robust core.
+    The ``measure`` fault point fires here, in the caller's process, once
+    for each of those runs (each with the transient retry), as
+    ``measure_direct`` fires it once a call."""
+    from ..driver import WORLD_DEADLINE_S
+    from ..parallel.dist_solve import MeasureSpec, measure_rank
+    from ..parallel.launch import run_workers
+    from ..resilience import faults as _faults
+    from .measure import MEASURE_RETRY, robust_stats
+
+    if cfg.engine == "augmented":
+        raise UsageError("engine='augmented' at workers > 1 is the "
+                         "pre-shard_map reference-parity engine, not "
+                         "ported yet (ROADMAP.md Queue A item 15d)")
+    spec = MeasureSpec(n=point.n, m=point.block_size, dtype=point.dtype,
+                       workload=("invert" if point.workload == "invert"
+                                 else "solve"),
+                       engine=cfg.engine, group_k=cfg.group)
+    for _ in range(warmup + samples):
+        MEASURE_RETRY.call(lambda: _faults.fire("measure"),
+                           component="measure")
+    ranks = run_workers(int(point.workers), measure_rank, spec, samples,
+                        warmup, deadline_s=WORLD_DEADLINE_S,
+                        device_type=point.backend)
+    return robust_stats(ranks[0])
 
 
 @dataclass
