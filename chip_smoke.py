@@ -302,10 +302,40 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    bytes and write seconds recorded.  ``tune=True`` (DIST_TUNE_ROW,
    4096/m128 fp32): the trials (median, spread) and the engine chosen; a
    second call hits the plan cache and measures nothing.
-17. ``kernels``: every ported kernel with its launches on its path (the
+17. ``dist2d``: the 2D block-cyclic path on one world of 4 ranks sharing
+   the card (gloo) whose subgroups give the meshes (2, 2), (1, 4) and
+   (4, 1).  The invert at DIST2D_ROW (4096²/m128 absdiff fp32) on (2, 2)
+   through inplace (both probe layouts, and "auto": owner on gloo),
+   grouped k=2, lookahead and swapfree, then inplace on (1, 4) and (4, 1):
+   pivots equal to the single-device engine's, the SUMMA residual under
+   the gate, on every step the rows probed across the ranks the live
+   rows, each by one rank, each rank's probe launches the steps of its
+   non-empty slices; the two layouts' inverse shards and swapfree's bit
+   for bit equal to inplace's (lookahead's equality printed; its panel and
+   trailing GEMMs are other cuBLAS shapes); each run's slowest-rank ms
+   beside the single device's.  DIST2D_FP64_ROW (8192²/m384 rand fp64,
+   gather=False): pivots equal to the single device's, residual under the
+   gate, the corner from the owning blocks (the verbose print) equal to
+   the gathered inverse's.  The file row (DIST2D_FILE_ROW): pivots equal
+   to the generated run's, every rank's largest strip ≤ m.  The [A | B]
+   solve (DIST2D_SOLVE_ROW, 8192²/m384 rand, K = 1: solve_sharded warm and
+   timed, solve_lookahead, and solve_sharded in fp64): the backward error
+   under the gate, fp64 pivots equal to the single device's, the fp32
+   engines' to each other, the pc replicas of X bit for bit equal; then
+   the CLI's ``8192 384 --workload solve --generator rand --workers 2x2``.
+   The checkpointed invert and solve (DIST2D_CKPT_ROW, 6000²/m300 rand
+   fp32, cadence 5: ``gj_probe.cu`` on the ranks), each preempted by a
+   seeded fault at the second boundary and resumed: the resumed bits equal
+   to the same world's monolithic run, the file in the JAX 2D format
+   (``2d:2x2``, swaps (2, 2, Nr)), checkpoint bytes and write seconds
+   recorded.  ``tune=True`` (DIST2D_TUNE_ROW) on (2, 2): the trials and
+   the pick; a second call hits the plan cache.  Last, the CLI's ``4096
+   128 --workers 2x2`` (exit 0).
+18. ``kernels``: every ported kernel with its launches on its path (the
    solve, tune, telemetry, resilience, serve, handles, fleet, lpqp,
-   autoscale, update_demo, distributed and dist_workloads rows, the last
-   two counted by the ranks; the variants' engine runs of ``reference``),
+   autoscale, update_demo, distributed, dist_workloads and dist2d rows,
+   the last three counted by the ranks; the variants' engine runs of
+   ``reference``),
    the complex bodies of ``gj_probe.cu`` as ``gj_probe[c64]`` and
    ``gj_probe[c128]``; with
    the fleet phase and those after it, each kernel's launches in each of
@@ -315,7 +345,10 @@ Not run by default: ``--phases toolchain,nccl4`` (on a host with four
 cards) runs the distributed phase's 4-rank world with a card a rank,
 which the backend rule puts on nccl (every pivot sequence, residual and
 launch count held as there), the dist_workloads phase's [A | B] solve leg
-in the same way, and the CLI's ``4096 128 --workers 4``.
+in the same way, and the CLI's ``4096 128 --workers 4``; then the dist2d
+phase's leg 1 (inplace under "auto", now column, and both layouts) and
+its solve leg on (2, 2) over nccl, and the CLI's ``4096 128 --workers
+2x2``.
 ``--phases knife_edge`` records that fp32 absdiff
 8192/m384 elimination through the grouped engine, with the kernel and with
 the plain probe: which side of the knife edge each lands on.
@@ -342,7 +375,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("toolchain", "kernel_vs_plain", "reference", "solve", "tune",
           "overlap", "telemetry", "resilience", "serve", "handles", "fleet",
           "lpqp", "autoscale", "update_demo", "distributed",
-          "dist_workloads")
+          "dist_workloads", "dist2d")
 EXTRA_PHASES = ("knife_edge", "cluster_sweep", "batch_fp32", "nccl4")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
@@ -759,6 +792,25 @@ DIST_FILE_ROW = (4096, 128, "absdiff", "float32")
 DIST_SOLVE_ROW = (8192, 384, "rand", "float32", 1)
 DIST_CKPT_ROW = (6000, 300, "rand", "float32", 16, 5, 3)
 DIST_TUNE_ROW = (4096, 128, "float32")
+# The dist2d phase: one world of DIST_WORKERS ranks sharing the card whose
+# subgroups give the meshes (2, 2), (1, 4) and (4, 1).  The invert at the
+# README's size through each engine (engine, k, probe layout; "auto" is
+# owner on gloo, column on nccl), then inplace on the other meshes; the
+# fp64 gather=False row; the file row; the [A | B] solve (n, m, generator,
+# dtype, K); the checkpointed invert and solve at an m with no panel width
+# (n, m, generator, dtype, K, cadence, the boundary at which the seeded
+# preempt fires); tune=True at (n, m, dtype).
+DIST2D_MESH = (2, 2)
+DIST2D_ROW = (4096, 128, "absdiff", "float32")
+DIST2D_RUNS = (("inplace", 0, "auto"), ("inplace", 0, "column"),
+               ("inplace", 0, "owner"), ("grouped", 2, "auto"),
+               ("lookahead", 0, "auto"), ("swapfree", 0, "auto"))
+DIST2D_MESHES = ((1, 4), (4, 1))
+DIST2D_FP64_ROW = (8192, 384, "rand", "float64")
+DIST2D_FILE_ROW = (4096, 128, "absdiff", "float32")
+DIST2D_SOLVE_ROW = (8192, 384, "rand", "float32", 1)
+DIST2D_CKPT_ROW = (6000, 300, "rand", "float32", 16, 5, 2)
+DIST2D_TUNE_ROW = (4096, 128, "float32")
 
 # The probe variants: (kernel launch counter key, wrapper, plain twin).
 VARIANTS = {"gj_probe_inplace": ("inplace", "gj_probe_inplace",
@@ -4677,6 +4729,591 @@ def phase_dist_workloads(torch, counters):
     return totals
 
 
+def _live_rows_2d(Nr: int, engine: str, pivots) -> list:
+    """The rows live at each step of a 2D run: rows >= t (swap engines),
+    or the physical rows not yet retired (swap-free: its swap-coordinate
+    pivots replayed)."""
+    if engine != "swapfree":
+        return [list(range(t, Nr)) for t in range(Nr)]
+    pos, ipos, retired, out = list(range(Nr)), list(range(Nr)), set(), []
+    for t, piv_pos in enumerate(pivots):
+        out.append(sorted(set(range(Nr)) - retired))
+        g, x = ipos[piv_pos], ipos[t]
+        retired.add(g)
+        pos[x], pos[g] = piv_pos, t
+        ipos[t], ipos[piv_pos] = g, x
+    return out
+
+
+def _probe_checks_2d(ranks, Nr: int, engine: str, body: str):
+    """(probed_once, launches_ok) of one 2D world's rank outcomes: at every
+    step the rows probed across the ranks are the live rows, each by one
+    rank; each rank launched ``body`` once at each step of a non-empty
+    slice, and no other kernel."""
+    by_step = {}
+    for r in ranks:
+        for t, rows in r["probed"]:
+            by_step.setdefault(t, []).extend(rows)
+    probed_once = ([sorted(by_step.get(t, [])) for t in range(Nr)]
+                   == _live_rows_2d(Nr, engine, ranks[0]["pivots"]))
+    launches_ok = all(
+        r["launches"].get(body, 0) == len(r["probe_steps"])
+        == sum(r["launches"].values())
+        and r["probe_steps"] == [t for t, rows in r["probed"] if rows]
+        for r in ranks)
+    return probed_once, launches_ok
+
+
+def _dist2d_world(torch, p: int, own_cards: bool, tmp: str, refs: dict):
+    """One world of ``p`` ranks for the 2D legs 1-5's rank work: the invert
+    runs, the fp64 gather=False row, the file row, the solves and the
+    checkpoint leg's monolithic runs (the nccl4 phase: leg 1's inplace
+    runs and the solves).  Returns (labels, per-rank results, wall s)."""
+    from tpu_jordan_torch.io import write_matrix_file
+    from tpu_jordan_torch.ops import generate
+    from tpu_jordan_torch.parallel import run_calls, run_workers
+    from tpu_jordan_torch.parallel.dist_solve import (
+        DistSolveSpec, DistSpec, solve_rank, solve_rank_summary,
+        solve_system_rank)
+    from tpu_jordan_torch.parallel.jordan2d import _own_blocks
+    from tpu_jordan_torch.parallel.jordan2d_inplace import scatter_rhs_2d
+    from tpu_jordan_torch.parallel.layout import CyclicLayout2D
+    from tpu_jordan_torch.ops.padding import pad_with_identity
+
+    mesh = DIST2D_MESH
+    n, m, gen, dt = DIST2D_ROW
+    common, labels = [], []
+
+    def add(label, fn, *args):
+        common.append((fn, args))
+        labels.append(label)
+
+    runs = (DIST2D_RUNS if not own_cards
+            else tuple(r for r in DIST2D_RUNS if r[0] == "inplace"))
+    add(("warm",), solve_rank_summary,
+        DistSpec(n, m, gen, dt, "inplace", gather=False, mesh=mesh))
+    for engine, k, layout in runs:
+        add(("invert", mesh, engine, k, layout), solve_rank_summary,
+            DistSpec(n, m, gen, dt, engine, k, gather=False, mesh=mesh,
+                     probe_layout=layout))
+    if not own_cards:
+        for shape in DIST2D_MESHES:
+            add(("invert", shape, "inplace", 0, "auto"), solve_rank_summary,
+                DistSpec(n, m, gen, dt, "inplace", gather=False,
+                         mesh=shape))
+        n2, m2, gen2, dt2 = DIST2D_FP64_ROW
+        add(("fp64",), solve_rank,
+            DistSpec(n2, m2, gen2, dt2, "inplace", gather=False, mesh=mesh))
+        nf, mf, genf, dtf = DIST2D_FILE_ROW
+        path = os.path.join(tmp, f"{genf}{nf}.txt")
+        t0 = time.perf_counter()
+        write_matrix_file(path, generate(genf, (nf, nf),
+                                         torch.float64).numpy())
+        refs["file_write_s"] = time.perf_counter() - t0
+        refs["file_bytes"] = os.path.getsize(path)
+        add(("file",), solve_rank_summary,
+            DistSpec(nf, mf, genf, dtf, "inplace", gather=False,
+                     file=path, mesh=mesh))
+        nc, mc, genc, dtc, kc_, _, _ = DIST2D_CKPT_ROW
+        add(("ckpt_invert",), solve_rank,
+            DistSpec(nc, mc, genc, dtc, "inplace", gather=True, mesh=mesh))
+    # The solves: each rank's own shards of [A | B] (run_workers(per_rank)).
+    per_rank = [([],) for _ in range(p)]
+    solve_labels = []
+    ns, ms, gens, dts, ks = DIST2D_SOLVE_ROW
+    solves = [((ns, ms, gens, d, ks), e) for d, e in (
+        (dts, "solve_sharded"), (dts, "solve_sharded"),
+        (dts, "solve_lookahead"), ("float64", "solve_sharded"))]
+    if not own_cards:
+        nc, mc, genc, dtc, kc_, _, _ = DIST2D_CKPT_ROW
+        solves.append(((nc, mc, genc, dtc, kc_), "solve_sharded"))
+    shards = {}
+    for (nn, mm, g, d, kk), engine in solves:
+        if (nn, d) not in shards:
+            dtype = getattr(torch, d)
+            A = generate(g, (nn, nn), dtype, device="cuda")
+            B = generate(g, (nn, kk), dtype, row_offset=nn, device="cuda")
+            refs.setdefault("ops", {})[(nn, d)] = (A, B)
+            lay = CyclicLayout2D.create(nn, mm, *mesh)
+            ap = pad_with_identity(A.cpu(), lay.N).reshape(
+                lay.Nr, mm, lay.Nr, mm)
+            shards[(nn, d)] = [
+                (_own_blocks(ap, lay, *divmod(r, mesh[1])).numpy(),
+                 scatter_rhs_2d(B.cpu(), lay, r // mesh[1]).numpy())
+                for r in range(p)]
+            del ap
+        for r in range(p):
+            a_r, b_r = shards[(nn, d)][r]
+            per_rank[r][0].append((solve_system_rank, (DistSolveSpec(
+                nn, mm, d, engine, mesh=mesh), a_r, b_r)))
+        solve_labels.append(("solve", nn, d, engine))
+    shards.clear()
+    for r in range(p):
+        per_rank[r][0][:0] = common
+    t0 = time.perf_counter()
+    results = run_workers(p, run_calls, per_rank=per_rank,
+                          deadline_s=DIST_DEADLINE_S, device_type="cuda")
+    return labels + solve_labels, results, time.perf_counter() - t0
+
+
+def _single_refs(torch, refs: dict, own_cards: bool) -> None:
+    """The single-device references of the 2D legs: the in-place engine's
+    pivots and warm ms at the invert rows, the solve engine's pivots and
+    solve_system's ms at the solve rows."""
+    from tpu_jordan_torch.linalg import block_jordan_solve, solve_system
+    from tpu_jordan_torch.ops import block_jordan_invert_inplace, generate
+
+    rows = [DIST2D_ROW] + ([] if own_cards else [DIST2D_FP64_ROW])
+    for n, m, gen, dt in rows:
+        a = generate(gen, (n, n), getattr(torch, dt), device="cuda")
+        inv, sing, st = block_jordan_invert_inplace(a, block_size=m,
+                                                    collect_stats=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        block_jordan_invert_inplace(a, block_size=m)
+        torch.cuda.synchronize()
+        refs[("invert", n, dt)] = (st["pivot_block"].tolist(), bool(sing),
+                                   (time.perf_counter() - t0) * 1e3,
+                                   inv[:10, :10].cpu())
+        del a, inv, st
+    n, m, gen, dt, k = DIST2D_SOLVE_ROW
+    for d in (dt, "float64"):
+        dtype = getattr(torch, d)
+        A = generate(gen, (n, n), dtype, device="cuda")
+        B = generate(gen, (n, k), dtype, row_offset=n, device="cuda")
+        solve_system(A, B, block_size=m)                          # warm
+        ref = solve_system(A, B, block_size=m)
+        _, _, st = block_jordan_solve(A, B, block_size=m,
+                                      collect_stats=True)
+        refs[("solve", d)] = (ref, st["pivot_block"].tolist())
+        del A, B, st
+    torch.cuda.empty_cache()
+
+
+def _dist2d_invert_legs(torch, labels, results, refs, p, totals, failures,
+                        phase):
+    """Legs 1-3 (the nccl4 phase: leg 1's inplace runs) from the world's
+    results."""
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+    from tpu_jordan_torch.parallel.jordan2d_inplace import (
+        gather_inverse_inplace_2d, inverse_corner_2d)
+    from tpu_jordan_torch.parallel.layout import CyclicLayout2D
+    from tpu_jordan_torch.resilience import DEFAULT_POLICY, gate_threshold
+
+    def ranks_of(label):
+        i = labels.index(label)
+        return [results[r][i] for r in range(p)]
+
+    n, m, gen, dt = DIST2D_ROW
+    dtype = getattr(torch, dt)
+    ref_piv, ref_sing, single_ms, _ = refs[("invert", n, dt)]
+    body = probe_mod.probe_body(m, dtype)
+    base = {}
+    for label in labels:
+        if label[0] != "invert":
+            continue
+        _, shape, engine, k, layout = label
+        ranks = ranks_of(label)
+        head = ranks[0]
+        lay = CyclicLayout2D.create(n, m, *shape)
+        kappa = head["norm_a"] * head["norm_x"]
+        rel = head["residual"] / head["norm_a"]
+        gate = gate_threshold(DEFAULT_POLICY, n, kappa, dtype)
+        probed_once, launches_ok = _probe_checks_2d(ranks, lay.Nr, engine,
+                                                    body)
+        _add_launches(totals, ranks)
+        piv = head["pivots"]
+        checks = {
+            "not_singular": not head["singular"] and not ref_sing,
+            "pivots_equal_across_ranks": all(r["pivots"] == piv
+                                             for r in ranks),
+            "pivots_equal_single": piv == ref_piv + list(
+                range(len(ref_piv), lay.Nr)),
+            "residual_gate": rel <= gate,
+            "probed_once_live": probed_once,
+            "probe_launches_nonempty_steps": launches_ok}
+        digests = [r["inverse_sha256"] for r in ranks]
+        if shape == DIST2D_MESH and engine == "inplace":
+            base.setdefault(layout, digests)
+        out = {"phase": phase, "leg": "invert", "mesh": list(shape),
+               "n": n, "m": m, "generator": gen, "dtype": dt,
+               "engine": engine, "group": k, "probe_layout": layout,
+               "backend": head["backend"], "checks": checks,
+               "rel_residual": rel, "gate": gate, "kappa": kappa,
+               "ms": head["elapsed"] * 1e3, "single_device_ms": single_ms,
+               "launches": [r["launches"].get(body, 0) for r in ranks],
+               "digests": digests}
+        if shape == DIST2D_MESH and engine in ("lookahead", "swapfree"):
+            out["bits_equal_inplace"] = digests == base.get("auto")
+            if engine == "swapfree":
+                checks["bits_equal_inplace"] = out["bits_equal_inplace"]
+        emit(out)
+        if not all(checks.values()):
+            failures.append(out)
+    if "column" in base and "owner" in base:
+        ok = base["column"] == base["owner"]
+        emit({"phase": phase, "leg": "invert", "check": "layouts_bitmatch",
+              "ok": ok})
+        if not ok:
+            failures.append({"layouts_bitmatch": False})
+    if ("fp64",) in labels:
+        n2, m2, gen2, dt2 = DIST2D_FP64_ROW
+        dtype2 = getattr(torch, dt2)
+        ref_piv2, _, single2, ref_corner = refs[("invert", n2, dt2)]
+        ranks = ranks_of(("fp64",))
+        head = ranks[0]
+        lay = CyclicLayout2D.create(n2, m2, *DIST2D_MESH)
+        blocks = [r["blocks"] for r in ranks]
+        corner = inverse_corner_2d(blocks, lay, n2)
+        full = gather_inverse_inplace_2d(blocks, lay, n2)
+        kappa = head["norm_a"] * head["norm_x"]
+        rel = head["residual"] / head["norm_a"]
+        gate = gate_threshold(DEFAULT_POLICY, n2, kappa, dtype2)
+        body2 = probe_mod.probe_body(m2, dtype2)
+        probed_once, launches_ok = _probe_checks_2d(ranks, lay.Nr,
+                                                    "inplace", body2)
+        _add_launches(totals, ranks)
+        checks = {"not_singular": not head["singular"],
+                  "pivots_equal_single": head["pivots"] == ref_piv2 + list(
+                      range(len(ref_piv2), lay.Nr)),
+                  "residual_gate": rel <= gate,
+                  "corner_equals_gathered": bool(torch.equal(
+                      corner, full[:10, :10])),
+                  "corner_near_single": float(
+                      (corner - ref_corner).abs().max()
+                      / ref_corner.abs().max()) <= 1e-9,
+                  "probed_once_live": probed_once,
+                  "probe_launches_nonempty_steps": launches_ok}
+        del full, blocks
+        out = {"phase": phase, "leg": "fp64_no_gather", "mesh":
+               list(DIST2D_MESH), "n": n2, "m": m2, "generator": gen2,
+               "dtype": dt2, "checks": checks, "rel_residual": rel,
+               "gate": gate, "kappa": kappa, "ms": head["elapsed"] * 1e3,
+               "single_device_ms": single2,
+               "launches": [r["launches"].get(body2, 0) for r in ranks]}
+        emit(out)
+        if not all(checks.values()):
+            failures.append(out)
+    if ("file",) in labels:
+        nf, mf, genf, dtf = DIST2D_FILE_ROW
+        ranks = ranks_of(("file",))
+        gen_ranks = ranks_of(("invert", DIST2D_MESH, "inplace", 0, "auto"))
+        head = ranks[0]
+        lay = CyclicLayout2D.create(nf, mf, *DIST2D_MESH)
+        kappa = head["norm_a"] * head["norm_x"]
+        rel = head["residual"] / head["norm_a"]
+        gate = gate_threshold(DEFAULT_POLICY, nf, kappa, getattr(torch, dtf))
+        probed_once, launches_ok = _probe_checks_2d(ranks, lay.Nr,
+                                                    "inplace", body)
+        _add_launches(totals, ranks)
+        checks = {"not_singular": not head["singular"],
+                  "pivots_equal_generated": head["pivots"]
+                  == gen_ranks[0]["pivots"],
+                  "residual_gate": rel <= gate,
+                  "strip_rows_le_m": all(0 < r["strip_rows_max"] <= mf
+                                         for r in ranks),
+                  "probed_once_live": probed_once,
+                  "probe_launches_nonempty_steps": launches_ok}
+        out = {"phase": phase, "leg": "file", "mesh": list(DIST2D_MESH),
+               "n": nf, "m": mf, "generator": genf, "dtype": dtf,
+               "checks": checks, "file_bytes": refs["file_bytes"],
+               "write_s": refs["file_write_s"],
+               "strip_rows_max": [r["strip_rows_max"] for r in ranks],
+               "rel_residual": rel, "gate": gate,
+               "ms": head["elapsed"] * 1e3,
+               "launches": [r["launches"].get(body, 0) for r in ranks]}
+        emit(out)
+        if not all(checks.values()):
+            failures.append(out)
+
+
+def _dist2d_solve_leg(torch, labels, results, refs, p, totals, failures,
+                      phase):
+    """Leg 4 from the world's results, then the CLI's --workload solve on
+    the mesh."""
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+    from tpu_jordan_torch.ops.residual import solve_residual_stats
+    from tpu_jordan_torch.parallel.jordan2d_inplace import gather_solution_2d
+    from tpu_jordan_torch.parallel.launch import last_world
+    from tpu_jordan_torch.parallel.layout import CyclicLayout2D
+    from tpu_jordan_torch.resilience import (DEFAULT_POLICY,
+                                             solve_gate_threshold)
+    from tpu_jordan_torch.resilience.degrade import backward_error
+
+    n, m, gen, dt, k = DIST2D_SOLVE_ROW
+    lay = CyclicLayout2D.create(n, m, *DIST2D_MESH)
+    pivots = {}
+    first = True
+    for i, label in enumerate(labels):
+        if label[0] != "solve" or label[1] != n:
+            continue
+        _, _, dname, engine = label
+        ranks = [results[r][i] for r in range(p)]
+        dtype = getattr(torch, dname)
+        A, B = refs["ops"][(n, dname)]
+        ref, ref_piv = refs[("solve", dname)]
+        body = probe_mod.probe_body(m, dtype)
+        x = gather_solution_2d([r["x_blocks"] for r in ranks], lay,
+                               n).to("cuda")
+        rel = backward_error(*solve_residual_stats(A, x, B))
+        gate = solve_gate_threshold(DEFAULT_POLICY, n, dtype)
+        piv = ranks[0]["pivots"]
+        pivots.setdefault(dname, piv)
+        probed_once, launches_ok = _probe_checks_2d(
+            [dict(r, pivots=piv) for r in ranks], lay.Nr, "inplace", body)
+        _add_launches(totals, ranks)
+        checks = {"not_singular": not any(r["singular"] for r in ranks),
+                  "pivots_equal_across_ranks": all(r["pivots"] == piv
+                                                   for r in ranks),
+                  "backward_error_gate": rel <= gate,
+                  "x_replicas_bits_equal": all(bool(torch.equal(
+                      r["x_blocks"], ranks[r["kr"] * DIST2D_MESH[1]][
+                          "x_blocks"])) for r in ranks),
+                  "probed_once_live": probed_once,
+                  "probe_launches_nonempty_steps": launches_ok}
+        if dname == "float64":
+            checks["pivots_equal_single"] = (
+                piv == ref_piv + list(range(len(ref_piv), lay.Nr)))
+        else:
+            checks["pivots_equal_across_engines"] = piv == pivots[dname]
+        out = {"phase": phase, "leg": "solve", "mesh": list(DIST2D_MESH),
+               "engine": engine, "warm_up": first, "n": n, "m": m,
+               "generator": gen, "dtype": dname, "k": k,
+               "backend": ranks[0]["backend"], "checks": checks,
+               "pivots_part_from_single_at": _parting_step(piv, ref_piv),
+               "rel_residual": rel, "gate": gate,
+               "ms": ranks[0]["elapsed"] * 1e3,
+               "single_device_ms": ref.elapsed * 1e3,
+               "launches": [r["launches"].get(body, 0) for r in ranks]}
+        first = False
+        emit(out)
+        if not all(checks.values()):
+            failures.append(out)
+    t0 = time.perf_counter()
+    argv = [n, m, "--workload", "solve", "--generator", gen, "--workers",
+            f"{DIST2D_MESH[0]}x{DIST2D_MESH[1]}"]
+    rc, lines = _run_cli(argv)
+    rel_line = next((ln for ln in lines if ln.startswith("rel_residual")),
+                    "")
+    gate_ok = False
+    if rel_line:
+        val, cli_gate = rel_line.split()[1], rel_line.split()[-1].rstrip(")")
+        gate_ok = float(val) <= float(cli_gate)
+    out = {"phase": phase, "leg": "solve", "check": "cli",
+           "argv": " ".join(map(str, argv)), "exit": rc, "out": lines[-4:],
+           "wall_s": time.perf_counter() - t0,
+           "world_split_s": last_world()}
+    emit(out)
+    if rc != 0 or not gate_ok:
+        failures.append(out)
+
+
+def _dist2d_ckpt_leg(torch, labels, results, refs, p, tmp, totals,
+                     failures):
+    """Leg 5: the checkpointed invert and solve on the mesh, each
+    preempted by a seeded fault at one boundary and resumed; the resumed
+    bits against the world's monolithic runs of the same engine (the
+    uninterrupted run), the stored file in the JAX 2D format."""
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+    from tpu_jordan_torch.parallel.jordan2d_inplace import gather_solution_2d
+    from tpu_jordan_torch.parallel.launch import last_world
+    from tpu_jordan_torch.parallel.layout import CyclicLayout2D
+    from tpu_jordan_torch.resilience import FaultPlan, FaultSpec, activate
+    from tpu_jordan_torch.resilience.checkpoint import (
+        CheckpointStore, PreemptedError, checkpointed_invert,
+        checkpointed_solve)
+
+    n, m, gen, dt, k, cad, hit = DIST2D_CKPT_ROW
+    dtype = getattr(torch, dt)
+    lay = CyclicLayout2D.create(n, m, *DIST2D_MESH)
+    body = probe_mod.probe_body(m, dtype)
+    A, B = refs["ops"][(n, dt)]
+    mono_inv = results[0][labels.index(("ckpt_invert",))]["inverse"]
+    i = labels.index(("solve", n, dt, "solve_sharded"))
+    mono_x = gather_solution_2d([results[r][i]["x_blocks"]
+                                 for r in range(p)], lay, n)
+    store = CheckpointStore(os.path.join(tmp, "ckpt2d"))
+    topo = f"2d:{DIST2D_MESH[0]}x{DIST2D_MESH[1]}"
+    for workload, fn, args, mono in (
+            ("invert", checkpointed_invert, (A, m), mono_inv),
+            ("solve", checkpointed_solve, (A, B, m), mono_x)):
+        run_id = f"dist2d_{workload}"
+        kw = dict(store=store, cadence=cad, engine="fori",
+                  workers=DIST2D_MESH)
+        plan = FaultPlan([FaultSpec("preempt", (hit,), "permanent")])
+        step, info_p = None, None
+        t0 = time.perf_counter()
+        with activate(plan):
+            try:
+                fn(*args, run_id=run_id, **kw)
+            except PreemptedError as e:
+                step, info_p = e.step, getattr(e, "info", None)
+        wall_p = time.perf_counter() - t0
+        split_p = last_world()
+        key, stored_step, arrays = store.peek(run_id)
+        fmt = (key.topology == topo and key.workload == workload
+               and (key.n, key.m, key.Nr) == (n, m, lay.Nr)
+               and key.dtype == dt and stored_step == step
+               and arrays["W"].shape == (lay.Nr, m, lay.N)
+               and arrays["singular"].shape == DIST2D_MESH
+               and str(arrays["W"].dtype) == dt)
+        if workload == "invert":
+            fmt = fmt and arrays["swaps"].shape == DIST2D_MESH + (lay.Nr,)
+        else:
+            fmt = (fmt and arrays["X"].shape == (lay.Nr, m, k)
+                   and "swaps" not in arrays)
+        t0 = time.perf_counter()
+        out_r, sing_r, info_r = fn(*args, run_id=run_id,
+                                   resume_from=run_id, **kw)
+        wall_r = time.perf_counter() - t0
+        split_r = last_world()
+        parts = [q for info in (info_p, info_r) if info
+                 for q in info["ranks"]]
+        _add_launches(totals, parts)
+        launches = sum(q["launches"].get(body, 0) for q in parts)
+        steps = sum(len(q["probe_steps"]) for q in parts)
+        writes = (info_p or {}).get("ckpt_write_seconds", []) + info_r[
+            "ckpt_write_seconds"]
+        checks = {"body_is_gj_probe": body == "gj_probe",
+                  "preempted_at_boundary": step == (hit - 1) * cad,
+                  "jax_2d_format": fmt,
+                  "resumed_at_step": info_r["start_step"] == step
+                  and info_r["resumed"],
+                  "not_singular": not sing_r,
+                  "resume_bits_equal_uninterrupted": bool(torch.equal(
+                      out_r.cpu(), mono.to(out_r.dtype))),
+                  "launches_equal_probe_steps": launches == steps > 0,
+                  "ledger_invariant": store.ledger()["invariant_holds"]}
+        out = {"phase": "dist2d", "leg": "checkpoint", "workload": workload,
+               "mesh": list(DIST2D_MESH), "n": n, "m": m, "generator": gen,
+               "dtype": dt, "k": k if workload == "solve" else 0,
+               "cadence": cad, "preempt_call": hit, "checks": checks,
+               "ckpt_bytes": info_r["ckpt_bytes_last"],
+               "ckpt_writes": len(writes), "ckpt_write_s": writes,
+               "wall_s": {"preempted": wall_p, "resumed": wall_r},
+               "world_split_s": {"preempted": split_p, "resumed": split_r},
+               "launches": launches}
+        emit(out)
+        if not all(checks.values()):
+            failures.append(out)
+
+
+def _dist2d_tune_leg(torch, tmp: str, totals: dict, failures: list):
+    """Leg 6: driver.solve(tune=True) on the mesh, then the same call
+    again, which must hit the plan cache and measure nothing."""
+    from tpu_jordan_torch.driver import solve
+    from tpu_jordan_torch.parallel.launch import last_world
+    from tpu_jordan_torch.resilience import DEFAULT_POLICY, gate_threshold
+    from tpu_jordan_torch.tuning import tuner as tuner_mod
+
+    n, m, dt = DIST2D_TUNE_ROW
+    cache = os.path.join(tmp, "plans2d.json")
+    out = {"phase": "dist2d", "leg": "tune", "n": n, "m": m, "dtype": dt,
+           "mesh": list(DIST2D_MESH), "calls": []}
+    results = []
+    for _ in range(2):
+        meas0 = tuner_mod._M_MEASUREMENTS.total()
+        hits0 = tuner_mod._M_HITS.total()
+        t0 = time.perf_counter()
+        res = solve(n, m, dtype=dt, workers=DIST2D_MESH, tune=True,
+                    plan_cache=cache)
+        results.append(res)
+        _add_launches(totals, res.ranks)
+        out["calls"].append({
+            "engine": res.engine, "source": res.plan.source,
+            "measurements": tuner_mod._M_MEASUREMENTS.total() - meas0,
+            "cache_hits": tuner_mod._M_HITS.total() - hits0,
+            "ms": res.elapsed * 1e3, "wall_s": time.perf_counter() - t0,
+            "world_split_s": last_world()})
+    first, second = out["calls"]
+    out["trials"] = [{"config": t["config"],
+                      "median_ms": t["measured"] * 1e3,
+                      "spread_pct": t["spread_pct"],
+                      "projected_ms": (None if t["projected"] is None
+                                       else t["projected"] * 1e3)}
+                     for t in results[0].plan.trials]
+    out["checks"] = {
+        "measured": first["source"] == "measured"
+        and first["measurements"] == len(out["trials"]) > 0,
+        "second_call_hits_cache": second["cache_hits"] == 1
+        and second["measurements"] == 0
+        and second["engine"] == first["engine"],
+        "residual_gate": all(
+            r.rel_residual <= gate_threshold(DEFAULT_POLICY, n, r.kappa,
+                                             getattr(torch, dt))
+            for r in results)}
+    emit(out)
+    if not all(out["checks"].values()):
+        failures.append(out)
+
+
+def phase_dist2d(torch, counters, own_cards: bool = False):
+    """The 2D block-cyclic path (the module docstring's phase 17) on one
+    world of DIST_WORKERS ranks whose subgroups give the meshes (2, 2),
+    (1, 4) and (4, 1): sharing the card over gloo, or with ``own_cards``
+    (the nccl4 phase) a card a rank over nccl, leg 1's inplace runs and
+    leg 4 only.  Returns the ranks' launches summed."""
+    import shutil
+    import tempfile
+
+    from tpu_jordan_torch.parallel.launch import last_world
+
+    p = DIST_WORKERS
+    phase = "nccl4" if own_cards else "dist2d"
+    totals = dict.fromkeys(counters, 0)
+    failures = []
+    refs = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist2d_")
+    legs = {}
+    try:
+        t0 = time.perf_counter()
+        _single_refs(torch, refs, own_cards)
+        legs["single_refs"] = time.perf_counter() - t0
+        labels, results, world_s = _dist2d_world(torch, p, own_cards, tmp,
+                                                 refs)
+        backend = results[0][0]["backend"]
+        emit({"phase": phase, "world_s": world_s, "backend": backend,
+              "world_split_s": last_world(),
+              "note": "ms: the slowest rank's CUDA events; " + (
+                  "a card a rank over nccl" if own_cards else
+                  "4 ranks share one card over gloo, not a scaling "
+                  "figure")})
+        if backend != ("nccl" if own_cards else "gloo"):
+            failures.append({"backend": backend})
+        legs["world"] = time.perf_counter() - t0 - sum(legs.values())
+        _dist2d_invert_legs(torch, labels, results, refs, p, totals,
+                            failures, phase)
+        _dist2d_solve_leg(torch, labels, results, refs, p, totals, failures,
+                          phase)
+        legs["solve_cli"] = time.perf_counter() - t0 - sum(legs.values())
+        if not own_cards:
+            _dist2d_ckpt_leg(torch, labels, results, refs, p, tmp, totals,
+                             failures)
+            legs["checkpoint"] = (time.perf_counter() - t0
+                                  - sum(legs.values()))
+            _dist2d_tune_leg(torch, tmp, totals, failures)
+            legs["tune"] = time.perf_counter() - t0 - sum(legs.values())
+        del results
+        refs.clear()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        argv = [4096, 128, "--workers", f"{DIST2D_MESH[0]}x{DIST2D_MESH[1]}"]
+        rc, lines = _run_cli(argv)
+        emit({"phase": phase, "check": "cli", "argv": " ".join(map(str,
+                                                                  argv)),
+              "exit": rc, "out": lines[-4:],
+              "wall_s": time.perf_counter() - t1})
+        if rc != 0:
+            failures.append({"cli": rc, "out": lines[-4:]})
+        legs["invert_cli"] = time.perf_counter() - t0 - sum(legs.values())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": phase, "mesh_legs_s": legs})
+    if failures:
+        raise AssertionError(f"{phase} (2D) failed its checks: {failures}")
+    return totals
+
+
 def phase_overlap(torch):
     """profile_solve's device-time split of the OVERLAP_ROWS rows: the
     probe, GEMM and other ms, the idle share and the overlap (the kernels'
@@ -5004,7 +5641,8 @@ def main(argv=None) -> int:
                         ("autoscale", phase_autoscale),
                         ("update_demo", phase_update_demo),
                         ("distributed", phase_distributed),
-                        ("dist_workloads", phase_dist_workloads)):
+                        ("dist_workloads", phase_dist_workloads),
+                        ("dist2d", phase_dist2d)):
         if name in phases:
             by_phase[name] = phase(torch, launch_counters())
             for kernel, count in by_phase[name].items():
@@ -5013,6 +5651,10 @@ def main(argv=None) -> int:
     if "nccl4" in phases:
         by_phase["nccl4"] = phase_distributed(torch, launch_counters(),
                                               own_cards=True)
+        for kernel, count in phase_dist2d(torch, launch_counters(),
+                                          own_cards=True).items():
+            by_phase["nccl4"][kernel] = (by_phase["nccl4"].get(kernel, 0)
+                                         + count)
         for kernel, count in by_phase["nccl4"].items():
             launches[kernel] = launches.get(kernel, 0) + count
         seconds["nccl4"] = time.perf_counter() - start - sum(

@@ -417,14 +417,18 @@ class TestRefusals:
             checkpointed_invert(a, 8, store=store, run_id="t:bf",
                                 cadence=2, engine="fori", device="cpu")
 
-    # {"mesh": object()} and {"workers": 2} were item 15b's refusals; the
-    # 1D runners are ported, so the ids hold the 2D mesh (item 15c).
-    @pytest.mark.parametrize("kw", [{"mesh": (2, 2)}, {"workers": (2, 4)}])
+    # {"mesh": object()} and {"workers": 2} were item 15b's refusals, then
+    # the 2D mesh's (item 15c).  Both runners are ported, so the ids hold
+    # the JAX refusals that remain on a mesh: the pipeline engines, typed
+    # before any world starts.
+    @pytest.mark.parametrize("kw", [{"mesh": (2, 2), "engine": "grouped"},
+                                    {"workers": (2, 4),
+                                     "engine": "swapfree"}])
     def test_distributed_unsupported_names_item_15(self, store, kw):
-        with pytest.raises(CheckpointUnsupportedError, match="item 15"):
+        with pytest.raises(CheckpointUnsupportedError,
+                           match="not checkpointable on distributed"):
             checkpointed_invert(_mat(32), 8, store=store, run_id="t:d",
-                                cadence=2, engine="fori", device="cpu",
-                                **kw)
+                                cadence=2, device="cpu", **kw)
 
     def test_complex_invert_unsupported_where_jax_fails_untyped(
             self, store, tmp_path):

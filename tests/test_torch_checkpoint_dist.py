@@ -13,8 +13,8 @@ own monolithic 1D engines and against the JAX package's runners on
     other: the stored swap record is the other's pivot sequence, and the
     result lies within min(100·eps·κ∞, 1e-3) of the writer's own
     uninterrupted result (relative ∞-norm).
-  * The refusals (lookahead, swapfree, grouped, SPD, complex, a 2D mesh)
-    are the JAX package's, typed.
+  * The refusals (lookahead, swapfree, grouped, SPD, complex, on p ranks
+    and on a 2D mesh) are the JAX package's, typed.
 """
 
 import numpy as np
@@ -213,10 +213,14 @@ def test_spd_and_complex_refused_as_in_jax(tmp_path, case):
 
 
 def test_mesh_is_an_alias_and_2d_is_item_15c(tmp_path):
+    # The 2D runner is ported (item 15c); a (2, 2) mesh keeps the JAX
+    # package's refusal of the pipeline engines, typed, before any world.
     store = CheckpointStore(str(tmp_path))
-    with pytest.raises(CheckpointUnsupportedError, match="item 15c"):
+    with pytest.raises(CheckpointUnsupportedError,
+                       match="not checkpointable on distributed"):
         checkpointed_invert(_mat(32, 8), 8, store=store, run_id="t",
-                            cadence=2, mesh=(2, 2), device="cpu")
+                            cadence=2, engine="grouped", mesh=(2, 2),
+                            device="cpu")
     inv, sing, info = checkpointed_invert(
         _mat(N, 1), M, store=store, run_id="t:m", cadence=4,
         engine="unrolled", mesh=P, device="cpu")

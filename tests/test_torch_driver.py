@@ -273,7 +273,9 @@ def test_no_gpu_raises_instead_of_running_on_cpu(monkeypatch):
 
 @pytest.mark.parametrize("kwargs", [
     {"workers": 2, "engine": "augmented"},
-    {"workers": (2, 4)},
+    # A (2, 4) mesh runs now (item 15c); it keeps the augmented engine's
+    # refusal (item 15d), raised before any rank starts.
+    {"workers": (2, 4), "engine": "augmented"},
     {"gather": False},
     {"numerics": "trace", "engine": "augmented"},
     {"policy": object()},

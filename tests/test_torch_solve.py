@@ -275,7 +275,10 @@ def test_flag_contract():
                  id="kwargs1-item 15"),
     pytest.param({"workers": 2, "assume": "spd"}, "pivot-free fast path",
                  id="kwargs2-item 15"),
-    ({"workers": (2, 2)}, "item 15"),
+    # The (2, 2) mesh runs now (item 15c): the id holds the refusal that
+    # remains there, complex dtypes on a mesh.
+    pytest.param({"workers": (2, 2), "dtype": "complex64"}, "item 15",
+                 id="kwargs3-item 15"),
     ({"gather": False}, "item 15"),
     pytest.param({"numerics": "trace", "engine": "solve_fori"},
                  "UNROLLED solve engine", id="kwargs5-item 12"),

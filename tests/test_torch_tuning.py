@@ -167,8 +167,11 @@ def test_point_takes_the_backend_from_the_device():
     assert tregistry.TunePoint.create(64).backend == "cpu"
     assert tregistry.TunePoint.create(64, device=torch.device(
         "cpu")).chip is None
-    with pytest.raises(UsageError, match="item 15"):
-        tregistry.TunePoint.create(64, workers=(2, 4))
+    # A (pr, pc) mesh is a point of its own now (item 15c): its cache
+    # label is the JAX package's, and a dimension below 1 is refused.
+    assert tregistry.TunePoint.create(64, workers=(2, 4)).topology == "2x4"
+    with pytest.raises(UsageError, match="mesh dimensions"):
+        tregistry.TunePoint.create(64, workers=(2, 0))
     with pytest.raises(ValueError, match="workload"):
         tregistry.TunePoint.create(64, workload="serve")
 

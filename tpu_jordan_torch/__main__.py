@@ -72,8 +72,12 @@ distributed engines, each in one world of ranks; ``--workload solve
 --workers p [--no-gather]`` solves on the ranks (``--workload lstsq`` stays
 single-device, exit 1).  ``--distributed`` joins a world launched outside
 (``torchrun``: ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``)
-as one of its ranks instead of spawning (the invert path).  A ``PRxPC``
-mesh (item 15c) and ``--engine augmented`` at p > 1 (item 15d) exit 1.
+as one of its ranks instead of spawning (the invert path).  ``--workers
+PRxPC`` runs the same engines on a (pr, pc) mesh of the 2D block-cyclic
+layout (pr·pc ranks; each holds an (N/pr)×(N/pc) shard), with a file,
+``--no-gather``, ``--tune`` and ``--workload solve`` alike.  ``--engine
+augmented`` on p ranks or a mesh (item 15d) and the ``--comm-demo`` and
+``--work-demo`` observatories (item 15e) exit 1.
 ``--quiet`` drops the bulky parts of the demos' reports (the per-lane
 stats, the fault log, the per-handle rows); elsewhere it is the default,
 non-verbose output.  The serving flags apply to the serve, chaos and
@@ -102,8 +106,8 @@ _DEMOS = ("autoscale_demo", "update_demo", "capacity_demo", "lp_demo",
 
 
 def _workers_arg(s: str):
-    """'8' -> 8 ranks of the 1D layout; '2x4' -> a (2, 4) 2D mesh (the JAX
-    CLI's vocabulary; the 2D layout is item 15c's and refused)."""
+    """'8' -> 8 ranks of the 1D layout; '2x4' -> a (2, 4) mesh of the 2D
+    layout (the JAX CLI's vocabulary)."""
     if "x" in s:
         pr, pc = s.split("x", 1)
         return (int(pr), int(pc))
@@ -315,8 +319,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="ranks of the 1D row-block-cyclic layout (the "
                          "reference's mpirun -np): p processes of "
                          "torch.distributed, one card each where there are "
-                         "enough; PRxPC (the 2D layout, ROADMAP.md Queue A "
-                         "item 15c) exits 1")
+                         "enough; PRxPC: a (pr, pc) mesh of the 2D "
+                         "block-cyclic layout, pr*pc processes")
     ap.add_argument("--gather", default=True,
                     action=argparse.BooleanOptionalAction,
                     help="--no-gather keeps the inverse as the ranks' "
@@ -344,6 +348,13 @@ def _parser() -> argparse.ArgumentParser:
                     help="--serve-demo/--chaos-demo/--fleet-demo: how long "
                          "the oldest request waits for batch-mates "
                          "(default 2.0)")
+    ap.add_argument("--comm-demo", action="store_true",
+                    help="the JAX CLI's communication-observatory demo; "
+                         "not ported yet (ROADMAP.md Queue A item 15e): "
+                         "exits 1")
+    ap.add_argument("--work-demo", action="store_true",
+                    help="the JAX CLI's work-observatory demo; not ported "
+                         "yet (ROADMAP.md Queue A item 15e): exits 1")
     ap.add_argument("--quiet", action="store_true",
                     help="--serve-demo/--chaos-demo: drop the per-lane "
                          "stats and the fault log from the report")
@@ -502,6 +513,11 @@ def _main(argv, state) -> int:
         resolve_precision(args.precision, args.refine)
         if args.quiet and args.verbose:
             raise UsageError("--quiet and --verbose contradict each other")
+        if args.comm_demo or args.work_demo:
+            raise UsageError("--comm-demo and --work-demo are the "
+                             "communication and work observatories of the "
+                             "distributed paths, not ported yet (ROADMAP.md "
+                             "Queue A item 15e)")
         demo = next((f"--{name.replace('_', '-')}" for name in _DEMOS
                      if getattr(args, name)), None)
         if demo is not None and (args.workers != 1 or not args.gather

@@ -45,7 +45,10 @@ is the slowest rank's), and the residual is the ring GEMM's.  With a
 ``file`` each rank streams its own strips from it (``parallel/
 scatter_stream.py``: one strip of host memory at a time, no scatter from a
 root) and re-reads them for the verification.  ``tune=True`` measures the
-distributed engines, each in one world of ranks.  The JAX package attaches
+distributed engines, each in one world of ranks.  ``workers=(pr, pc)``
+runs the 2D block-cyclic engines (``parallel/jordan2d_inplace.py``) on a
+mesh of pr·pc ranks: each rank generates or streams its (bpr, m, N/pc)
+shard, and the residual is the SUMMA residual's.  The JAX package attaches
 its ``comm``/``work`` observatories to the execute span; they come with
 ROADMAP.md Queue A item 15e.
 """
@@ -304,28 +307,26 @@ def refuse_later_options(workers, gather, policy, dtype, *, engine=None,
     """Options of the JAX package's entries that later slices bring: each
     is refused with the Queue A item that brings it, never silently
     ignored.  On ``driver.solve`` and ``linalg.solve_system``
-    (``workers_item`` None) those are a (pr, pc) mesh (item 15c) and the
-    augmented engine at p > 1 (15d); complex dtypes stay single-device, as
-    in the JAX package.  An entry whose distributed form is a later item
-    names it in ``workers_item`` (``JordanSolver``: 15d)."""
+    (``workers_item`` None) that is the augmented engine on p ranks or a
+    (pr, pc) mesh (15d); complex dtypes stay single-device, as in the JAX
+    package.  An entry whose distributed form is a later item names it in
+    ``workers_item`` (``JordanSolver``: 15d)."""
     distributed = isinstance(workers, tuple) or workers != 1
     if distributed and dtype is not None and resolve_dtype(dtype).is_complex:
         raise UsageError("complex dtypes run single-device (the distributed "
                          "scatter/collective paths are real-dtype, as in the "
                          "JAX package; ROADMAP.md Queue A item 15 ports no "
                          "complex path); workers must be 1")
-    if isinstance(workers, tuple):
-        raise UsageError("a (pr, pc) mesh is the 2D block-cyclic layout, not "
-                         "ported yet (ROADMAP.md Queue A item 15c)")
     if distributed and workers_item is not None:
         raise UsageError(f"workers > 1 on this entry is not ported yet "
                          f"(ROADMAP.md Queue A item {workers_item})")
     if distributed and engine == "augmented":
-        raise UsageError("engine='augmented' at workers > 1 is the "
-                         "pre-shard_map reference-parity engine "
-                         "(sharded_jordan.py), not ported yet (ROADMAP.md "
-                         "Queue A item 15d); use inplace, lookahead, "
-                         "grouped or swapfree")
+        raise UsageError("engine='augmented' at workers > 1 or on a "
+                         "(pr, pc) mesh is the pre-shard_map "
+                         "reference-parity engine (sharded_jordan.py, "
+                         "jordan2d.py), not ported yet (ROADMAP.md Queue A "
+                         "item 15d); use inplace, lookahead, grouped or "
+                         "swapfree")
     if not gather and not distributed:
         raise UsageError("gather=False is only supported on distributed "
                          "paths (workers > 1; ROADMAP.md Queue A item "
@@ -419,7 +420,7 @@ def solve(
     generator: str = "absdiff",
     dtype=torch.float32,
     refine: int = 0,
-    workers: int = 1,
+    workers=1,
     device=None,
     verbose: bool = False,
     gather: bool = True,
@@ -441,7 +442,9 @@ def solve(
     inverse comes back on the CPU, ``gather=False`` leaves it in
     ``inverse_blocks`` (one CPU tensor a rank) with its ``layout``, and
     ``ranks`` holds each rank's pivots, probe steps, launches and time.
-    ``dtype`` may be complex64 or
+    ``workers=(pr, pc)`` runs the 2D engines on a mesh (the same engines,
+    ``parallel/jordan2d_inplace.py``); ``inverse_blocks`` are then the
+    ranks' 2D shards.  ``dtype`` may be complex64 or
     complex128 (then ``engine`` is "auto" or "augmented", which run the
     augmented engine).  ``engine="auto"`` resolves through the tuner
     (``tuning.auto_select``): a hit in the JSON plan cache ``plan_cache``,
@@ -503,8 +506,9 @@ def solve(
 def _solve_distributed(n, block_size, generator, *, file, dtype, refine,
                        workers, device, verbose, gather, precision, engine,
                        group, plan_cache, tune, tel, numerics, policy=None):
-    """:func:`solve` at ``workers=p``: the JAX package's
-    ``_solve_distributed_core`` on the 1D layout, one process per rank.
+    """:func:`solve` at ``workers=p`` or ``workers=(pr, pc)``: the JAX
+    package's ``_solve_distributed_core`` on the 1D layout or the 2D mesh
+    (its ``_Dist1D`` and ``_Dist2D`` backends), one process per rank.
     As there, the ``compile`` fault point fires under the policy's retry
     and ``execute`` fires unretried; no residual gate (the JAX distributed
     core has none).  A ``file`` is opened here first (FileNotFoundError
@@ -516,7 +520,15 @@ def _solve_distributed(n, block_size, generator, *, file, dtype, refine,
     from .parallel.dist_solve import DistSpec, solve_rank
     from .parallel.launch import WorkerError, run_workers
 
-    p = int(workers)
+    mesh = None
+    if isinstance(workers, tuple):
+        from .parallel.group import check_mesh
+
+        mesh = (int(workers[0]), int(workers[1]))
+        check_mesh(mesh[0], mesh[1], mesh[0] * mesh[1])
+        p = mesh[0] * mesh[1]
+    else:
+        p = int(workers)
     if p < 1:
         raise UsageError("workers must be >= 1")
     numerics = resolve_mode(numerics)
@@ -541,19 +553,24 @@ def _solve_distributed(n, block_size, generator, *, file, dtype, refine,
         MatrixStripReader(file, n).close()
     engine, group, plan = resolve_invert_engine(
         engine, group, n, block_size, dtype, tune=tune,
-        plan_cache=plan_cache, workers=p, gather=gather, device=device,
-        telemetry=tel)
+        plan_cache=plan_cache, workers=mesh or p, gather=gather,
+        device=device, telemetry=tel)
     if engine in PALLAS_ENGINES:
         raise UsageError(
             f"engine={engine!r} is a single-device fused-kernel engine (the "
             "fused update kernel has no sharded variant); use "
             "engine='grouped' on distributed meshes")
-    refuse_later_options(p, gather, None, dtype, engine=engine)
+    refuse_later_options(mesh or p, gather, None, dtype, engine=engine)
+    m = min(block_size, n)
+    if mesh is not None:
+        from .parallel.jordan2d_inplace import check_engine_2d
+        from .parallel.layout import CyclicLayout2D
+
+        check_engine_2d(CyclicLayout2D.create(n, m, *mesh), engine, group)
     if engine == "lookahead" and group > 1:
         raise UsageError("the grouped lookahead engine is single-device; "
                          "lookahead at workers > 1 is the plain 1D engine's "
                          "probe-ahead twin")
-    m = min(block_size, n)
     if -(-n // m) > MAX_UNROLL_NR and engine == "lookahead":
         raise UsageError(
             f"engine='lookahead' is unrolled-only in the JAX package, whose "
@@ -562,7 +579,8 @@ def _solve_distributed(n, block_size, generator, *, file, dtype, refine,
     spec = DistSpec(n=n, m=m, generator=generator,
                     dtype=str(dtype).removeprefix("torch."), engine=engine,
                     group_k=group, gather=gather, refine=refine,
-                    file=None if file is None else os.path.abspath(file))
+                    file=None if file is None else os.path.abspath(file),
+                    mesh=mesh)
     if verbose:
         from .utils.printing import print_corner
 
@@ -584,6 +602,10 @@ def _solve_distributed(n, block_size, generator, *, file, dtype, refine,
             from .parallel.group import current_group
 
             grp = current_group(device.type)
+            if mesh is not None:
+                from .parallel.group import check_mesh
+
+                check_mesh(mesh[0], mesh[1], grp.world_size)
             if grp.world_size != p:
                 from .parallel.group import MeshSizeError
 
@@ -613,9 +635,10 @@ def _solve_distributed(n, block_size, generator, *, file, dtype, refine,
     lay = None
     blocks = None
     if not gather and results[0]["blocks"] is not None:
-        from .parallel.layout import CyclicLayout
+        from .parallel.layout import CyclicLayout, CyclicLayout2D
 
-        lay = CyclicLayout.create(n, m, p)
+        lay = (CyclicLayout2D.create(n, m, *mesh) if mesh is not None
+               else CyclicLayout.create(n, m, p))
         blocks = [r["blocks"] for r in results]
     norm_a = head["norm_a"]
     kappa = norm_a * head["norm_x"]
@@ -628,6 +651,10 @@ def _solve_distributed(n, block_size, generator, *, file, dtype, refine,
         print("inverse matrix:\n")
         if inv is not None:
             print_corner(inv)
+        elif blocks is not None and mesh is not None:
+            from .parallel.jordan2d_inplace import inverse_corner_2d
+
+            print_corner(inverse_corner_2d(blocks, lay, n))
         elif blocks is not None:
             print_corner(inverse_corner_1d(blocks, lay, n))
         print(f"residual: {head['residual']:e}")
@@ -637,7 +664,9 @@ def _solve_distributed(n, block_size, generator, *, file, dtype, refine,
         block_size=m,
         gflops=(2.0 * n**3 / elapsed / 1e9) if elapsed > 0 else 0.0,
         kappa=kappa, engine=engine, group=group, plan=plan,
-        device=f"{device.type} x{p} ({head['backend']})", _norm_a=norm_a,
+        device=(f"{device.type} x{p} ({head['backend']})" if mesh is None
+                else f"{device.type} {mesh[0]}x{mesh[1]} "
+                     f"({head['backend']})"), _norm_a=norm_a,
         inverse_blocks=blocks, layout=lay, rank=head["rank"],
         ranks=[{k: v for k, v in r.items() if k not in ("inverse",
                                                          "blocks")}

@@ -33,7 +33,10 @@ rung re-runs the distributed solve on the residual (a world of its own:
 the first one has ended), and a recovered X is cut into ``x_blocks``
 again.  The ``solve_system`` span tree of a distributed solve has
 ``scatter``, ``world`` (with ``execute``), ``gather``, ``residual`` and
-``recover`` children.  A (pr, pc) mesh is ROADMAP.md Queue A item 15c.
+``recover`` children.  ``workers=(pr, pc)`` solves on a mesh of the 2D
+layout (``parallel/jordan2d_inplace.py``): each rank's (bpr, m, N/pc)
+shard of A and its mesh row's rows of B reach it the same way, and X's
+row blocks come back from mesh column 0 (the pc replicas are equal).
 """
 
 from __future__ import annotations
@@ -257,7 +260,13 @@ def solve_system(
     refuse_later_options(workers, gather, policy,
                          dtype if dtype is not None else getattr(a, "dtype",
                                                                  None))
-    if int(workers) < 1:
+    if isinstance(workers, tuple):
+        from ..parallel.group import check_mesh
+
+        check_mesh(int(workers[0]), int(workers[1]),
+                   int(workers[0]) * int(workers[1]))
+        workers = (int(workers[0]), int(workers[1]))
+    elif int(workers) < 1:
         raise UsageError("workers must be >= 1")
     distributed = workers != 1
     if distributed and assume == "spd":
@@ -326,7 +335,7 @@ def solve_system(
         count_workload(workload)
         if engine in DIST_SOLVE_ENGINES:
             result = _solve_system_dist_impl(
-                a, b2, n, k, m, dtype, int(workers), gather, engine,
+                a, b2, n, k, m, dtype, workers, gather, engine,
                 workload, plan, tel, policy, numerics, check, verbose, dev)
         else:
             result = _solve_system_impl(a, b2, n, k, m, dtype, engine,
@@ -425,15 +434,15 @@ def _solve_system_impl(a, b2, n, k, m, dtype, engine, workload, plan, tel,
         _norm_a=norm_a, _norm_x=norm_x, _norm_b=norm_b)
 
 
-def _solve_system_dist_impl(a, b2, n, k, m, dtype, p, gather, engine,
+def _solve_system_dist_impl(a, b2, n, k, m, dtype, workers, gather, engine,
                             workload, plan, tel, policy, numerics, check,
                             verbose, dev):
     """The distributed solve (the JAX package's ``_solve_system_dist_impl``
-    on the 1D layout, one process per rank): each rank's strips of [A | B]
-    in the compute dtype, the ranks' elimination, X assembled here and
-    verified densely against the caller's A and B.  The ``compile`` fault
-    point fires under the policy's retry, ``execute`` unretried, and no
-    other, as there."""
+    on the 1D layout or the 2D mesh, one process per rank): each rank's
+    strips (shards) of [A | B] in the compute dtype, the ranks'
+    elimination, X assembled here and verified densely against the
+    caller's A and B.  The ``compile`` fault point fires under the
+    policy's retry, ``execute`` unretried, and no other, as there."""
     import torch.distributed as dist
 
     from ..driver import WORLD_DEADLINE_S
@@ -451,14 +460,45 @@ def _solve_system_dist_impl(a, b2, n, k, m, dtype, p, gather, engine,
             "process of a world launched outside (--distributed) runs "
             "the distributed invert")
     work = torch.float32 if dtype.itemsize < 4 else dtype
-    lay = CyclicLayout.create(n, m, p)
-    # The JAX compile's refusal (solve_lookahead is unrolled-only), before
-    # any rank starts.
-    compile_sharded_jordan_solve(lay, lookahead=engine == "solve_lookahead")
+    lookahead = engine == "solve_lookahead"
+    mesh = workers if isinstance(workers, tuple) else None
+    if mesh is None:
+        p = workers
+        lay = CyclicLayout.create(n, m, p)
+        # The JAX compile's refusal (solve_lookahead is unrolled-only),
+        # before any rank starts.
+        compile_sharded_jordan_solve(lay, lookahead=lookahead)
+
+        def rhs_rows(rhs, r):
+            return scatter_rhs_1d(rhs, lay, r)
+
+        def gather_x(blocks):
+            return gather_solution_1d(blocks, lay, n)
+    else:
+        from ..parallel.jordan2d import _own_blocks
+        from ..parallel.jordan2d_inplace import (
+            compile_sharded_jordan_solve_2d, gather_solution_2d,
+            scatter_rhs_2d)
+        from ..parallel.layout import CyclicLayout2D
+
+        p = mesh[0] * mesh[1]
+        lay = CyclicLayout2D.create(n, m, *mesh)
+        compile_sharded_jordan_solve_2d(lay, lookahead=lookahead)
+
+        def rhs_rows(rhs, r):
+            return scatter_rhs_2d(rhs, lay, r // mesh[1])
+
+        def gather_x(blocks):
+            return gather_solution_2d(blocks, lay, n)
     with tel.span("scatter"):
         ap = pad_with_identity(a.to(work).cpu(), lay.N)
-        ap = ap.reshape(lay.Nr, lay.m, lay.N)
-        a_strips = [ap[r::p].contiguous().numpy() for r in range(p)]
+        if mesh is None:
+            ap = ap.reshape(lay.Nr, lay.m, lay.N)
+            a_strips = [ap[r::p].contiguous().numpy() for r in range(p)]
+        else:
+            ap = ap.reshape(lay.Nr, lay.m, lay.Nr, lay.m)
+            a_strips = [_own_blocks(ap, lay, *divmod(r, mesh[1])).numpy()
+                        for r in range(p)]
         del ap
 
     def ready():
@@ -466,7 +506,7 @@ def _solve_system_dist_impl(a, b2, n, k, m, dtype, p, gather, engine,
         _faults.fire("compile")
         return DistSolveSpec(n=n, m=m,
                              dtype=str(work).removeprefix("torch."),
-                             engine=engine)
+                             engine=engine, mesh=mesh)
 
     spec = (policy.retry.call(ready, component="solve_system.compile")
             if policy is not None else ready())
@@ -475,13 +515,13 @@ def _solve_system_dist_impl(a, b2, n, k, m, dtype, p, gather, engine,
         rhs = rhs.to(work).cpu()
         return run_workers(
             p, solve_system_rank, spec,
-            per_rank=[(a_strips[r], scatter_rhs_1d(rhs, lay, r).numpy())
+            per_rank=[(a_strips[r], rhs_rows(rhs, r).numpy())
                       for r in range(p)],
             deadline_s=WORLD_DEADLINE_S, device_type=dev.type)
 
     def assemble(results):
-        return (gather_solution_1d([r["x_blocks"] for r in results], lay,
-                                   n).to(device=dev, dtype=dtype),
+        return (gather_x([r["x_blocks"] for r in results]).to(
+                    device=dev, dtype=dtype),
                 any(r["singular"] for r in results))
 
     _faults.fire("execute")
@@ -504,7 +544,7 @@ def _solve_system_dist_impl(a, b2, n, k, m, dtype, p, gather, engine,
     ranks = [{key: v for key, v in r.items() if key != "x_blocks"}
              for r in results]
     common = dict(n=n, k=k, block_size=m, engine=engine, workload=workload,
-                  plan=plan, workers=p, ranks=ranks)
+                  plan=plan, workers=workers, ranks=ranks)
     with tel.span("gather", gathered=gather):
         x, singular = assemble(results)
         xb = None if gather else [r["x_blocks"].to(dtype) for r in results]
@@ -546,7 +586,7 @@ def _solve_system_dist_impl(a, b2, n, k, m, dtype, p, gather, engine,
             # A rung replaced X: cut the recovered solution into the
             # ranks' rows again, never hand out the pre-recovery blocks.
             xh = x.cpu()
-            xb = [scatter_rhs_1d(xh, lay, r) for r in range(p)]
+            xb = [rhs_rows(xh, r) for r in range(p)]
     residual, norm_a, norm_x, norm_b = stats
     if verbose:
         print(f"glob_time: {elapsed:.2f}")

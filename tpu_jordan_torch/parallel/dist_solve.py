@@ -1,9 +1,13 @@
 """One rank's part of the distributed workloads: the bodies that
-``driver.solve(workers=p)``, ``linalg.solve_system(workers=p)`` and the
-tuner's distributed measurement run on each rank.  Counterpart of the JAX
+``driver.solve(workers=...)``, ``linalg.solve_system(workers=...)`` and the
+tuner's distributed measurement run on each rank, on the 1D layout (p
+ranks) or the 2D layout (a (pr, pc) mesh, ``spec.mesh``).  Counterpart of the JAX
 package's ``driver._solve_distributed_core`` with its ``_Dist1D`` backend,
 of ``linalg.api._solve_system_dist_impl`` and of ``tuning.tuner.
-measure_config``'s distributed branches, as seen from one rank.
+measure_config``'s distributed branches, as seen from one rank.  On a mesh
+(the JAX ``_Dist2D`` backend) a rank generates or streams its (bpr, m,
+N/pc) shard, runs the 2D engine (``jordan2d_inplace.py``), and verifies
+on the SUMMA residual (``jordan2d.py``).
 
 :func:`solve_rank` (invert): the rank generates its own cyclic strip
 (init_matrix, main.cpp:128-149), or with a file streams it
@@ -28,6 +32,7 @@ sample in one world, each sample the slowest rank's time.
 
 from __future__ import annotations
 
+import hashlib
 import time
 from dataclasses import dataclass
 
@@ -53,6 +58,9 @@ class DistSpec:
     gather: bool = True
     refine: int = 0
     file: str | None = None
+    #: A (pr, pc) mesh of the 2D layout; None for the 1D layout.
+    mesh: tuple | None = None
+    probe_layout: str = "auto"
 
 
 def _launches() -> dict:
@@ -62,15 +70,18 @@ def _launches() -> dict:
             "gj_probe_fused_panel": gj_fused_panel.launches}
 
 
-def gather_to_root(blocks, group, lay: CyclicLayout):
-    """Rank 0 receives every rank's blocks (point to point) and returns the
-    (Nr, m, N) cyclic storage tensor; the other ranks return None."""
+def gather_parts(blocks, group) -> list | None:
+    """Rank 0 receives every rank's blocks (point to point, each of the
+    shape of its own) and returns them in rank order; the other ranks
+    return None."""
     if group.rank != 0:
         group.exchange([(blocks, 0)], [])
         return None
-    parts = [blocks] + [torch.empty_like(blocks) for _ in range(1, lay.p)]
-    group.exchange([], [(parts[r], r) for r in range(1, lay.p)])
-    return torch.cat(parts)
+    parts = [blocks] + [torch.empty_like(blocks)
+                        for _ in range(1, group.world_size)]
+    group.exchange([], [(parts[r], r)
+                        for r in range(1, group.world_size)])
+    return parts
 
 
 def _row_sum_max(blocks, group, lay: CyclicLayout) -> float:
@@ -113,46 +124,137 @@ def _rank_info(group) -> dict:
                             if dev.type == "cuda" else "cpu")}
 
 
-def _load_strip(spec: DistSpec, lay: CyclicLayout, group, dtype, in_dtype):
-    """This rank's (bpw, m, N) strip of A: generated, or streamed from
-    ``spec.file`` (rounded to a sub-fp32 storage dtype first)."""
-    if spec.file is None:
-        return sharded_generate(spec.generator, lay, group.rank, dtype,
-                                group.device)
-    from .scatter_stream import stream_scatter_1d
+class _Rows1D:
+    """A rank's view of the 1D layout in :func:`solve_rank` (the JAX
+    ``_Dist1D`` backend): its (bpw, m, N) strip, the 1D engine, the ring
+    residual, the row-sum norm."""
 
-    return stream_scatter_1d(
-        spec.file, lay, group.rank, dtype,
-        storage_dtype=in_dtype if in_dtype != dtype else None,
-        device=group.device)
+    def __init__(self, group, spec: DistSpec):
+        self.group, self.spec = group, spec
+        self.lay = CyclicLayout.create(spec.n, spec.m, group.world_size)
+        self.info = {}
+
+    def load(self, dtype, in_dtype):
+        """The strip of A: generated, or streamed from ``spec.file``
+        (rounded to a sub-fp32 storage dtype first)."""
+        spec, group = self.spec, self.group
+        if spec.file is None:
+            return sharded_generate(spec.generator, self.lay, group.rank,
+                                    dtype, group.device)
+        from .scatter_stream import stream_scatter_1d
+
+        return stream_scatter_1d(
+            spec.file, self.lay, group.rank, dtype,
+            storage_dtype=in_dtype if in_dtype != dtype else None,
+            device=group.device)
+
+    def invert(self, W):
+        """(inverse blocks, singular, pivots, probe steps)."""
+        return invert_blocks(W, self.group, self.lay,
+                             engine=self.spec.engine,
+                             group_k=self.spec.group_k)
+
+    def natural(self, parts):
+        return gather_inverse_inplace(torch.cat(parts), self.lay,
+                                      self.spec.n)
+
+    def residual(self, a_b, inv_f) -> float:
+        return distributed_residual_blocks(a_b, inv_f, self.group, self.lay)
+
+    def norm(self, blocks) -> float:
+        return _row_sum_max(blocks, self.group, self.lay)
+
+
+class _Mesh2D(_Rows1D):
+    """A rank's view of the 2D layout (the JAX ``_Dist2D`` backend): its
+    (bpr, m, N/pc) shard of the mesh ``spec.mesh``, the 2D engine (with
+    ``spec.probe_layout``), the SUMMA residual, the row sums over the
+    mesh."""
+
+    def __init__(self, group, spec: DistSpec):
+        from .group import mesh_group
+        from .layout import CyclicLayout2D
+
+        pr, pc = spec.mesh
+        self.group, self.spec = group, spec
+        self.mg = mesh_group(group, pr, pc)
+        self.lay = CyclicLayout2D.create(spec.n, spec.m, pr, pc)
+        self.info = {"mesh": [pr, pc], "kr": self.mg.kr, "kc": self.mg.kc}
+
+    def load(self, dtype, in_dtype):
+        from .jordan2d import sharded_generate_2d
+        from .scatter_stream import stream_scatter_2d
+
+        spec, mg = self.spec, self.mg
+        if spec.file is None:
+            return sharded_generate_2d(spec.generator, self.lay, mg.kr,
+                                       mg.kc, dtype, augmented=False,
+                                       device=mg.device)
+        return stream_scatter_2d(
+            spec.file, self.lay, mg.kr, mg.kc, dtype,
+            storage_dtype=in_dtype if in_dtype != dtype else None,
+            device=mg.device)
+
+    def invert(self, W):
+        from .jordan2d_inplace import invert_blocks_2d
+
+        inv, singular, pivots, probed = invert_blocks_2d(
+            W, self.mg, self.lay, engine=self.spec.engine,
+            group_k=self.spec.group_k, probe_layout=self.spec.probe_layout)
+        self.info["probed"] = _probed_rows(probed)
+        return inv, singular, pivots, [t for t, _ in probed]
+
+    def natural(self, parts):
+        from .jordan2d_inplace import gather_inverse_inplace_2d
+
+        return gather_inverse_inplace_2d(parts, self.lay, self.spec.n)
+
+    def residual(self, a_b, inv_f) -> float:
+        from .jordan2d import distributed_residual_2d
+
+        return distributed_residual_2d(a_b, inv_f, self.mg, self.lay)
+
+    def norm(self, blocks) -> float:
+        from .jordan2d import row_sum_max_2d
+
+        return row_sum_max_2d(blocks, self.mg, self.lay)
+
+
+def _probed_rows(probed) -> list:
+    """The (t, global rows) record as JSON-friendly lists."""
+    return [[t, rows] for t, rows in probed]
 
 
 def solve_rank(group, spec: DistSpec) -> dict:
-    """Run one rank of a distributed invert; every rank of ``group`` calls
-    it together.  ``strip_rows_max`` is the most rows of the file this
-    rank's strip readers held at once (0 for a generator; the refine
-    branch's rank 0 reads the whole file, as the JAX package's does)."""
+    """Run one rank of a distributed invert, on the 1D layout or the mesh
+    ``spec.mesh``; every rank of ``group`` calls it together.
+    ``strip_rows_max`` is the most rows of the file this rank's strip
+    readers held at once (0 for a generator; the refine branch's rank 0
+    reads the whole file, as the JAX package's does).  ``inverse_sha256``
+    is the rank's inverse blocks' digest, to hold two runs bit for bit
+    without moving them; on a mesh ``probed`` lists (t, global rows) of
+    every step this rank probed."""
     from ..io import reset_strip_peak, strip_peak_rows
     from ..ops import newton_schulz, residual_inf_norm
     from ..ops.generators import generate
     from ..ops.norms import inf_norm
 
+    be = _Mesh2D(group, spec) if spec.mesh is not None else _Rows1D(group,
+                                                                     spec)
     dev = group.device
     in_dtype = resolve_dtype(spec.dtype)
     # Sub-fp32 storage computes in fp32 and rounds once at the end.
     dtype = torch.float32 if in_dtype.itemsize < 4 else in_dtype
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
-    lay = CyclicLayout.create(spec.n, spec.m, group.world_size)
     reset_strip_peak()
-    W = _load_strip(spec, lay, group, dtype, in_dtype)
+    W = be.load(dtype, in_dtype)
     before = _launches()
     (inv_b, singular, pivots, steps), elapsed = _timed(
-        group, lambda: invert_blocks(W, group, lay, engine=spec.engine,
-                                     group_k=spec.group_k))
+        group, lambda: be.invert(W))
     after = _launches()
     del W
-    out = {**_rank_info(group), "elapsed": elapsed,
+    out = {**_rank_info(group), **be.info, "elapsed": elapsed,
            "singular": bool(singular.item()), "pivots": pivots,
            "probe_steps": steps,
            "launches": {k: after[k] - before[k] for k in after},
@@ -162,7 +264,9 @@ def solve_rank(group, spec: DistSpec) -> dict:
         return out
     if in_dtype != dtype:
         inv_b = inv_b.to(in_dtype)
-    full = gather_to_root(inv_b, group, lay) if spec.gather else None
+    out["inverse_sha256"] = hashlib.sha256(
+        inv_b.contiguous().cpu().numpy().tobytes()).hexdigest()
+    parts = gather_parts(inv_b, group) if spec.gather else None
     if spec.refine:
         if group.rank == 0:
             if spec.file is not None:
@@ -174,7 +278,7 @@ def solve_rank(group, spec: DistSpec) -> dict:
             else:
                 a = generate(spec.generator, (spec.n, spec.n), dtype,
                              device=dev)
-            inv = gather_inverse_inplace(full, lay, spec.n).to(dtype)
+            inv = be.natural(parts).to(dtype)
             inv = newton_schulz(a, inv, spec.refine).to(in_dtype)
             inv_f = inv.to(dtype)
             out["residual"] = float(residual_inf_norm(a, inv_f))
@@ -182,17 +286,17 @@ def solve_rank(group, spec: DistSpec) -> dict:
             out["norm_x"] = float(inf_norm(inv_f))
             out["inverse"] = inv.cpu()
         return out
-    if full is not None:
-        out["inverse"] = gather_inverse_inplace(full, lay, spec.n).cpu()
+    if parts is not None:
+        out["inverse"] = be.natural(parts).cpu()
     elif not spec.gather:
         out["blocks"] = inv_b.cpu()
     # Verification on a freshly generated (re-read) strip, never on engine
     # state.
-    a_b = _load_strip(spec, lay, group, dtype, in_dtype)
+    a_b = be.load(dtype, in_dtype)
     inv_f = inv_b.to(dtype)
-    out["residual"] = distributed_residual_blocks(a_b, inv_f, group, lay)
-    out["norm_a"] = _row_sum_max(a_b, group, lay)
-    out["norm_x"] = _row_sum_max(inv_f, group, lay)
+    out["residual"] = be.residual(a_b, inv_f)
+    out["norm_a"] = be.norm(a_b)
+    out["norm_x"] = be.norm(inv_f)
     out["strip_rows_max"] = max(out["strip_rows_max"], strip_peak_rows())
     return out
 
@@ -217,6 +321,7 @@ class DistSolveSpec:
     m: int
     dtype: str
     engine: str
+    mesh: tuple | None = None
 
 
 def solve_system_rank(group, spec: DistSolveSpec, a_blocks,
@@ -234,16 +339,36 @@ def solve_system_rank(group, spec: DistSolveSpec, a_blocks,
     dtype = resolve_dtype(spec.dtype)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
-    lay = CyclicLayout.create(spec.n, spec.m, group.world_size)
     W = from_numpy(a_blocks, dev, dtype)
     X = from_numpy(b_blocks, dev, dtype)
-    run = compile_sharded_jordan_solve(
-        lay, lookahead=spec.engine == "solve_lookahead")
+    lookahead = spec.engine == "solve_lookahead"
+    extra = {}
+    if spec.mesh is None:
+        lay = CyclicLayout.create(spec.n, spec.m, group.world_size)
+        run = compile_sharded_jordan_solve(lay, lookahead=lookahead)
+
+        def fn():
+            return run(group, W, X)
+    else:
+        from .group import mesh_group
+        from .jordan2d_inplace import compile_sharded_jordan_solve_2d
+        from .layout import CyclicLayout2D
+
+        pr, pc = spec.mesh
+        mg = mesh_group(group, pr, pc)
+        lay = CyclicLayout2D.create(spec.n, spec.m, pr, pc)
+        run = compile_sharded_jordan_solve_2d(lay, lookahead=lookahead)
+        extra = {"mesh": [pr, pc], "kr": mg.kr, "kc": mg.kc}
+
+        def fn():
+            return run(mg, W, X)
     before = _launches()
-    (xb, singular, pivots, steps), elapsed = _timed(
-        group, lambda: run(group, W, X))
+    (xb, singular, pivots, steps), elapsed = _timed(group, fn)
     after = _launches()
-    return {**_rank_info(group), "elapsed": elapsed,
+    if spec.mesh is not None:
+        extra["probed"] = _probed_rows(steps)
+        steps = [t for t, _ in steps]
+    return {**_rank_info(group), **extra, "elapsed": elapsed,
             "singular": bool(singular.item()), "pivots": pivots,
             "probe_steps": steps,
             "launches": {k: after[k] - before[k] for k in after},
@@ -262,6 +387,7 @@ class MeasureSpec:
     workload: str
     engine: str
     group_k: int = 0
+    mesh: tuple | None = None
 
 
 def measure_rank(group, spec: MeasureSpec, samples: int,
@@ -278,6 +404,8 @@ def measure_rank(group, spec: MeasureSpec, samples: int,
     dtype = resolve_dtype(spec.dtype)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
+    if spec.mesh is not None:
+        return _measure_rank_2d(group, spec, samples, warmup)
     lay = CyclicLayout.create(spec.n, spec.m, group.world_size)
     W = sharded_generate("rand", lay, group.rank, dtype, dev)
     if spec.workload == "invert":
@@ -292,6 +420,40 @@ def measure_rank(group, spec: MeasureSpec, samples: int,
 
         def fn():
             return run(group, W, X)
+    for _ in range(warmup):
+        _timed(group, fn)
+    return [_timed(group, fn)[1] for _ in range(samples)]
+
+
+def _measure_rank_2d(group, spec: MeasureSpec, samples: int,
+                     warmup: int) -> list:
+    """:func:`measure_rank` on the (pr, pc) mesh ``spec.mesh``."""
+    from ..ops.generators import generate
+    from .group import mesh_group
+    from .jordan2d import sharded_generate_2d
+    from .jordan2d_inplace import (compile_sharded_jordan_solve_2d,
+                                   invert_blocks_2d, scatter_rhs_2d)
+    from .layout import CyclicLayout2D
+
+    pr, pc = spec.mesh
+    mg = mesh_group(group, pr, pc)
+    dev = group.device
+    dtype = resolve_dtype(spec.dtype)
+    lay = CyclicLayout2D.create(spec.n, spec.m, pr, pc)
+    W = sharded_generate_2d("rand", lay, mg.kr, mg.kc, dtype,
+                            augmented=False, device=dev)
+    if spec.workload == "invert":
+        def fn():
+            return invert_blocks_2d(W, mg, lay, engine=spec.engine,
+                                    group_k=spec.group_k)
+    else:
+        X = scatter_rhs_2d(generate("rand", (spec.n, 1), dtype, device=dev),
+                           lay, mg.kr)
+        run = compile_sharded_jordan_solve_2d(
+            lay, lookahead=spec.engine == "solve_lookahead")
+
+        def fn():
+            return run(mg, W, X)
     for _ in range(warmup):
         _timed(group, fn)
     return [_timed(group, fn)[1] for _ in range(samples)]

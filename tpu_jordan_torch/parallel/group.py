@@ -22,12 +22,25 @@ tensors for ``all_reduce`` and ``broadcast`` only (PyTorch's
 ops (the ring residual, the swap-free permutation, the gather) stage
 through host memory; ``nccl`` takes every op on the card.  The table is
 read, never probed: a pair it does not list raises.
+
+**The 2D mesh** (:class:`MeshGroup2D`, :func:`mesh_group`): the counterpart
+of ``make_mesh_2d``.  Rank r sits at ``(kr, kc) = divmod(r, pc)``, row-major,
+as the JAX package reshapes its devices.  Besides the world it holds two
+views of the same ``WorkerGroup`` type: the rank's **row communicator** (the
+pc ranks with its kr: the JAX package's collectives over "pc") and its
+**column communicator** (the pr ranks with its kc: those over "pr").  A
+view issues its collectives on its own process group; a broadcast's
+``src`` and an exchange's peers are global ranks.  The subgroups are built
+once a world, by every rank, in one order (``dist.new_group`` for each
+subgroup of each enumeration, the ones a rank is not in included); a view
+of one rank has no group (its collectives are no-ops) and a view of the
+whole world is the default group.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 import torch.distributed as dist
@@ -80,6 +93,15 @@ class WorkerGroup:
     device: torch.device
     backend: str
     backend_reason: str = ""
+    #: A subgroup view's process group (None: the default group) and its
+    #: global ranks in order (empty: the whole world).
+    pg: object = None
+    members: tuple = ()
+
+    @property
+    def size(self) -> int:
+        """The ranks this view's collectives span."""
+        return len(self.members) if self.members else self.world_size
 
     def _where(self, op: str) -> str:
         key = (self.backend, self.device.type, op)
@@ -93,22 +115,25 @@ class WorkerGroup:
         "sum"; returns ``t``."""
         rop = {"min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX,
                "sum": dist.ReduceOp.SUM}[op]
-        if self.world_size > 1:
+        if self.size > 1:
             self._where("all_reduce")
-            dist.all_reduce(t, op=rop)
+            dist.all_reduce(t, op=rop, group=self.pg)
         return t
 
     def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
-        """In-place broadcast of ``t`` from rank ``src``; returns ``t``."""
-        if self.world_size > 1:
+        """In-place broadcast of ``t`` from (global) rank ``src``; returns
+        ``t``."""
+        if self.size > 1:
             self._where("broadcast")
-            dist.broadcast(t, src=src)
+            dist.broadcast(t, src=src, group=self.pg)
         return t
 
     def exchange(self, sends, recvs) -> None:
         """Point-to-point: ``sends`` is ``[(tensor, dst), ...]``, ``recvs``
         ``[(tensor, src), ...]`` (filled in place), issued together as one
-        ``batch_isend_irecv`` and waited for."""
+        ``batch_isend_irecv`` and waited for.  Peers are global ranks; a
+        subgroup view's exchange runs on the default group, whose first
+        collective every rank has issued."""
         if not sends and not recvs:
             return
         host = self._where("p2p") == "host"
@@ -184,3 +209,90 @@ def current_group(device_type: str = "cuda") -> WorkerGroup:
                          f"backend rule gives {backend!r} ({reason})")
     return WorkerGroup(rank, world, rank_device(rank, device_type),
                        backend, reason)
+
+
+def _subgroup(world: WorkerGroup, ranks_lists, mine: tuple) -> WorkerGroup:
+    """This rank's view of one enumeration of disjoint subgroups: every
+    subgroup is created (by every rank, in order) unless it is a single
+    rank or the whole world."""
+    own = None
+    for ranks in ranks_lists:
+        if 1 < len(ranks) < world.world_size:
+            pg = dist.new_group(ranks=list(ranks))
+            if tuple(ranks) == mine:
+                own = pg
+    return replace(world, pg=own, members=mine)
+
+
+@dataclass(frozen=True)
+class MeshGroup2D:
+    """A (pr, pc) mesh over the world: this rank's place ``(kr, kc)`` and
+    its three views (module docstring).  Counterpart of the JAX package's
+    ``make_mesh_2d``."""
+
+    world: WorkerGroup
+    pr: int
+    pc: int
+    row: WorkerGroup        # the pc ranks with this kr (JAX's "pc" axis)
+    col: WorkerGroup        # the pr ranks with this kc (JAX's "pr" axis)
+
+    @property
+    def kr(self) -> int:
+        return self.world.rank // self.pc
+
+    @property
+    def kc(self) -> int:
+        return self.world.rank % self.pc
+
+    @property
+    def rank(self) -> int:
+        return self.world.rank
+
+    @property
+    def device(self) -> torch.device:
+        return self.world.device
+
+    @property
+    def backend(self) -> str:
+        return self.world.backend
+
+    def rank_of(self, kr: int, kc: int) -> int:
+        """The global rank at mesh position (kr, kc)."""
+        return kr * self.pc + kc
+
+
+_MESHES: dict = {}
+
+
+def check_mesh(pr: int, pc: int, world_size: int) -> None:
+    """A (pr, pc) mesh must have positive dimensions and cover the world
+    (the JAX words for a mesh larger than the devices)."""
+    if pr <= 0 or pc <= 0:
+        raise MeshSizeError(f"mesh dims must be positive, got {pr}x{pc}")
+    if pr * pc > world_size:
+        raise MeshSizeError(
+            f"requested a {pr}x{pc} mesh ({pr * pc} workers) but only "
+            f"{world_size} rank(s) exist")
+    if pr * pc < world_size:
+        raise MeshSizeError(
+            f"a {pr}x{pc} mesh ({pr * pc} workers) on a world of "
+            f"{world_size} ranks would leave ranks idle; the mesh covers "
+            f"the world")
+
+
+def mesh_group(world: WorkerGroup, pr: int, pc: int) -> MeshGroup2D:
+    """This rank's :class:`MeshGroup2D` of the (pr, pc) mesh over ``world``,
+    built on the first call of a world and kept (every rank of the world
+    makes the same calls in the same order, so the subgroups are created
+    in lockstep)."""
+    check_mesh(pr, pc, world.world_size)
+    key = (id(dist.group.WORLD) if dist.is_initialized() else None,
+           world.rank, pr, pc)
+    if key not in _MESHES:
+        kr, kc = divmod(world.rank, pc)
+        rows = [tuple(r * pc + c for c in range(pc)) for r in range(pr)]
+        cols = [tuple(r * pc + c for r in range(pr)) for c in range(pc)]
+        _MESHES[key] = MeshGroup2D(world, pr, pc,
+                                   _subgroup(world, rows, rows[kr]),
+                                   _subgroup(world, cols, cols[kc]))
+    return _MESHES[key]

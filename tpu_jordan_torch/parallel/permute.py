@@ -1,6 +1,8 @@
 """The swap-free engine's deferred row permutation, point to point.
 Counterpart of the JAX package's ``parallel/permute.py``
-(``ppermute_bucketed``).
+(``ppermute_bucketed``); :func:`permute_cyclic` is the same exchange along
+any cyclic axis (the 2D engines' row permutation along a mesh column and
+column permutation along a mesh row).
 
 After the swap-free loop, physical block row x (slot x // p of rank x % p)
 belongs at natural row ``pos[x]`` (slot pos[x] // p of rank pos[x] % p).
@@ -23,37 +25,48 @@ import torch
 from .layout import CyclicLayout
 
 
+def permute_cyclic(items: torch.Tensor, dest, view, p: int, k: int,
+                   peer) -> torch.Tensor:
+    """Return this position's (B, ...) ``items`` after moving the item at
+    physical cyclic index x (slot x // p of position x % p) to natural
+    index ``dest[x]`` (slot dest[x] // p of position dest[x] % p), along
+    one cyclic axis of ``p`` positions of which this is ``k``.  ``peer(j)``
+    is the global rank at position j, ``view`` the group that exchanges.
+    Every position calls it together with the same ``dest``."""
+    B = items.shape[0]
+    out = torch.empty_like(items)
+    # What this position sends to each peer: (its slots, their slots).
+    sends = {d: ([], []) for d in range(p)}
+    for s in range(B):
+        r = dest[s * p + k]
+        sends[r % p][0].append(s)
+        sends[r % p][1].append(r // p)
+    # What it receives from each peer: the slots here, in the peer's order.
+    recvs = {src: [dest[s * p + src] // p for s in range(B)
+                   if dest[s * p + src] % p == k] for src in range(p)}
+    dev = items.device
+    src_slots, dst_slots = sends[k]
+    if src_slots:
+        out.index_copy_(0, torch.as_tensor(dst_slots, device=dev),
+                        items.index_select(0, torch.as_tensor(src_slots,
+                                                              device=dev)))
+    send_ops, recv_ops, places = [], [], []
+    for d in range(p):
+        if d != k and sends[d][0]:
+            idx = torch.as_tensor(sends[d][0], device=dev)
+            send_ops.append((items.index_select(0, idx), peer(d)))
+        if d != k and recvs[d]:
+            buf = items.new_empty((len(recvs[d]),) + tuple(items.shape[1:]))
+            recv_ops.append((buf, peer(d)))
+            places.append((buf, recvs[d]))
+    view.exchange(send_ops, recv_ops)
+    for buf, slots in places:
+        out.index_copy_(0, torch.as_tensor(slots, device=dev), buf)
+    return out
+
+
 def permute_rows(W: torch.Tensor, pos, group, lay: CyclicLayout):
     """Return this rank's (bpw, m, N) blocks after moving every physical
     block row x to natural row ``pos[x]``.  Every rank calls it together
     with the same ``pos``."""
-    p, k, bpw = lay.p, group.rank, lay.blocks_per_worker
-    out = torch.empty_like(W)
-    # What this rank sends to each peer: (its slots, their slots there).
-    sends = {d: ([], []) for d in range(p)}
-    for s in range(bpw):
-        r = pos[s * p + k]
-        sends[r % p][0].append(s)
-        sends[r % p][1].append(r // p)
-    # What it receives from each peer: the slots here, in the peer's order.
-    recvs = {src: [pos[s * p + src] // p for s in range(bpw)
-                   if pos[s * p + src] % p == k] for src in range(p)}
-    src_slots, dst_slots = sends[k]
-    if src_slots:
-        dev = W.device
-        out.index_copy_(0, torch.as_tensor(dst_slots, device=dev),
-                        W.index_select(0, torch.as_tensor(src_slots,
-                                                          device=dev)))
-    send_ops, recv_ops, places = [], [], []
-    for d in range(p):
-        if d != k and sends[d][0]:
-            idx = torch.as_tensor(sends[d][0], device=W.device)
-            send_ops.append((W.index_select(0, idx), d))
-        if d != k and recvs[d]:
-            buf = W.new_empty((len(recvs[d]),) + tuple(W.shape[1:]))
-            recv_ops.append((buf, d))
-            places.append((buf, recvs[d]))
-    group.exchange(send_ops, recv_ops)
-    for buf, slots in places:
-        out.index_copy_(0, torch.as_tensor(slots, device=W.device), buf)
-    return out
+    return permute_cyclic(W, pos, group, lay.p, group.rank, lambda d: d)

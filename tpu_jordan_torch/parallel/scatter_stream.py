@@ -1,7 +1,7 @@
-"""The streamed file scatter of the 1D layout: host memory O(n·m), never
-O(n²).  Counterpart of the JAX package's ``parallel/scatter_stream.py``
-(``stream_scatter_1d``; ``stream_scatter_2d`` is ROADMAP.md Queue A item
-15c).
+"""The streamed file scatter of the 1D and 2D layouts: host memory O(n·m),
+never O(n²).  Counterpart of the JAX package's
+``parallel/scatter_stream.py`` (``stream_scatter_1d``,
+``stream_scatter_2d``).
 
 The reference's root rank reads one block-row buffer at a time and sends
 it to its cyclic owner (read_matrix, main.cpp:242-276).  Here each rank
@@ -12,7 +12,10 @@ identity-padded (m, W) strip, which goes to the rank's device at once.  No
 strip is sent from a root, and no rank holds more than one strip of the
 file on the host.  The shard is the one ``to_identity_padded_blocks`` (or,
 with ``augmented``, the [A | I] scatter) makes of the whole matrix, bit for
-bit.
+bit.  On the 2D layout rank (kr, kc) walks the file the same way, skips the
+strips of the other mesh rows (r % pr ≠ kr), and keeps of each of its own
+only its pc-th share of the column blocks, in ``col_perm`` storage order:
+its shard of ``jordan2d.scatter_matrix_2d``, bit for bit.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 
 from ..io import MatrixStripReader
-from .layout import CyclicLayout
+from .layout import CyclicLayout, CyclicLayout2D
 
 
 def _padded_strip(reader, r: int, lay: CyclicLayout, dtype,
@@ -84,4 +87,36 @@ def stream_scatter_1d(path: str, lay: CyclicLayout, rank: int,
                                   storage_dtype)
             strips.append(torch.from_numpy(strip).to(device))
             del strip
+    return torch.stack(strips)
+
+
+def stream_scatter_2d(path: str, lay: CyclicLayout2D, kr: int, kc: int,
+                      dtype=torch.float32, augmented: bool = False,
+                      storage_dtype=None, device="cpu") -> torch.Tensor:
+    """Rank (kr, kc)'s (bpr, m, W/pc) shard of the identity-padded matrix
+    in ``path`` (W = N, or 2N with ``augmented``), built strip by strip on
+    ``device``; the file is read up to the mesh row's last block row."""
+    from ..interop import resolve_dtype
+
+    dtype = resolve_dtype(dtype)
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    if storage_dtype is not None:
+        storage_dtype = resolve_dtype(storage_dtype)
+    m, pc = lay.m, lay.pc
+    ncb = 2 * lay.Nr if augmented else lay.Nr
+    # This rank's column blocks, in storage order: u·pc + kc.
+    own_cols = np.arange(ncb // pc) * pc + kc
+    strips = []
+    last = max(r for r in range(lay.Nr) if r % lay.pr == kr)
+    with MatrixStripReader(path, lay.n, np_dtype) as reader:
+        for r in range(last + 1):
+            if r % lay.pr != kr:
+                _skip_strip(reader, r, lay)
+                continue
+            strip = _padded_strip(reader, r, lay, np_dtype, augmented,
+                                  storage_dtype)
+            piece = np.ascontiguousarray(
+                strip.reshape(m, ncb, m)[:, own_cols, :].reshape(m, -1))
+            strips.append(torch.from_numpy(piece).to(device))
+            del strip, piece
     return torch.stack(strips)

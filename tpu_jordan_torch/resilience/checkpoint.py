@@ -49,7 +49,12 @@ the first at which ``preempt`` fires, so a seeded plan sees the calls the
 single-device loop (and the JAX package) makes; the world runs the
 segments before that boundary, and the caller raises the typed error once
 their checkpoints are durable.  ``abort`` is checked before the world
-starts and after it ends.  A (pr, pc) mesh is ROADMAP.md Queue A item 15c.
+starts and after it ends.  ``workers=(pr, pc)`` (or ``mesh=(pr, pc)``)
+checkpoints the 2D engines (topology ``"2d:{pr}x{pc}"``, the same engines)
+through the segment entries of ``parallel/jordan2d_inplace.py``, in the
+JAX package's 2D format: ``W`` the global (Nr, m, N) tensor in 2D-cyclic
+storage order on both axes, ``X`` (Nr, m, k) in row-cyclic order,
+``singular`` (pr, pc) and ``swaps`` (pr, pc, Nr) int32.
 """
 
 from __future__ import annotations
@@ -138,7 +143,7 @@ class CheckpointKey:
     run_id: str
     workload: str          # "invert" | "solve"
     engine: str            # "unrolled" | "fori" | "grouped"
-    topology: str          # "single" | "1d:{p}"
+    topology: str          # "single" | "1d:{p}" | "2d:{pr}x{pc}"
     n: int
     m: int
     Nr: int                # padded block-row count
@@ -439,9 +444,10 @@ def fingerprint(arr) -> str:
     return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
 
 
-def _topology(mesh, workers) -> tuple[str, int]:
-    """``(topology, p)`` of a call: "single" and 1, or "1d:{p}" and p for a
-    rank count p > 1 (``workers``, or its alias ``mesh``)."""
+def _topology(mesh, workers) -> tuple[str, object]:
+    """``(topology, spec)`` of a call: "single" and 1, "1d:{p}" and p for a
+    rank count p > 1, or "2d:{pr}x{pc}" and (pr, pc) for a mesh
+    (``workers``, or its alias ``mesh``)."""
     if mesh is not None and workers is not None and mesh != workers:
         raise CheckpointMismatchError(
             f"mesh={mesh!r} and workers={workers!r} name different "
@@ -450,10 +456,12 @@ def _topology(mesh, workers) -> tuple[str, int]:
     if spec is None or (isinstance(spec, int) and spec == 1):
         return "single", 1
     if isinstance(spec, tuple):
-        raise CheckpointUnsupportedError(
-            f"a (pr, pc) mesh {spec} is the 2D block-cyclic layout, whose "
-            f"segment entries are not ported yet (ROADMAP.md Queue A item "
-            f"15c); checkpoint on workers=p")
+        if (len(spec) != 2 or not all(isinstance(x, int) and x >= 1
+                                      for x in spec)):
+            raise CheckpointUnsupportedError(
+                f"a mesh must be (pr, pc) with positive dimensions, got "
+                f"{spec!r}")
+        return f"2d:{spec[0]}x{spec[1]}", (int(spec[0]), int(spec[1]))
     if not isinstance(spec, int) or spec < 1:
         raise CheckpointUnsupportedError(
             f"mesh/workers must be a rank count p of the 1D layout, got "
@@ -546,7 +554,9 @@ def checkpointed_invert(a, block_size=None, *, store: CheckpointStore,
     boundary (typed refusals for a missing, corrupt or mismatched
     checkpoint).  ``workers=p`` (or ``mesh=p``) runs the 1D distributed
     engine on p ranks (module docstring; ``unrolled``/``fori``), whose
-    inverse bit-matches ``parallel.invert_blocks`` on the same world.
+    inverse bit-matches ``parallel.invert_blocks`` on the same world;
+    ``workers=(pr, pc)`` the 2D engine on a mesh, whose inverse
+    bit-matches ``parallel.invert_blocks_2d``.
     Counterpart of the JAX package's ``checkpointed_invert``; products run
     in full precision (the JAX package's ``Precision.HIGHEST``)."""
     return _run_checkpointed(
@@ -563,9 +573,10 @@ def checkpointed_solve(a, b, block_size=None, *, store: CheckpointStore,
     """Solve ``a @ x = b`` with superstep checkpointing: the
     :func:`checkpointed_invert` contract for the solve state (A, X,
     singular); ``x`` bit-matches ``linalg.block_jordan_solve`` (with
-    ``workers=p``, ``parallel.solve_blocks`` on the same world).  Real and
-    complex dtypes on one device, real on p ranks.  Counterpart of the JAX
-    package's ``checkpointed_solve``."""
+    ``workers=p``, ``parallel.solve_blocks`` on the same world; with
+    ``workers=(pr, pc)``, ``parallel.solve_blocks_2d``).  Real and complex
+    dtypes on one device, real on p ranks or a mesh.  Counterpart of the
+    JAX package's ``checkpointed_solve``."""
     return _run_checkpointed(
         "solve", a, b, block_size, store=store, run_id=run_id,
         cadence=cadence, engine=engine, group=0, mesh=mesh, workers=workers,
@@ -591,7 +602,7 @@ def _run_checkpointed(workload, a, b, block_size, *, store, run_id, cadence,
     dev = resolve_device(device)
     a = from_numpy(a, dev, None)
     dtype = a.dtype
-    _check_flavor(workload, engine, p > 1, dtype, spd)
+    _check_flavor(workload, engine, topology != "single", dtype, spd)
     if dev.type == "cuda":
         # Full fp32 products on the card, as driver.solve runs them.
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -604,8 +615,8 @@ def _run_checkpointed(workload, a, b, block_size, *, store, run_id, cadence,
         b = from_numpy(b, dev, dtype)
         b2 = b if b.dim() == 2 else b[:, None]
         nrhs = b2.shape[1]
-    if p > 1:
-        return _run_checkpointed_1d(
+    if topology != "single":
+        return _run_checkpointed_dist(
             workload, a, b2, m, p, store=store, run_id=run_id,
             cadence=cadence, engine=engine, resume_from=resume_from,
             abort=abort, dev=dev)
@@ -755,41 +766,71 @@ def _run_segment(workload, engine, state, t0, t1, key: CheckpointKey, eps,
                        t0=t0, t1=t1, Nr=Nr, m=m, eps=eps)
 
 
-# --- The 1D distributed runner (topology "1d:p").
+# --- The distributed runner (topologies "1d:p" and "2d:prxpc").
+
+
+def _dist_layout(n: int, m: int, spec):
+    """The layout of a distributed topology: ``spec`` p (1D) or (pr, pc)."""
+    from ..parallel.layout import CyclicLayout, CyclicLayout2D
+
+    if isinstance(spec, tuple):
+        return CyclicLayout2D.create(n, m, *spec)
+    return CyclicLayout.create(n, m, spec)
+
+
+def _grid(lay) -> tuple:
+    """The shape of the per-rank flag grid: (p,) or (pr, pc)."""
+    return (lay.pr, lay.pc) if hasattr(lay, "pc") else (lay.p,)
 
 
 def _dist_fresh_state(workload, a, b2, lay) -> dict:
-    """Superstep 0's state in the JAX package's 1D format (host numpy):
-    the identity-padded (Nr, m, N) blocks in cyclic storage order, X's
-    zero-padded (Nr, m, k) rows likewise, (p,) singular flags and, for an
-    invert, the (p, Nr) int32 swap record."""
-    from ..parallel.sharded_inplace import (scatter_rhs_1d,
-                                            to_identity_padded_blocks)
+    """Superstep 0's state in the JAX package's format (host numpy): the
+    identity-padded (Nr, m, N) blocks in cyclic storage order (both axes
+    on a mesh), X's zero-padded (Nr, m, k) rows in row-cyclic order, the
+    per-rank singular flags and, for an invert, the int32 swap record, one
+    row a rank."""
+    import torch
 
     a = a.cpu()
-    p = lay.p
-    state = {"W": np.concatenate([to_identity_padded_blocks(a, lay, r)
-                                  .numpy() for r in range(p)])}
+    grid = _grid(lay)
+    if len(grid) == 2:
+        from ..parallel.jordan2d import join_shards_2d, scatter_matrix_2d
+        from ..parallel.jordan2d_inplace import scatter_rhs_2d
+
+        W = join_shards_2d([scatter_matrix_2d(a, lay, kr, kc)
+                            for kr in range(lay.pr)
+                            for kc in range(lay.pc)], lay)
+        rhs = [lambda b, kr=kr: scatter_rhs_2d(b, lay, kr)
+               for kr in range(lay.pr)]
+    else:
+        from ..parallel.sharded_inplace import (scatter_rhs_1d,
+                                                to_identity_padded_blocks)
+
+        W = torch.cat([to_identity_padded_blocks(a, lay, r)
+                       for r in range(lay.p)])
+        rhs = [lambda b, r=r: scatter_rhs_1d(b, lay, r)
+               for r in range(lay.p)]
+    state = {"W": W.numpy()}
     if workload == "solve":
         b2 = b2.cpu()
-        state["X"] = np.concatenate([scatter_rhs_1d(b2, lay, r).numpy()
-                                     for r in range(p)])
-    state["singular"] = np.zeros((p,), bool)
+        state["X"] = np.concatenate([f(b2).numpy() for f in rhs])
+    state["singular"] = np.zeros(grid, bool)
     if workload == "invert":
-        state["swaps"] = np.zeros((p, lay.Nr), np.int32)
+        state["swaps"] = np.zeros(grid + (lay.Nr,), np.int32)
     return state
 
 
 def _dist_state_checked(workload, arrays, key: CheckpointKey, lay, dtype):
-    """A stored 1D state checked against the shapes and dtypes this call
-    needs."""
+    """A stored distributed state checked against the shapes and dtypes
+    this call needs."""
     np_dtype = np.dtype(_dtype_name(dtype))
-    p, Nr, m, N = lay.p, lay.Nr, lay.m, lay.N
-    want = {"W": ((Nr, m, N), np_dtype), "singular": ((p,), np.dtype(bool))}
+    grid, Nr, m, N = _grid(lay), lay.Nr, lay.m, lay.N
+    want = {"W": ((Nr, m, N), np_dtype),
+            "singular": (grid, np.dtype(bool))}
     if workload == "solve":
         want["X"] = ((Nr, m, key.nrhs), np_dtype)
     else:
-        want["swaps"] = ((p, Nr), np.dtype(np.int32))
+        want["swaps"] = (grid + (Nr,), np.dtype(np.int32))
     missing = set(want) - set(arrays)
     if missing:
         raise CheckpointMismatchError(
@@ -804,21 +845,44 @@ def _dist_state_checked(workload, arrays, key: CheckpointKey, lay, dtype):
     return {name: arrays[name] for name in want}
 
 
-def _run_checkpointed_1d(workload, a, b2, m, p, *, store, run_id, cadence,
-                         engine, resume_from, abort, dev):
-    """:func:`_run_checkpointed` on p ranks of the 1D layout (module
-    docstring)."""
+def _rank_shards(state: dict, lay) -> list:
+    """Each rank's part of a distributed state, in rank order: its slots
+    of W and X (its shard of W and its mesh row's X rows on a mesh), and
+    its entries of singular and swaps."""
+    if len(_grid(lay)) == 1:
+        bpw = lay.blocks_per_worker
+        return [{name: (arr[r * bpw:(r + 1) * bpw] if name in ("W", "X")
+                        else arr[r:r + 1])
+                 for name, arr in state.items()} for r in range(lay.p)]
+    from ..parallel.jordan2d import split_shards_2d
+
+    w = [x.numpy() for x in split_shards_2d(state["W"], lay)]
+    out = []
+    for r in range(lay.pr * lay.pc):
+        kr, kc = divmod(r, lay.pc)
+        sh = {"W": w[r], "singular": state["singular"][kr, kc:kc + 1]}
+        if "X" in state:
+            sh["X"] = state["X"][kr * lay.bpr:(kr + 1) * lay.bpr]
+        if "swaps" in state:
+            sh["swaps"] = state["swaps"][kr, kc:kc + 1]
+        out.append(sh)
+    return out
+
+
+def _run_checkpointed_dist(workload, a, b2, m, spec, *, store, run_id,
+                           cadence, engine, resume_from, abort, dev):
+    """:func:`_run_checkpointed` on p ranks of the 1D layout or a (pr, pc)
+    mesh of the 2D layout (module docstring)."""
     from ..driver import WORLD_DEADLINE_S
     from ..parallel.launch import run_workers
-    from ..parallel.layout import CyclicLayout
-    from ..parallel.sharded_inplace import (gather_inverse_inplace,
-                                            gather_solution_1d)
 
     n = a.shape[-1]
-    lay = CyclicLayout.create(n, m, p)
-    Nr, bpw = lay.Nr, lay.blocks_per_worker
+    lay = _dist_layout(n, m, spec)
+    Nr = lay.Nr
+    p = lay.pr * lay.pc if isinstance(spec, tuple) else spec
     nrhs = 0 if b2 is None else int(b2.shape[1])
-    topology = f"1d:{p}"
+    topology = (f"2d:{spec[0]}x{spec[1]}" if isinstance(spec, tuple)
+                else f"1d:{p}")
     key = CheckpointKey(run_id=run_id, workload=workload, engine=engine,
                         topology=topology, n=int(n), m=int(m), Nr=int(Nr),
                         dtype=_dtype_name(a.dtype), nrhs=nrhs,
@@ -861,15 +925,13 @@ def _run_checkpointed_1d(workload, a, b2, m, p, *, store, run_id, cadence,
             info["segment_compiles"] += 1
     results = None
     if segments:
-        spec = {"workload": workload, "n": int(n), "m": int(m),
-                "segments": segments, "key": key.to_json(),
-                "root": store.root, "finalize": preempted is None}
-        # W and X by the rank's slots, singular and swaps by its row.
-        shards = [{name: (arr[r * bpw:(r + 1) * bpw] if name in ("W", "X")
-                          else arr[r:r + 1])
-                   for name, arr in state.items()} for r in range(p)]
+        rspec = {"workload": workload, "n": int(n), "m": int(m),
+                 "mesh": list(spec) if isinstance(spec, tuple) else None,
+                 "segments": segments, "key": key.to_json(),
+                 "root": store.root, "finalize": preempted is None}
+        shards = _rank_shards(state, lay)
         try:
-            results = run_workers(p, checkpoint_rank, spec,
+            results = run_workers(p, checkpoint_rank, rspec,
                                   per_rank=[(sh,) for sh in shards],
                                   deadline_s=WORLD_DEADLINE_S,
                                   device_type=dev.type)
@@ -894,36 +956,101 @@ def _run_checkpointed_1d(workload, a, b2, m, p, *, store, run_id, cadence,
         info["segment_compiles"] += 1
     singular = any(r["singular"] for r in results)
     blocks = [r["blocks"] for r in results]
-    out = (gather_solution_1d(blocks, lay, n) if workload == "solve"
-           else gather_inverse_inplace(blocks, lay, n)).to(dev)
+    if isinstance(spec, tuple):
+        from ..parallel.jordan2d_inplace import (gather_inverse_inplace_2d,
+                                                 gather_solution_2d)
+
+        out = (gather_solution_2d(blocks, lay, n) if workload == "solve"
+               else gather_inverse_inplace_2d(blocks, lay, n))
+    else:
+        from ..parallel.sharded_inplace import (gather_inverse_inplace,
+                                                gather_solution_1d)
+
+        out = (gather_solution_1d(blocks, lay, n) if workload == "solve"
+               else gather_inverse_inplace(blocks, lay, n))
+    out = out.to(dev)
     store.discard(run_id, reason="complete")
     return out, singular, info
 
 
 def checkpoint_rank(group, spec: dict, shard: dict) -> dict:
     """One rank of a distributed checkpointed run: the segments
-    ``spec["segments"]`` on the rank's slots of the state (``shard``:
-    numpy ``W``, ``X`` or ``swaps``, ``singular``), rank 0 gathering and
-    writing the state at every boundary before the last step; with
+    ``spec["segments"]`` on the rank's part of the state (``shard``: numpy
+    ``W``, ``X`` or ``swaps``, ``singular``), rank 0 gathering and writing
+    the state at every boundary before the last step; with
     ``spec["finalize"]`` the rank's X rows or unscrambled inverse blocks
-    as ``blocks``.  Returns the rank's CPU outcome; rank 0's ``written``
-    lists (step, bytes, sha256, superseded, seconds) of its writes."""
+    as ``blocks``.  ``spec["mesh"]`` is (pr, pc) on the 2D layout, None on
+    the 1D.  Returns the rank's CPU outcome; rank 0's ``written`` lists
+    (step, bytes, sha256, superseded, seconds) of its writes."""
     import time
 
     import torch
 
     from ..config import eps_for
-    from ..parallel.dist_solve import _launches, gather_to_root
-    from ..parallel.layout import CyclicLayout
-    from ..parallel.sharded_inplace import (inplace_finalize_1d,
-                                            inplace_segment_1d,
-                                            solve_segment_1d)
+    from ..parallel.dist_solve import _launches, gather_parts
 
     dev = group.device
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     solve = spec["workload"] == "solve"
-    lay = CyclicLayout.create(spec["n"], spec["m"], group.world_size)
+    mesh = spec.get("mesh")
+    if mesh is None:
+        from ..parallel.layout import CyclicLayout
+        from ..parallel.sharded_inplace import (inplace_finalize_1d,
+                                                inplace_segment_1d,
+                                                solve_segment_1d)
+
+        lay = CyclicLayout.create(spec["n"], spec["m"], group.world_size)
+
+        def segment(W, X, singular, swaps, t0, t1):
+            if solve:
+                return solve_segment_1d(W, X, singular, group, lay, t0, t1,
+                                        eps)
+            return inplace_segment_1d(W, singular, swaps, group, lay, t0,
+                                      t1, eps)
+
+        def finalize(W, swaps):
+            return inplace_finalize_1d(W, swaps, lay)
+
+        def storage(parts):
+            return torch.cat(parts)
+
+        def x_rows(parts):
+            return torch.cat(parts)
+
+        grid = (lay.p,)
+    else:
+        from ..parallel.group import mesh_group
+        from ..parallel.jordan2d import join_shards_2d
+        from ..parallel.jordan2d_inplace import (inplace_finalize_2d,
+                                                 inplace_segment_2d,
+                                                 solve_segment_2d)
+        from ..parallel.layout import CyclicLayout2D
+
+        pr, pc = mesh
+        mg = mesh_group(group, pr, pc)
+        lay = CyclicLayout2D.create(spec["n"], spec["m"], pr, pc)
+
+        def segment(W, X, singular, swaps, t0, t1):
+            if solve:
+                probed = solve_segment_2d(W, X, singular, mg, lay, t0, t1,
+                                          eps)
+            else:
+                probed = inplace_segment_2d(W, singular, swaps, mg, lay, t0,
+                                            t1, eps)
+            return [t for t, _ in probed]
+
+        def finalize(W, swaps):
+            return inplace_finalize_2d(W, swaps, mg, lay)
+
+        def storage(parts):
+            return join_shards_2d(parts, lay)
+
+        def x_rows(parts):
+            # X is replicated along pc: mesh column 0's rows, by mesh row.
+            return torch.cat([parts[kr * pc] for kr in range(pr)])
+
+        grid = (pr, pc)
     key = CheckpointKey.from_json(spec["key"])
     W = torch.from_numpy(np.ascontiguousarray(shard["W"])).to(dev)
     X = (torch.from_numpy(np.ascontiguousarray(shard["X"])).to(dev)
@@ -936,27 +1063,22 @@ def checkpoint_rank(group, spec: dict, shard: dict) -> dict:
     written, steps = [], []
     before = _launches()
     for t0, t1 in spec["segments"]:
-        if solve:
-            steps += solve_segment_1d(W, X, singular, group, lay, t0, t1,
-                                      eps)
-        else:
-            steps += inplace_segment_1d(W, singular, swaps, group, lay, t0,
-                                        t1, eps)
+        steps += segment(W, X, singular, swaps, t0, t1)
         if t1 >= lay.Nr:
             continue
         h0 = time.perf_counter()
-        parts = {"W": gather_to_root(W, group, lay)}
-        if solve:
-            parts["X"] = gather_to_root(X, group, lay)
-        flags = gather_to_root(singular.to(torch.uint8), group, lay)
+        w_parts = gather_parts(W, group)
+        x_parts = gather_parts(X, group) if solve else None
+        flags = gather_parts(singular.to(torch.uint8), group)
         if store is not None:
-            arrays = {"W": parts["W"].cpu().numpy()}
+            arrays = {"W": storage(w_parts).cpu().numpy()}
             if solve:
-                arrays["X"] = parts["X"].cpu().numpy()
-            arrays["singular"] = flags.cpu().numpy().astype(bool)
+                arrays["X"] = x_rows(x_parts).cpu().numpy()
+            arrays["singular"] = (torch.cat(flags).cpu().numpy()
+                                  .astype(bool).reshape(grid))
             if not solve:
                 arrays["swaps"] = np.tile(
-                    swaps.numpy().astype(np.int32), (lay.p, 1))
+                    swaps.numpy().astype(np.int32), grid + (1,))
             nbytes, digest = store._write_file(key, t1, arrays)
             superseded = store._account_write(key)
             written.append((t1, nbytes, digest, superseded,
@@ -967,6 +1089,5 @@ def checkpoint_rank(group, spec: dict, shard: dict) -> dict:
            "singular": bool(singular.any()), "backend": group.backend,
            "blocks": None}
     if spec["finalize"]:
-        out["blocks"] = (X if solve
-                         else inplace_finalize_1d(W, swaps, lay)).cpu()
+        out["blocks"] = (X if solve else finalize(W, swaps)).cpu()
     return out

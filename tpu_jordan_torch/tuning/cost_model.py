@@ -20,6 +20,15 @@ stacked (2m, N + k·m + m) row buffer; the swap-free engine: the pivot row
 alone, then one point-to-point row permutation and twice the probe), each
 ``S·(p − 1)/p`` bytes over the link rate plus a latency.
 
+On a (pr, pc) mesh of the 2D layout (the JAX comm model's pc > 1 terms)
+each rank eliminates (N/pr)×(N/pc), probes max(1, (Nr − t)//(pr·pc))
+candidates a step, its rows travel (m, N/pc) on the column communicator
+(pr ranks), and each step adds on the row communicator (pc ranks) the
+(N/pr, m) chunk broadcast and, on the swap engines, the (m, m) swap fix-up
+(plain engine only, as in the JAX model) and the two (N/pr, m) panels of
+the JAX package's per-step unscramble; the swap-free engine's permutations
+move one shard along each mesh axis.
+
 The terms rank engines; they are not a wall-clock promise.  The tuner
 records measured/projected drift on every trial, so a constant that goes
 stale shows.  The link constants are the data sheet's NVLink rate and the
@@ -88,47 +97,64 @@ def _allreduce(nbytes: float, p: int, chip: Chip) -> float:
     return 0.0 if p == 1 else nbytes * (p - 1) / p / chip.link + chip.latency
 
 
+def _permute(nbytes: float, a: int, chip: Chip) -> float:
+    """The swap-free engine's one permutation along an axis of ``a`` ranks
+    (the JAX model's bucketed rotation rounds)."""
+    return 0.0 if a == 1 else (a // 2) * (nbytes / chip.link + chip.latency)
+
+
 def predict(n: int, m: int, chip: Chip, group: int = 1, p: int = 1,
-            swapfree: bool = False) -> dict:
+            swapfree: bool = False, pc: int = 1) -> dict:
     """Projected seconds of one elimination of an n×n matrix with block
-    size m on p ranks of the 1D layout (p = 1: one device):
+    size m on p ranks of the 1D layout (p = 1: one device), or on a
+    (p, pc) mesh of the 2D layout:
     ``{"elim", "probe", "comm", "glue", "total"}``.  ``group=k > 1``
     models the delayed-group-update engines, ``swapfree`` the swap-free
-    engine (no grouped variant)."""
+    engine (no grouped variant).  Counterpart of the JAX package's
+    ``benchmarks/comm_model.py::predict`` with this card's constants."""
     if swapfree and group > 1:
         raise ValueError("swapfree has no grouped variant")
     Nr = -(-n // m)
     N = Nr * m
-    rows = N / p
+    P = p * pc
+    rows, cols = N / p, N / pc
     k = max(1, min(group, Nr))
     c_probe = probe_seconds_per_pass(chip, m)
     elim = probe = comm = glue = 0.0
     for t in range(Nr):
         j = t % k
-        fl = 2.0 * rows * m * N
-        rmw = 2.0 * rows * N * 4
+        fl = 2.0 * rows * m * cols
+        rmw = 2.0 * rows * cols * 4
         if k == 1:
             elim += max(fl / chip.gemm, rmw / chip.hbm)
             glue += 0.5 * rmw / chip.hbm
         else:
             elim += max(fl / chip.gemm, rmw / k / chip.hbm)
-            eager = 2.0 * rows * (j * m) * m + 2.0 * m * (j * m) * N
+            eager = 2.0 * rows * (j * m) * m + 2.0 * m * (j * m) * cols
             elim += eager / chip.gemm
-            glue += (0.5 * rmw / k + 3 * 4 * m * N) / chip.hbm
-        probe += c_probe * max(1, (Nr - t) // p) * m**3
-        if p > 1:
+            glue += (0.5 * rmw / k + 3 * 4 * m * cols) / chip.hbm
+        probe += c_probe * max(1, (Nr - t) // P) * m**3
+        if P > 1:
             comm += 3 * chip.latency               # the pivot reduction
-            comm += _allreduce(4 * m * m, p, chip)  # H
+            comm += _allreduce(4 * m * m, P, chip)  # H
             if swapfree:
-                comm += _allreduce(4 * m * N, p, chip)
+                comm += _allreduce(4 * m * cols, p, chip)
             elif k == 1:
-                comm += 2 * _allreduce(4 * m * N, p, chip)
+                comm += 2 * _allreduce(4 * m * cols, p, chip)
             else:
-                comm += _allreduce(4 * 2 * m * (N + k * m + m), p, chip)
-    if swapfree and p > 1:
-        # The one row permutation after the loop, and the full-window
-        # probe of the alive rows.
-        comm += (p // 2) * (4.0 * rows * N / chip.link + chip.latency)
+                comm += _allreduce(4 * 2 * m * (cols + k * m + m), p, chip)
+        if pc > 1:
+            comm += _allreduce(4 * rows * m, pc, chip)     # the chunk
+            if k == 1 and not swapfree:
+                comm += _allreduce(4 * m * m, pc, chip)    # swap fix-up
+            if not swapfree:
+                comm += 2 * _allreduce(4 * rows * m, pc, chip)  # unscramble
+    if swapfree and P > 1:
+        # The permutations after the loop (rows along the column
+        # communicator, column chunks along the row communicator), and
+        # the full-window probe of the alive rows.
+        shard = 4.0 * rows * cols
+        comm += _permute(shard, p, chip) + _permute(shard, pc, chip)
         probe *= 2.0
     return {"elim": elim, "probe": probe, "comm": comm, "glue": glue,
             "total": elim + probe + comm + glue}

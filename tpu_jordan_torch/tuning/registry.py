@@ -11,9 +11,11 @@ among them) on the cost model's mesh terms, with the JAX package's
 distributed cost floor (``COST_MODEL_FLOOR_N``); a distributed "solve"
 point ranks the ``solve_sharded`` engine and its probe-ahead twin, the
 ``solve_lookahead`` engine (registered, as in the JAX package, as the
-configuration ``solve_lookahead_sharded``).  The augmented engine is not a
-candidate at p > 1: its distributed form is ROADMAP.md Queue A item 15d.
-The 2D points are item 15c.
+configuration ``solve_lookahead_sharded``).  A point on a (pr, pc) mesh
+of the 2D layout (``workers`` a tuple, cache label "2x2") ranks the same
+engines on the cost model's pc > 1 terms.  The augmented engine is not a
+candidate on p ranks or a mesh: its distributed form is ROADMAP.md Queue A
+item 15d.
 
 Cost hooks rank; they are not wall-clock truth.  The tuner records
 measured/projected drift whenever it measures.
@@ -79,8 +81,8 @@ class TunePoint:
         """The point of a call.  ``backend`` and ``chip`` come from
         ``device``, the call's resolved device ("cuda" with the card's
         chip, or "cpu"); with neither a device nor a backend the point is
-        a CPU point.  ``workers`` is 1 or a rank count p of the 1D layout;
-        a (pr, pc) mesh is refused (item 15c)."""
+        a CPU point.  ``workers`` is 1, a rank count p of the 1D layout or
+        a (pr, pc) mesh of the 2D layout."""
         import torch
 
         from ..config import default_block_size
@@ -90,10 +92,13 @@ class TunePoint:
         if block_size is None:
             block_size = default_block_size(n)
         if isinstance(workers, tuple):
-            raise UsageError("a (pr, pc) mesh is the 2D layout, not ported "
-                             "yet (ROADMAP.md Queue A item 15c)")
-        if int(workers) < 1:
+            workers = (int(workers[0]), int(workers[1]))
+            if min(workers) < 1:
+                raise UsageError("mesh dimensions must be >= 1")
+        elif int(workers) < 1:
             raise UsageError("workers must be >= 1")
+        else:
+            workers = int(workers)
         if backend is None:
             backend = (torch.device(device).type if device is not None
                        else "cpu")
@@ -104,13 +109,26 @@ class TunePoint:
                              f"from {'/'.join(WORKLOADS)}")
         return cls(n=int(n), block_size=int(min(block_size, n)),
                    dtype=str(resolve_dtype(dtype)).removeprefix("torch."),
-                   workers=int(workers), gather=bool(gather),
+                   workers=workers, gather=bool(gather),
                    backend=backend,
                    chip=chip, batch=int(batch), workload=str(workload))
 
     @property
     def distributed(self) -> bool:
         return isinstance(self.workers, tuple) or self.workers > 1
+
+    @property
+    def mesh_shape(self) -> tuple[int, int]:
+        """(pr, pc) as the cost model counts it (1D p -> (p, 1))."""
+        if isinstance(self.workers, tuple):
+            return self.workers
+        return (self.workers, 1)
+
+    @property
+    def ranks(self) -> int:
+        """The ranks of the point's world."""
+        pr, pc = self.mesh_shape
+        return pr * pc
 
     @property
     def topology(self) -> str:
@@ -144,9 +162,9 @@ def _chip_for(point: TunePoint) -> _cost_model.Chip:
 
 def _predict(point: TunePoint, group: int = 1,
              swapfree: bool = False) -> dict:
+    pr, pc = point.mesh_shape
     return _cost_model.predict(point.n, point.block_size, _chip_for(point),
-                               group=group, p=point.workers,
-                               swapfree=swapfree)
+                               group=group, p=pr, swapfree=swapfree, pc=pc)
 
 
 def projected_seconds(point: TunePoint, group: int = 1,

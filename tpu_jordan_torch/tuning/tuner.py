@@ -18,12 +18,13 @@ Selection ladder (``Tuner.select``), cheapest evidence first:
 Whatever rung produced the plan, it is written back to an attached,
 writable cache, so the next selection at the same key is rung 1.
 
-A distributed point (p ranks of the 1D layout) measures each configuration
-in one world of p ranks (``parallel.dist_solve.measure_rank``): the
-warm-up and every sample run inside that world, each sample the slowest
-rank's time, so a spawn (0.34–0.63 s on the H100 machine, PERF.md §6, PR
-15) and a world's first run are never in a sample.  Its plans are keyed by
-the point's workers (``p4``).
+A distributed point (p ranks of the 1D layout, or a (pr, pc) mesh of the
+2D layout) measures each configuration in one world of its ranks
+(``parallel.dist_solve.measure_rank``): the warm-up and every sample run
+inside that world, each sample the slowest rank's time, so a spawn
+(0.34–0.63 s on the H100 machine, PERF.md §6) and a world's first
+run are never in a sample.  Its plans are keyed by the point's workers
+(``p4``, ``2x2``).
 """
 
 from __future__ import annotations
@@ -126,11 +127,13 @@ def measure_distributed(point: TunePoint, cfg: EngineConfig,
     spec = MeasureSpec(n=point.n, m=point.block_size, dtype=point.dtype,
                        workload=("invert" if point.workload == "invert"
                                  else "solve"),
-                       engine=cfg.engine, group_k=cfg.group)
+                       engine=cfg.engine, group_k=cfg.group,
+                       mesh=(point.workers if isinstance(point.workers, tuple)
+                             else None))
     for _ in range(warmup + samples):
         MEASURE_RETRY.call(lambda: _faults.fire("measure"),
                            component="measure")
-    ranks = run_workers(int(point.workers), measure_rank, spec, samples,
+    ranks = run_workers(point.ranks, measure_rank, spec, samples,
                         warmup, deadline_s=WORLD_DEADLINE_S,
                         device_type=point.backend)
     return robust_stats(ranks[0])
