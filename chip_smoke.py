@@ -331,11 +331,31 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    recorded.  ``tune=True`` (DIST2D_TUNE_ROW) on (2, 2): the trials and
    the pick; a second call hits the plan cache.  Last, the CLI's ``4096
    128 --workers 2x2`` (exit 0).
-18. ``kernels``: every ported kernel with its launches on its path (the
+18. ``observatories``: the communication and work observatories
+   (``obs/comm.py``, ``obs/work.py``).  Leg 1, the demos: the CLI's ``48 8
+   --comm-demo`` and ``48 8 --work-demo`` in this process, each one world
+   of 4 gloo ranks sharing the card (m = 8: ``gj_probe.cu`` on every rank
+   of every leg), exit 0, and ``tools/check_comm.py``/``check_work.py`` as
+   subprocesses exit 0 on the reports; every comm leg reconciled, the
+   drift leg's ``comm_drift`` event recorded, every work leg's counted
+   GEMM pin in its band.  Leg 2, full width (OBS_RUNS: 4096²/m128 absdiff
+   fp32 inplace on p = 4 and on (2, 2), swapfree on (2, 2) with
+   gather=False, solve_sharded 8192²/m384 rand fp32 K = 1 on p = 4) in one
+   world of 4 gloo ranks: each run warm, then off, on, on, off with
+   recording on or off; the recorded runs reconciled per rank and for the
+   world, the totals re-derived from the signatures, the work inventory
+   exact and the pin in band, the panel probe on every rank, the drift
+   unjudged (gloo), and the mean ms with recording on within OBS_SPREAD of
+   the mean with it off; each run's payload bytes, messages, wire bytes,
+   achieved GB/s and measured/projected comm ratio printed (4 gloo ranks
+   on one card: not link figures).  Leg 3: the CLI's ``4096 128
+   --workers 2x2 --comm-report PATH --work-report PATH``: exit 0, both
+   files load and carry that solve.
+19. ``kernels``: every ported kernel with its launches on its path (the
    solve, tune, telemetry, resilience, serve, handles, fleet, lpqp,
-   autoscale, update_demo, distributed, dist_workloads and dist2d rows,
-   the last three counted by the ranks; the variants' engine runs of
-   ``reference``),
+   autoscale, update_demo, distributed, dist_workloads, dist2d and
+   observatories rows, the last four counted by the ranks; the variants'
+   engine runs of ``reference``),
    the complex bodies of ``gj_probe.cu`` as ``gj_probe[c64]`` and
    ``gj_probe[c128]``; with
    the fleet phase and those after it, each kernel's launches in each of
@@ -348,7 +368,11 @@ launch count held as there), the dist_workloads phase's [A | B] solve leg
 in the same way, and the CLI's ``4096 128 --workers 4``; then the dist2d
 phase's leg 1 (inplace under "auto", now column, and both layouts) and
 its solve leg on (2, 2) over nccl, and the CLI's ``4096 128 --workers
-2x2``.
+2x2``; then the observatories phase's leg 2 at OBS_NCCL_RUNS (4096²/m128
+inplace on p = 4 and on (2, 2)) over nccl, where the drift is judged
+("auto"): each run's measured/projected comm ratio and achieved GB/s are
+printed, and a ``comm_drift`` event must exist exactly when the ratio is
+out of band.
 ``--phases knife_edge`` records that fp32 absdiff
 8192/m384 elimination through the grouped engine, with the kernel and with
 the plain probe: which side of the knife edge each lands on.
@@ -375,7 +399,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("toolchain", "kernel_vs_plain", "reference", "solve", "tune",
           "overlap", "telemetry", "resilience", "serve", "handles", "fleet",
           "lpqp", "autoscale", "update_demo", "distributed",
-          "dist_workloads", "dist2d")
+          "dist_workloads", "dist2d", "observatories")
 EXTRA_PHASES = ("knife_edge", "cluster_sweep", "batch_fp32", "nccl4")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
@@ -811,6 +835,28 @@ DIST2D_FILE_ROW = (4096, 128, "absdiff", "float32")
 DIST2D_SOLVE_ROW = (8192, 384, "rand", "float32", 1)
 DIST2D_CKPT_ROW = (6000, 300, "rand", "float32", 16, 5, 2)
 DIST2D_TUNE_ROW = (4096, 128, "float32")
+
+# The observatories phase: the two demos through the CLI at (n, m) (m = 8:
+# gj_probe.cu on every rank); the full-width runs under recording in one
+# world of DIST_WORKERS ranks, each (name, workload, n, m, generator, dtype,
+# workers, engine, gather, K); the snapshot flags on the CLI's
+# ``4096 128 --workers 2x2``.  OBS_SPREAD: the largest ratio allowed
+# between the slowest rank's ms with recording on and with it off, the
+# row's known spread within one call (one card ran the same (2, 2) owner
+# configuration of 4096²/m128 at 374.5 and 530.3 ms in one call, 1.42×:
+# PERF.md §6).
+OBS_DEMO_ROW = (48, 8)
+OBS_RUNS = (("1d_p4_inplace", "invert", 4096, 128, "absdiff", "float32", 4,
+             "inplace", True, 0),
+            ("2d_2x2_inplace", "invert", 4096, 128, "absdiff", "float32",
+             (2, 2), "inplace", True, 0),
+            ("2d_2x2_swapfree_sharded", "invert", 4096, 128, "absdiff",
+             "float32", (2, 2), "swapfree", False, 0),
+            ("1d_p4_solve_sharded", "solve", 8192, 384, "rand", "float32", 4,
+             "solve_sharded", True, 1))
+OBS_NCCL_RUNS = OBS_RUNS[:2]
+OBS_SPREAD = 1.5
+OBS_CLI_ROW = (4096, 128, "2x2")
 
 # The probe variants: (kernel launch counter key, wrapper, plain twin).
 VARIANTS = {"gj_probe_inplace": ("inplace", "gj_probe_inplace",
@@ -5314,6 +5360,251 @@ def phase_dist2d(torch, counters, own_cards: bool = False):
     return totals
 
 
+def _obs_world(torch, own_cards: bool):
+    """Leg 2's world of DIST_WORKERS ranks: each OBS_RUNS run (OBS_NCCL_RUNS
+    with ``own_cards``) warm with recording off, then off, on, on, off.
+    Returns (labels, per-rank results, wall s)."""
+    from tpu_jordan_torch.obs.comm import run_leg
+    from tpu_jordan_torch.parallel import run_calls, run_workers
+
+    calls, labels = [], []
+    for name, workload, n, m, gen, dt, workers, engine, gather, k in (
+            OBS_NCCL_RUNS if own_cards else OBS_RUNS):
+        kw = dict(n=n, m=m, workers=workers, engine=engine, gather=gather,
+                  dtype=dt, generator=gen)
+        if workload == "solve":
+            kw["k"] = k
+        for turn in ("warm", "off", "on", "on", "off"):
+            calls.append((run_leg, (workload, name,
+                                    dict(kw, record=turn == "on"))))
+            labels.append((name, turn))
+    t0 = time.perf_counter()
+    results = run_workers(DIST_WORKERS, run_calls, calls,
+                          deadline_s=DIST_DEADLINE_S, device_type="cuda")
+    return labels, results, time.perf_counter() - t0
+
+
+def _obs_totals_ok(comm: dict) -> bool:
+    """The comm report's totals re-derive from its signatures (shape ×
+    width × launches), as tools/check_comm.py re-derives them."""
+    width = {"float32": 4, "float64": 8, "int64": 8, "bfloat16": 2,
+             "float16": 2, "int32": 4}
+    payload = messages = 0
+    for sg in comm["sigs"]:
+        nb = width[sg["dtype"]]
+        for d in sg["shape"]:
+            nb *= d
+        if nb != sg["payload_bytes"]:
+            return False
+        payload += nb * sg["executed"]
+        messages += 0 if sg["implicit"] else sg["executed"]
+    return (comm["totals"]["payload_bytes"] == payload
+            and comm["totals"]["messages"] == messages)
+
+
+def _obs_rank_launches(leg: dict, rank: int) -> dict:
+    """Rank ``rank``'s launches in a leg as that rank returned it (all the
+    ranks' when recorded, its own otherwise)."""
+    ls = leg["launches"]
+    return ls[rank] if len(ls) > 1 else ls[0]
+
+
+def _obs_full_width(torch, own_cards: bool, totals: dict, failures: list):
+    """Leg 2: the full-width runs under recording (module docstring)."""
+    from tpu_jordan_torch.ops.gj_probe import probe_body
+
+    phase = "nccl4" if own_cards else "observatories"
+    labels, results, world_s = _obs_world(torch, own_cards)
+    for r, legs in enumerate(results):
+        for leg in legs:
+            for kname, c in _obs_rank_launches(leg, r).items():
+                totals[kname] = totals.get(kname, 0) + c
+    head = results[0]
+    runs = {}
+    for (name, turn), leg in zip(labels, head):
+        runs.setdefault(name, {}).setdefault(turn, []).append(leg)
+    for run in (OBS_NCCL_RUNS if own_cards else OBS_RUNS):
+        name, workload, n, m, gen, dt, workers, engine, gather, k = run
+        on, off = runs[name]["on"], runs[name]["off"]
+        on_ms = [leg["elapsed_s"] * 1e3 for leg in on]
+        off_ms = [leg["elapsed_s"] * 1e3 for leg in off]
+        ratio_ms = (sum(on_ms) / len(on_ms)) / (sum(off_ms) / len(off_ms))
+        body = probe_body(m, getattr(torch, dt))
+        checks = {"reconciled": all(leg["comm"]["reconciled"] is True
+                                    and not leg["comm"]["mismatches"]
+                                    for leg in on),
+                  "totals_rederive": all(_obs_totals_ok(leg["comm"])
+                                         for leg in on + off),
+                  "work_exact": all(leg["work"]["totals"]["exact"]
+                                    for leg in on + off),
+                  "pin_in_band": all((leg["work"]["xla"] or {}).get("within")
+                                     for leg in on),
+                  "probe_on_every_rank": all(
+                      ls.get(body, 0) > 0 for leg in on
+                      for ls in leg["launches"]),
+                  "off_path_within_spread":
+                      1.0 / OBS_SPREAD <= ratio_ms <= OBS_SPREAD}
+        drifts = [leg["comm"]["drift"] for leg in on + off]
+        if own_cards:
+            checks["judged"] = all(d["judged"] for d in drifts)
+            checks["event_iff_out_of_band"] = all(
+                d["event_recorded"] == d["out_of_band"]
+                and bool(leg["drift_events"]) == d["out_of_band"]
+                for d, leg in zip(drifts, on + off))
+        else:
+            checks["unjudged_on_gloo"] = all(not d["judged"]
+                                             and not d["event_recorded"]
+                                             for d in drifts)
+        c0 = on[0]["comm"]
+        row = {"phase": phase, "leg": "full_width", "run": name, "n": n,
+               "m": m, "dtype": dt, "engine": engine,
+               "workers": workers if isinstance(workers, int)
+               else list(workers), "gather": gather, "k": k,
+               "backend": head[0]["comm"]["drift"]["backend"],
+               "payload_bytes": c0["totals"]["payload_bytes"],
+               "engine_payload_bytes": sum(
+                   sg["payload_bytes"] * sg["executed"] for sg in c0["sigs"]
+                   if sg["section"] == "engine"),
+               "messages": c0["totals"]["messages"],
+               "engine_wire_bytes": c0["totals"]["engine_wire_bytes"],
+               "ms_on": on_ms, "ms_off": off_ms,
+               "on_over_off": ratio_ms,
+               "drift": [{key: d[key] for key in (
+                   "comm_vs_projected", "achieved_gbps", "projected_comm_s",
+                   "projected_compute_s", "residue_s", "judged",
+                   "out_of_band", "event_recorded")} for d in drifts],
+               "pin": [leg["work"]["xla"]["xla_vs_model"] for leg in on],
+               "skew": on[0]["work"]["totals"]["skew"],
+               "checks": checks}
+        emit(row)
+        if not all(checks.values()):
+            failures.append(row)
+    emit({"phase": phase, "leg": "full_width", "world_s": world_s,
+          "note": "ms: the slowest rank's CUDA events; " + (
+              "a card a rank over nccl" if own_cards else
+              "4 gloo ranks share one card: not link figures")})
+
+
+def _obs_demo(torch, flag: str, tool: str, tmp: str, totals: dict,
+              failures: list):
+    """Leg 1: ``python -m tpu_jordan_torch 48 8 <flag>`` in this process
+    (one world of 4 gloo ranks sharing the card), its checker as a
+    subprocess (exit 0), and the report's own checks."""
+    n, m = OBS_DEMO_ROW
+    t0 = time.perf_counter()
+    rc, lines = _run_cli([n, m, flag])
+    wall = time.perf_counter() - t0
+    if rc != 0 or not lines:
+        failures.append({"demo": flag, "exit": rc, "out": lines[-4:]})
+        return
+    rep = json.loads(lines[-1])
+    path = os.path.join(tmp, f"{tool}.json")
+    with open(path, "w") as f:
+        f.write(lines[-1])
+    try:
+        verdict = check_tool(tool, path)
+    except AssertionError as e:
+        verdict = None
+        failures.append({"demo": flag, "checker": str(e)})
+    legs = rep["legs"] + ([rep["drift_leg"]] if "drift_leg" in rep else [])
+    for leg in legs:
+        for ls in leg["launches"]:
+            for kname, c in ls.items():
+                totals[kname] = totals.get(kname, 0) + c
+    checks = {"exit_0": rc == 0, "checker_exit_0": verdict is not None,
+              "backend_gloo": rep["backend"] == "gloo",
+              "probe_on_every_rank": all(
+                  len(leg["launches"]) == DIST_WORKERS
+                  and all(ls.get("gj_probe", 0) > 0
+                          for ls in leg["launches"]) for leg in legs)}
+    if flag == "--comm-demo":
+        checks["every_leg_reconciled"] = all(
+            leg["comm"]["reconciled"] is True for leg in legs)
+        checks["drift_event_recorded"] = (
+            rep["drift_leg"]["comm"]["drift"]["event_recorded"]
+            and rep["drift_events"] >= 1)
+        summary = {"drift_ratio": rep["drift_leg"]["comm"]["drift"][
+            "comm_vs_projected"], "drift_events": rep["drift_events"]}
+    else:
+        checks["pins_in_band"] = all(leg["work"]["xla"]["within"]
+                                     for leg in legs)
+        summary = {"pins": {leg["name"]: leg["work"]["xla"]["xla_vs_model"]
+                            for leg in legs},
+                   "straggler_events": rep["straggler_events"]}
+    row = {"phase": "observatories", "leg": "demo", "argv": f"{n} {m} "
+           f"{flag}", "exit": rc, "checker": verdict, "wall_s": wall,
+           "legs": len(legs), **summary, "checks": checks}
+    emit(row)
+    if not all(checks.values()):
+        failures.append(row)
+
+
+def _obs_reports(tmp: str, failures: list):
+    """Leg 3: ``--comm-report``/``--work-report`` on the CLI's OBS_CLI_ROW;
+    both files load and carry that solve."""
+    n, m, mesh = OBS_CLI_ROW
+    cp, wp = (os.path.join(tmp, f"{k}.json") for k in ("comm", "work"))
+    t0 = time.perf_counter()
+    rc, lines = _run_cli([n, m, "--workers", mesh, "--comm-report", cp,
+                          "--work-report", wp])
+    checks = {"exit_0": rc == 0}
+    try:
+        with open(cp) as f:
+            c = json.load(f)["last_solve"]
+        with open(wp) as f:
+            w = json.load(f)["last_solve"]
+        checks["comm_last_solve"] = (c["n"] == n and c["mesh"] == mesh
+                                     and c["totals"]["payload_bytes"] > 0)
+        checks["work_last_solve"] = (w["n"] == n and w["mesh"] == mesh
+                                     and w["totals"]["exact"])
+    except (OSError, ValueError, KeyError, TypeError) as e:
+        checks["files_load"] = False
+        c = w = {"error": str(e)}
+    row = {"phase": "observatories", "leg": "reports",
+           "argv": f"{n} {m} --workers {mesh} --comm-report "
+                   f"--work-report", "exit": rc, "out": lines[-4:],
+           "comm_totals": c.get("totals"), "work_totals": w.get("totals"),
+           "wall_s": time.perf_counter() - t0, "checks": checks}
+    emit(row)
+    if not all(checks.values()):
+        failures.append(row)
+
+
+def phase_observatories(torch, counters, own_cards: bool = False):
+    """The communication and work observatories (the module docstring's
+    phase 18): the demos, the full-width runs under recording, the
+    snapshot flags; with ``own_cards`` (the nccl4 phase) the full-width
+    4096²/m128 inplace runs on p = 4 and (2, 2) over nccl, judged.
+    Returns the ranks' launches summed."""
+    import shutil
+    import tempfile
+
+    totals = dict.fromkeys(counters, 0)
+    failures = []
+    legs = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        t0 = time.perf_counter()
+        if not own_cards:
+            _obs_demo(torch, "--comm-demo", "check_comm.py", tmp, totals,
+                      failures)
+            _obs_demo(torch, "--work-demo", "check_work.py", tmp, totals,
+                      failures)
+            legs["demos"] = time.perf_counter() - t0
+        _obs_full_width(torch, own_cards, totals, failures)
+        legs["full_width"] = time.perf_counter() - t0 - sum(legs.values())
+        if not own_cards:
+            _obs_reports(tmp, failures)
+            legs["reports"] = time.perf_counter() - t0 - sum(legs.values())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "nccl4" if own_cards else "observatories",
+          "legs_s": legs})
+    if failures:
+        raise AssertionError(f"observatories failed its checks: {failures}")
+    return totals
+
+
 def phase_overlap(torch):
     """profile_solve's device-time split of the OVERLAP_ROWS rows: the
     probe, GEMM and other ms, the idle share and the overlap (the kernels'
@@ -5642,7 +5933,8 @@ def main(argv=None) -> int:
                         ("update_demo", phase_update_demo),
                         ("distributed", phase_distributed),
                         ("dist_workloads", phase_dist_workloads),
-                        ("dist2d", phase_dist2d)):
+                        ("dist2d", phase_dist2d),
+                        ("observatories", phase_observatories)):
         if name in phases:
             by_phase[name] = phase(torch, launch_counters())
             for kernel, count in by_phase[name].items():
@@ -5651,10 +5943,11 @@ def main(argv=None) -> int:
     if "nccl4" in phases:
         by_phase["nccl4"] = phase_distributed(torch, launch_counters(),
                                               own_cards=True)
-        for kernel, count in phase_dist2d(torch, launch_counters(),
-                                          own_cards=True).items():
-            by_phase["nccl4"][kernel] = (by_phase["nccl4"].get(kernel, 0)
-                                         + count)
+        for phase in (phase_dist2d, phase_observatories):
+            for kernel, count in phase(torch, launch_counters(),
+                                       own_cards=True).items():
+                by_phase["nccl4"][kernel] = (
+                    by_phase["nccl4"].get(kernel, 0) + count)
         for kernel, count in by_phase["nccl4"].items():
             launches[kernel] = launches.get(kernel, 0) + count
         seconds["nccl4"] = time.perf_counter() - start - sum(

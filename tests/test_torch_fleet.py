@@ -868,9 +868,10 @@ def test_cli_misapplied_fleet_flags_exit_1_in_both(argv):
 @pytest.mark.parametrize("argv,item", [
     # The first four ids are kept from when these cases were item 14d's
     # refusals; item 14d is ported, so they now hold items 15a-15d.  The
-    # 2D mesh is ported too (item 15c): argv3 and argv4 hold the mesh's
-    # refusals that remain (the augmented engine, 15d; the comm
-    # observatory, 15e), both refused before any rank starts.
+    # 2D mesh is ported too (item 15c): argv3 holds the mesh's refusal
+    # that remains (the augmented engine, 15d).  The comm observatory is
+    # ported too (item 15e): argv4 is now its demo's refusal of --workers,
+    # in the JAX CLI's words.  Both are refused before any rank starts.
     pytest.param(["64", "8", "--autoscale-demo", "--workers", "2"],
                  "item 15a", id="argv0-item 14d"),
     pytest.param(["64", "8", "--update-demo", "--no-gather"], "item 15a",
@@ -879,7 +880,8 @@ def test_cli_misapplied_fleet_flags_exit_1_in_both(argv):
                  "item 15d", id="argv2-item 14d"),
     pytest.param(["64", "8", "--workers", "2x2", "--engine", "augmented"],
                  "item 15d", id="argv3-item 14d"),
-    pytest.param(["64", "8", "--workers", "2x4", "--comm-demo"], "item 15",
+    pytest.param(["64", "8", "--workers", "2x4", "--comm-demo"],
+                 "--workers and --no-gather do not apply",
                  id="argv4-item 15"),
     (["96", "32", "--fleet-demo", "--workers", "8"], "item 15"),
 ])

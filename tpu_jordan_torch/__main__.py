@@ -76,8 +76,13 @@ as one of its ranks instead of spawning (the invert path).  ``--workers
 PRxPC`` runs the same engines on a (pr, pc) mesh of the 2D block-cyclic
 layout (pr·pc ranks; each holds an (N/pr)×(N/pc) shard), with a file,
 ``--no-gather``, ``--tune`` and ``--workload solve`` alike.  ``--engine
-augmented`` on p ranks or a mesh (item 15d) and the ``--comm-demo`` and
-``--work-demo`` observatories (item 15e) exit 1.
+augmented`` on p ranks or a mesh (item 15d) exits 1.  ``--comm-demo`` and
+``--work-demo`` run the communication and work observatories' acceptance
+legs in one world of 4 ranks and print one JSON line each for
+``tools/check_comm.py`` and ``tools/check_work.py`` (exit 2 on an
+unaccounted collective, a silent drift, unaccounted work or an unsupported
+straggler verdict); ``--comm-report PATH`` and ``--work-report PATH``
+write this process's snapshot of the last distributed solve on exit.
 ``--quiet`` drops the bulky parts of the demos' reports (the per-lane
 stats, the fault log, the per-handle rows); elsewhere it is the default,
 non-verbose output.  The serving flags apply to the serve, chaos and
@@ -349,12 +354,39 @@ def _parser() -> argparse.ArgumentParser:
                          "the oldest request waits for batch-mates "
                          "(default 2.0)")
     ap.add_argument("--comm-demo", action="store_true",
-                    help="the JAX CLI's communication-observatory demo; "
-                         "not ported yet (ROADMAP.md Queue A item 15e): "
-                         "exits 1")
+                    help="run the communication-observatory acceptance "
+                         "demo (obs/comm.comm_demo): nine distributed "
+                         "solves in one world of 4 ranks (1D p=4 and 2x2, "
+                         "both gather modes, grouped/swapfree/lookahead "
+                         "and the solve engines, a ragged n) whose "
+                         "observed collectives must equal the analytical "
+                         "inventory per rank and for the world, then a "
+                         "forced drift leg; prints ONE JSON line (exit 2 = "
+                         "an unaccounted collective or a silent drift; "
+                         "tools/check_comm.py validates).  n, m: the "
+                         "fixture size and block size")
     ap.add_argument("--work-demo", action="store_true",
-                    help="the JAX CLI's work-observatory demo; not ported "
-                         "yet (ROADMAP.md Queue A item 15e): exits 1")
+                    help="run the work-observatory acceptance demo "
+                         "(obs/work.work_demo): 1D and 2D invert and solve "
+                         "legs in one world of 4 ranks, whose per-worker "
+                         "shares must sum exactly to the convention total "
+                         "and whose counted GEMM FLOPs must sit in the "
+                         "band around the executed model, then the "
+                         "fleet-skew legs; prints ONE JSON line (exit 2 = "
+                         "unaccounted work or an unsupported straggler "
+                         "verdict; tools/check_work.py validates)")
+    ap.add_argument("--comm-report", default=None, metavar="PATH",
+                    help="write the process-wide communication snapshot "
+                         "(the last distributed solve's collective "
+                         "inventory, reconciliation and drift record, and "
+                         "the tpu_jordan_torch_comm_* counters) as one "
+                         "JSON document on exit")
+    ap.add_argument("--work-report", default=None, metavar="PATH",
+                    help="write the process-wide work snapshot (the last "
+                         "distributed solve's per-worker FLOP shares, "
+                         "skew, ragged penalty and counted pin, and the "
+                         "tpu_jordan_torch_work_* gauges) as one JSON "
+                         "document on exit")
     ap.add_argument("--quiet", action="store_true",
                     help="--serve-demo/--chaos-demo: drop the per-lane "
                          "stats and the fault log from the report")
@@ -427,6 +459,20 @@ def _write_capacity(path) -> None:
         write_report(path)
     except OSError as e:
         print(f"warning: capacity report failed: {e}", file=sys.stderr)
+
+
+def _write_observatory(path, module: str) -> None:
+    """``--comm-report``/``--work-report`` (``module`` "comm" or "work"),
+    on every exit path, with the same discipline."""
+    if not path:
+        return
+    try:
+        import importlib
+
+        importlib.import_module(f"tpu_jordan_torch.obs.{module}"
+                                ).write_report(path)
+    except OSError as e:
+        print(f"warning: {module} report failed: {e}", file=sys.stderr)
 
 
 def _write_blackbox(path) -> None:
@@ -514,10 +560,7 @@ def _main(argv, state) -> int:
         if args.quiet and args.verbose:
             raise UsageError("--quiet and --verbose contradict each other")
         if args.comm_demo or args.work_demo:
-            raise UsageError("--comm-demo and --work-demo are the "
-                             "communication and work observatories of the "
-                             "distributed paths, not ported yet (ROADMAP.md "
-                             "Queue A item 15e)")
+            return _observatory_demo(args)
         demo = next((f"--{name.replace('_', '-')}" for name in _DEMOS
                      if getattr(args, name)), None)
         if demo is not None and (args.workers != 1 or not args.gather
@@ -630,6 +673,8 @@ def _main(argv, state) -> int:
     finally:
         _write_telemetry(args.metrics_out, args.trace_json, telemetry)
         _write_capacity(args.capacity_report)
+        _write_observatory(args.comm_report, "comm")
+        _write_observatory(args.work_report, "work")
     if result.rank != 0:
         return 0      # a --distributed rank other than 0 prints nothing
     if not args.verbose:
@@ -647,6 +692,81 @@ def _print_numerics(result) -> None:
     steps = (f", {len(rep.pivot_block)} supersteps traced"
              if rep.pivot_block is not None else "")
     print(f"numerics: {rep.mode}{steps}, {len(rep.spikes)} spikes")
+
+
+def _observatory_demo(args) -> int:
+    """``--comm-demo``/``--work-demo``: one JSON line; exit 2 on a silent
+    accounting violation.  The JAX CLI's flag contract."""
+    import json
+
+    flag = "--comm-demo" if args.comm_demo else "--work-demo"
+    if (args.comm_demo and args.work_demo) or any(
+            getattr(args, name) for name in _DEMOS):
+        raise UsageError("--comm-demo, --work-demo, --capacity-demo, "
+                         "--update-demo, --fleet-demo, --chaos-demo, "
+                         "--serve-demo and --numerics-demo are distinct "
+                         "modes; pick one")
+    if args.file is not None or args.workers != 1 or not args.gather:
+        raise UsageError(
+            f"{flag} builds its own world of 4 ranks (1D p=4 and a 2x2 "
+            f"mesh); file input, --workers and --no-gather do not apply")
+    if args.batch > 1 or args.tune or args.group != 0:
+        raise UsageError(f"{flag} takes no --batch/--tune/--group")
+    if args.engine != "auto" or args.refine:
+        raise UsageError(f"{flag} runs a fixed engine-leg set (both "
+                         f"layouts); --engine/--refine do not apply")
+    if args.comm_demo and args.workload != "invert":
+        raise UsageError("--comm-demo reconciles the distributed invert "
+                         "and solve engines on its own legs; --workload "
+                         "does not apply")
+    if args.work_demo and (args.workload != "invert" or args.rhs != 1):
+        raise UsageError("--work-demo accounts both workloads on its own "
+                         "legs; --workload/--rhs do not apply")
+    if args.numerics != "off":
+        raise UsageError(f"{flag}'s reconciliation semantics are pinned; "
+                         f"--numerics does not apply")
+    if args.slo_report or args.plan_cache is not None:
+        raise UsageError(f"--slo-report/--plan-cache do not apply to "
+                         f"{flag}")
+    if (args.serve_requests != 64 or args.batch_cap != 8
+            or args.max_wait_ms != 2.0):
+        raise UsageError(f"{flag} runs driver solves, not the service; "
+                         f"--serve-requests/--batch-cap/--max-wait-ms do "
+                         f"not apply")
+    if (args.replicas != 3 or args.kills != 2
+            or args.scaling_floor is not None):
+        raise UsageError(f"--replicas/--kills/--scaling-floor are "
+                         f"--fleet-demo/--update-demo flags; {flag} runs "
+                         f"one world")
+    # --dtype and --generator are honored (the inventories' bytes scale
+    # with the dtype; complex is a typed refusal inside the demo).
+    if args.comm_demo:
+        from .obs.comm import comm_demo as demo
+
+        silent_key = "silent_comm"
+    else:
+        from .obs.work import work_demo as demo
+
+        silent_key = "silent_work"
+    report = demo(n=args.n, block_size=args.m, seed=args.chaos_seed,
+                  dtype=args.dtype, generator=args.generator,
+                  device=args.device)
+    print(json.dumps(report))
+    if report[silent_key]:
+        if args.comm_demo:
+            print(f"silent communication accounting violation: "
+                  f"unreconciled={report['unreconciled']}, "
+                  f"mismatches={len(report['mismatches'])}, "
+                  f"drift_events={report['drift_events']}",
+                  file=sys.stderr)
+        else:
+            print(f"silent work accounting violation: "
+                  f"unaccounted={report['unaccounted']}, "
+                  f"xla_unreconciled={report['xla_unreconciled']}, "
+                  f"verdict_wrong={report['verdict_wrong']}",
+                  file=sys.stderr)
+        return 2
+    return 0
 
 
 def _numerics_demo(args) -> int:

@@ -48,9 +48,14 @@ root) and re-reads them for the verification.  ``tune=True`` measures the
 distributed engines, each in one world of ranks.  ``workers=(pr, pc)``
 runs the 2D block-cyclic engines (``parallel/jordan2d_inplace.py``) on a
 mesh of pr·pc ranks: each rank generates or streams its (bpr, m, N/pc)
-shard, and the residual is the SUMMA residual's.  The JAX package attaches
-its ``comm``/``work`` observatories to the execute span; they come with
-ROADMAP.md Queue A item 15e.
+shard, and the residual is the SUMMA residual's.  Every distributed solve
+carries the communication and work observatories (``obs/comm.py``,
+``obs/work.py``) on ``SolveResult.comm``/``.work`` and its execute span:
+the analytical inventories always; under ``obs.comm.recording()`` the
+collectives each rank issued, reconciled per rank and for the world, and
+the counted GEMM FLOPs of the pin.  Rank 0 assembles them whether the
+ranks were spawned here or joined under ``torchrun`` (there the ranks'
+records are gathered to every rank).
 """
 
 from __future__ import annotations
@@ -138,6 +143,10 @@ class SolveResult:
     # reason, device).
     rank: int = 0
     ranks: list | None = None
+    # Distributed solves: the obs.comm.CommReport and obs.work.WorkReport
+    # (None on one device).
+    comm: object | None = None
+    work: object | None = None
 
     @property
     def rel_residual(self) -> float | None:
@@ -503,6 +512,41 @@ def solve(
         telemetry=telemetry, policy=policy, numerics=numerics)
 
 
+def observatories(summaries, *, engine: str, lay, dtype, group: int = 0,
+                  gather: bool = True, refine: int = 0, rhs: int = 0,
+                  storage_dtype=None, elapsed: float, span=None,
+                  record: bool = False):
+    """The comm and work reports of one distributed solve from the ranks'
+    outcomes ``summaries`` (rank order when recorded; otherwise any rank's
+    pivot record serves): built, observed (with ``record``), put on the
+    execute ``span``, into the metrics, the drift record and the
+    ``--comm-report``/``--work-report`` snapshots.  Returns (comm, work)."""
+    from .obs import comm as _comm
+    from .obs import work as _work
+
+    head = summaries[0]
+    crep = _comm.engine_report(
+        engine=engine, lay=lay, dtype=dtype, pivots=head["pivots"],
+        pinned=head.get("pinned", ()), gather=gather, refine=refine,
+        group=group, rhs=rhs, storage_dtype=storage_dtype,
+        singular=head["singular"])
+    wrep = _work.engine_report(engine=engine, lay=lay, dtype=dtype, k=rhs,
+                               group=group)
+    if record:
+        crep.attach_observed({r["rank"]: r["observed"] for r in summaries})
+        wrep.attach_counted([r["gemm_flops"] for r in summaries], span=span)
+    else:
+        wrep.attach_counted(None)
+    crep.observe_metrics()
+    wrep.observe_metrics()
+    crep.attach_span(span)
+    wrep.attach_span(span)
+    _comm.observe_drift(crep, elapsed, head["backend"], span=span)
+    _comm.set_last_report(crep)
+    _work.set_last_report(wrep)
+    return crep, wrep
+
+
 def _solve_distributed(n, block_size, generator, *, file, dtype, refine,
                        workers, device, verbose, gather, precision, engine,
                        group, plan_cache, tune, tel, numerics, policy=None):
@@ -516,8 +560,9 @@ def _solve_distributed(n, block_size, generator, *, file, dtype, refine,
     world, which surfaces as MatrixReadError, the reference's -2."""
     import torch.distributed as dist
 
+    from .obs.comm import recording_active
     from .obs.numerics import resolve_mode
-    from .parallel.dist_solve import DistSpec, solve_rank
+    from .parallel.dist_solve import DistSpec, share_outcomes, solve_rank
     from .parallel.launch import WorkerError, run_workers
 
     mesh = None
@@ -580,7 +625,7 @@ def _solve_distributed(n, block_size, generator, *, file, dtype, refine,
                     dtype=str(dtype).removeprefix("torch."), engine=engine,
                     group_k=group, gather=gather, refine=refine,
                     file=None if file is None else os.path.abspath(file),
-                    mesh=mesh)
+                    mesh=mesh, record=recording_active())
     if verbose:
         from .utils.printing import print_corner
 
@@ -613,6 +658,8 @@ def _solve_distributed(n, block_size, generator, *, file, dtype, refine,
                     f"workers={p} but this process's world has "
                     f"{grp.world_size} ranks")
             results = [solve_rank(grp, spec)]
+            summaries = (share_outcomes(results[0]) if spec.record
+                         else None)
         else:
             try:
                 results = run_workers(p, solve_rank, spec,
@@ -623,23 +670,32 @@ def _solve_distributed(n, block_size, generator, *, file, dtype, refine,
                         MatrixReadError.__name__):
                     raise MatrixReadError(f"cannot read {file}") from e
                 raise
+            summaries = [{k: v for k, v in r.items()
+                          if k not in ("inverse", "blocks")}
+                         for r in results]
     head = results[0]
     elapsed = max(r["elapsed"] for r in results)
     wsp.attrs["backend"] = head["backend"]
     esp = wsp.child("execute", wsp.t_start, wsp.t_start + elapsed,
                     clock="cuda_event" if device.type == "cuda" else "host",
                     engine=engine)
+    from .parallel.layout import CyclicLayout, CyclicLayout2D
+
+    lay = (CyclicLayout2D.create(n, m, *mesh) if mesh is not None
+           else CyclicLayout.create(n, m, p))
+    comm, work = observatories(
+        summaries or [head], engine=engine, lay=lay,
+        dtype=torch.float32 if dtype.itemsize < 4 else dtype, group=group,
+        gather=gather, refine=refine, storage_dtype=dtype, elapsed=elapsed,
+        span=esp, record=spec.record)
     _solve_metrics(n, elapsed, esp, singular=head["singular"])
     if head["singular"]:
         raise SingularMatrixError("singular matrix")
-    lay = None
     blocks = None
     if not gather and results[0]["blocks"] is not None:
-        from .parallel.layout import CyclicLayout, CyclicLayout2D
-
-        lay = (CyclicLayout2D.create(n, m, *mesh) if mesh is not None
-               else CyclicLayout.create(n, m, p))
         blocks = [r["blocks"] for r in results]
+    else:
+        lay = None
     norm_a = head["norm_a"]
     kappa = norm_a * head["norm_x"]
     inv = head["inverse"]
@@ -668,9 +724,9 @@ def _solve_distributed(n, block_size, generator, *, file, dtype, refine,
                 else f"{device.type} {mesh[0]}x{mesh[1]} "
                      f"({head['backend']})"), _norm_a=norm_a,
         inverse_blocks=blocks, layout=lay, rank=head["rank"],
-        ranks=[{k: v for k, v in r.items() if k not in ("inverse",
-                                                         "blocks")}
-               for r in results])
+        ranks=summaries or [{k: v for k, v in head.items()
+                             if k not in ("inverse", "blocks")}],
+        comm=comm, work=work)
     if numerics != "off":
         res.numerics = _numerics_report(
             "summary", n=n, block_size=m, engine=engine,

@@ -16,8 +16,9 @@ tests; ``start()`` runs it on a daemon thread):
     (``scale_withheld``);
   * **pre-shed before breach**: while an objective pages or its p99 reaches
     ``preshed_p99_frac`` of its target, the router sheds NEW submissions
-    typed at the front door (``router.pre_shed``); a ``skew_judge`` whose
-    ``veto()`` names a straggler vetoes a shed driven by p99 risk alone;
+    typed at the front door (``router.pre_shed``); a ``skew_judge``
+    (``obs.work.FleetSkewJudge``) whose ``veto()`` names a straggler vetoes
+    a shed driven by p99 risk alone;
   * **drain to the floor when idle**: ``idle_after_s`` without a new
     request outcome (and no risk signal) parks one replica per cooldown,
     down to ``floor`` (``JordanFleet.drain_slot``: the queue drains first).
@@ -62,9 +63,10 @@ class FleetAutoscaler:
       preshed_p99_frac: pre-shed engages when an objective's p99 reaches
         this fraction of its target (or any pair pages).
       scale_budget_bytes: the capacity veto's ledger ceiling; None = none.
-      skew_judge: anything with ``veto()`` returning a dict (``replica``,
-        ``spread``, ``threshold``) or None: a verdict vetoes a pre-shed
-        driven by p99 risk alone (never one driven by paging).
+      skew_judge: the work observatory's ``obs.work.FleetSkewJudge`` (or
+        anything with its ``veto()``: a dict with ``replica``, ``spread``,
+        ``threshold``, or None): a verdict vetoes a pre-shed driven by p99
+        risk alone (never one driven by paging).
       clock: injectable monotonic clock (default: the pool's).
     """
 

@@ -36,7 +36,12 @@ again.  The ``solve_system`` span tree of a distributed solve has
 ``recover`` children.  ``workers=(pr, pc)`` solves on a mesh of the 2D
 layout (``parallel/jordan2d_inplace.py``): each rank's (bpr, m, N/pc)
 shard of A and its mesh row's rows of B reach it the same way, and X's
-row blocks come back from mesh column 0 (the pc replicas are equal).
+row blocks come back from mesh column 0 (the pc replicas are equal).  In a
+process of a world joined outside (``--distributed``, or a world of the
+tests and demos), every rank calls ``solve_system`` with the same A and B,
+cuts its own strips, and the ranks' rows of X are gathered to every rank
+(``dist_solve.share_outcomes``).  A distributed solve carries the comm and
+work observatories on ``comm``/``work`` (``driver.observatories``).
 """
 
 from __future__ import annotations
@@ -107,6 +112,9 @@ class SolveSystemResult:
     # Distributed solves: one summary a rank (pivots, the steps it probed,
     # its kernels' launches, elapsed, backend and the rule's reason).
     ranks: list | None = None
+    # Distributed solves: the obs.comm.CommReport and obs.work.WorkReport.
+    comm: object | None = None
+    work: object | None = None
     _norm_a: float | None = None
     _norm_x: float | None = None
     _norm_b: float | None = None
@@ -445,20 +453,17 @@ def _solve_system_dist_impl(a, b2, n, k, m, dtype, workers, gather, engine,
     policy's retry, ``execute`` unretried, and no other, as there."""
     import torch.distributed as dist
 
-    from ..driver import WORLD_DEADLINE_S
+    from ..driver import WORLD_DEADLINE_S, observatories
+    from ..obs.comm import recording_active
     from ..ops.padding import pad_with_identity
-    from ..parallel.dist_solve import DistSolveSpec, solve_system_rank
+    from ..parallel.dist_solve import (DistSolveSpec, share_outcomes,
+                                       solve_system_rank)
     from ..parallel.launch import run_workers
     from ..parallel.layout import CyclicLayout
     from ..parallel.sharded_inplace import (compile_sharded_jordan_solve,
                                             gather_solution_1d,
                                             scatter_rhs_1d)
 
-    if dist.is_initialized():
-        raise UsageError(
-            "solve_system(workers=p) spawns its own world of ranks; a "
-            "process of a world launched outside (--distributed) runs "
-            "the distributed invert")
     work = torch.float32 if dtype.itemsize < 4 else dtype
     lookahead = engine == "solve_lookahead"
     mesh = workers if isinstance(workers, tuple) else None
@@ -506,13 +511,25 @@ def _solve_system_dist_impl(a, b2, n, k, m, dtype, workers, gather, engine,
         _faults.fire("compile")
         return DistSolveSpec(n=n, m=m,
                              dtype=str(work).removeprefix("torch."),
-                             engine=engine, mesh=mesh)
+                             engine=engine, mesh=mesh,
+                             record=recording_active())
 
     spec = (policy.retry.call(ready, component="solve_system.compile")
             if policy is not None else ready())
 
     def world(rhs):
         rhs = rhs.to(work).cpu()
+        if dist.is_initialized():
+            from ..parallel.group import MeshSizeError, current_group
+
+            grp = current_group(dev.type)
+            if grp.world_size != p:
+                raise MeshSizeError(
+                    f"workers={workers} but this process's world has "
+                    f"{grp.world_size} ranks")
+            out = solve_system_rank(grp, spec, a_strips[grp.rank],
+                                    rhs_rows(rhs, grp.rank).numpy())
+            return share_outcomes(out, drop=())
         return run_workers(
             p, solve_system_rank, spec,
             per_rank=[(a_strips[r], rhs_rows(rhs, r).numpy())
@@ -543,8 +560,12 @@ def _solve_system_dist_impl(a, b2, n, k, m, dtype, workers, gather, engine,
     ).observe(elapsed, workload=workload)
     ranks = [{key: v for key, v in r.items() if key != "x_blocks"}
              for r in results]
+    comm, wrep = observatories(
+        ranks, engine=engine, lay=lay, dtype=work, rhs=k, gather=gather,
+        elapsed=elapsed, span=esp, record=spec.record)
     common = dict(n=n, k=k, block_size=m, engine=engine, workload=workload,
-                  plan=plan, workers=workers, ranks=ranks)
+                  plan=plan, workers=workers, ranks=ranks, comm=comm,
+                  work=wrep)
     with tel.span("gather", gathered=gather):
         x, singular = assemble(results)
         xb = None if gather else [r["x_blocks"].to(dtype) for r in results]

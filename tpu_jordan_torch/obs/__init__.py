@@ -17,14 +17,19 @@
   * ``journey``: per-request journeys of the serving stack, their outcome
     ledger and their Chrome-trace lanes;
   * ``slo``: declarative SLOs and the multi-window burn-rate monitor the
-    fleet demo's ``--slo-report`` leg evaluates.
-
-The communication and work inventories of the distributed engines come
-with ROADMAP.md Queue A item 15e.
+    fleet demo's ``--slo-report`` leg evaluates;
+  * ``comm``: the communication observatory of the distributed paths (the
+    collective inventory each rank issues, reconciled at the recording
+    point per rank and for the world, and its drift against the H100 cost
+    model; ``tools/check_comm.py``);
+  * ``work``: the work observatory (per-worker FLOP shares, the counted
+    GEMM pin, and the fleet skew judge; ``tools/check_work.py``).
 """
 
-from . import (capacity, export, hwcost, journey, metrics, numerics,
-               recorder, slo, spans)
+from . import (capacity, comm, export, hwcost, journey, metrics, numerics,
+               recorder, slo, spans, work)
+from .comm import (CommReport, DriftPolicy, ReconciliationError,
+                   comm_demo, recording, set_drift_policy)
 from .export import (to_chrome_trace, to_json_line, to_prometheus,
                      write_chrome_trace, write_metrics)
 from .hwcost import (ExecutableCost, attach_execute_cost, executable_cost,
@@ -39,10 +44,15 @@ from .recorder import RECORDER, FlightRecorder, record
 from .slo import SLOMonitor, SLOSpec, bucket_specs
 from .spans import (NULL, NullTelemetry, Span, Telemetry, attribute_phases,
                     attribute_phases_measured, timed_blocking)
+from .work import (FleetSkewJudge, WorkReport, expected_latency_factor,
+                   work_demo)
 
 __all__ = [
-    "capacity", "export", "hwcost", "journey", "metrics", "numerics",
-    "recorder", "slo", "spans",
+    "capacity", "comm", "export", "hwcost", "journey", "metrics",
+    "numerics", "recorder", "slo", "spans", "work",
+    "CommReport", "DriftPolicy", "ReconciliationError", "comm_demo",
+    "recording", "set_drift_policy",
+    "FleetSkewJudge", "WorkReport", "expected_latency_factor", "work_demo",
     "to_chrome_trace", "to_json_line", "to_prometheus",
     "write_chrome_trace", "write_metrics",
     "ExecutableCost", "attach_execute_cost", "executable_cost",

@@ -28,6 +28,14 @@ between CUDA events and returns its rows of X.
 
 :func:`measure_rank` (tuning): one configuration's warm-up and every timed
 sample in one world, each sample the slowest rank's time.
+
+With ``spec.record`` (``obs.comm.recording()`` in the caller) a rank runs
+under a ``group.RankLog``: the collectives it issues are noted by section
+("timing": the barrier and the elapsed max around the engine; "engine";
+"gather"; "residual"), with the engine's GEMM FLOPs, and come back in its
+outcome as ``observed`` and ``gemm_flops``.  Every outcome carries the
+record the comm inventory is derived from: ``pivots`` and, on a mesh,
+``pinned`` (the swap-free steps whose window was all singular).
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ import torch
 
 from ..interop import resolve_dtype
 from .generate import sharded_generate
+from .group import RankLog, collecting, section
 from .layout import CyclicLayout
 from .ring_gemm import distributed_residual_blocks
 from .sharded_inplace import gather_inverse_inplace, invert_blocks
@@ -61,6 +70,8 @@ class DistSpec:
     #: A (pr, pc) mesh of the 2D layout; None for the 1D layout.
     mesh: tuple | None = None
     probe_layout: str = "auto"
+    #: Run the rank under a ``RankLog`` (module docstring).
+    record: bool = False
 
 
 def _launches() -> dict:
@@ -84,6 +95,19 @@ def gather_parts(blocks, group) -> list | None:
     return parts
 
 
+def share_outcomes(out: dict, drop=("inverse", "blocks")) -> list:
+    """Every rank's outcome (less the keys ``drop``) in rank order, on
+    every rank of this process's joined world: one ``all_gather_object``,
+    outside the recording point (it carries the records, it is not part of
+    what they record)."""
+    import torch.distributed as dist
+
+    mine = {k: v for k, v in out.items() if k not in drop}
+    peers = [None] * dist.get_world_size()
+    dist.all_gather_object(peers, mine)
+    return peers
+
+
 def _row_sum_max(blocks, group, lay: CyclicLayout) -> float:
     """‖·‖∞ of the distributed matrix: the max of every rank's row sums
     over its real rows (an identity-pad row sums to exactly 1 and must not
@@ -97,23 +121,43 @@ def _row_sum_max(blocks, group, lay: CyclicLayout) -> float:
 
 def _timed(group, fn):
     """``fn()`` after a barrier, timed with CUDA events on the card (the
-    host clock on the CPU); returns (result, the slowest rank's seconds)."""
+    host clock on the CPU); returns (result, the slowest rank's seconds).
+    The barrier and the max are the "timing" section, ``fn`` the
+    "engine" section."""
     dev = group.device
-    group.all_reduce(torch.zeros(1, device=dev), "sum")     # barrier
-    if dev.type == "cuda":
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
-        start.record()
-        out = fn()
-        end.record()
-        end.synchronize()
-        elapsed = start.elapsed_time(end) / 1e3
-    else:
-        t0 = time.perf_counter()
-        out = fn()
-        elapsed = time.perf_counter() - t0
-    return out, float(group.all_reduce(
-        torch.tensor([elapsed], dtype=torch.float64, device=dev),
-        "max").item())
+    with section("timing"):
+        group.all_reduce(torch.zeros(1, dtype=torch.float32, device=dev),
+                         "sum")                             # barrier
+    with section("engine"):
+        if dev.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in "se")
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            elapsed = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            out = fn()
+            elapsed = time.perf_counter() - t0
+    with section("timing"):
+        return out, float(group.all_reduce(
+            torch.tensor([elapsed], dtype=torch.float64, device=dev),
+            "max").item())
+
+
+def _logged(record: bool, body):
+    """``body()`` under a fresh ``RankLog`` when ``record``; the log's
+    ``observed`` records and ``gemm_flops`` join the outcome."""
+    if not record:
+        return body()
+    log = RankLog()
+    with collecting(log):
+        out = body()
+    out["observed"] = log.records
+    out["gemm_flops"] = log.gemm_flops
+    return out
 
 
 def _rank_info(group) -> dict:
@@ -132,7 +176,7 @@ class _Rows1D:
     def __init__(self, group, spec: DistSpec):
         self.group, self.spec = group, spec
         self.lay = CyclicLayout.create(spec.n, spec.m, group.world_size)
-        self.info = {}
+        self.info = {"pinned": []}
 
     def load(self, dtype, in_dtype):
         """The strip of A: generated, or streamed from ``spec.file``
@@ -176,10 +220,12 @@ class _Mesh2D(_Rows1D):
         from .layout import CyclicLayout2D
 
         pr, pc = spec.mesh
-        self.group, self.spec = group, spec
+        self.spec = spec
         self.mg = mesh_group(group, pr, pc)
+        self.group = self.mg.world          # the world, named "pr,pc"
         self.lay = CyclicLayout2D.create(spec.n, spec.m, pr, pc)
-        self.info = {"mesh": [pr, pc], "kr": self.mg.kr, "kc": self.mg.kc}
+        self.info = {"mesh": [pr, pc], "kr": self.mg.kr, "kc": self.mg.kc,
+                     "pinned": []}
 
     def load(self, dtype, in_dtype):
         from .jordan2d import sharded_generate_2d
@@ -200,7 +246,8 @@ class _Mesh2D(_Rows1D):
 
         inv, singular, pivots, probed = invert_blocks_2d(
             W, self.mg, self.lay, engine=self.spec.engine,
-            group_k=self.spec.group_k, probe_layout=self.spec.probe_layout)
+            group_k=self.spec.group_k, probe_layout=self.spec.probe_layout,
+            pinned=self.info["pinned"])
         self.info["probed"] = _probed_rows(probed)
         return inv, singular, pivots, [t for t, _ in probed]
 
@@ -233,7 +280,12 @@ def solve_rank(group, spec: DistSpec) -> dict:
     reads the whole file, as the JAX package's does).  ``inverse_sha256``
     is the rank's inverse blocks' digest, to hold two runs bit for bit
     without moving them; on a mesh ``probed`` lists (t, global rows) of
-    every step this rank probed."""
+    every step this rank probed.  With ``spec.record`` it runs under a
+    ``RankLog`` (module docstring)."""
+    return _logged(spec.record, lambda: _solve_rank(group, spec))
+
+
+def _solve_rank(group, spec: DistSpec) -> dict:
     from ..io import reset_strip_peak, strip_peak_rows
     from ..ops import newton_schulz, residual_inf_norm
     from ..ops.generators import generate
@@ -241,6 +293,7 @@ def solve_rank(group, spec: DistSpec) -> dict:
 
     be = _Mesh2D(group, spec) if spec.mesh is not None else _Rows1D(group,
                                                                      spec)
+    group = be.group
     dev = group.device
     in_dtype = resolve_dtype(spec.dtype)
     # Sub-fp32 storage computes in fp32 and rounds once at the end.
@@ -265,8 +318,10 @@ def solve_rank(group, spec: DistSpec) -> dict:
     if in_dtype != dtype:
         inv_b = inv_b.to(in_dtype)
     out["inverse_sha256"] = hashlib.sha256(
-        inv_b.contiguous().cpu().numpy().tobytes()).hexdigest()
-    parts = gather_parts(inv_b, group) if spec.gather else None
+        inv_b.contiguous().cpu().view(torch.uint8).numpy().tobytes()
+    ).hexdigest()
+    with section("gather"):
+        parts = gather_parts(inv_b, group) if spec.gather else None
     if spec.refine:
         if group.rank == 0:
             if spec.file is not None:
@@ -294,9 +349,10 @@ def solve_rank(group, spec: DistSpec) -> dict:
     # state.
     a_b = be.load(dtype, in_dtype)
     inv_f = inv_b.to(dtype)
-    out["residual"] = be.residual(a_b, inv_f)
-    out["norm_a"] = be.norm(a_b)
-    out["norm_x"] = be.norm(inv_f)
+    with section("residual"):
+        out["residual"] = be.residual(a_b, inv_f)
+        out["norm_a"] = be.norm(a_b)
+        out["norm_x"] = be.norm(inv_f)
     out["strip_rows_max"] = max(out["strip_rows_max"], strip_peak_rows())
     return out
 
@@ -322,6 +378,8 @@ class DistSolveSpec:
     dtype: str
     engine: str
     mesh: tuple | None = None
+    #: Run the rank under a ``RankLog`` (module docstring).
+    record: bool = False
 
 
 def solve_system_rank(group, spec: DistSolveSpec, a_blocks,
@@ -331,7 +389,13 @@ def solve_system_rank(group, spec: DistSolveSpec, a_blocks,
     every rank of ``group`` calls it together.  Returns the rank's CPU
     outcome: ``x_blocks`` (its rows of X, cyclic order), ``singular``,
     ``pivots``, ``probe_steps``, ``launches`` and ``elapsed`` (the slowest
-    rank's)."""
+    rank's).  With ``spec.record`` it runs under a ``RankLog``."""
+    return _logged(spec.record, lambda: _solve_system_rank(
+        group, spec, a_blocks, b_blocks))
+
+
+def _solve_system_rank(group, spec: DistSolveSpec, a_blocks,
+                       b_blocks) -> dict:
     from ..interop import from_numpy
     from .sharded_inplace import compile_sharded_jordan_solve
 
@@ -359,6 +423,7 @@ def solve_system_rank(group, spec: DistSolveSpec, a_blocks,
         lay = CyclicLayout2D.create(spec.n, spec.m, pr, pc)
         run = compile_sharded_jordan_solve_2d(lay, lookahead=lookahead)
         extra = {"mesh": [pr, pc], "kr": mg.kr, "kc": mg.kc}
+        group = mg.world
 
         def fn():
             return run(mg, W, X)
@@ -370,7 +435,7 @@ def solve_system_rank(group, spec: DistSolveSpec, a_blocks,
         steps = [t for t, _ in steps]
     return {**_rank_info(group), **extra, "elapsed": elapsed,
             "singular": bool(singular.item()), "pivots": pivots,
-            "probe_steps": steps,
+            "pinned": [], "probe_steps": steps,
             "launches": {k: after[k] - before[k] for k in after},
             "x_blocks": xb.cpu()}
 

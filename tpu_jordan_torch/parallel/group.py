@@ -35,11 +35,27 @@ once a world, by every rank, in one order (``dist.new_group`` for each
 subgroup of each enumeration, the ones a rank is not in included); a view
 of one rank has no group (its collectives are no-ops) and a view of the
 whole world is the default group.
+
+**The recording point** (:func:`collecting`, :class:`RankLog`): every
+collective of the port passes through a :class:`WorkerGroup`'s
+``all_reduce``, ``broadcast`` or ``exchange``, so that is where the
+communication observatory (``obs/comm.py``) notes what this rank put on the
+wire: (kind, axis, shape, dtype) per collective, a ``send`` and a ``recv``
+per point-to-point message (the logical tensor, never the host staging
+copy), under the log's current section (:func:`section`).  A view of one
+rank issues nothing and records nothing.  Axis names are the JAX
+package's: "p" for the 1D world, "pr,pc" for the 2D world, "pc" for a
+rank's row communicator, "pr" for its column communicator.  The same log
+counts the GEMM FLOPs the engines issue in the "engine" section
+(:func:`tally_gemm`, the work observatory's pin).  With no log active a
+collective or a GEMM pays one read of a thread-local.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 from dataclasses import dataclass, replace
 
 import torch
@@ -66,6 +82,66 @@ TRANSPORT = {
     ("gloo", "cpu", "broadcast"): "device",
     ("gloo", "cpu", "p2p"): "device",
 }
+
+
+class RankLog:
+    """What this rank issued while the log was active: the collectives by
+    section (``records[section]``: (kind, axis, shape, dtype) tuples in
+    issue order) and the GEMM FLOPs of the "engine" section."""
+
+    def __init__(self):
+        self.section = "unsectioned"
+        self.records: dict = {}
+        self.gemm_flops = 0
+
+    def note(self, kind: str, axis: str, shape, dtype) -> None:
+        self.records.setdefault(self.section, []).append(
+            (kind, axis, tuple(int(s) for s in shape),
+             str(dtype).removeprefix("torch.")))
+
+    def gemm(self, m: int, k: int, n: int) -> None:
+        if self.section == "engine":
+            self.gemm_flops += 2 * int(m) * int(k) * int(n)
+
+
+class _Tap(threading.local):
+    log = None
+
+
+_TAP = _Tap()
+
+
+@contextlib.contextmanager
+def collecting(log: RankLog | None):
+    """Record into ``log`` for the block (None: record nothing)."""
+    prev = _TAP.log
+    _TAP.log = log
+    try:
+        yield log
+    finally:
+        _TAP.log = prev
+
+
+@contextlib.contextmanager
+def section(name: str):
+    """Label what the active log records in the block as ``name``."""
+    log = _TAP.log
+    if log is None:
+        yield
+        return
+    prev, log.section = log.section, name
+    try:
+        yield
+    finally:
+        log.section = prev
+
+
+def tally_gemm(m: int, k: int, n: int) -> None:
+    """One (m, k)·(k, n) product issued by an engine: 2·m·k·n FLOPs into
+    the active log's "engine" section."""
+    log = _TAP.log
+    if log is not None:
+        log.gemm(m, k, n)
 
 
 def backend_rule(world_size: int, device_type: str,
@@ -97,6 +173,8 @@ class WorkerGroup:
     #: global ranks in order (empty: the whole world).
     pg: object = None
     members: tuple = ()
+    #: The JAX package's name of the axis this view's collectives span.
+    axis: str = "p"
 
     @property
     def size(self) -> int:
@@ -117,6 +195,9 @@ class WorkerGroup:
                "sum": dist.ReduceOp.SUM}[op]
         if self.size > 1:
             self._where("all_reduce")
+            log = _TAP.log
+            if log is not None:
+                log.note(f"all_reduce_{op}", self.axis, t.shape, t.dtype)
             dist.all_reduce(t, op=rop, group=self.pg)
         return t
 
@@ -125,6 +206,9 @@ class WorkerGroup:
         ``t``."""
         if self.size > 1:
             self._where("broadcast")
+            log = _TAP.log
+            if log is not None:
+                log.note("broadcast", self.axis, t.shape, t.dtype)
             dist.broadcast(t, src=src, group=self.pg)
         return t
 
@@ -137,6 +221,12 @@ class WorkerGroup:
         if not sends and not recvs:
             return
         host = self._where("p2p") == "host"
+        log = _TAP.log
+        if log is not None:
+            for t, _ in sends:
+                log.note("send", self.axis, t.shape, t.dtype)
+            for t, _ in recvs:
+                log.note("recv", self.axis, t.shape, t.dtype)
         ops, staged = [], []
         for t, dst in sends:
             buf = t.cpu() if host else t.contiguous()
@@ -211,17 +301,18 @@ def current_group(device_type: str = "cuda") -> WorkerGroup:
                        backend, reason)
 
 
-def _subgroup(world: WorkerGroup, ranks_lists, mine: tuple) -> WorkerGroup:
-    """This rank's view of one enumeration of disjoint subgroups: every
-    subgroup is created (by every rank, in order) unless it is a single
-    rank or the whole world."""
+def _subgroup(world: WorkerGroup, ranks_lists, mine: tuple,
+              axis: str) -> WorkerGroup:
+    """This rank's view of one enumeration of disjoint subgroups, its
+    collectives named ``axis``: every subgroup is created (by every rank,
+    in order) unless it is a single rank or the whole world."""
     own = None
     for ranks in ranks_lists:
         if 1 < len(ranks) < world.world_size:
             pg = dist.new_group(ranks=list(ranks))
             if tuple(ranks) == mine:
                 own = pg
-    return replace(world, pg=own, members=mine)
+    return replace(world, pg=own, members=mine, axis=axis)
 
 
 @dataclass(frozen=True)
@@ -292,7 +383,7 @@ def mesh_group(world: WorkerGroup, pr: int, pc: int) -> MeshGroup2D:
         kr, kc = divmod(world.rank, pc)
         rows = [tuple(r * pc + c for c in range(pc)) for r in range(pr)]
         cols = [tuple(r * pc + c for r in range(pr)) for c in range(pc)]
-        _MESHES[key] = MeshGroup2D(world, pr, pc,
-                                   _subgroup(world, rows, rows[kr]),
-                                   _subgroup(world, cols, cols[kc]))
+        _MESHES[key] = MeshGroup2D(replace(world, axis="pr,pc"), pr, pc,
+                                   _subgroup(world, rows, rows[kr], "pc"),
+                                   _subgroup(world, cols, cols[kc], "pr"))
     return _MESHES[key]

@@ -94,7 +94,9 @@ from ..ops.block_inverse import probe_blocks
 from ..ops.jordan_inplace import compose_swap_perm
 from ..ops.norms import block_inf_norms
 from .layout import CyclicLayout2D
-from .sharded_inplace import _eliminate, _live_start, _reduce, _SideProbe
+from .group import tally_gemm
+from .sharded_inplace import (_addmm_, _eliminate, _live_start, _matmul,
+                              _reduce, _SideProbe)
 from .upcast import upcast_sub_fp32
 
 #: The 2D engines of ``invert_blocks_2d``.
@@ -130,12 +132,15 @@ class _Dec2D:
 class _Run:
     """One rank's static context of a 2D run: the mesh, the layout, the
     probe and its layout, and the record of what this rank probed
-    (``probed``: (t, global rows) of every step with a non-empty slice)."""
+    (``probed``: (t, global rows) of every step with a non-empty slice)
+    and of the swap-free steps whose window was all singular (``pinned``:
+    no H goes out there, so the comm inventory needs them)."""
 
     def __init__(self, mg, lay: CyclicLayout2D, eps, probe, probe_cols):
         self.mg, self.lay, self.eps, self.probe = mg, lay, eps, probe
         self.probe_cols = probe_cols
         self.probed = []
+        self.pinned = []
 
     # --- collectives
 
@@ -267,7 +272,7 @@ def _step2d(run: _Run, Wloc, t: int, dec: _Dec2D, singular, pivots: list,
     own_t, st = kr == t % pr, t // pr
     if own_p and g != t:
         Wloc[sp] = row_t                            # swap-by-copy
-    prow = H @ row_piv
+    prow = _matmul(H, row_piv)
     if own_c:
         prow[:, cs] = H
     E = dec.chunk.clone()
@@ -329,8 +334,8 @@ def _solve_step2d(run: _Run, Wloc, Xloc, t: int, dec: _Dec2D, singular,
         fix = run.fixup(rt, g, t, 0)
         if own_p:
             E[sp] = fix
-    prow_A = H @ rp[:, :live]
-    prow_X = H @ rp[:, live:]
+    prow_A = _matmul(H, rp[:, :live])
+    prow_X = _matmul(H, rp[:, live:])
     if own_t:
         E[st] = 0
     E2 = E.view(bpr * m, m)
@@ -339,18 +344,18 @@ def _solve_step2d(run: _Run, Wloc, Xloc, t: int, dec: _Dec2D, singular,
     if ahead is not None and t < Nr - 1:
         c0 = ((t + 1) // pc) * m
         off = c0 - lo
-        W2[:, c0:c0 + m].addmm_(E2, prow_A[:, off:off + m], alpha=-1)
+        _addmm_(W2[:, c0:c0 + m], E2, prow_A[:, off:off + m])
         panel = Wloc[:, :, c0:c0 + m].clone()
         if own_t:
             panel[st] = prow_A[:, off:off + m]
         nxt = ahead(t + 1, panel)
         if off:
-            W2[:, lo:c0].addmm_(E2, prow_A[:, :off], alpha=-1)
+            _addmm_(W2[:, lo:c0], E2, prow_A[:, :off])
         if c0 + m < Wc:
-            W2[:, c0 + m:].addmm_(E2, prow_A[:, off + m:], alpha=-1)
+            _addmm_(W2[:, c0 + m:], E2, prow_A[:, off + m:])
     else:
-        W2[:, lo:].addmm_(E2, prow_A, alpha=-1)
-    Xloc.view(bpr * m, nrhs).addmm_(E2, prow_X, alpha=-1)
+        _addmm_(W2[:, lo:], E2, prow_A)
+    _addmm_(Xloc.view(bpr * m, nrhs), E2, prow_X)
     if own_t:
         Wloc[st, :, lo:] = prow_A
         Xloc[st] = prow_X
@@ -408,9 +413,9 @@ def _grouped_steps(run: _Run, Wloc, kgrp: int):
             chunk = Wloc[:, :, cs]
             if own_c and j:
                 chunk = chunk.clone(memory_format=torch.contiguous_format)
-                chunk.view(bpr * m, m).addmm_(
-                    U[:, :, :j * m].reshape(bpr * m, j * m), P[:j * m, cs],
-                    alpha=-1)
+                _addmm_(chunk.view(bpr * m, m),
+                        U[:, :, :j * m].reshape(bpr * m, j * m),
+                        P[:j * m, cs])
             dec = run.probe_at(t, run.chunk_bcast(t, chunk))
             chunk_all = dec.chunk
             g, kmin = _reduce(dec, mg.world, Nr)
@@ -442,9 +447,10 @@ def _grouped_steps(run: _Run, Wloc, kgrp: int):
                 chunk_all[st] = 0
             # --- EAGER PIVOT ROW + NORMALIZE; the t-chunk becomes H.
             if j:
+                tally_gemm(m, j * m, Wc)
                 row_piv = torch.addmm(row_piv, u_p[:, :j * m], P[:j * m],
                                       alpha=-1)
-            prow = H @ row_piv
+            prow = _matmul(H, row_piv)
             if own_c:
                 prow[:, cs] = H
                 Wloc[:, :, cs] = 0
@@ -456,7 +462,7 @@ def _grouped_steps(run: _Run, Wloc, kgrp: int):
             U[:, :, j * m:(j + 1) * m] = chunk_all
             P[j * m:(j + 1) * m] = prow
         # --- GROUP END: one local GEMM, no collective.
-        Wloc.view(bpr * m, Wc).addmm_(U.view(bpr * m, Uw), P, alpha=-1)
+        _addmm_(Wloc.view(bpr * m, Wc), U.view(bpr * m, Uw), P)
     return singular, pivots
 
 
@@ -485,10 +491,12 @@ def _swapfree_steps(run: _Run, Wloc):
         singular |= ~torch.isfinite(kmin)
         # All-singular pin: the physical row at swap position t, H := 0.
         g = ipos[int(win_pos)] if finite else ipos[t]
+        if not finite:
+            run.pinned.append(t)
         H = (run.h_bcast(dec, g, t, sweep_all=True) if finite
              else Wloc.new_zeros((m, m)))
         row_piv = run.row_bcast([Wloc], g)
-        prow = H @ row_piv
+        prow = _matmul(H, row_piv)
         if own_c:
             prow[:, cs] = H
         own_p, sp = kr == g % pr, g // pr
@@ -560,12 +568,13 @@ def check_engine_2d(lay: CyclicLayout2D, engine: str, group_k: int = 0,
 def invert_blocks_2d(blocks, mg, lay: CyclicLayout2D,
                      engine: str = "inplace", group_k: int = 0,
                      eps: float | None = None, probe=probe_blocks,
-                     probe_layout: str = "auto"):
+                     probe_layout: str = "auto", pinned: list | None = None):
     """Invert the distributed identity-padded matrix whose shard on this
     rank of the mesh ``mg`` is ``blocks`` (not modified).  ``engine`` is
     one of :data:`ENGINES_2D` (``group_k`` the grouped engine's k, default
-    2), ``probe_layout`` one of :data:`PROBE_LAYOUTS`.  Every rank calls it
-    together.  Returns ``(inverse shard, singular, pivots, probed)``: this
+    2), ``probe_layout`` one of :data:`PROBE_LAYOUTS`; a ``pinned`` list
+    receives the swap-free steps whose window was all singular.  Every rank
+    calls it together.  Returns ``(inverse shard, singular, pivots, probed)``: this
     rank's shard of the inverse in 2D-cyclic order, the (1,) flag, the
     pivot sequence (swap coordinates for swapfree) and the (t, global
     rows) this rank probed.  Counterpart of the JAX package's
@@ -578,6 +587,8 @@ def invert_blocks_2d(blocks, mg, lay: CyclicLayout2D,
     W = blocks.clone()
     if engine == "swapfree":
         singular, pivots, pos = _swapfree_steps(run, W)
+        if pinned is not None:
+            pinned.extend(run.pinned)
         W = permute_columns_2d(W, compose_swap_perm(pivots, lay.Nr), mg,
                                lay)
         W = permute_rows_2d(W, pos, mg, lay)

@@ -57,7 +57,10 @@ code as the monolithic loops, so a segmented run gives their bits.
 
 Every rank issues the same collectives in the same order on every path.
 The probe launches of a rank equal the steps at which it held a live
-candidate; the entries return those steps.
+candidate; the entries return those steps.  Every GEMM of the engines goes
+through :func:`_matmul` or :func:`_addmm_`, which count its FLOPs into the
+recording point's log (``group.tally_gemm``: the work observatory's pin;
+one thread-local read with no log).
 """
 
 from __future__ import annotations
@@ -68,6 +71,7 @@ from ..config import eps_for
 from ..ops.block_inverse import probe_blocks
 from ..ops.jordan_inplace import apply_col_perm, compose_swap_perm
 from ..ops.norms import block_inf_norms
+from .group import tally_gemm
 from .layout import CyclicLayout
 from .upcast import upcast_sub_fp32
 
@@ -176,15 +180,27 @@ class _SideProbe:
         return dec
 
 
+def _matmul(a, b):
+    """a @ b, counted (module docstring)."""
+    tally_gemm(a.shape[0], a.shape[1], b.shape[1])
+    return a @ b
+
+
+def _addmm_(out, a, b):
+    """out -= a @ b in place, counted (module docstring)."""
+    tally_gemm(a.shape[0], a.shape[1], b.shape[1])
+    return out.addmm_(a, b, alpha=-1)
+
+
 def _eliminate(Wloc, E, prow, cols=None):
     """Wloc[:, :, cols] -= E·prow[:, cols] on the (bpw·m, ·) strip."""
     bpw, m, N = Wloc.shape
     W2 = Wloc.view(bpw * m, N)
     E2 = E.reshape(bpw * m, m)
     if cols is None:
-        W2.addmm_(E2, prow, alpha=-1)
+        _addmm_(W2, E2, prow)
     else:
-        W2[:, cols].addmm_(E2, prow[:, cols], alpha=-1)
+        _addmm_(W2[:, cols], E2, prow[:, cols])
 
 
 def _inplace_step(Wloc, t: int, dec: _Decision, group, lay, singular,
@@ -205,7 +221,7 @@ def _inplace_step(Wloc, t: int, dec: _Decision, group, lay, singular,
              else _row_broadcast([Wloc], t, group, lay)[0])
     if k == g_piv % p:
         Wloc[g_piv // p] = row_t                    # swap-by-copy
-    prow = H @ row_piv
+    prow = _matmul(H, row_piv)
     prow[:, cs] = H
     own_t = k == t % p
     E = Wloc[:, :, cs].clone()
@@ -258,8 +274,8 @@ def _solve_step(Wloc, Xloc, t: int, dec: _Decision, group, lay, singular,
         if k == owner:                                  # swap-by-copy
             Wloc[sp, :, lo:] = rt_A
             Xloc[sp] = rt_X
-    prow_A = H @ rp_A
-    prow_X = H @ rp_X
+    prow_A = _matmul(H, rp_A)
+    prow_X = _matmul(H, rp_X)
     own_t = k == t % p
     E = Wloc[:, :, lo:lo + m].clone()
     if own_t:
@@ -269,14 +285,14 @@ def _solve_step(Wloc, Xloc, t: int, dec: _Decision, group, lay, singular,
     nxt = None
     if ahead is not None and t < Nr - 1:
         c0 = lo + m
-        W2[:, c0:c0 + m].addmm_(E2, prow_A[:, m:2 * m], alpha=-1)
+        _addmm_(W2[:, c0:c0 + m], E2, prow_A[:, m:2 * m])
         nxt = ahead(t + 1, slice(c0, c0 + m))
-        W2[:, lo:c0].addmm_(E2, prow_A[:, :m], alpha=-1)
+        _addmm_(W2[:, lo:c0], E2, prow_A[:, :m])
         if c0 + m < N:
-            W2[:, c0 + m:].addmm_(E2, prow_A[:, 2 * m:], alpha=-1)
+            _addmm_(W2[:, c0 + m:], E2, prow_A[:, 2 * m:])
     else:
-        W2[:, lo:].addmm_(E2, prow_A, alpha=-1)
-    Xloc.view(bpw * m, nrhs).addmm_(E2, prow_X, alpha=-1)
+        _addmm_(W2[:, lo:], E2, prow_A)
+    _addmm_(Xloc.view(bpw * m, nrhs), E2, prow_X)
     if own_t:
         Wloc[t // p, :, lo:] = prow_A
         Xloc[t // p] = prow_X
@@ -362,9 +378,9 @@ def _grouped_steps(Wloc, group, lay, eps, probe, kgrp: int):
             # --- EAGER CANDIDATE COLUMN: W[:, t] minus pending panels.
             col = Wloc[:, :, cs].clone()
             if j:
-                col.view(bpw * m, m).addmm_(
-                    U[:, :, :j * m].reshape(bpw * m, j * m), P[:j * m, cs],
-                    alpha=-1)
+                _addmm_(col.view(bpw * m, m),
+                        U[:, :, :j * m].reshape(bpw * m, j * m),
+                        P[:j * m, cs])
             s_live = _live_start(t, p, k)
             dec = _probe(col[s_live:].contiguous(), t, lay, k, s_live, eps,
                          probe, steps)
@@ -388,9 +404,10 @@ def _grouped_steps(Wloc, group, lay, eps, probe, kgrp: int):
                 col[st] = 0
             # --- EAGER PIVOT ROW + NORMALIZE; the t-chunk becomes H.
             if j:
+                tally_gemm(m, j * m, N)
                 row_piv = torch.addmm(row_piv, u_p[:, :j * m], P[:j * m],
                                       alpha=-1)
-            prow = H @ row_piv
+            prow = _matmul(H, row_piv)
             prow[:, cs] = H
             # --- BOOKKEEPING: zero W's column t and P's pending t-chunk,
             # finalize row t, record the panel.
@@ -403,7 +420,7 @@ def _grouped_steps(Wloc, group, lay, eps, probe, kgrp: int):
             U[:, :, j * m:(j + 1) * m] = col
             P[j * m:(j + 1) * m] = prow
         # --- GROUP END: one (bpw·m, kg·m)×(kg·m, N) GEMM, no collective.
-        Wloc.view(bpw * m, N).addmm_(U.view(bpw * m, kg * m), P, alpha=-1)
+        _addmm_(Wloc.view(bpw * m, N), U.view(bpw * m, kg * m), P)
     return singular, pivots, steps
 
 
@@ -456,7 +473,7 @@ def _swapfree_steps(Wloc, group, lay, eps, probe):
                 buf[:, N:] = 0
         group.broadcast(buf, owner)
         row_piv, H = buf[:, :N], buf[:, N:]
-        prow = H @ row_piv
+        prow = _matmul(H, row_piv)
         prow[:, cs] = H
         # --- ELIMINATE every row but the pivot's physical row, which
         # receives prow (rows stay put).

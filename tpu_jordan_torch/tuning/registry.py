@@ -170,8 +170,15 @@ def _predict(point: TunePoint, group: int = 1,
 def projected_seconds(point: TunePoint, group: int = 1,
                       swapfree: bool = False) -> float:
     """The cost model's projected seconds for one engine at a point: the
-    backing of every cost hook below."""
-    return _predict(point, group, swapfree)["total"]
+    backing of every cost hook below.  Its comm term is scaled by the
+    communication observatory's measured calibration
+    (``obs/comm.cost_comm_scale``, the EWMA of judged measured/projected
+    comm ratios): opt-in (``obs.comm.set_cost_feedback(True)``), and
+    exactly 1.0 otherwise, so every default ranking is unchanged."""
+    from ..obs.comm import cost_comm_scale
+
+    r = _predict(point, group, swapfree)
+    return r["total"] + (cost_comm_scale() - 1.0) * r["comm"]
 
 
 def probe_overlap_headroom(point: TunePoint) -> float:
