@@ -351,10 +351,34 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    on one card: not link figures).  Leg 3: the CLI's ``4096 128
    --workers 2x2 --comm-report PATH --work-report PATH``: exit 0, both
    files load and carry that solve.
-19. ``kernels``: every ported kernel with its launches on its path (the
+19. ``dist_serve``, the persistent world of ranks, 4 gloo ranks
+   sharing the card (not scaling figures). Leg 1: ``serve_demo(4096, 128,
+   requests=64, workers=4)`` then ``workers="2x2"`` (fp32 rand; the lane
+   budget one byte under the 4096 bucket's single-device projection):
+   every 4096 request a ``mesh_admitted`` hop, zero builds and zero world
+   starts after warmup, the mesh requests' worst rel_residual under the
+   solve gate, the first mesh request's pivots equal the single-device
+   engine's, the lane's execute p50/p99 beside its world's start. Leg 2:
+   ``JordanSolver(n=4096, block_size=128, workers=4, dtype=float64)``:
+   three inverts on one world (one start; the calls' walls), pivots equal
+   the single-device engine's, the ring residual on the ranks; then
+   ``gather=False`` with ``residual(a, handle)`` on the ranks. Leg 3:
+   ``--ckpt-demo`` (DIST_CKPT_DEMO_ROW, fp64, cadence 2, p = 4) through the
+   CLI and ``tools/check_ckpt.py`` (exit 0; every leg resumed and
+   bit-matched, the replica killed mid-sweep, ``kill_attempts``). Leg 4:
+   ``driver.solve(engine="augmented")`` at 4096²/m128 absdiff fp64 on p = 4
+   and (2, 2), and ``JordanSolver(engine="augmented")`` at 1000²/m50 rand
+   fp32 on p = 4 (``gj_probe.cu`` on the ranks), recorded: fp64 pivots
+   equal the single-device in-place engine's, residuals under the gate,
+   comm and work reconciled, each rank's launches its live steps (1D).
+   Leg 5: the native reader on the 4096² absdiff file (75.8 MB): parsed
+   single-device natively and by the Python tokenizer (bit-equal, both
+   timed), and streamed to the 4 ranks of leg 4's solver world (each rank
+   native, its strip bit-equal); a Python parse fails the phase.
+20. ``kernels``: every ported kernel with its launches on its path (the
    solve, tune, telemetry, resilience, serve, handles, fleet, lpqp,
-   autoscale, update_demo, distributed, dist_workloads, dist2d and
-   observatories rows, the last four counted by the ranks; the variants'
+   autoscale, update_demo, distributed, dist_workloads, dist2d,
+   observatories and dist_serve rows, the last five counted by the ranks; the variants'
    engine runs of ``reference``),
    the complex bodies of ``gj_probe.cu`` as ``gj_probe[c64]`` and
    ``gj_probe[c128]``; with
@@ -372,7 +396,8 @@ its solve leg on (2, 2) over nccl, and the CLI's ``4096 128 --workers
 inplace on p = 4 and on (2, 2)) over nccl, where the drift is judged
 ("auto"): each run's measured/projected comm ratio and achieved GB/s are
 printed, and a ``comm_drift`` event must exist exactly when the ratio is
-out of band.
+out of band; then the dist_serve phase's leg 2 at fp32 over nccl (three
+inverts on one world, the warm calls' walls).
 ``--phases knife_edge`` records that fp32 absdiff
 8192/m384 elimination through the grouped engine, with the kernel and with
 the plain probe: which side of the knife edge each lands on.
@@ -399,7 +424,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("toolchain", "kernel_vs_plain", "reference", "solve", "tune",
           "overlap", "telemetry", "resilience", "serve", "handles", "fleet",
           "lpqp", "autoscale", "update_demo", "distributed",
-          "dist_workloads", "dist2d", "observatories")
+          "dist_workloads", "dist2d", "observatories", "dist_serve")
 EXTRA_PHASES = ("knife_edge", "cluster_sweep", "batch_fp32", "nccl4")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
@@ -5605,6 +5630,403 @@ def phase_observatories(torch, counters, own_cards: bool = False):
     return totals
 
 
+# The persistent-world phase (dist_serve): mesh lanes, the distributed
+# JordanSolver, the checkpoint demo, the augmented engines, the native
+# reader.  Ranks share the card over gloo: not scaling figures.
+DIST_SERVE_ROW = (4096, 128, 64)
+DIST_SERVE_MESHES = (4, "2x2")
+DIST_SOLVER_ROW = (4096, 128, "rand", "float64", 4)
+DIST_CKPT_DEMO_ROW = (4096, 128)
+DIST_AUG_ROWS = ((4096, 128, "absdiff", "float64", 4),
+                 (4096, 128, "absdiff", "float64", (2, 2)),
+                 (1000, 50, "rand", "float32", 4))
+NATIVE_ROW = (4096, 128, 4)
+
+
+def _ref_pivots(torch, n: int, m: int, gen: str, dt: str, Nr: int):
+    """The single-device in-place engine's pivots on generator ``gen``'s
+    matrix, its padded tail's self-pivots appended to ``Nr`` steps."""
+    from tpu_jordan_torch.ops import block_jordan_invert_inplace, generate
+
+    a = generate(gen, (n, n), getattr(torch, dt), device="cuda")
+    _, sing, st = block_jordan_invert_inplace(a, block_size=m,
+                                              collect_stats=True)
+    piv = st["pivot_block"].tolist()
+    del a, st
+    torch.cuda.empty_cache()
+    return piv + list(range(len(piv), Nr)), bool(sing)
+
+
+def _dist_serve_lanes(torch, totals: dict, failures: list) -> None:
+    """Leg 1: serve_demo with one mesh lane (p4, then 2x2): the 4096
+    requests ride the lane (a mesh_admitted hop each), zero builds and
+    zero world starts after warmup, the mesh requests' worst rel_residual
+    under the solve gate (the single-device lanes' rand fp32 requests may
+    spike past it, as in the serve phase), the first mesh request's pivots
+    equal the single-device engine's; the lane's execute p50/p99 beside
+    its world's start."""
+    from tpu_jordan_torch.obs.recorder import RECORDER
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+    from tpu_jordan_torch.parallel.layout import CyclicLayout
+    from tpu_jordan_torch.resilience import (DEFAULT_POLICY,
+                                             solve_gate_threshold)
+    from tpu_jordan_torch.serve import serve_demo
+
+    n, m, requests = DIST_SERVE_ROW
+    ref, _ = _ref_pivots(torch, n, m, "rand", "float32",
+                         CyclicLayout.create(n, m, 4).Nr)
+    body = probe_mod.probe_body(m, torch.float32)
+    gate = solve_gate_threshold(DEFAULT_POLICY, n, torch.float32)
+    for w in DIST_SERVE_MESHES:
+        mark = RECORDER.total
+        t0 = time.perf_counter()
+        rep = serve_demo(n, m, requests=requests, workers=w,
+                         dtype=torch.float32, generator="rand")
+        wall = time.perf_counter() - t0
+        label = rep["mesh"]
+        hops = [e for e in RECORDER.since(mark) if e.get("kind") == "journey"
+                and e.get("event") == "mesh_admitted"]
+        lane = rep["mesh_world"][0]
+        big = sum(1 for i in range(requests)
+                  if rep["request_sizes"][i % len(rep["request_sizes"])] == n)
+        row = rep["stats"]["buckets"][f"{n}@{label}"]
+        for k, c in lane["launches"].items():
+            totals[k] = totals.get(k, 0) + c
+        checks = {
+            "mesh_admitted_each": (len(hops) == big == rep["mesh_requests"]
+                                   and all(e["mesh"] == label
+                                           for e in hops)),
+            "zero_builds_after_warmup": rep["compiles_on_request_path"] == 0,
+            "zero_world_starts_after_warmup": (
+                rep["world_starts_on_request_path"] == 0
+                and lane["starts"] == 1),
+            "mesh_worst_rel_under_gate": (
+                float(rep["mesh_worst_rel_residual"]) <= gate),
+            "pivots_equal_single": lane["first_request_pivots"] == ref,
+            "rank_launches": (lane["launches"].get(body, 0) > 0
+                              and sum(lane["launches"].values())
+                              == lane["launches"].get(body, 0)),
+            "not_singular": rep["singular"] == 0}
+        out = {"phase": "dist_serve", "leg": "serve", "mesh": label,
+               "n": n, "m": m, "requests": requests, "mesh_requests": big,
+               "checks": checks, "world_start_s": lane["start_s"],
+               "world_jobs": lane["jobs"], "execute_ms": row["execute_ms"],
+               "queue_ms": row["queue_ms"], "elapsed_s": rep["elapsed_s"],
+               "wall_s": wall, "worst_rel_residual": rep["worst_rel_residual"],
+               "mesh_worst_rel_residual": rep["mesh_worst_rel_residual"],
+               "gate": gate, "rank_launches": lane["launches"]}
+        emit(out)
+        if not all(checks.values()):
+            failures.append(out)
+
+
+def _dist_serve_solver(torch, totals: dict, failures: list,
+                       own_cards: bool) -> None:
+    """Leg 2: JordanSolver on one world: three inverts (one world start,
+    the calls' walls), pivots equal the single-device engine's, the ring
+    residual on the ranks under the gate; then gather=False with
+    residual(a, handle) on the ranks.  On four cards (nccl) fp32, the
+    gather=True leg alone."""
+    from tpu_jordan_torch.models import JordanSolver
+    from tpu_jordan_torch.ops import generate
+    from tpu_jordan_torch.parallel.world import world_starts
+    from tpu_jordan_torch.resilience import DEFAULT_POLICY, gate_threshold
+
+    n, m, gen, dt, p = DIST_SOLVER_ROW
+    if own_cards:
+        dt = "float32"
+    dtype = getattr(torch, dt)
+    mats = [generate(gen, (n, n), dtype, row_offset=i * n,
+                     col_offset=i * n, device="cuda") for i in range(3)]
+    ref, _ = _ref_pivots(torch, n, m, gen, dt, n // m)
+    starts = world_starts()
+    walls, res = [], []
+    with JordanSolver(n=n, block_size=m, workers=p, dtype=dtype) as s:
+        for i, a in enumerate(mats):
+            t0 = time.perf_counter()
+            inv, sing = s.invert(a)
+            walls.append(time.perf_counter() - t0)
+            if i == 0:
+                piv = s.ranks[0]["pivots"]
+            for r in s.ranks:
+                for k, c in r["launches"].items():
+                    totals[k] = totals.get(k, 0) + c
+            res.append(s.residual(a, inv) if not own_cards or i == 0
+                       else None)
+        one_world = s.world.starts == 1
+        start_s, backend = s.world.start_s, s.ranks[0]["backend"]
+    norm = float(mats[0].abs().sum(1).amax())
+    kappa = norm * float(inv.abs().sum(1).amax())
+    gate = gate_threshold(DEFAULT_POLICY, n, kappa, dtype)
+    # The gate on ‖A·X − I‖∞ / ‖A‖∞ (SolveResult.rel_residual).
+    checks = {"one_world_start": one_world and world_starts() - starts == 1,
+              "pivots_equal_single": piv == ref,
+              "residual_gate": all(r is None or r / norm <= gate
+                                   for r in res),
+              "not_singular": not bool(sing)}
+    out = {"phase": "nccl4" if own_cards else "dist_serve", "leg": "solver",
+           "n": n, "m": m, "dtype": dt, "ranks": p, "backend": backend,
+           "world_start_s": start_s, "invert_wall_s": walls,
+           "residual": res, "checks": checks}
+    del inv
+    if not own_cards:
+        t0 = time.perf_counter()
+        with JordanSolver(n=n, block_size=m, workers=p, dtype=dtype,
+                          gather=False) as s:
+            handle, sing = s.invert(mats[0])
+            for r in s.ranks:
+                for k, c in r["launches"].items():
+                    totals[k] = totals.get(k, 0) + c
+            r_blocks = s.residual(mats[0], handle)
+            checks["no_gather_pivots"] = s.ranks[0]["pivots"] == ref
+            checks["no_gather_residual_gate"] = r_blocks / norm <= gate
+        out["no_gather"] = {"residual": r_blocks,
+                            "wall_s": time.perf_counter() - t0}
+    emit(out)
+    if not all(checks.values()):
+        failures.append(out)
+
+
+def _dist_serve_ckpt(torch, failures: list) -> None:
+    """Leg 3: ``--ckpt-demo`` at DIST_CKPT_DEMO_ROW through the CLI (fp64,
+    cadence 2, p = 4), its report through tools/check_ckpt.py: every leg
+    resumed and bit-matched with zero resume compiles, the fleet leg's
+    replica killed mid-sweep."""
+    n, m = DIST_CKPT_DEMO_ROW
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_jordan_torch", str(n), str(m),
+         "--ckpt-demo", "--quiet"], cwd=ROOT, capture_output=True, text=True)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    rep = json.loads(lines[-1]) if proc.returncode == 0 and lines else None
+    checks = {"exit_0": proc.returncode == 0}
+    out = {"phase": "dist_serve", "leg": "ckpt_demo", "n": n, "m": m,
+           "wall_s": wall, "checks": checks}
+    if rep is not None:
+        try:
+            out["checker"] = check_tool("check_ckpt.py", stdin=lines[-1])
+            checks["checker_exit_0"] = True
+        except AssertionError as e:
+            checks["checker_exit_0"] = False
+            out["checker"] = str(e)[-400:]
+        legs = rep["legs"]
+        checks["every_leg_resumed_bit_match"] = all(
+            leg["resumed"] and leg["bit_match"]
+            and leg["resume_compiles"] == 0 for leg in legs.values())
+        kill = legs["fleet_kill"]
+        checks["killed_mid_sweep"] = bool(kill["killed_replicas"]) and (
+            0 < kill["resume_start_step"] < kill["Nr"])
+        out.update({
+            "legs": {k: {f: v.get(f) for f in (
+                "preempt_step", "resume_start_step", "resumed", "bit_match",
+                "resume_compiles", "kill_attempts", "killed_replicas")}
+                for k, v in legs.items()},
+            "kill_attempts": kill["kill_attempts"],
+            "ledger": rep["ledger"], "elapsed_s": rep["elapsed_s"]})
+    else:
+        out["stderr"] = proc.stderr[-1500:]
+    emit(out)
+    if not all(checks.values()):
+        failures.append(out)
+
+
+def _aug_checks(ranks, lay, w, body) -> dict:
+    """Each rank's probe launches its live steps (1D) or the steps of its
+    non-empty slices (2D)."""
+    if isinstance(w, tuple):
+        steps_ok = all(r["launches"].get(body, 0) == len(r["probe_steps"])
+                       for r in ranks) and sum(
+            len(r["probe_steps"]) for r in ranks) >= lay.Nr
+    else:
+        steps_ok = all(
+            r["probe_steps"] == _live_steps(lay.Nr, w, r["rank"], "inplace",
+                                            None)
+            and r["launches"].get(body, 0) == len(r["probe_steps"])
+            for r in ranks)
+    return {"probe_launches_live_steps": steps_ok}
+
+
+def _dist_serve_augmented(torch, totals: dict, failures: list,
+                          native_file) -> None:
+    """Leg 4: the augmented engines, recorded: ``driver.solve(engine=
+    "augmented")`` on p = 4 and (2, 2) at 4096²/m128 fp64, and
+    ``JordanSolver(engine="augmented", workers=4)`` at 1000²/m50 fp32
+    (gj_probe.cu on the ranks), whose world then streams the native
+    leg's file to its 4 ranks.  Pivots equal the single-device in-place
+    engine's in fp64 (fp32 ones may part at a near tie, ROADMAP.md Queue
+    C: the parting step is printed), the residual under the gate, comm
+    and work reconciled, each rank's launches its live steps (1D)."""
+    from tpu_jordan_torch.driver import solve
+    from tpu_jordan_torch.models import JordanSolver
+    from tpu_jordan_torch.obs import comm as _comm
+    from tpu_jordan_torch.ops import generate
+    from tpu_jordan_torch.ops import gj_probe as probe_mod
+    from tpu_jordan_torch.parallel.layout import CyclicLayout, CyclicLayout2D
+    from tpu_jordan_torch.parallel.scatter_stream import stream_strip_rank
+    from tpu_jordan_torch.resilience import DEFAULT_POLICY, gate_threshold
+
+    for n, m, gen, dt, w in DIST_AUG_ROWS:
+        dtype = getattr(torch, dt)
+        lay = (CyclicLayout2D.create(n, m, *w) if isinstance(w, tuple)
+               else CyclicLayout.create(n, m, w))
+        ref, _ = _ref_pivots(torch, n, m, gen, dt, lay.Nr)
+        body = probe_mod.probe_body(m, dtype)
+        t0 = time.perf_counter()
+        extra = {}
+        if dt == "float64":
+            with _comm.recording():
+                res = solve(n, m, generator=gen, workers=w,
+                            engine="augmented", dtype=dtype)
+            ranks, ms, comm, work = (res.ranks, res.elapsed * 1e3, res.comm,
+                                     res.work)
+            rel, kappa = res.rel_residual, res.kappa
+        else:
+            a = generate(gen, (n, n), dtype, device="cuda")
+            with JordanSolver(n=n, block_size=m, workers=w, dtype=dtype,
+                              engine="augmented") as s:
+                with _comm.recording():
+                    inv, _ = s.invert(a)
+                ranks, comm, work = s.ranks, s.comm, s.work
+                ms = max(r["elapsed"] for r in ranks) * 1e3
+                norm = float(a.abs().sum(1).amax())
+                kappa = norm * float(inv.abs().sum(1).amax())
+                rel = s.residual(a, inv) / norm
+                path, nn, mm, _ = native_file
+                t1 = time.perf_counter()
+                extra["stream"] = s.world.run(stream_strip_rank, path, nn, mm)
+                extra["stream_wall_s"] = time.perf_counter() - t1
+            del a, inv
+        wall = time.perf_counter() - t0
+        _add_launches(totals, ranks)
+        gate = gate_threshold(DEFAULT_POLICY, n, kappa, dtype)
+        checks = {"pivots_equal_single": (dt != "float64"
+                                          or ranks[0]["pivots"] == ref),
+                  "residual_gate": rel <= gate,
+                  "comm_reconciled": bool(comm.reconciled),
+                  "work_pin_in_band": bool(work.xla and work.xla["within"]),
+                  **_aug_checks(ranks, lay, w, body)}
+        out = {"phase": "dist_serve", "leg": "augmented", "n": n, "m": m,
+               "generator": gen, "dtype": dt, "workers": str(w),
+               "entry": "JordanSolver" if extra else "driver.solve",
+               "backend": ranks[0]["backend"], "checks": checks, "ms": ms,
+               "wall_s": wall, "rel_residual": rel, "gate": gate,
+               "pivots_part_at": _parting_step(ranks[0]["pivots"], ref),
+               "comm_bytes": comm.total_bytes(),
+               "comm_messages": comm.total_messages(), "kernel": body,
+               "launches": [r["launches"].get(body, 0) for r in ranks]}
+        emit(out)
+        if not all(checks.values()):
+            failures.append(out)
+        native_file[3].update(extra)
+
+
+def _dist_serve_native_file(torch, tmp: str):
+    """The native leg's file: the 4096² absdiff matrix written by the
+    native writer (the dist_workloads file's format, %.17g), parsed
+    single-device by the native reader and by the Python tokenizer (both
+    timed).  Returns [path, n, m, record]; the augmented leg streams it to
+    4 ranks into the record."""
+    from tpu_jordan_torch import io as tio
+    from tpu_jordan_torch import native
+    from tpu_jordan_torch.ops import generate
+
+    n, m, _ = NATIVE_ROW
+    path = os.path.join(tmp, f"absdiff{n}.txt")
+    t0 = time.perf_counter()
+    native.write_matrix_text(path, generate("absdiff", (n, n),
+                                            torch.float64).numpy())
+    rec = {"write_s": time.perf_counter() - t0,
+           "file_bytes": os.path.getsize(path)}
+    tio.reset_strip_peak()
+    t0 = time.perf_counter()
+    rec["full"] = tio.read_matrix_file(path, n)
+    rec["native_parse_s"] = time.perf_counter() - t0
+    rec["parser"] = tio.parser_in_use()
+    t0 = time.perf_counter()
+    py = tio._read_tokens_python(path, n).reshape(n, n)
+    rec["python_parse_s"] = time.perf_counter() - t0
+    rec["bit_equal_python"] = bool((rec["full"] == py).all())
+    return [path, n, m, rec]
+
+
+def _dist_serve_native(torch, native_file, failures: list) -> None:
+    """Leg 5: the native reader's checks: the single-device parse native
+    and bit-equal to the Python tokenizer's; each of the 4 ranks (the
+    augmented solver's world) streamed its strip with the native reader,
+    bit-equal to the single-device parse's strip."""
+    import hashlib
+
+    from tpu_jordan_torch.parallel.dist_solve import split_strips
+    from tpu_jordan_torch.parallel.layout import CyclicLayout
+
+    path, n, m, rec = native_file
+    ranks = rec.get("stream", [])
+    lay = CyclicLayout.create(n, m, NATIVE_ROW[2])
+    want = [hashlib.sha256(x.contiguous().numpy().tobytes()).hexdigest()
+            for x in split_strips(torch.from_numpy(rec["full"]), lay)]
+    checks = {"parser_native": rec["parser"] == "native",
+              "bit_equal_python": rec["bit_equal_python"],
+              "ranks_native": bool(ranks) and all(r["parser"] == "native"
+                                                  for r in ranks),
+              "rank_strips_bit_equal": [r["sha256"] for r in ranks] == want,
+              "strip_rows_le_m": bool(ranks) and all(
+                  0 < r["strip_rows_max"] <= m for r in ranks)}
+    out = {"phase": "dist_serve", "leg": "native", "n": n,
+           "file_bytes": rec["file_bytes"], "write_s": rec["write_s"],
+           "native_parse_s": rec["native_parse_s"],
+           "python_parse_s": rec["python_parse_s"],
+           "rank_stream_s": [r["seconds"] for r in ranks],
+           "stream_job_wall_s": rec.get("stream_wall_s"), "checks": checks}
+    emit(out)
+    if not all(checks.values()):
+        failures.append(out)
+
+
+def phase_dist_serve(torch, counters, own_cards: bool = False):
+    """The persistent world of ranks (the module docstring's phase 19):
+    mesh lanes, the distributed JordanSolver, the checkpoint demo, the
+    augmented engines, the native reader; with ``own_cards`` (nccl4) leg 2
+    at fp32 over nccl.  Every count is set to 0 before the phase and read
+    after; the ranks' own launches are added.  Returns the launches
+    summed."""
+    for mod in counters.values():
+        mod.reset_launches()
+    totals = dict.fromkeys(counters, 0)
+    failures = []
+    legs = {}
+    t0 = time.perf_counter()
+    if not own_cards:
+        _dist_serve_lanes(torch, totals, failures)
+        legs["serve"] = time.perf_counter() - t0
+    _dist_serve_solver(torch, totals, failures, own_cards)
+    legs["solver"] = time.perf_counter() - t0 - sum(legs.values())
+    if not own_cards:
+        import shutil
+        import tempfile
+
+        _dist_serve_ckpt(torch, failures)
+        legs["ckpt_demo"] = time.perf_counter() - t0 - sum(legs.values())
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_native_")
+        try:
+            native_file = _dist_serve_native_file(torch, tmp)
+            legs["native_file"] = (time.perf_counter() - t0
+                                   - sum(legs.values()))
+            _dist_serve_augmented(torch, totals, failures, native_file)
+            legs["augmented"] = (time.perf_counter() - t0
+                                 - sum(legs.values()))
+            _dist_serve_native(torch, native_file, failures)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    for k in totals:
+        totals[k] += counters[k].launches
+    emit({"phase": "nccl4" if own_cards else "dist_serve", "legs_s": legs,
+          "launches": totals})
+    if failures:
+        raise AssertionError(f"dist_serve failed its checks: {failures}")
+    return totals
+
+
 def phase_overlap(torch):
     """profile_solve's device-time split of the OVERLAP_ROWS rows: the
     probe, GEMM and other ms, the idle share and the overlap (the kernels'
@@ -5934,7 +6356,8 @@ def main(argv=None) -> int:
                         ("distributed", phase_distributed),
                         ("dist_workloads", phase_dist_workloads),
                         ("dist2d", phase_dist2d),
-                        ("observatories", phase_observatories)):
+                        ("observatories", phase_observatories),
+                        ("dist_serve", phase_dist_serve)):
         if name in phases:
             by_phase[name] = phase(torch, launch_counters())
             for kernel, count in by_phase[name].items():
@@ -5943,7 +6366,7 @@ def main(argv=None) -> int:
     if "nccl4" in phases:
         by_phase["nccl4"] = phase_distributed(torch, launch_counters(),
                                               own_cards=True)
-        for phase in (phase_dist2d, phase_observatories):
+        for phase in (phase_dist2d, phase_observatories, phase_dist_serve):
             for kernel, count in phase(torch, launch_counters(),
                                        own_cards=True).items():
                 by_phase["nccl4"][kernel] = (

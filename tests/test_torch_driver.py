@@ -271,11 +271,15 @@ def test_no_gpu_raises_instead_of_running_on_cpu(monkeypatch):
     assert tmain(["8", "4"]) == 2
 
 
+# The first two cases were the augmented engine's refusals at p > 1 and on
+# a mesh; that engine runs there now, so they keep their ids and run
+# (exit 0, a small residual).
+DISTRIBUTED_AUGMENTED = ({"workers": 2, "engine": "augmented"},
+                         {"workers": (2, 4), "engine": "augmented"})
+
+
 @pytest.mark.parametrize("kwargs", [
-    {"workers": 2, "engine": "augmented"},
-    # A (2, 4) mesh runs now (item 15c); it keeps the augmented engine's
-    # refusal (item 15d), raised before any rank starts.
-    {"workers": (2, 4), "engine": "augmented"},
+    *DISTRIBUTED_AUGMENTED,
     {"gather": False},
     {"numerics": "trace", "engine": "augmented"},
     {"policy": object()},
@@ -289,6 +293,11 @@ def test_no_gpu_raises_instead_of_running_on_cpu(monkeypatch):
     {"dtype": "complex64", "engine": "inplace"},
 ])
 def test_later_slice_options_are_refused(kwargs):
+    if kwargs in DISTRIBUTED_AUGMENTED:
+        res = tdriver.solve(8, 4, generator="rand", device="cpu",
+                            dtype="float64", **kwargs)
+        assert res.engine == "augmented" and res.residual < 1e-10
+        return
     with pytest.raises(UsageError):
         tdriver.solve(8, 4, device="cpu", **kwargs)
 

@@ -866,26 +866,31 @@ def test_cli_misapplied_fleet_flags_exit_1_in_both(argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    # The first four ids are kept from when these cases were item 14d's
-    # refusals; item 14d is ported, so they now hold items 15a-15d.  The
-    # 2D mesh is ported too (item 15c): argv3 holds the mesh's refusal
-    # that remains (the augmented engine, 15d).  The comm observatory is
-    # ported too (item 15e): argv4 is now its demo's refusal of --workers,
-    # in the JAX CLI's words.  Both are refused before any rank starts.
+    # The ids are kept from when these cases were later Queue A items'
+    # refusals.  Queue A is ported: argv0, argv1 and argv5 are now the
+    # single-device demos' refusals of the distributed flags, argv4 the
+    # comm demo's, each in the JAX CLI's words; argv2 and argv3 (the
+    # augmented engine on 2 ranks and on a 2x2 mesh) run (item None:
+    # exit 0).
     pytest.param(["64", "8", "--autoscale-demo", "--workers", "2"],
-                 "item 15a", id="argv0-item 14d"),
-    pytest.param(["64", "8", "--update-demo", "--no-gather"], "item 15a",
-                 id="argv1-item 14d"),
+                 "runs on a single device", id="argv0-item 14d"),
+    pytest.param(["64", "8", "--update-demo", "--no-gather"],
+                 "runs on a single device", id="argv1-item 14d"),
     pytest.param(["64", "8", "--workers", "2", "--engine", "augmented"],
-                 "item 15d", id="argv2-item 14d"),
+                 None, id="argv2-item 14d"),
     pytest.param(["64", "8", "--workers", "2x2", "--engine", "augmented"],
-                 "item 15d", id="argv3-item 14d"),
+                 None, id="argv3-item 14d"),
     pytest.param(["64", "8", "--workers", "2x4", "--comm-demo"],
                  "--workers and --no-gather do not apply",
                  id="argv4-item 15"),
-    (["96", "32", "--fleet-demo", "--workers", "8"], "item 15"),
+    pytest.param(["96", "32", "--fleet-demo", "--workers", "8"],
+                 "--fleet-demo runs on a single device", id="argv5-item 15"),
 ])
 def test_cli_later_items_refused_typed(argv, item, capsys):
+    if item is None:
+        assert tmain(argv + ["--device", CPU]) == 0
+        assert "residual" in capsys.readouterr().out
+        return
     assert tmain(argv + ["--device", CPU]) == 1
     assert item in capsys.readouterr().err
 

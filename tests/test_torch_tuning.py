@@ -717,9 +717,11 @@ def test_measure_config_refusals():
     with pytest.raises(UsageError) as e:
         ttuner.measure_config(upd, tregistry.get("smw_update"))
     assert str(e.value) == ref
+    # The augmented engine at p > 1 was refused here; it is measured now,
+    # as in the JAX package.
     dist = tregistry.TunePoint(64, 8, "float32", workers=8, backend="cpu")
-    with pytest.raises(UsageError, match="item 15"):
-        ttuner.measure_config(dist, tregistry.get("augmented"))
+    meas = ttuner.measure_config(dist, tregistry.get("augmented"))
+    assert meas.seconds > 0
     from tpu_jordan_torch.obs import Telemetry
 
     tel = Telemetry()

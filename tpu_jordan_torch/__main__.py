@@ -75,8 +75,13 @@ single-device, exit 1).  ``--distributed`` joins a world launched outside
 as one of its ranks instead of spawning (the invert path).  ``--workers
 PRxPC`` runs the same engines on a (pr, pc) mesh of the 2D block-cyclic
 layout (pr·pc ranks; each holds an (N/pr)×(N/pc) shard), with a file,
-``--no-gather``, ``--tune`` and ``--workload solve`` alike.  ``--engine
-augmented`` on p ranks or a mesh (item 15d) exits 1.  ``--comm-demo`` and
+``--no-gather``, ``--tune`` and ``--workload solve`` alike; ``--engine
+augmented`` runs the pre-shard_map reference-parity engines there.
+``--serve-demo --workers W|PRxPC`` serves the largest size through a mesh
+lane on a persistent world of ranks.  ``--ckpt-demo`` runs the
+preemption-safety demo's four legs over one checkpoint store (``--ckpt-dir
+PATH`` keeps it) and prints one JSON line for ``tools/check_ckpt.py``
+(exit 2 on silent checkpoint loss).  ``--comm-demo`` and
 ``--work-demo`` run the communication and work observatories' acceptance
 legs in one world of 4 ranks and print one JSON line each for
 ``tools/check_comm.py`` and ``tools/check_work.py`` (exit 2 on an
@@ -375,6 +380,28 @@ def _parser() -> argparse.ArgumentParser:
                          "fleet-skew legs; prints ONE JSON line (exit 2 = "
                          "unaccounted work or an unsupported straggler "
                          "verdict; tools/check_work.py validates)")
+    ap.add_argument("--ckpt-demo", action="store_true",
+                    help="run the preemption-safety acceptance demo "
+                         "(resilience/ckpt_demo.ckpt_demo): four legs over "
+                         "one checkpoint store — a single-device invert "
+                         "and a 1D solve on 4 ranks each preempted "
+                         "mid-sweep by the seeded preempt fault and "
+                         "resumed from the last durable superstep, a "
+                         "resumable LP stream replayed to its identical "
+                         "kkt fingerprint trail, and a fleet leg whose "
+                         "serving replica is KILLED mid-sweep (the router "
+                         "re-queues with a ckpt_resume hop) — every resume "
+                         "must bit-match the uninterrupted run with zero "
+                         "segment compiles and the store ledger must add "
+                         "up; prints ONE JSON line (exit 2 = silent loss; "
+                         "tools/check_ckpt.py validates).  n is the "
+                         "problem size, m the block size; --chaos-seed "
+                         "seeds fixtures and the preempt schedule")
+    ap.add_argument("--ckpt-dir", default=None, metavar="PATH",
+                    help="--ckpt-demo: directory for the checkpoint store "
+                         "(default: a temp dir deleted after); pass a path "
+                         "to inspect the checkpoint files and ledger.json "
+                         "afterwards")
     ap.add_argument("--comm-report", default=None, metavar="PATH",
                     help="write the process-wide communication snapshot "
                          "(the last distributed solve's collective "
@@ -559,16 +586,29 @@ def _main(argv, state) -> int:
         resolve_precision(args.precision, args.refine)
         if args.quiet and args.verbose:
             raise UsageError("--quiet and --verbose contradict each other")
+        if args.ckpt_dir is not None and not args.ckpt_demo:
+            raise UsageError("--ckpt-dir applies to --ckpt-demo (the "
+                             "preemption-safety acceptance run's "
+                             "checkpoint store location)")
+        if args.ckpt_demo:
+            return _ckpt_demo(args)
         if args.comm_demo or args.work_demo:
             return _observatory_demo(args)
         demo = next((f"--{name.replace('_', '-')}" for name in _DEMOS
                      if getattr(args, name)), None)
-        if demo is not None and (args.workers != 1 or not args.gather
-                                 or args.distributed):
+        if args.serve_demo and (args.file is not None or not args.gather
+                                or args.distributed):
             raise UsageError(
-                f"{demo} runs single-device services; --workers, "
-                f"--no-gather and --distributed are the distributed invert "
-                f"path (ROADMAP.md Queue A item 15a) and do not apply")
+                "--serve-demo requires generator input (gathered "
+                "output); --workers W serves the LARGEST size through a "
+                "W-device mesh lane")
+        if (demo is not None and not args.serve_demo
+                and (args.workers != 1 or not args.gather
+                     or args.distributed)):
+            raise UsageError(
+                f"{demo} runs on a single device (gathered output, "
+                f"deterministic seeded fixtures); --workers, --no-gather "
+                f"and --distributed do not apply")
         if not args.update_demo and (args.rank != 32 or args.updates != 8):
             raise UsageError("--rank/--updates apply to --update-demo (the "
                              "resident-inverse update run)")
@@ -692,6 +732,70 @@ def _print_numerics(result) -> None:
     steps = (f", {len(rep.pivot_block)} supersteps traced"
              if rep.pivot_block is not None else "")
     print(f"numerics: {rep.mode}{steps}, {len(rep.spikes)} spikes")
+
+
+def _ckpt_demo(args) -> int:
+    """``--ckpt-demo``: one JSON line; exit 2 on silent checkpoint loss.
+    The JAX CLI's flag contract."""
+    import json
+
+    if (any(getattr(args, name) for name in _DEMOS) or args.comm_demo
+            or args.work_demo):
+        raise UsageError("--ckpt-demo, --lp-demo, --work-demo, "
+                         "--comm-demo, --capacity-demo, --update-demo, "
+                         "--fleet-demo, --chaos-demo, --serve-demo and "
+                         "--numerics-demo are distinct modes; pick one")
+    if (args.file is not None or args.workers != 1 or not args.gather
+            or args.distributed):
+        raise UsageError(
+            "--ckpt-demo builds its own world of 4 ranks and fleet; file "
+            "input, --workers and --no-gather do not apply")
+    if args.batch > 1 or args.tune or args.group != 0:
+        raise UsageError("--ckpt-demo takes no --batch/--tune/--group")
+    if args.engine != "auto" or args.refine:
+        raise UsageError("--ckpt-demo runs a fixed engine-leg set (fori "
+                         "single-device and 1D sharded); --engine/--refine "
+                         "do not apply")
+    if args.workload != "invert":
+        raise UsageError("--ckpt-demo checkpoints both workloads on its "
+                         "own legs; --workload does not apply")
+    if args.numerics != "off":
+        raise UsageError("--ckpt-demo's bit-match semantics are pinned; "
+                         "--numerics does not apply")
+    if args.slo_report or args.plan_cache is not None:
+        raise UsageError("--slo-report/--plan-cache do not apply to "
+                         "--ckpt-demo")
+    if (args.serve_requests != 64 or args.batch_cap != 8
+            or args.max_wait_ms != 2.0):
+        raise UsageError("--ckpt-demo runs checkpointed sweeps, not the "
+                         "batched service; --serve-requests/--batch-cap/"
+                         "--max-wait-ms do not apply")
+    if (args.replicas != 3 or args.kills != 2
+            or args.scaling_floor is not None):
+        raise UsageError("--replicas/--kills/--scaling-floor are "
+                         "--fleet-demo/--update-demo flags; --ckpt-demo's "
+                         "kill leg is fixed at one kill on a 2-replica "
+                         "fleet")
+    if args.dtype.startswith("complex"):
+        raise UsageError("--ckpt-demo checkpoints the DISTRIBUTED engines "
+                         "and complex dtypes run single-device; use a real "
+                         "dtype")
+    from .resilience.ckpt_demo import ckpt_demo
+
+    report = ckpt_demo(n=args.n, block_size=args.m, seed=args.chaos_seed,
+                       ckpt_dir=args.ckpt_dir, device=args.device)
+    if args.quiet:
+        report["blackbox"]["events"] = [
+            e for e in report["blackbox"]["events"]
+            if str(e.get("kind", "")).startswith(
+                ("ckpt_", "fault_", "replica_"))]
+    print(json.dumps(report))
+    if report["silent_loss"]:
+        print(f"silent checkpoint loss: legs="
+              f"{ {k: v['bit_match'] for k, v in report['legs'].items()} }, "
+              f"ledger={report['ledger']}", file=sys.stderr)
+        return 2
+    return 0
 
 
 def _observatory_demo(args) -> int:
@@ -1138,7 +1242,7 @@ def _serve_demo(args, telemetry) -> int:
         raise UsageError("--serve-demo resolves engines through the "
                          "cost-only ladder (optionally a --plan-cache); "
                          "--tune does not apply")
-    if args.group != 0:
+    if args.group != 0 or args.engine == "swapfree":
         raise UsageError("--serve-demo engines are single-device "
                          "(auto/inplace/grouped/augmented); --group does "
                          "not apply")
@@ -1151,7 +1255,8 @@ def _serve_demo(args, telemetry) -> int:
                         max_wait_ms=args.max_wait_ms, engine=args.engine,
                         plan_cache=args.plan_cache, dtype=args.dtype,
                         generator=args.generator, telemetry=telemetry,
-                        numerics=args.numerics, device=args.device)
+                        numerics=args.numerics, device=args.device,
+                        workers=args.workers)
     if args.quiet:
         report.pop("stats", None)
     print(json.dumps(report))

@@ -110,3 +110,43 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+#: The host C++ source of the native matrix reader (``native.py``),
+#: compiled as it stands.
+NATIVE_SRC = Path(__file__).resolve().parent.parent / "native" / "matrix_io.cpp"
+GXX_FLAGS = ("-O3", "-shared", "-fPIC")
+
+
+def native_library_path() -> Path:
+    """Where the native reader's library lives once built (its name
+    carries a hash of the source and flags)."""
+    src = NATIVE_SRC.read_bytes()
+    digest = hashlib.sha256(src + " ".join(GXX_FLAGS).encode()).hexdigest()
+    return BUILD / f"libmatrix_io-{digest[:16]}.so"
+
+
+def build_native() -> Path:
+    """Compile ``native/matrix_io.cpp`` with the host's ``g++`` into
+    ``build/`` unless it is built; returns the library's path.  Raises
+    KernelCompileError when the source or ``g++`` is missing or the build
+    fails."""
+    if not NATIVE_SRC.exists():
+        raise KernelCompileError(f"{NATIVE_SRC} not found")
+    out = native_library_path()
+    if out.exists():
+        return out
+    gxx = shutil.which("g++") or shutil.which("c++")
+    if gxx is None:
+        raise KernelCompileError("g++ not found; the native matrix reader "
+                                 "is built at first use")
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(NATIVE_SRC)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelCompileError(f"g++ exited {proc.returncode}\n"
+                                 f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out

@@ -311,35 +311,20 @@ def refuse_tune_for_explicit_engine(engine: str, tune, plan_cache):
                          "(an explicit engine leaves nothing to tune)")
 
 
-def refuse_later_options(workers, gather, policy, dtype, *, engine=None,
-                         workers_item: str | None = None):
-    """Options of the JAX package's entries that later slices bring: each
-    is refused with the Queue A item that brings it, never silently
-    ignored.  On ``driver.solve`` and ``linalg.solve_system``
-    (``workers_item`` None) that is the augmented engine on p ranks or a
-    (pr, pc) mesh (15d); complex dtypes stay single-device, as in the JAX
-    package.  An entry whose distributed form is a later item names it in
-    ``workers_item`` (``JordanSolver``: 15d)."""
+def check_entry_options(workers, gather, policy, dtype):
+    """The option checks the JAX package's entries share: complex dtypes
+    run single-device, ``gather=False`` needs a distributed path, a
+    policy is a ``ResiliencePolicy``."""
     distributed = isinstance(workers, tuple) or workers != 1
     if distributed and dtype is not None and resolve_dtype(dtype).is_complex:
         raise UsageError("complex dtypes run single-device (the distributed "
                          "scatter/collective paths are real-dtype, as in the "
                          "JAX package; ROADMAP.md Queue A item 15 ports no "
                          "complex path); workers must be 1")
-    if distributed and workers_item is not None:
-        raise UsageError(f"workers > 1 on this entry is not ported yet "
-                         f"(ROADMAP.md Queue A item {workers_item})")
-    if distributed and engine == "augmented":
-        raise UsageError("engine='augmented' at workers > 1 or on a "
-                         "(pr, pc) mesh is the pre-shard_map "
-                         "reference-parity engine (sharded_jordan.py, "
-                         "jordan2d.py), not ported yet (ROADMAP.md Queue A "
-                         "item 15d); use inplace, lookahead, grouped or "
-                         "swapfree")
     if not gather and not distributed:
         raise UsageError("gather=False is only supported on distributed "
                          "paths (workers > 1; ROADMAP.md Queue A item "
-                         f"{workers_item or '15a'})")
+                         "15a)")
     if policy is not None and not isinstance(policy, ResiliencePolicy):
         raise UsageError("policy must be a tpu_jordan_torch.resilience."
                          "ResiliencePolicy")
@@ -484,7 +469,7 @@ def solve(
     engine).  Raises SingularMatrixError like the reference's -2 path
     (main.cpp:435-437); file errors propagate from read_matrix_file.
     """
-    refuse_later_options(workers, gather, policy, dtype, engine=engine)
+    check_entry_options(workers, gather, policy, dtype)
     dev = resolve_device(device)
     if workers != 1:
         tel = telemetry if telemetry is not None else _NULL_TEL
@@ -605,9 +590,9 @@ def _solve_distributed(n, block_size, generator, *, file, dtype, refine,
             f"engine={engine!r} is a single-device fused-kernel engine (the "
             "fused update kernel has no sharded variant); use "
             "engine='grouped' on distributed meshes")
-    refuse_later_options(mesh or p, gather, None, dtype, engine=engine)
+    check_entry_options(mesh or p, gather, None, dtype)
     m = min(block_size, n)
-    if mesh is not None:
+    if mesh is not None and engine != "augmented":
         from .parallel.jordan2d_inplace import check_engine_2d
         from .parallel.layout import CyclicLayout2D
 

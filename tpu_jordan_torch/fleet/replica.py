@@ -166,8 +166,10 @@ class Replica:
         surfaces :class:`ReplicaKilledError` at the next segment boundary,
         after that boundary's checkpoint is durable; the router re-queues
         and the next replica resumes from the store.  ``ckpt`` is the spec
-        dict: ``store``, ``run_id``, ``cadence`` and optionally ``engine``
-        and ``block_size`` (``mesh`` is item 15d's)."""
+        dict: ``store``, ``run_id``, ``cadence`` and optionally ``engine``,
+        ``block_size`` and ``mesh`` (p ranks or a (pr, pc) mesh: the
+        sweep runs in a world of ranks, and the kill reaches it at the
+        next durable boundary inside the world)."""
         self._admit(ctx)
         from concurrent.futures import Future
 

@@ -51,7 +51,7 @@ from dataclasses import dataclass
 import torch
 
 from ..config import default_block_size
-from ..driver import refuse_later_options, refuse_tune_for_explicit_engine
+from ..driver import check_entry_options, refuse_tune_for_explicit_engine
 from ..errors import SingularMatrixError, UsageError
 from ..interop import from_numpy, resolve_device, resolve_dtype
 from ..obs import hwcost as _hwcost
@@ -265,9 +265,9 @@ def solve_system(
     device.  Counterpart of the JAX package's ``solve_system``."""
     from ..obs.numerics import resolve_mode
 
-    refuse_later_options(workers, gather, policy,
-                         dtype if dtype is not None else getattr(a, "dtype",
-                                                                 None))
+    check_entry_options(workers, gather, policy,
+                        dtype if dtype is not None else getattr(a, "dtype",
+                                                                None))
     if isinstance(workers, tuple):
         from ..parallel.group import check_mesh
 
@@ -455,56 +455,37 @@ def _solve_system_dist_impl(a, b2, n, k, m, dtype, workers, gather, engine,
 
     from ..driver import WORLD_DEADLINE_S, observatories
     from ..obs.comm import recording_active
-    from ..ops.padding import pad_with_identity
-    from ..parallel.dist_solve import (DistSolveSpec, share_outcomes,
-                                       solve_system_rank)
+    from ..parallel.dist_solve import (DistSolveSpec, join_rhs,
+                                       share_outcomes, solve_system_rank,
+                                       split_rhs, split_strips)
     from ..parallel.launch import run_workers
     from ..parallel.layout import CyclicLayout
-    from ..parallel.sharded_inplace import (compile_sharded_jordan_solve,
-                                            gather_solution_1d,
-                                            scatter_rhs_1d)
 
     work = torch.float32 if dtype.itemsize < 4 else dtype
     lookahead = engine == "solve_lookahead"
     mesh = workers if isinstance(workers, tuple) else None
+    # The JAX compile's refusal (solve_lookahead is unrolled-only), before
+    # any rank starts.
     if mesh is None:
+        from ..parallel.sharded_inplace import compile_sharded_jordan_solve
+
         p = workers
         lay = CyclicLayout.create(n, m, p)
-        # The JAX compile's refusal (solve_lookahead is unrolled-only),
-        # before any rank starts.
         compile_sharded_jordan_solve(lay, lookahead=lookahead)
-
-        def rhs_rows(rhs, r):
-            return scatter_rhs_1d(rhs, lay, r)
-
-        def gather_x(blocks):
-            return gather_solution_1d(blocks, lay, n)
     else:
-        from ..parallel.jordan2d import _own_blocks
-        from ..parallel.jordan2d_inplace import (
-            compile_sharded_jordan_solve_2d, gather_solution_2d,
-            scatter_rhs_2d)
+        from ..parallel.jordan2d_inplace import \
+            compile_sharded_jordan_solve_2d
         from ..parallel.layout import CyclicLayout2D
 
         p = mesh[0] * mesh[1]
         lay = CyclicLayout2D.create(n, m, *mesh)
         compile_sharded_jordan_solve_2d(lay, lookahead=lookahead)
 
-        def rhs_rows(rhs, r):
-            return scatter_rhs_2d(rhs, lay, r // mesh[1])
+    def gather_x(blocks):
+        return join_rhs(blocks, lay, n)
 
-        def gather_x(blocks):
-            return gather_solution_2d(blocks, lay, n)
     with tel.span("scatter"):
-        ap = pad_with_identity(a.to(work).cpu(), lay.N)
-        if mesh is None:
-            ap = ap.reshape(lay.Nr, lay.m, lay.N)
-            a_strips = [ap[r::p].contiguous().numpy() for r in range(p)]
-        else:
-            ap = ap.reshape(lay.Nr, lay.m, lay.Nr, lay.m)
-            a_strips = [_own_blocks(ap, lay, *divmod(r, mesh[1])).numpy()
-                        for r in range(p)]
-        del ap
+        a_strips = [s.numpy() for s in split_strips(a.to(work).cpu(), lay)]
 
     def ready():
         # The compile analogue (resilience/faults.py): the world's spec.
@@ -528,12 +509,12 @@ def _solve_system_dist_impl(a, b2, n, k, m, dtype, workers, gather, engine,
                     f"workers={workers} but this process's world has "
                     f"{grp.world_size} ranks")
             out = solve_system_rank(grp, spec, a_strips[grp.rank],
-                                    rhs_rows(rhs, grp.rank).numpy())
+                                    split_rhs(rhs, lay)[grp.rank].numpy())
             return share_outcomes(out, drop=())
         return run_workers(
             p, solve_system_rank, spec,
-            per_rank=[(a_strips[r], rhs_rows(rhs, r).numpy())
-                      for r in range(p)],
+            per_rank=[(a_strips[r], x.numpy())
+                      for r, x in enumerate(split_rhs(rhs, lay))],
             deadline_s=WORLD_DEADLINE_S, device_type=dev.type)
 
     def assemble(results):
@@ -606,8 +587,7 @@ def _solve_system_dist_impl(a, b2, n, k, m, dtype, workers, gather, engine,
         if recovery and not gather:
             # A rung replaced X: cut the recovered solution into the
             # ranks' rows again, never hand out the pre-recovery blocks.
-            xh = x.cpu()
-            xb = [rhs_rows(xh, r) for r in range(p)]
+            xb = split_rhs(x.cpu(), lay)
     residual, norm_a, norm_x, norm_b = stats
     if verbose:
         print(f"glob_time: {elapsed:.2f}")
@@ -673,9 +653,9 @@ def lstsq(
     solve, whose plan is on ``result.plan``; ``telemetry`` and
     ``numerics`` too (its span tree and report are ``result.inner``'s).
     Counterpart of the JAX package's ``lstsq``."""
-    refuse_later_options(1, True, policy,
-                         dtype if dtype is not None else getattr(a, "dtype",
-                                                                 None))
+    check_entry_options(1, True, policy,
+                        dtype if dtype is not None else getattr(a, "dtype",
+                                                                None))
     dev = resolve_device(device)
     a = from_numpy(a, dev, None if dtype is None else resolve_dtype(dtype))
     if a.dim() != 2:

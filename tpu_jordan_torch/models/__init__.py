@@ -1,5 +1,5 @@
 """The configured inversion pipeline (``JordanSolver``)."""
 
-from .jordan_solver import JordanSolver
+from .jordan_solver import DistributedInverse, JordanSolver
 
-__all__ = ["JordanSolver"]
+__all__ = ["DistributedInverse", "JordanSolver"]

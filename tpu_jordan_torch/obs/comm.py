@@ -303,11 +303,14 @@ def _rank_1d(b: _Builder, lay, dt: str, engine: str, group: int, pivots,
                 if pivots[t] != t:
                     b.add("row_exchange", "broadcast", ax, (m, w), dt)
         return
-    for t in range(Nr):                         # inplace, lookahead
+    # inplace, lookahead; augmented on its (m, 2N) rows of [A | I]
+    # (parallel/sharded_jordan.py).
+    width = 2 * N if engine == "augmented" else N
+    for t in range(Nr):
         reduce()
-        b.add("row_bcast", "broadcast", ax, (m, N + m), dt)
+        b.add("row_bcast", "broadcast", ax, (m, width + m), dt)
         if pivots[t] != t:
-            b.add("row_exchange", "broadcast", ax, (m, N), dt)
+            b.add("row_exchange", "broadcast", ax, (m, width), dt)
 
 
 def _rank_2d(b: _Builder, lay, dt: str, engine: str, group: int, pivots,
@@ -366,6 +369,12 @@ def _rank_2d(b: _Builder, lay, dt: str, engine: str, group: int, pivots,
                       (2 * m, Wc + kg * m + m), dt)
         unscramble(pivots)
         return
+    if engine == "augmented":                   # parallel/jordan2d.py
+        for t in range(Nr):
+            head(t)
+            b.add("row_bcast", "broadcast", col, (m, 2 * Wc), dt)
+            swap(t, 2 * Wc)
+        return
     for t in range(Nr):                         # inplace, lookahead
         head(t)
         b.add("row_bcast", "broadcast", col, (m, Wc), dt)
@@ -421,11 +430,10 @@ def _rank_timing(b: _Builder, lay) -> None:
 
 
 #: Engines with a registered collective inventory: :func:`engine_report`
-#: refuses any other name (the augmented engine at p > 1 is ROADMAP.md
-#: Queue A item 15d, and its inventory comes with it).
+#: refuses any other name.
 INVENTORY_ENGINES = frozenset(
-    {"inplace", "grouped", "swapfree", "solve_sharded", "lookahead",
-     "solve_lookahead"})
+    {"inplace", "grouped", "swapfree", "augmented", "solve_sharded",
+     "lookahead", "solve_lookahead"})
 
 
 def rank_inventory(rank: int, *, engine: str, lay, dtype: str, pivots,
@@ -469,8 +477,7 @@ def engine_report(*, engine: str, lay, dtype, pivots, pinned=(),
         raise ValueError(
             f"no collective inventory registered for engine {engine!r} "
             f"(obs/comm.INVENTORY_ENGINES); a distributed engine ships "
-            f"WITH its analytical accounting (engine='augmented' at "
-            f"workers > 1 is ROADMAP.md Queue A item 15d)")
+            f"WITH its analytical accounting")
     if len(pivots) != lay.Nr:
         raise ValueError(f"the pivot record has {len(pivots)} steps; the "
                          f"layout has Nr={lay.Nr}")

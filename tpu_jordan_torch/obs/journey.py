@@ -34,9 +34,9 @@ its life appends a timestamped journey event:
   ==================  =================================================
 
 The fleet's hops (``route``, ``shed``, ``requeue``, ``fault``) are written
-by ``fleet/router.py``; the mesh lanes' ``mesh_admitted`` comes with them
-(ROADMAP.md Queue A item 15d).  :data:`EXPLANATORY_HOPS` names the fleet's,
-as the checker's copy does.
+by ``fleet/router.py``; the mesh lanes' ``mesh_admitted`` by the service's
+admission walk (``serve/service.py``).  :data:`EXPLANATORY_HOPS` names the
+fleet's, as the checker's copy does.
 
 Every event is mirrored into the always-on flight recorder
 (``obs/recorder.py``, kind ``journey``) with the same timestamp, so a

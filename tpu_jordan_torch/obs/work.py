@@ -203,8 +203,8 @@ def executed_model_flops(engine: str, workload: str, *, N: int, m: int,
 
 #: Engines with a registered work inventory (the comm inventory's set).
 INVENTORY_ENGINES = frozenset(
-    {"inplace", "grouped", "swapfree", "solve_sharded", "lookahead",
-     "solve_lookahead"})
+    {"inplace", "grouped", "swapfree", "augmented", "solve_sharded",
+     "lookahead", "solve_lookahead"})
 
 #: Acceptance band of the pin: counted (or, in the JAX package, compiled)
 #: FLOPs over the executed model.  The count adds the per-step pivot-row
@@ -226,8 +226,7 @@ def engine_report(*, engine: str, lay, dtype=None, k: int = 0,
         raise ValueError(
             f"no work inventory registered for engine {engine!r} "
             f"(obs/work.INVENTORY_ENGINES); a distributed engine ships "
-            f"WITH its analytical work accounting (engine='augmented' at "
-            f"workers > 1 is ROADMAP.md Queue A item 15d)")
+            f"WITH its analytical work accounting")
     unroll = True if unroll is None else bool(unroll)
     workload = ("solve" if engine in ("solve_sharded", "solve_lookahead")
                 else "invert")

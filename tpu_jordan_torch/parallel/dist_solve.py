@@ -194,6 +194,10 @@ class _Rows1D:
 
     def invert(self, W):
         """(inverse blocks, singular, pivots, probe steps)."""
+        if self.spec.engine == "augmented":
+            from .sharded_jordan import invert_augmented_1d
+
+            return invert_augmented_1d(W, self.group, self.lay)
         return invert_blocks(W, self.group, self.lay,
                              engine=self.spec.engine,
                              group_k=self.spec.group_k)
@@ -244,10 +248,17 @@ class _Mesh2D(_Rows1D):
     def invert(self, W):
         from .jordan2d_inplace import invert_blocks_2d
 
-        inv, singular, pivots, probed = invert_blocks_2d(
-            W, self.mg, self.lay, engine=self.spec.engine,
-            group_k=self.spec.group_k, probe_layout=self.spec.probe_layout,
-            pinned=self.info["pinned"])
+        if self.spec.engine == "augmented":
+            from .jordan2d import invert_augmented_2d
+
+            inv, singular, pivots, probed = invert_augmented_2d(
+                W, self.mg, self.lay, probe_layout=self.spec.probe_layout)
+        else:
+            inv, singular, pivots, probed = invert_blocks_2d(
+                W, self.mg, self.lay, engine=self.spec.engine,
+                group_k=self.spec.group_k,
+                probe_layout=self.spec.probe_layout,
+                pinned=self.info["pinned"])
         self.info["probed"] = _probed_rows(probed)
         return inv, singular, pivots, [t for t, _ in probed]
 
@@ -277,7 +288,8 @@ def solve_rank(group, spec: DistSpec) -> dict:
     ``spec.mesh``; every rank of ``group`` calls it together.
     ``strip_rows_max`` is the most rows of the file this rank's strip
     readers held at once (0 for a generator; the refine branch's rank 0
-    reads the whole file, as the JAX package's does).  ``inverse_sha256``
+    reads the whole file, as the JAX package's does) and ``parser`` the
+    parser they used ("native" or "python"; None for a generator).  ``inverse_sha256``
     is the rank's inverse blocks' digest, to hold two runs bit for bit
     without moving them; on a mesh ``probed`` lists (t, global rows) of
     every step this rank probed.  With ``spec.record`` it runs under a
@@ -286,7 +298,7 @@ def solve_rank(group, spec: DistSpec) -> dict:
 
 
 def _solve_rank(group, spec: DistSpec) -> dict:
-    from ..io import reset_strip_peak, strip_peak_rows
+    from ..io import parser_in_use, reset_strip_peak, strip_peak_rows
     from ..ops import newton_schulz, residual_inf_norm
     from ..ops.generators import generate
     from ..ops.norms import inf_norm
@@ -312,6 +324,7 @@ def _solve_rank(group, spec: DistSpec) -> dict:
            "probe_steps": steps,
            "launches": {k: after[k] - before[k] for k in after},
            "strip_rows_max": strip_peak_rows(),
+           "parser": parser_in_use() if spec.file is not None else None,
            "inverse": None, "blocks": None}
     if out["singular"]:
         return out
@@ -473,7 +486,12 @@ def measure_rank(group, spec: MeasureSpec, samples: int,
         return _measure_rank_2d(group, spec, samples, warmup)
     lay = CyclicLayout.create(spec.n, spec.m, group.world_size)
     W = sharded_generate("rand", lay, group.rank, dtype, dev)
-    if spec.workload == "invert":
+    if spec.workload == "invert" and spec.engine == "augmented":
+        from .sharded_jordan import invert_augmented_1d
+
+        def fn():
+            return invert_augmented_1d(W, group, lay)
+    elif spec.workload == "invert":
         def fn():
             return invert_blocks(W, group, lay, engine=spec.engine,
                                  group_k=spec.group_k)
@@ -507,7 +525,12 @@ def _measure_rank_2d(group, spec: MeasureSpec, samples: int,
     lay = CyclicLayout2D.create(spec.n, spec.m, pr, pc)
     W = sharded_generate_2d("rand", lay, mg.kr, mg.kc, dtype,
                             augmented=False, device=dev)
-    if spec.workload == "invert":
+    if spec.workload == "invert" and spec.engine == "augmented":
+        from .jordan2d import invert_augmented_2d
+
+        def fn():
+            return invert_augmented_2d(W, mg, lay)
+    elif spec.workload == "invert":
         def fn():
             return invert_blocks_2d(W, mg, lay, engine=spec.engine,
                                     group_k=spec.group_k)
@@ -522,3 +545,144 @@ def _measure_rank_2d(group, spec: MeasureSpec, samples: int,
     for _ in range(warmup):
         _timed(group, fn)
     return [_timed(group, fn)[1] for _ in range(samples)]
+
+
+def _backend_of(group, spec: DistSpec):
+    return _Mesh2D(group, spec) if spec.mesh is not None else _Rows1D(
+        group, spec)
+
+
+def invert_strip_rank(group, spec: DistSpec, a_blocks,
+                      keep: str | None = None) -> dict:
+    """One rank of an invert on a given strip: ``a_blocks`` is this rank's
+    (bpw, m, N) strip (or (bpr, m, N/pc) shard on the mesh ``spec.mesh``)
+    of the identity-padded A in the compute dtype ``spec.dtype``, handed
+    over by the caller (the mesh lanes, ``JordanSolver``); ``spec.engine``
+    runs between CUDA events after a barrier.  The rank's inverse blocks
+    come back on the CPU as ``blocks``, or with ``keep`` stay on its
+    device in the persistent world's rank state under that key
+    (``parallel.world.rank_state``) for a later job
+    (:func:`residual_strip_rank`); no gather collective, no residual.
+    With ``spec.record`` it runs under a ``RankLog``."""
+    return _logged(spec.record, lambda: _invert_strip_rank(
+        group, spec, a_blocks, keep))
+
+
+def _invert_strip_rank(group, spec, a_blocks, keep):
+    from ..interop import from_numpy
+
+    be = _backend_of(group, spec)
+    group = be.group
+    dev = group.device
+    dtype = resolve_dtype(spec.dtype)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    W = from_numpy(a_blocks, dev, dtype)
+    before = _launches()
+    (inv_b, singular, pivots, steps), elapsed = _timed(
+        group, lambda: be.invert(W))
+    after = _launches()
+    out = {**_rank_info(group), **be.info, "elapsed": elapsed,
+           "singular": bool(singular.item()), "pivots": pivots,
+           "probe_steps": steps,
+           "launches": {k: after[k] - before[k] for k in after},
+           "blocks": None}
+    if keep is not None:
+        from .world import rank_state
+
+        rank_state()[keep] = inv_b
+    else:
+        out["blocks"] = inv_b.cpu()
+    return out
+
+
+def residual_strip_rank(group, spec: DistSpec, a_blocks, inv) -> dict:
+    """‖A·A⁻¹ − I‖∞ and the κ∞ norms on the ranks: ``a_blocks`` is this
+    rank's strip (shard) of the identity-padded A, ``inv`` its strip of the
+    inverse, or the key under which :func:`invert_strip_rank` kept the
+    rank's inverse blocks; the ring residual (1D) or SUMMA (mesh), the
+    "residual" section of the comm inventory.  Nothing n×n is formed in
+    any process."""
+    return _logged(spec.record, lambda: _residual_strip_rank(
+        group, spec, a_blocks, inv))
+
+
+def _residual_strip_rank(group, spec, a_blocks, inv):
+    from ..interop import from_numpy
+    from .world import rank_state
+
+    be = _backend_of(group, spec)
+    if isinstance(inv, str):
+        key, inv = inv, rank_state().get(inv)
+        if inv is None:
+            raise KeyError(f"no inverse blocks kept under {key!r} on rank "
+                           f"{be.group.rank}")
+    a_b = from_numpy(a_blocks, be.group.device, resolve_dtype(spec.dtype))
+    inv = from_numpy(inv, be.group.device)
+    with section("residual"):
+        res = be.residual(a_b, inv.to(a_b.dtype))
+        norm_a = be.norm(a_b)
+        norm_x = be.norm(inv.to(a_b.dtype))
+    return {**_rank_info(be.group), "residual": res, "norm_a": norm_a,
+            "norm_x": norm_x}
+
+
+def drop_state(group, keys) -> int:
+    """Forget the rank-state entries ``keys``; returns how many there
+    were."""
+    from .world import rank_state
+
+    state = rank_state()
+    return sum(state.pop(k, None) is not None for k in keys)
+
+
+def split_strips(a, lay) -> list:
+    """Every rank's strip (1D) or shard (2D) of the identity-padded (n, n)
+    ``a`` (a CPU tensor), in rank order: what each rank of a world is
+    handed (``per_rank``), never the whole matrix."""
+    from ..ops.padding import pad_with_identity
+
+    ap = pad_with_identity(a, lay.N)
+    if hasattr(lay, "pc"):
+        from .jordan2d import _own_blocks
+
+        ap = ap.reshape(lay.Nr, lay.m, lay.Nr, lay.m)
+        return [_own_blocks(ap, lay, *divmod(r, lay.pc))
+                for r in range(lay.pr * lay.pc)]
+    ap = ap.reshape(lay.Nr, lay.m, lay.N)
+    return [ap[r::lay.p].contiguous() for r in range(lay.p)]
+
+
+def join_strips(blocks, lay, n: int) -> torch.Tensor:
+    """The (n, n) matrix from the ranks' inverse blocks in rank order (the
+    inverse of :func:`split_strips`, padding stripped)."""
+    if hasattr(lay, "pc"):
+        from .jordan2d import gather_matrix_2d
+
+        return gather_matrix_2d(list(blocks), lay, n)
+    return gather_inverse_inplace(list(blocks), lay, n)
+
+
+def split_rhs(b, lay) -> list:
+    """Every rank's (bpw, m, k) rows of the (n, k) right-hand side ``b``
+    (on the mesh: its mesh row's, replicated along pc), in rank order."""
+    if hasattr(lay, "pc"):
+        from .jordan2d_inplace import scatter_rhs_2d
+
+        return [scatter_rhs_2d(b, lay, r // lay.pc)
+                for r in range(lay.pr * lay.pc)]
+    from .sharded_inplace import scatter_rhs_1d
+
+    return [scatter_rhs_1d(b, lay, r) for r in range(lay.p)]
+
+
+def join_rhs(blocks, lay, n: int) -> torch.Tensor:
+    """The (n, k) solution from the ranks' X rows in rank order (the
+    inverse of :func:`split_rhs`)."""
+    if hasattr(lay, "pc"):
+        from .jordan2d_inplace import gather_solution_2d
+
+        return gather_solution_2d(list(blocks), lay, n)
+    from .sharded_inplace import gather_solution_1d
+
+    return gather_solution_1d(list(blocks), lay, n)

@@ -1,8 +1,7 @@
-"""The 2D block-cyclic helpers: each rank's shard of a matrix, generated or
-cut from a whole one, the gathers back, and the SUMMA residual.
-Counterpart of the front ends and the residual of the JAX package's
-``parallel/jordan2d.py`` (its own augmented engine is ROADMAP.md Queue A
-item 15d).
+"""The 2D block-cyclic helpers and the 2D augmented engine: each rank's
+shard of a matrix, generated or cut from a whole one, the gathers back, the
+SUMMA residual, and the pre-shard_map reference-parity engine on [A | I].
+Counterpart of the JAX package's ``parallel/jordan2d.py``.
 
 Rank (kr, kc) of a (pr, pc) mesh holds ``(bpr, m, Wc)``: its slot s is
 global block row ``s·pr + kr`` and its chunk u (m columns) global column
@@ -21,6 +20,30 @@ accumulates.  Row sums are summed on the row communicator (a row is split
 over the mesh columns), then a world ``all_reduce(MAX)``: only a scalar
 leaves the ranks (main.cpp:490-513).  Its GEMMs are its own
 (``torch.addmm``): nothing is shared with the engine it verifies.
+
+The augmented engine (:func:`augmented_blocks_2d`, the JAX
+``_local_step2d``) runs on each rank's (bpr, m, 2N/pc) shard of [A | I]
+(:func:`augment_shard_2d`; Nr is a multiple of pc, so a rank's A chunks
+come first and its I chunks last).  A superstep t, with the in-place 2D
+engines' collectives (``jordan2d_inplace._Run``):
+
+  * the t-column chunk from the owner column on the row communicator,
+    before the probe (it is the eliminate's E too);
+  * the probe of this rank's share of the live slots, **without** a
+    global singularity scale (as the JAX engine probes): under the
+    "column" probe layout each mesh column probes its 1/pc slice, under
+    "owner" the owner column probes them all (the layouts of
+    ``jordan2d_inplace.resolve_probe_layout``);
+  * the pivot reduction over the world (ties to the lowest global row,
+    the all-singular agreement from the reduction), H from its prober to
+    the world;
+  * the pivot row and row t (unless the pivot is row t) on the column
+    communicator; swap-by-copy; the swap fix-up chunk on the pivot's mesh
+    row; one local (bpr·m, m)×(m, 2N/pc) ``addmm_``; row t takes prow.
+
+There is no column replacement and no unscramble: after Nr steps the I
+chunks hold the inverse (:func:`split_inverse_blocks_2d`), in the same
+2D-cyclic shard form as the in-place engines' output.
 """
 
 from __future__ import annotations
@@ -158,6 +181,92 @@ def split_inverse_blocks_2d(out_shard: torch.Tensor,
     its B chunks are its last bc1 chunks, a local slice.  Counterpart of
     the JAX package's ``split_inverse_blocks_2d``."""
     return out_shard[:, :, lay.bc1 * lay.m:]
+
+
+def augment_shard_2d(a_shard: torch.Tensor, lay: CyclicLayout2D, kr: int,
+                     kc: int) -> torch.Tensor:
+    """Rank (kr, kc)'s (bpr, m, 2N/pc) shard of [A | I] from its (bpr, m,
+    N/pc) shard of the identity-padded A: the I chunks are the rank's 2D
+    shard of the identity, after its A chunks."""
+    m, dev = lay.m, a_shard.device
+    gi = ((torch.arange(lay.bpr, device=dev) * lay.pr + kr)[:, None] * m
+          + torch.arange(m, device=dev)[None, :])[:, :, None]
+    gj = ((torch.arange(lay.bc1, device=dev) * lay.pc + kc)[:, None] * m
+          + torch.arange(m, device=dev)[None, :]).reshape(-1)
+    eye = (gi == gj[None, None, :]).to(a_shard.dtype)
+    return torch.cat([a_shard, eye], dim=2)
+
+
+def _augmented_step2d(run, Wloc, t: int, dec, singular, pivots: list,
+                      ahead=None):
+    """Superstep t of the 2D augmented engine on this rank's shard of
+    [A | I], in place (module docstring)."""
+    from .sharded_inplace import _eliminate, _matmul, _reduce
+
+    mg, lay = run.mg, run.lay
+    pr, pc, Nr = lay.pr, lay.pc, lay.Nr
+    kr = mg.kr
+    g, kmin = _reduce(dec, mg.world, Nr)
+    singular |= ~torch.isfinite(kmin)
+    pivots.append(g)
+    H = run.h_bcast(dec, g, t)
+    row_piv = run.row_bcast([Wloc], g)
+    row_t = row_piv if g == t else run.row_bcast([Wloc], t)
+    own_p, sp = kr == g % pr, g // pr
+    own_t, st = kr == t % pr, t // pr
+    if own_p and g != t:
+        Wloc[sp] = row_t                            # swap-by-copy
+    prow = _matmul(H, row_piv)
+    E = dec.chunk.clone()
+    if g != t:
+        fix = run.fixup(row_t, g, t, t // pc)
+        if own_p:
+            E[sp] = fix
+    if own_t:
+        E[st] = 0
+    _eliminate(Wloc, E, prow)
+    if own_t:
+        Wloc[st] = prow
+    return None
+
+
+def augmented_blocks_2d(blocks, mg, lay: CyclicLayout2D, eps=None,
+                        probe=None, probe_layout: str = "auto"):
+    """Run the 2D augmented engine on this rank's (bpr, m, 2N/pc) shard of
+    [A | I] (not modified); every rank of the mesh ``mg`` calls it
+    together.  Returns ``(out, singular, pivots, probed)``: the rank's
+    result shard ([I | A⁻¹]), the (1,) flag, the pivot sequence and the
+    (t, global rows) it probed.  Counterpart of the JAX package's
+    ``compile_sharded_jordan_2d(...)(W)``."""
+    from ..config import eps_for
+    from ..ops.block_inverse import probe_blocks
+    from .jordan2d_inplace import _no_singular, _Run, _run_steps
+    from .jordan2d_inplace import resolve_probe_layout
+    from .upcast import upcast_sub_fp32
+
+    @upcast_sub_fp32
+    def run_engine(blocks):
+        run = _Run(mg, lay, eps if eps is not None else eps_for(blocks.dtype),
+                   probe if probe is not None else probe_blocks,
+                   resolve_probe_layout(probe_layout, mg.backend))
+        W = blocks.clone()
+        singular, pivots = _no_singular(W), []
+        _run_steps(run, lambda t, dec, ahead: _augmented_step2d(
+            run, W, t, dec, singular, pivots), W, lookahead=False)
+        return W, singular, pivots, run.probed
+
+    return run_engine(blocks)
+
+
+def invert_augmented_2d(a_shard, mg, lay: CyclicLayout2D, probe=None,
+                        probe_layout: str = "auto"):
+    """The 2D augmented engine from this rank's (bpr, m, N/pc) shard of the
+    identity-padded A: ``(inverse shard, singular, pivots, probed)`` in
+    the in-place 2D engines' form."""
+    out, singular, pivots, probed = augmented_blocks_2d(
+        augment_shard_2d(a_shard, lay, mg.kr, mg.kc), mg, lay, probe=probe,
+        probe_layout=probe_layout)
+    return split_inverse_blocks_2d(out, lay), singular, pivots, probed
 
 
 def distributed_residual_2d(a_loc, b_loc, mg, lay: CyclicLayout2D) -> float:

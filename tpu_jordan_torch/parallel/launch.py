@@ -3,8 +3,11 @@ no counterpart in the JAX package, which is single-controller (one process
 drives the whole mesh under ``shard_map``): the port runs one process per
 rank, the reference's ``mpirun -np p``.
 
-  * p ranks are spawned in the ``spawn`` context (the parent may hold
-    threads and a CUDA context, so never ``fork``);
+  * p ranks start in the ``forkserver`` context (:func:`rank_context`: the
+    parent may hold threads and a CUDA context, so never a plain ``fork``);
+    the server imports torch and the rank code once, so a rank is a fork
+    of it and pays neither import again (a ``spawn``ed rank re-imported
+    torch, most of a world's start-up);
   * the rendezvous is a ``FileStore`` in a temporary directory: no TCP
     port, so two worlds on one host (test workers) never collide;
   * rank r runs on ``cuda:r % device_count`` (or the CPU, with an equal
@@ -45,6 +48,21 @@ RANK_KERNELS = ("gj_probe", "gj_probe_fused_panel")
 
 
 _LAST_WORLD: dict = {}
+
+#: What the fork server imports once for every rank it forks: torch and
+#: the ranks' code, never a CUDA context (a rank opens its own).
+RANK_PRELOAD = ("torch", "torch.distributed", "tpu_jordan_torch.driver",
+                "tpu_jordan_torch.parallel.dist_solve",
+                "tpu_jordan_torch.parallel.world",
+                "tpu_jordan_torch.resilience.checkpoint")
+
+
+def rank_context():
+    """The multiprocessing context ranks start in: ``forkserver``, its
+    server preloading :data:`RANK_PRELOAD`."""
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(list(RANK_PRELOAD))
+    return ctx
 
 
 def last_world() -> dict:
@@ -124,7 +142,7 @@ def run_workers(p: int, fn, *args, deadline_s: float = 600.0,
         from .._build import build
 
         build(RANK_KERNELS)
-    ctx = mp.get_context("spawn")
+    ctx = rank_context()
     root = tempfile.mkdtemp(prefix="tpu_jordan_torch_world_")
     procs = []
     clocks = {}
@@ -145,6 +163,13 @@ def run_workers(p: int, fn, *args, deadline_s: float = 600.0,
         results: dict[int, object] = {}
         deadline = time.monotonic() + deadline_s
         while len(results) < p:
+            # A report read after the deadline does not count: the check
+            # comes first.
+            if time.monotonic() > deadline:
+                late = [r for r in range(p) if r not in results]
+                raise WorkerError(
+                    late[0], f"no report within {deadline_s:g} s "
+                             f"(ranks {late} still running)")
             for r in range(p):
                 path = os.path.join(root, f"rank{r}")
                 if r in results or not os.path.exists(path):
@@ -160,11 +185,6 @@ def run_workers(p: int, fn, *args, deadline_s: float = 600.0,
                     raise WorkerError(r, out)
                 results[r] = out
             if len(results) < p:
-                if time.monotonic() > deadline:
-                    late = [r for r in range(p) if r not in results]
-                    raise WorkerError(
-                        late[0], f"no report within {deadline_s:g} s "
-                                 f"(ranks {late} still running)")
                 time.sleep(0.01)
         t_reported = time.time()
         for proc in procs:

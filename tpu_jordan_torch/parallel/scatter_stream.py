@@ -120,3 +120,27 @@ def stream_scatter_2d(path: str, lay: CyclicLayout2D, kr: int, kc: int,
             strips.append(torch.from_numpy(piece).to(device))
             del strip, piece
     return torch.stack(strips)
+
+
+def stream_strip_rank(group, path: str, n: int, m: int,
+                      dtype: str = "float64") -> dict:
+    """One rank's streamed read of its 1D strip of the (n, n) matrix file
+    ``path`` (:func:`stream_scatter_1d`, block size ``m``, on the CPU):
+    the parser that read it, the seconds it took, the most rows held at
+    once, and the sha256 of the strip's bytes (to hold it bit for bit
+    against another parse without moving it)."""
+    import hashlib
+    import time
+
+    from ..interop import resolve_dtype
+    from ..io import parser_in_use, reset_strip_peak, strip_peak_rows
+
+    lay = CyclicLayout.create(n, m, group.world_size)
+    reset_strip_peak()
+    t0 = time.perf_counter()
+    strip = stream_scatter_1d(path, lay, group.rank, resolve_dtype(dtype))
+    seconds = time.perf_counter() - t0
+    return {"rank": group.rank, "parser": parser_in_use(),
+            "seconds": seconds, "strip_rows_max": strip_peak_rows(),
+            "sha256": hashlib.sha256(
+                strip.contiguous().numpy().tobytes()).hexdigest()}

@@ -1,8 +1,9 @@
 """The resilience layer of the single-device path: the residual gate, its
 degradation ladder and the retry policy (``degrade.py``, ``policy.py``),
 the deterministic fault points (``faults.py``) and superstep
-checkpoint/resume (``checkpoint.py``), and the serving pieces: typed
-deadlines, the circuit breaker and the capacity refusal (``policy.py``).
+checkpoint/resume (``checkpoint.py``, with its acceptance demo
+``ckpt_demo.py``), and the serving pieces: typed deadlines, the circuit
+breaker and the capacity refusal (``policy.py``).
 Counterpart of the JAX package's ``resilience/``."""
 
 from . import faults
@@ -19,6 +20,7 @@ from .checkpoint import (
     checkpointed_solve,
     fingerprint,
 )
+from .ckpt_demo import ckpt_demo
 from .degrade import (
     backward_error,
     gate_eps,
@@ -50,7 +52,7 @@ from .policy import (
     retryable,
 )
 
-__all__ = ["CapacityExceededError", "CheckpointCorruptError", "CheckpointError", "CheckpointKey",
+__all__ = ["ckpt_demo", "CapacityExceededError", "CheckpointCorruptError", "CheckpointError", "CheckpointKey",
            "CheckpointMismatchError", "CheckpointNotFoundError",
            "CheckpointStore", "CheckpointUnsupportedError",
            "CircuitBreaker", "CircuitOpenError", "DeadlineExceededError",

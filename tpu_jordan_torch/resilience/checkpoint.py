@@ -48,8 +48,17 @@ caller's process: the boundaries are walked there first, in order, up to
 the first at which ``preempt`` fires, so a seeded plan sees the calls the
 single-device loop (and the JAX package) makes; the world runs the
 segments before that boundary, and the caller raises the typed error once
-their checkpoints are durable.  ``abort`` is checked before the world
-starts and after it ends.  ``workers=(pr, pc)`` (or ``mesh=(pr, pc)``)
+their checkpoints are durable.  ``abort`` (the real revocation, a fleet
+replica's kill) is checked before the world starts, by a watcher thread in
+the caller while the world runs, and after it ends: when it returns an
+error the watcher drops a flag file in the store, and after each durable
+boundary write rank 0 reads the flag and broadcasts the verdict, so the
+world stops at that boundary and the caller raises the error ``abort``
+returned, its ``step`` the durable superstep (at most ``cadence``
+supersteps are lost, as with ``preempt``).  Rank 0's boundary writes
+update the store's ``ledger.json`` as they become durable, and
+:meth:`CheckpointStore.has_live` reads it, so a live token is visible
+while the world runs.  ``workers=(pr, pc)`` (or ``mesh=(pr, pc)``)
 checkpoints the 2D engines (topology ``"2d:{pr}x{pc}"``, the same engines)
 through the segment entries of ``parallel/jordan2d_inplace.py``, in the
 JAX package's 2D format: ``W`` the global (Nr, m, N) tensor in 2D-cyclic
@@ -350,8 +359,11 @@ class CheckpointStore:
         return self._read(run_id)
 
     def has_live(self, run_id: str) -> bool:
-        """True while run ``run_id`` holds a live (unconsumed) token."""
+        """True while run ``run_id`` holds a live (unconsumed) token, as
+        the persisted ledger says (a rank of a distributed run writes it
+        from its own process)."""
         with self._lock:
+            self._load_ledger()
             return bool(self._live.get(run_id))
 
     def resume(self, key: CheckpointKey):
@@ -925,10 +937,12 @@ def _run_checkpointed_dist(workload, a, b2, m, spec, *, store, run_id,
             info["segment_compiles"] += 1
     results = None
     if segments:
+        watch = _AbortWatcher(abort, store.root)
         rspec = {"workload": workload, "n": int(n), "m": int(m),
                  "mesh": list(spec) if isinstance(spec, tuple) else None,
                  "segments": segments, "key": key.to_json(),
-                 "root": store.root, "finalize": preempted is None}
+                 "root": store.root, "finalize": preempted is None,
+                 "revoke": watch.flag}
         shards = _rank_shards(state, lay)
         try:
             results = run_workers(p, checkpoint_rank, rspec,
@@ -936,6 +950,7 @@ def _run_checkpointed_dist(workload, a, b2, m, spec, *, store, run_id,
                                   deadline_s=WORLD_DEADLINE_S,
                                   device_type=dev.type)
         finally:
+            watch.stop()
             # Rank 0 wrote to the store's ledger from its own process.
             store.reload()
         for step, nbytes, digest, superseded, secs in results[0]["written"]:
@@ -943,9 +958,18 @@ def _run_checkpointed_dist(workload, a, b2, m, spec, *, store, run_id,
             info["ckpt_written"] += 1
             info["ckpt_bytes_last"] = nbytes
             info["ckpt_write_seconds"].append(secs)
-        info["segments_run"] = segments
+        revoked = results[0].get("revoked_at")
+        info["segments_run"] = (segments if revoked is None
+                                else [s for s in segments if s[1] <= revoked])
         info["ranks"] = [{k: v for k, v in r.items() if k != "blocks"}
                          for r in results]
+        if revoked is not None:
+            exc = watch.error
+            _recorder.record("ckpt_preempted", run_id=run_id,
+                             step=int(revoked), cause="abort")
+            exc.step = int(revoked)
+            exc.info = info
+            raise exc
     if preempted is not None:
         preempted.info = info           # what the world ran before it
         raise preempted
@@ -973,13 +997,71 @@ def _run_checkpointed_dist(workload, a, b2, m, spec, *, store, run_id,
     return out, singular, info
 
 
+class _AbortWatcher:
+    """Polls ``abort()`` on a thread of the caller while a distributed
+    checkpointed run's world runs; the first error it returns is kept
+    (:attr:`error`) and announced to the ranks by creating the flag file
+    :attr:`flag` in the store's directory.  No ``abort``: no thread, no
+    flag."""
+
+    POLL_S = 0.005
+
+    def __init__(self, abort, root: str):
+        import uuid
+
+        self.error = None
+        self.flag = None
+        self._done = threading.Event()
+        if abort is None:
+            return
+        self.flag = os.path.join(root, f".revoke-{uuid.uuid4().hex}")
+
+        def watch():
+            while not self._done.is_set():
+                exc = abort()
+                if exc is not None:
+                    self.error = exc
+                    with open(self.flag, "w"):
+                        pass
+                    return
+                self._done.wait(self.POLL_S)
+
+        self._thread = threading.Thread(target=watch, daemon=True,
+                                        name="tpu-jordan-torch-ckpt-watch")
+        self._thread.start()
+
+    def stop(self) -> None:
+        if self.flag is None:
+            return
+        self._done.set()
+        self._thread.join(timeout=5)
+        try:
+            os.unlink(self.flag)
+        except OSError:
+            pass
+
+
+def _revoked(group, flag: str | None) -> bool:
+    """Rank 0 reads the revocation flag and every rank receives its
+    verdict (one ``all_reduce`` of a flag; none without a flag)."""
+    import torch
+
+    if flag is None:
+        return False
+    t = torch.zeros(1, dtype=torch.float32, device=group.device)
+    if group.rank == 0 and os.path.exists(flag):
+        t += 1
+    return bool(group.all_reduce(t, "max").item())
+
+
 def checkpoint_rank(group, spec: dict, shard: dict) -> dict:
     """One rank of a distributed checkpointed run: the segments
     ``spec["segments"]`` on the rank's part of the state (``shard``: numpy
     ``W``, ``X`` or ``swaps``, ``singular``), rank 0 gathering and writing
-    the state at every boundary before the last step; with
-    ``spec["finalize"]`` the rank's X rows or unscrambled inverse blocks
-    as ``blocks``.  ``spec["mesh"]`` is (pr, pc) on the 2D layout, None on
+    the state at every boundary before the last step, then reading the
+    revocation flag ``spec["revoke"]`` (the world stops at a revoked
+    boundary: ``revoked_at``); with ``spec["finalize"]`` the rank's X rows
+    or unscrambled inverse blocks as ``blocks``.  ``spec["mesh"]`` is (pr, pc) on the 2D layout, None on
     the 1D.  Returns the rank's CPU outcome; rank 0's ``written`` lists
     (step, bytes, sha256, superseded, seconds) of its writes."""
     import time
@@ -1060,7 +1142,7 @@ def checkpoint_rank(group, spec: dict, shard: dict) -> dict:
              else torch.from_numpy(shard["swaps"][0].astype(np.int64)))
     eps = eps_for(W.dtype)
     store = CheckpointStore(spec["root"]) if group.rank == 0 else None
-    written, steps = [], []
+    written, steps, revoked_at = [], [], None
     before = _launches()
     for t0, t1 in spec["segments"]:
         steps += segment(W, X, singular, swaps, t0, t1)
@@ -1083,11 +1165,14 @@ def checkpoint_rank(group, spec: dict, shard: dict) -> dict:
             superseded = store._account_write(key)
             written.append((t1, nbytes, digest, superseded,
                             time.perf_counter() - h0))
+        if _revoked(group, spec.get("revoke")):
+            revoked_at = t1
+            break
     after = _launches()
     out = {"rank": group.rank, "written": written, "probe_steps": steps,
            "launches": {k: after[k] - before[k] for k in after},
            "singular": bool(singular.any()), "backend": group.backend,
-           "blocks": None}
-    if spec["finalize"]:
+           "blocks": None, "revoked_at": revoked_at}
+    if spec["finalize"] and revoked_at is None:
         out["blocks"] = (X if solve else finalize(W, swaps)).cpu()
     return out

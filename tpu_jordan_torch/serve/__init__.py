@@ -1,7 +1,7 @@
 """Serving: a dynamic-batching inversion, solve and update service on one
-card.  Counterpart of the JAX package's ``serve/`` (ROADMAP.md Queue A
-items 14a, 14b and 14d; the mesh lanes are item 15d; the replica fleet
-over these services is ``tpu_jordan_torch.fleet``):
+card, with mesh lanes on persistent worlds of ranks.  Counterpart of the
+JAX package's ``serve/`` (the replica fleet over these services is
+``tpu_jordan_torch.fleet``):
 
   * ``executors``: requests round up to power-of-two n-buckets (exact by
     identity padding); one executor per (bucket, batch_cap, dtype, engine,
@@ -22,6 +22,9 @@ over these services is ``tpu_jordan_torch.fleet``):
     ``solve_system``, ``project_capacity``, warmup, draining close),
     ``serve_demo`` and ``chaos_demo`` (the CLI's ``--serve-demo`` and
     ``--chaos-demo``; ``--capacity-demo`` is ``obs.capacity``'s).
+  * ``meshlanes``: the mesh lanes (:class:`MeshLaneExecutor`: one
+    persistent world of ranks a (workload, bucket, dtype, mesh) lane), the
+    topology vocabulary and the placement rule;
   * ``stats``: per-lane counters and latency percentiles, and the
     fleet's cross-replica execute spread;
   * ``update_demo``: the ``--update-demo`` run (a service's update ledger,
@@ -41,6 +44,8 @@ from .executors import (MIN_BUCKET_N, MIN_UPDATE_K, BucketExecutor,
 from .handles import (HandleRef, HandleState, HandleStore,
                       UnknownHandleError, build_handle_store,
                       create_resident_handle, resident_handle_bytes)
+from .meshlanes import (MESH_SINGLE, MeshLaneExecutor, mesh_devices,
+                        mesh_label, normalize_mesh, parse_mesh)
 from .service import (JordanService, chaos_demo, compare_outcomes,
                       serve_demo)
 from .stats import ServeStats, cross_replica_spread
@@ -57,6 +62,8 @@ __all__ = [
     "MIN_BUCKET_N", "MIN_UPDATE_K", "BucketExecutor", "ExecutorCache",
     "ExecutorKey", "ExecutorStore", "bucket_for", "k_bucket_for",
     "lane_label", "projected_lane_bytes", "rhs_bucket_for",
+    "MESH_SINGLE", "MeshLaneExecutor", "mesh_devices", "mesh_label",
+    "normalize_mesh", "parse_mesh",
     "JordanService", "chaos_demo", "compare_outcomes", "serve_demo",
     "ServeStats", "cross_replica_spread", "update_demo",
 ]

@@ -1,6 +1,5 @@
 """The dynamic micro-batcher.  Counterpart of the JAX package's
-``serve/batcher.py``, with its invert, solve and update lanes (the mesh
-lanes come with ROADMAP.md Queue A item 15d).
+``serve/batcher.py``, with its invert, solve, update and mesh lanes.
 
 A thread-safe request queue grouped by lane plus ONE dispatcher thread.  A
 lane dispatches when it can fill a batch (``batch_cap`` requests), when its
@@ -49,6 +48,11 @@ the drift budget fired and the warm cap-1 invert lane re-inverted the
 mutated matrix) or ``gated`` (the mutation destroyed rank), and the handle
 changes only inside its transaction, so a typed failure leaves it
 untouched.
+
+A mesh lane (``_execute_mesh``) dispatches at occupancy 1: one request is
+one job on the lane's persistent world of ranks (``meshlanes.py``), with
+the same journeys, breaker, deadlines, retry and integrity gate, and the
+comm and work reports of the execute on its span.
 
 The dispatcher launches on its thread's current CUDA stream (the default
 stream of a fresh thread), the stream the engines use everywhere.
@@ -132,6 +136,7 @@ class _Request:
     handle: object = None     # update lane: the HandleRef to mutate
     padded_u: object = None   # (bucket_n, k bucket) zero-padded, host
     padded_v: object = None   # (bucket_n, k bucket) zero-padded, host
+    mesh: str = "single"      # topology of the lane
 
     def hop(self, event: str, **attrs) -> None:
         """One journey event for this rider (none without a context)."""
@@ -139,12 +144,31 @@ class _Request:
             self.ctx.event(event, **attrs)
 
 
-def _lane(workload: str, bucket_n: int, rhs: int = 0):
-    """The queue/breaker/stats key of a request class: the bare bucket of
-    an invert lane, ``"solve:<bucket>:k<rhs>"`` of a solve lane (the
-    executor cache's label)."""
+def _lane(workload: str, bucket_n: int, rhs: int = 0,
+          mesh: str = "single"):
+    """The queue key of a request class: the bare bucket of an invert
+    lane, ``"solve:<bucket>:k<rhs>"`` of a solve lane (the executor
+    cache's label, which is also its breaker and stats key); a mesh lane
+    is the 4-tuple ``(workload, bucket, rhs, mesh)``."""
+    if mesh != "single":
+        return (workload, bucket_n, int(rhs), mesh)
     return (bucket_n if workload == "invert"
             else f"{workload}:{bucket_n}:k{int(rhs)}")
+
+
+def _lane_label(lane):
+    """The breaker/stats label of a lane: the lane itself, or for a mesh
+    lane its single-device label with an ``@mesh`` suffix (the executor
+    cache's label)."""
+    if not isinstance(lane, tuple):
+        return lane
+    wl, b, rhs, mesh = lane
+    base = b if wl == "invert" else f"{wl}:{b}:k{rhs}"
+    return f"{base}@{mesh}"
+
+
+def _lane_mesh(lane) -> str:
+    return lane[3] if isinstance(lane, tuple) else "single"
 
 
 class MicroBatcher:
@@ -204,17 +228,18 @@ class MicroBatcher:
                deadline_s: float | None = None, ctx=None,
                workload: str = "invert", padded_b=None, rhs: int = 0,
                k: int = 0, handle=None, padded_u=None,
-               padded_v=None) -> Future:
-        lane = _lane(workload, bucket_n, rhs)
-        br = (self.executors.breaker(lane)
+               padded_v=None, mesh: str = "single") -> Future:
+        lane = _lane(workload, bucket_n, rhs, mesh)
+        label = _lane_label(lane)
+        br = (self.executors.breaker(label)
               if self.policy is not None else None)
         if br is not None and not br.allow():
             # Typed fast-fail instead of queueing doomed work.
-            self.stats.rejected(lane, workload=workload)
+            self.stats.rejected(label, workload=workload)
             if ctx is not None:
                 ctx.event("breaker_fast_fail", bucket=bucket_n)
             raise CircuitOpenError(
-                f"bucket {lane} circuit open after repeated executor "
+                f"bucket {label} circuit open after repeated executor "
                 f"failures — retry after the cooldown")
         now = time.perf_counter()
         req = _Request(padded, n, bucket_n, now, Future(),
@@ -222,13 +247,13 @@ class MicroBatcher:
                                    else now + float(deadline_s)),
                        ctx=ctx, workload=workload, padded_b=padded_b,
                        rhs=int(rhs), k=int(k), handle=handle,
-                       padded_u=padded_u, padded_v=padded_v)
+                       padded_u=padded_u, padded_v=padded_v, mesh=str(mesh))
         with self._cv:
             if self._closing:
                 req.hop("reject", reason="closed")
                 raise ServiceClosedError("service is closed")
             if self._queued >= self.max_queue:
-                self.stats.rejected(lane, workload=workload)
+                self.stats.rejected(label, workload=workload)
                 req.hop("reject", reason="overload", queued=self._queued)
                 raise ServiceOverloadedError(
                     f"request queue full ({self.max_queue} pending) — "
@@ -238,7 +263,7 @@ class MicroBatcher:
             req.hop("enqueue", bucket=bucket_n, queued=self._queued + 1)
             self._queues.setdefault(lane, deque()).append(req)
             self._queued += 1
-            self.stats.request(lane, workload=workload)
+            self.stats.request(label, workload=workload)
             self._cv.notify()
         return req.future
 
@@ -357,7 +382,7 @@ class MicroBatcher:
             if not q:
                 continue
             age = now - q[0].t_enqueue
-            if len(q) >= self.batch_cap:
+            if len(q) >= self._lane_cap(lane):
                 cause = "full"
             elif age >= self.max_wait:
                 cause = "deadline"
@@ -368,6 +393,11 @@ class MicroBatcher:
             if best is None or age > best[1]:
                 best = (lane, age, cause)
         return None if best is None else (best[0], best[2])
+
+    def _lane_cap(self, lane) -> int:
+        """A lane's dispatch capacity: ``batch_cap``, except on a mesh
+        lane (occupancy 1: one world owns its ranks a launch)."""
+        return 1 if _lane_mesh(lane) != "single" else self.batch_cap
 
     def _next_deadline(self, now: float) -> float | None:
         waits = [self.max_wait - (now - q[0].t_enqueue)
@@ -389,7 +419,7 @@ class MicroBatcher:
                     if picked is not None:
                         lane, cause = picked
                         q = self._queues[lane]
-                        take = min(len(q), self.batch_cap)
+                        take = min(len(q), self._lane_cap(lane))
                         batch = [q.popleft() for _ in range(take)]
                         self._queued -= take
                         # Claim each future: a cancelled one drops out here,
@@ -502,6 +532,8 @@ class MicroBatcher:
         rhs = batch[0].rhs
         if workload == "update":
             return self._execute_updates(lane, batch, t_dispatch)
+        if _lane_mesh(lane) != "single":
+            return self._execute_mesh(lane, batch, t_dispatch)
         br = (self.executors.breaker(lane)
               if self.policy is not None else None)
         try:
@@ -604,6 +636,89 @@ class MicroBatcher:
                 workload=workload,
                 solution=out if workload != "invert" else None,
             ))
+
+    def _execute_mesh(self, lane, batch: list, t_dispatch: float) -> None:
+        """Dispatch one mesh-lane request (occupancy 1): the lane's world
+        runs scatter, engine and gather (``MeshLaneExecutor.run``), under
+        the serve discipline: journeys, breaker, deadlines, retry and the
+        integrity gate, the numerics summary, and the comm and work
+        reports of the execute on its span."""
+        workload, bucket, rhs, mesh = lane
+        label = _lane_label(lane)
+        br = (self.executors.breaker(label)
+              if self.policy is not None else None)
+        req = batch[0]
+        try:
+            _faults.fire("dispatch")
+            ex, source = self.executors.get_info(
+                bucket, 1, self.block_size, workload=workload, rhs=rhs,
+                mesh=mesh)
+            req.hop("executor", bucket=bucket, source=source,
+                    engine=ex.key.engine, mesh=mesh)
+            b = req.padded_b if workload != "invert" else None
+
+            def run_once():
+                _faults.fire("execute")
+                out, esp = timed_blocking(
+                    ex.run, req.padded, b, telemetry=self._tel,
+                    name="execute", bucket=bucket, occupancy=1,
+                    workload=workload, mesh=mesh)
+                res, sing, outcomes = out
+                _hwcost.attach_execute_cost(
+                    esp, ex.cost,
+                    analytical_flops=_hwcost.baseline_workload_flops(
+                        bucket, workload, k=rhs))
+                ex.comm_report(outcomes, esp.duration, span=esp)
+                kappa = rel = 0.0
+                if not sing:
+                    kappa, rel = ex.metrics(req.padded, res, b)
+                    if _faults.corrupt("result_corrupt_nan"):
+                        rel = float("nan")
+                    # The integrity gate, host-verified here.
+                    if not math.isfinite(rel):
+                        raise ResultCorruptionError(
+                            f"non-finite rel_residual on mesh lane "
+                            f"{label} — corrupted result detected by "
+                            f"the integrity gate")
+                return res, sing, kappa, rel, esp.duration
+
+            def on_retry(exc, attempt):
+                req.hop("retry", attempt=attempt, error=type(exc).__name__)
+
+            res, sing, kappa, rel, exec_s = (
+                self.policy.retry.call(
+                    run_once, component="serve.execute", on_retry=on_retry,
+                    exemplar=(req.ctx.request_id
+                              if req.ctx is not None else None))
+                if self.policy is not None else run_once())
+        except BaseException as e:                  # noqa: BLE001
+            self._count_failure(label, br)
+            for r in batch:
+                r.hop("batch_failure", error=type(e).__name__)
+                if not r.future.done():
+                    r.future.set_exception(e)
+            return
+        if br is not None:
+            br.record_success()
+        queue_waits = [t_dispatch - req.t_enqueue]
+        self.stats.batch(label, occupancy=1, exec_seconds=exec_s,
+                         queue_seconds=queue_waits, singular=int(sing),
+                         workload=workload)
+        if self.numerics == "summary":
+            self._observe_numerics(batch, ex, [sing], [kappa], [rel])
+        if not self._fail_expired(batch, "execute"):
+            return
+        req.hop("served", singular=sing, seconds=round(exec_s, 6),
+                mesh=mesh)
+        out = (res[:req.n, :req.n] if workload == "invert"
+               else res[:req.n, :req.k]).clone()
+        req.future.set_result(InvertResult(
+            inverse=out if workload == "invert" else None,
+            n=req.n, bucket_n=bucket, singular=sing,
+            kappa=float(kappa), rel_residual=float(rel),
+            queue_seconds=queue_waits[0], execute_seconds=exec_s,
+            batch_occupancy=1, workload=workload,
+            solution=out if workload != "invert" else None))
 
     # ---- the update lanes --------------------------------------------
 

@@ -1,6 +1,5 @@
 """The shape-bucketed executor cache.  Counterpart of the JAX package's
-``serve/executors.py`` (its mesh lanes come with ROADMAP.md Queue A item
-15).
+``serve/executors.py``, with its mesh lanes (``meshlanes.py``).
 
 Requests are rounded UP to power-of-two n-buckets (:func:`bucket_for`);
 identity padding makes the rounding exact (``ops/padding.py``: the padded
@@ -82,8 +81,11 @@ def k_bucket_for(k: int, floor: int = MIN_UPDATE_K) -> int:
 class ExecutorKey:
     """What a lane's executor depends on: bucket, batch capacity, dtype,
     the RESOLVED engine (never "auto"), the pivot block size, and for solve
-    lanes the workload and the RHS bucket.  ``mesh`` is the topology axis
-    of the JAX key; only ``"single"`` is served here (item 15d)."""
+    lanes the workload and the RHS bucket.  ``mesh`` is the topology axis:
+    ``"single"`` for every single-device lane, or a topology label
+    (``"p4"``, ``"2x2"``) selecting a mesh lane (``meshlanes.py``);
+    distinct topologies of one bucket are distinct executors, stats rows
+    and capacity entries."""
 
     bucket_n: int
     batch_cap: int
@@ -341,8 +343,14 @@ class ExecutorStore:
         compiler reports a footprint here)."""
         from ..obs import capacity as _capacity
 
+        devices = 1
+        if key.mesh != "single":
+            from .meshlanes import mesh_devices, parse_mesh
+
+            devices = mesh_devices(parse_mesh(key.mesh))
         nbytes = projected_lane_bytes(key.bucket_n, key.batch_cap,
-                                      key.dtype, key.workload, key.rhs)
+                                      key.dtype, key.workload, key.rhs,
+                                      devices=devices)
         label = lane_label(key.workload, key.bucket_n, key.batch_cap,
                            key.rhs, key.mesh)
         _capacity.register("executor_lanes", (id(self), key), nbytes,
@@ -416,12 +424,24 @@ class ExecutorCache:
         return self.tuner.measurements
 
     def _resolve(self, bucket_n: int, batch_cap: int, block_size: int,
-                 workload: str):
+                 workload: str, mesh: str = "single"):
         """(engine, plan) of a lane: an explicit invert engine as given,
         else the tuner's ladder at the batched, workload-scoped point (a
         service with an explicit invert engine still resolves its solve
         and update lanes through the ladder; ``smw_update`` is the one
-        update engine)."""
+        update engine).  A mesh lane always resolves through the ladder
+        at its distributed point (the plan-cache key carries the
+        topology): a single-device engine is not a distributed
+        vocabulary."""
+        if mesh != "single":
+            from .meshlanes import normalize_mesh
+
+            point = TunePoint.create(
+                bucket_n, block_size, self.dtype,
+                workers=normalize_mesh(mesh, self.device.type), gather=True,
+                batch=1, workload=workload, device=self.device)
+            plan = self.tuner.select(point)
+            return plan.engine, plan
         if self.engine != "auto" and workload == "invert":
             return self.engine, None
         point = TunePoint.create(bucket_n, block_size, self.dtype,
@@ -444,26 +464,28 @@ class ExecutorCache:
         """``get`` and how the executor was obtained: ``"cached"`` (this
         cache's view), ``"shared_store"`` (another cache built it) or
         ``"compiled"`` (this call built it); the dispatcher stamps it on
-        each rider's journey.  Mesh lanes (item 15d) are refused typed."""
+        each rider's journey.  ``mesh`` selects a mesh lane (always
+        ``batch_cap=1``: one world of ranks a launch)."""
         if mesh != "single":
-            raise UsageError(f"mesh lanes ({mesh!r}) are the distributed "
-                             f"path (ROADMAP.md Queue A item 15d)")
+            batch_cap = 1
         m = min(block_size if block_size is not None
                 else default_block_size(bucket_n), bucket_n)
         with self._lock:
-            rkey = (bucket_n, batch_cap, m, workload)
+            rkey = (bucket_n, batch_cap, m, workload, mesh)
             if rkey not in self._resolved:
                 self._resolved[rkey] = self._resolve(bucket_n, batch_cap, m,
-                                                     workload)
+                                                     workload, mesh)
             engine, plan = self._resolved[rkey]
             key = ExecutorKey(bucket_n, batch_cap, self.dtype, engine, m,
-                              workload, rhs)
+                              workload, rhs, mesh)
             ex = self._executors.get(key)
         # Invert lanes are labeled by the bare bucket, solve and update
         # lanes by "<workload>:<bucket>:k<rhs>", so their builds never
         # count as an invert bucket's.
         label = (bucket_n if workload == "invert"
                  else f"{workload}:{bucket_n}:k{rhs}")
+        if mesh != "single":
+            label = f"{label}@{mesh}"
         if ex is not None:
             if self.stats is not None:
                 self.stats.cache_hit(label, workload=workload)
@@ -477,6 +499,10 @@ class ExecutorCache:
             with self._tel.span("compile", bucket=bucket_n, engine=engine,
                                 batch_cap=batch_cap, mesh=mesh):
                 def one():
+                    if mesh != "single":
+                        from .meshlanes import MeshLaneExecutor
+
+                        return MeshLaneExecutor(key, plan, self.device)
                     return BucketExecutor(key, plan, self.device)
                 return (self.policy.retry.call(
                             one, component="serve.compile")

@@ -1,6 +1,5 @@
 """``JordanService``: the serving surface, and the serve and chaos demos.
-Counterpart of the JAX package's ``serve/service.py`` without the mesh lanes
-(ROADMAP.md Queue A item 15d), which it refuses typed.
+Counterpart of the JAX package's ``serve/service.py``, with its mesh lanes.
 
 Callers ``submit()`` (n, n) matrices, or a matrix and right-hand sides, and
 get futures.  Requests round up to power-of-two buckets (exact by identity
@@ -23,8 +22,14 @@ cache, so a warm server performs zero measurements and zero builds.
   * **Per-element verification**: every result carries κ∞ and
     rel_residual from its batch's run and its element's singular flag; a
     singular request never poisons its batch-mates.
+  * **Mesh lanes** (``mesh_shapes`` with ``lane_budget_bytes``): a request
+    whose single-device projection exceeds the per-device budget routes at
+    submit to the smallest configured mesh whose per-rank share fits (a
+    ``mesh_admitted`` hop), and one no mesh holds is a typed
+    ``CapacityExceededError`` at submit.  A mesh lane runs on a
+    persistent world of ranks (``meshlanes.py``).
   * **Clean shutdown**: ``close()`` (or the context manager) drains queued
-    and in-flight work.
+    and in-flight work, and ends every mesh lane's world.
   * **Results** are torch tensors on the service's device (the card
     unless ``device="cpu"``).
 
@@ -56,19 +61,6 @@ _M_WARM_BATCHES = _obs_metrics.counter(
     "tpu_jordan_torch_serve_warm_batches_total",
     "inert batches run on a dispatcher thread by warmup(run=True), one a "
     "lane: their kernel launches are warmup's, no request's")
-
-
-def _refuse(what: str) -> None:
-    """The typed refusal of a mesh-lane option or call (item 15d)."""
-    raise UsageError(f"{what} belongs to the distributed mesh lanes, not "
-                     f"ported yet (ROADMAP.md Queue A item 15d)")
-
-
-def _refuse_mesh(**options) -> None:
-    """Refuse every given mesh-lane option: none is silently ignored."""
-    for name, value in options.items():
-        if value is not None and value != ():
-            _refuse(name)
 
 
 class JordanService:
@@ -112,8 +104,14 @@ class JordanService:
         resident inverse may carry before the re_invert rung fires (None:
         ``linalg.update.DRIFT_BUDGET_FACTOR``).
 
-    The JAX service's ``mesh_shapes`` and ``lane_budget_bytes`` (item 15d)
-    are refused with a typed UsageError when given.
+      mesh_shapes: topologies this service may open mesh lanes on: ints
+        ('p4'), (pr, pc) tuples ('2x2') or topology labels, checked at
+        construction against the placement rule
+        (``meshlanes.normalize_mesh``: a typed UsageError here).  Requires
+        ``lane_budget_bytes``.
+      lane_budget_bytes: the per-device byte budget the admission walk
+        compares ``executors.projected_lane_bytes`` against; None (the
+        default) serves every request on the single-device lanes.
     """
 
     def __init__(self, engine: str = "auto", plan_cache=None,
@@ -129,8 +127,6 @@ class JordanService:
                  shared_handles=None, handle_budget_bytes=None,
                  update_drift_budget_factor=None, mesh_shapes=(),
                  lane_budget_bytes=None):
-        _refuse_mesh(mesh_shapes=tuple(mesh_shapes),
-                     lane_budget_bytes=lane_budget_bytes)
         from ..obs.numerics import resolve_mode
 
         self.numerics = resolve_mode(numerics)
@@ -172,8 +168,75 @@ class JordanService:
         # Request journeys, always on: ids in submit order, every hop
         # mirrored into the flight recorder.
         self.journey = JourneyLog(prefix="req")
+        # The mesh lanes' topologies, checked now and held by rank count:
+        # the admission walk routes to the smallest mesh that fits.
+        from .meshlanes import mesh_devices, mesh_label, normalize_mesh
+
+        lanes = {}
+        for spec in mesh_shapes:
+            workers = normalize_mesh(spec, self.device.type)
+            lanes[mesh_label(workers)] = mesh_devices(workers)
+        self._mesh_lanes = sorted(lanes.items(), key=lambda t: (t[1], t[0]))
+        self.lane_budget_bytes = (None if lane_budget_bytes is None
+                                  else int(lane_budget_bytes))
+        if self._mesh_lanes and self.lane_budget_bytes is None:
+            raise UsageError(
+                "mesh_shapes without lane_budget_bytes: the per-device "
+                "byte budget IS the admission signal deciding which "
+                "requests leave the single-device lane — pass "
+                "lane_budget_bytes")
+        self._own_executors = shared_executors is None
         self._closed = False
         self._close_lock = threading.Lock()
+
+    # ---- mesh admission ----------------------------------------------
+
+    def _admit_mesh(self, n: int, bucket: int, workload: str, rhs: int,
+                    ctx) -> str:
+        """The submit-time admission walk: the single-device lane if its
+        projection fits the budget, else the smallest configured mesh
+        whose per-rank share fits (a ``mesh_admitted`` hop), else a typed
+        ``CapacityExceededError`` with a ``reject`` hop and a
+        ``capacity_refused`` flight-recorder event."""
+        from .executors import projected_lane_bytes
+        from .meshlanes import MESH_SINGLE
+
+        budget = self.lane_budget_bytes
+        if budget is None:
+            return MESH_SINGLE
+        single = projected_lane_bytes(bucket, self.batch_cap, self.dtype,
+                                      workload, rhs)
+        if single <= budget:
+            return MESH_SINGLE
+        best = single
+        for label, devices in self._mesh_lanes:
+            proj = projected_lane_bytes(bucket, 1, self.dtype, workload,
+                                        rhs, devices=devices)
+            best = min(best, proj)
+            if proj <= budget:
+                ctx.event("mesh_admitted", mesh=label,
+                          projected_bytes=proj, budget_bytes=budget,
+                          single_device_bytes=single)
+                return label
+        from ..obs import capacity as _capacity
+        from ..resilience.policy import CapacityExceededError
+
+        _capacity.record_refusal(
+            requested=best,
+            live_bytes=_capacity.live_bytes("executor_lanes"),
+            budget_bytes=budget, pinned=0)
+        ctx.event("reject", reason="capacity", projected_bytes=best,
+                  budget_bytes=budget)
+        largest = (f"the largest configured mesh "
+                   f"({self._mesh_lanes[-1][0]!r})"
+                   if self._mesh_lanes else
+                   "the single-device lane (no mesh_shapes configured)")
+        raise CapacityExceededError(
+            f"n={n} (bucket {bucket}, workload {workload!r}) projects "
+            f"{best} bytes/device on {largest}; lane_budget_bytes is "
+            f"{budget} — configure a larger mesh_shapes entry or raise "
+            f"the budget (the request is refused at submit, never an "
+            f"OOM mid-launch)")
 
     # ---- request path ------------------------------------------------
 
@@ -222,12 +285,13 @@ class JordanService:
         ctx = (self.journey.new(n, bucket, workload=workload)
                if own_ctx else _ctx)
         try:
+            mesh = self._admit_mesh(n, bucket, workload, rhs, ctx)
             fut = self._batcher.submit(
                 padded, n, bucket,
                 deadline_s=(None if deadline_ms is None
                             else float(deadline_ms) / 1e3),
                 ctx=ctx, workload=workload, padded_b=padded_b,
-                rhs=rhs, k=k)
+                rhs=rhs, k=k, mesh=mesh)
         except Exception as e:
             if own_ctx:
                 ctx.close("error", error=type(e).__name__)
@@ -269,6 +333,19 @@ class JordanService:
                              f"got shape {tuple(a.shape)}")
         n = a.shape[0]
         bucket = bucket_for(n)
+        if self.lane_budget_bytes is not None:
+            from .executors import projected_lane_bytes
+
+            if (projected_lane_bytes(bucket, self.batch_cap, self.dtype)
+                    > self.lane_budget_bytes):
+                raise UsageError(
+                    f"resident=True pins the (A, A⁻¹) pair on ONE "
+                    f"device (the SMW update lanes are single-chip); "
+                    f"bucket {bucket} exceeds lane_budget_bytes="
+                    f"{self.lane_budget_bytes} on the single-device "
+                    f"lane, so this invert would route to a mesh lane "
+                    f"— invert without resident=True (the mesh lanes "
+                    f"serve it), or raise lane_budget_bytes")
         ctx = self.journey.new(n, bucket, workload="invert")
         try:
             self.handles.ensure_capacity(
@@ -373,18 +450,20 @@ class JordanService:
         opens n's invert lane, its cap-1 re_invert twin and the cap-1 and
         batch-cap update lanes), computed with nothing built; each is
         recorded on ``tpu_jordan_torch_capacity_projected_lane_bytes``.
-        ``mesh_shapes`` (item 15d) is refused when given."""
+        ``mesh_shapes`` entries ``(n, mesh)`` (an invert lane) or ``(n, k,
+        mesh)`` (a solve lane) project the mesh lanes at their per-rank
+        share."""
         from ..obs import capacity as _capacity
         from .executors import lane_label, projected_lane_bytes
 
-        _refuse_mesh(mesh_shapes=tuple(mesh_shapes))
         cap = self.batch_cap
         out = {}
 
-        def project(workload, bucket, batch_cap, rhs=0):
-            label = lane_label(workload, bucket, batch_cap, rhs)
+        def project(workload, bucket, batch_cap, rhs=0, mesh="single",
+                    devices=1):
+            label = lane_label(workload, bucket, batch_cap, rhs, mesh)
             out[label] = projected_lane_bytes(bucket, batch_cap, self.dtype,
-                                              workload, rhs)
+                                              workload, rhs, devices=devices)
             _capacity.record_projection(label, out[label])
 
         for n in shapes:
@@ -400,7 +479,25 @@ class JordanService:
             project("update", b, 1, kb)
             if cap != 1:
                 project("update", b, cap, kb)
+        for entry in mesh_shapes:
+            workload, b, rhs, label, devices = self._mesh_entry(entry)
+            project(workload, b, 1, rhs, mesh=label, devices=devices)
         return out
+
+    def _mesh_entry(self, entry):
+        """One mesh entry, ``(n, mesh)`` (invert) or ``(n, k, mesh)``
+        (solve), as ``(workload, bucket, rhs, mesh label, ranks)``."""
+        from .meshlanes import mesh_devices, mesh_label, normalize_mesh
+
+        if len(entry) == 2:
+            n, spec = entry
+            workload, rhs = "invert", 0
+        else:
+            n, k, spec = entry
+            workload, rhs = "solve", rhs_bucket_for(int(k))
+        workers = normalize_mesh(spec, self.device.type)
+        return (workload, bucket_for(int(n)), rhs, mesh_label(workers),
+                mesh_devices(workers))
 
     def warmup(self, shapes=(), solve_shapes=(), update_shapes=(),
                mesh_shapes=(), run: bool = False) -> dict:
@@ -415,7 +512,9 @@ class JordanService:
         also runs one inert batch of each of those lanes on the dispatcher
         thread (counted in ``tpu_jordan_torch_serve_warm_batches_total``),
         so no request pays the thread's first launches.  ``mesh_shapes``
-        (item 15d) is refused when given."""
+        entries (:meth:`project_capacity`'s) build the mesh lanes: each
+        starts its world of ranks and runs one inert job, so a warm mesh
+        lane starts no world on the request path."""
         self.project_capacity(shapes=shapes, solve_shapes=solve_shapes,
                               update_shapes=update_shapes,
                               mesh_shapes=mesh_shapes)
@@ -444,6 +543,13 @@ class JordanService:
             out[f"update:{b}:k{kb}"] = ex.key.engine
             if self.batch_cap != 1:
                 get(b, self.batch_cap, workload="update", rhs=kb)
+        for entry in mesh_shapes:
+            workload, b, rhs, label, _ = self._mesh_entry(entry)
+            ex, _src = self.executors.get_info(
+                b, 1, self._batcher.block_size, workload=workload, rhs=rhs,
+                mesh=label)
+            lane = f"{b}" if workload == "invert" else f"{workload}:{b}:k{rhs}"
+            out[f"{lane}@{label}"] = ex.key.engine
         if run:
             self._batcher.run_on_dispatcher(
                 lambda: self._warm_lanes(lanes.values()))
@@ -452,6 +558,8 @@ class JordanService:
     def _warm_lanes(self, lanes) -> None:
         """One inert batch of each lane on the calling thread, counted."""
         for ex in lanes:
+            if ex.key.mesh != "single":
+                continue                # warmed by its build
             ex.warm()
             key = ex.key
             _M_WARM_BATCHES.inc(
@@ -476,6 +584,10 @@ class JordanService:
                 self._batcher.close(drain=drain, error=error,
                                     join_timeout_s=join_timeout_s)
                 self._closed = True
+                if self._own_executors:
+                    for key, ex in self.executors.entries():
+                        if key.mesh != "single":
+                            ex.close()
             else:
                 self._batcher.reap(join_timeout_s=(
                     0.0 if join_timeout_s is None else join_timeout_s))
@@ -495,8 +607,9 @@ class JordanService:
         the breakers' states."""
         snap = self._stats.snapshot()
         snap["engines"] = {
-            (f"{k.bucket_n}" if k.workload == "invert"
-             else f"{k.workload}:{k.bucket_n}:k{k.rhs}"):
+            ((f"{k.bucket_n}" if k.workload == "invert"
+              else f"{k.workload}:{k.bucket_n}:k{k.rhs}")
+             + (f"@{k.mesh}" if k.mesh != "single" else "")):
             {"engine": k.engine,
              "batch_cap": k.batch_cap,
              "workload": k.workload,
@@ -504,6 +617,8 @@ class JordanService:
              "plan_source": ex.plan.source if ex.plan else None}
             for k, ex in self.executors.entries()
         }
+        snap["mesh_lanes"] = dict(self._mesh_lanes)
+        snap["lane_budget_bytes"] = self.lane_budget_bytes
         snap["measurements"] = self.executors.measurements
         snap["batch_cap"] = self.batch_cap
         snap["queued"] = self._batcher.queued
@@ -526,27 +641,45 @@ def serve_demo(n: int, block_size: int | None = None, requests: int = 64,
     one-line JSON report: counts, per-lane stats with occupancy and
     latency percentiles, the build and measurement counters (zero on the
     request path of a warm server), the worst rel_residual, the wall time,
-    and the runtime fingerprint.  ``workers`` other than 1 (a mesh lane)
-    is item 15d's."""
+    and the runtime fingerprint.
+
+    ``workers`` other than 1 (an int, a (pr, pc) tuple or a label such as
+    '2x2') configures one mesh lane with ``lane_budget_bytes`` one byte
+    under the largest bucket's single-device projection, so the largest
+    size routes through the mesh lane (its ``mesh_admitted`` hop) while
+    the smaller sizes stay single-device; the report adds the mesh, the
+    budget, the mesh requests and the world starts on the request path
+    (zero on a warm lane)."""
     import time
 
     from ..obs import hwcost as _hwcost
     from ..ops import generate
+    from ..parallel.world import world_starts
+    from .executors import projected_lane_bytes
+    from .meshlanes import mesh_label, normalize_mesh
 
-    if workers not in (1, None):
-        _refuse("workers")
     dev = resolve_device(device)
     dtype = resolve_dtype(dtype)
     sizes = sorted({max(1, n), max(1, n // 2), max(1, n // 4)},
                    reverse=True)
+    mesh_kw, label = {}, None
+    if workers not in (1, None):
+        label = mesh_label(normalize_mesh(workers, dev.type))
+        budget = projected_lane_bytes(bucket_for(sizes[0]), batch_cap,
+                                      dtype) - 1
+        mesh_kw = {"mesh_shapes": (label,), "lane_budget_bytes": budget}
     elapsed0 = time.perf_counter()
     with JordanService(engine=engine, plan_cache=plan_cache, dtype=dtype,
                        batch_cap=batch_cap, max_wait_ms=max_wait_ms,
                        max_queue=max(requests, 1),
                        block_size=block_size, telemetry=telemetry,
-                       numerics=numerics, device=dev) as svc:
-        svc.warmup(shapes=sizes)
+                       numerics=numerics, device=dev, **mesh_kw) as svc:
+        if label is None:
+            svc.warmup(shapes=sizes)
+        else:
+            svc.warmup(shapes=sizes[1:], mesh_shapes=[(sizes[0], label)])
         compiles_after_warmup = svc.stats()["totals"]["compiles"]
+        starts_after_warmup = world_starts()
         futures = []
         for i in range(requests):
             sz = sizes[i % len(sizes)]
@@ -558,17 +691,43 @@ def serve_demo(n: int, block_size: int | None = None, requests: int = 64,
             futures.append(svc.submit(a))
         results = [f.result(timeout=600) for f in futures]
         stats = svc.stats()
+        starts_on_path = world_starts() - starts_after_warmup
+        lanes = [ex for key, ex in svc.executors.entries()
+                 if key.mesh != "single"]
     elapsed = time.perf_counter() - elapsed0
     singular = sum(r.singular for r in results)
     worst_rel = max((r.rel_residual for r in results
                      if not r.singular and r.rel_residual is not None),
                     default=None)
+    mesh_doc = {}
+    if label is not None:
+        mesh_rel = max((r.rel_residual for r in results
+                        if r.n == sizes[0] and not r.singular), default=None)
+        mesh_doc = {
+            "mesh_worst_rel_residual": (None if mesh_rel is None
+                                        else f"{mesh_rel:.1e}"),
+            "mesh": label,
+            "lane_budget_bytes": mesh_kw["lane_budget_bytes"],
+            "mesh_requests": sum(
+                s["requests"] for s in stats["buckets"].values()
+                if s.get("mesh", "single") != "single"),
+            "world_starts_on_request_path": starts_on_path,
+            # The lane's world: its start (once, at warmup), the ranks'
+            # kernel launches over every run, and the first request's
+            # pivots (run 0 is warmup's inert job).
+            "mesh_world": [{
+                "start_s": ex.world.start_s, "starts": ex.world.starts,
+                "jobs": ex.world.jobs, "launches": dict(ex.launches),
+                "first_request_pivots": (ex.recent[1]["pivots"]
+                                         if len(ex.recent) > 1 else None)}
+                for ex in lanes]}
     return {
         "metric": "serve_demo",
         "requests": requests,
         "request_sizes": sizes,
         "buckets": len(stats["buckets"]),
         "batch_cap": batch_cap,
+        **mesh_doc,
         "singular": singular,
         "worst_rel_residual": (None if worst_rel is None
                                else f"{worst_rel:.1e}"),

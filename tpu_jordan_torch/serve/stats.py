@@ -68,8 +68,9 @@ _M_EXEC_S = _metrics.histogram("tpu_jordan_torch_serve_execute_seconds",
 class _BucketStats:
     """Counters for one lane; mutated under the owner's lock only."""
 
-    def __init__(self, workload: str = "invert"):
+    def __init__(self, workload: str = "invert", mesh: str = "single"):
         self.workload = workload
+        self.mesh = mesh
         self.requests = 0
         self.rejected = 0
         self.batches = 0
@@ -85,7 +86,7 @@ class _BucketStats:
         occ = (self.elements / self.batches) if self.batches else 0.0
         doc = {
             "workload": self.workload,
-            "mesh": "single",
+            "mesh": self.mesh,
             "requests": self.requests,
             "rejected": self.rejected,
             "batches": self.batches,
@@ -124,7 +125,11 @@ class ServeStats:
         self._buckets: dict = {}
 
     def _b(self, bucket, workload: str = "invert") -> _BucketStats:
-        return self._buckets.setdefault(bucket, _BucketStats(workload))
+        # A mesh lane's label carries its topology: "4096@p4".
+        mesh = str(bucket).rpartition("@")[2] if "@" in str(bucket) \
+            else "single"
+        return self._buckets.setdefault(bucket,
+                                        _BucketStats(workload, mesh))
 
     def _mirror(self, bucket, workload: str | None = None) -> dict:
         """The mirror labels of one mutation: the instance labels, the

@@ -13,9 +13,9 @@ point ranks the ``solve_sharded`` engine and its probe-ahead twin, the
 ``solve_lookahead`` engine (registered, as in the JAX package, as the
 configuration ``solve_lookahead_sharded``).  A point on a (pr, pc) mesh
 of the 2D layout (``workers`` a tuple, cache label "2x2") ranks the same
-engines on the cost model's pc > 1 terms.  The augmented engine is not a
-candidate on p ranks or a mesh: its distributed form is ROADMAP.md Queue A
-item 15d.
+engines on the cost model's pc > 1 terms.  The augmented engine is a
+candidate everywhere, as in the JAX package; at 2× the in-place engine's
+projection it never wins a cost ranking.
 
 Cost hooks rank; they are not wall-clock truth.  The tuner records
 measured/projected drift whenever it measures.
@@ -251,10 +251,8 @@ def _legal_grouped_pallas_bf16(pt: TunePoint) -> bool:
             and pt.dtype in ("bfloat16", "float16"))
 
 
-def _legal_augmented(pt: TunePoint) -> bool:
-    # Any dtype on one device; the distributed augmented engine (the JAX
-    # package's sharded_jordan.py) is not ported (item 15d).
-    return not pt.distributed
+def _always(pt: TunePoint) -> bool:
+    return True
 
 
 def _real_dtype(pt: TunePoint) -> bool:
@@ -351,7 +349,7 @@ CONFIGS: tuple[EngineConfig, ...] = (
         "grouped2", "grouped", 2, _real_dtype, _cost_grouped,
         "delayed group updates, k=2"),
     EngineConfig(
-        "augmented", "augmented", 0, _legal_augmented, _cost_augmented,
+        "augmented", "augmented", 0, _always, _cost_augmented,
         "~4N^3 reference-parity path (global singularity scale); the one "
         "complex-capable invert engine"),
     EngineConfig(

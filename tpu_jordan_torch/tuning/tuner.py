@@ -120,10 +120,6 @@ def measure_distributed(point: TunePoint, cfg: EngineConfig,
     from ..resilience import faults as _faults
     from .measure import MEASURE_RETRY, robust_stats
 
-    if cfg.engine == "augmented":
-        raise UsageError("engine='augmented' at workers > 1 is the "
-                         "pre-shard_map reference-parity engine, not "
-                         "ported yet (ROADMAP.md Queue A item 15d)")
     spec = MeasureSpec(n=point.n, m=point.block_size, dtype=point.dtype,
                        workload=("invert" if point.workload == "invert"
                                  else "solve"),
