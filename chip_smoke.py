@@ -407,6 +407,13 @@ elements flagged singular and those over the gate.
 fits each SWEEP_CASES stack (and v2 on every cluster size), with the
 outputs' bits held to the default schedule's.
 
+The script is the subreaper of every process it starts (an orphaned
+rank, or a fork server whose program ended, is reparented to it).  Before
+the result lines, and on any failure, it closes every world, ends the fork
+server and the resource tracker, and ends and reaps any child still left,
+naming each on a ``cleanup`` line; a child that outlives SIGKILL fails the
+run.
+
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits 1 and prints no result.
 """
@@ -414,8 +421,10 @@ or outside a checkout of the repository, it exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -898,6 +907,62 @@ def smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def become_subreaper() -> None:
+    """Make this process the reaper of its orphaned descendants
+    (``PR_SET_CHILD_SUBREAPER``), so :func:`end_children` finds them."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def _children() -> dict:
+    """{pid: (state, command line)} of this process's children."""
+    me, out = os.getpid(), {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if int(fields[1]) == me:
+            out[int(name)] = (fields[0], cmd.strip()[:160])
+    return out
+
+
+def end_children(grace_s: float = 10.0) -> list:
+    """Close every world, end the fork server and the resource tracker,
+    then kill and reap every child left (orphans of the script's
+    descendants included, this process being their subreaper).  Returns
+    the command lines of the children it had to kill; raises when one
+    outlives SIGKILL for ``grace_s``."""
+    if "tpu_jordan_torch.parallel.world" in sys.modules:
+        sys.modules["tpu_jordan_torch.parallel.world"]._close_all()
+    if "tpu_jordan_torch.parallel.launch" in sys.modules:
+        sys.modules["tpu_jordan_torch.parallel.launch"].stop_rank_server()
+    killed, sent = [], set()
+    deadline = time.monotonic() + grace_s
+    while True:
+        kids = _children()
+        if not kids:
+            return killed
+        for pid, (state, cmd) in kids.items():
+            if state != "Z" and pid not in sent:
+                killed.append(cmd)
+                sent.add(pid)
+                os.kill(pid, signal.SIGKILL)
+            try:
+                os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:
+                pass
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"children outlived SIGKILL: {_children()}")
+        time.sleep(0.05)
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -6296,7 +6361,16 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    become_subreaper()
+    try:
+        return run_phases(torch, phases)
+    finally:
+        end_children()
 
+
+def run_phases(torch, phases: list) -> int:
+    """Every phase of ``phases``, then the result lines (module
+    docstring); 0 on success, raising on any failure."""
     start = time.perf_counter()
     phase_toolchain(torch)
     seconds = {"toolchain": time.perf_counter() - start}
@@ -6405,6 +6479,7 @@ def main(argv=None) -> int:
             **({"launches_by_phase": {p: c.get(name, 0)
                                       for p, c in by_phase.items()}}
                if by_phase else {})})
+    emit({"phase": "cleanup", "killed": end_children()})
     emit({"phase": "wall", "seconds": seconds,
           "total_s": time.perf_counter() - start})
     print(smi(), flush=True)

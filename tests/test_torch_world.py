@@ -15,12 +15,17 @@ One module-scoped world of 3 ranks, closed at teardown:
     the next job starts a new world (the counter moves by one);
   * recording is per job: one job's collectives never reach the next;
   * ``close()`` leaves no live child process, and a closed world refuses
-    jobs.
+    jobs;
+  * a program that ran worlds (one left open) leaves no process of its
+    process group behind when it exits: the fork server and the resource
+    tracker are ended and reaped before it (``launch.stop_rank_server``).
 """
 
 import multiprocessing as mp
 import os
 import signal
+import subprocess
+import sys
 import time
 
 import pytest
@@ -183,3 +188,46 @@ def test_ranks_fork_from_the_preloaded_server(world):
             ppid = int(f.read().rsplit(")", 1)[1].split()[1])
         assert ppid != os.getpid()
     assert _owner_alive(os.getpid())
+
+
+_PROGRAM = """
+from tpu_jordan_torch.parallel.launch import run_workers
+from tpu_jordan_torch.parallel.world import World, rank_pid
+
+if __name__ == "__main__":
+    with World(2, "cpu") as w:
+        w.run(rank_pid)
+    run_workers(2, rank_pid, device_type="cpu")
+    World(2, "cpu").run(rank_pid)               # left open: closed at exit
+"""
+
+
+def _group_members(pgid):
+    """Live processes (zombies excepted) of process group ``pgid``."""
+    out = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        state, _, group = stat.rsplit(")", 1)[1].split()[:3]
+        if int(group) == pgid and state != "Z":
+            out.append(stat[:160])
+    return out
+
+
+def test_program_leaves_no_process_at_exit(tmp_path):
+    """The process group of a program that ran worlds is empty the moment
+    the program has exited: no rank, fork server or resource tracker
+    outlives it, even by the seconds a server takes to unload torch."""
+    script = tmp_path / "program.py"
+    script.write_text(_PROGRAM)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.Popen([sys.executable, str(script)], cwd=root,
+                            env=env, process_group=0)
+    assert proc.wait(timeout=180) == 0
+    assert _group_members(proc.pid) == []

@@ -26,7 +26,12 @@ rank, the reference's ``mpirun -np p``.
     never reported);
   * :func:`last_world` gives the wall split of this process's last world
     (spawn, joining the group, the ranks' work, the exit), each the
-    slowest rank's, from the ranks' own clock readings.
+    slowest rank's, from the ranks' own clock readings;
+  * :func:`stop_rank_server` ends and reaps the fork server and the
+    resource tracker; it runs at exit, after multiprocessing's own
+    clean-up, so a program that ran a world leaves none of its processes
+    behind (the server would outlive it by the seconds it takes to unload
+    torch).
 
 On the card the kernels the ranks launch are built in the parent first
 (``_build.build``, one ``nvcc`` per source, all at once), so the p ranks
@@ -35,13 +40,16 @@ load them and none compiles.
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing as mp
 import os
 import pickle
 import shutil
+import signal
 import tempfile
 import time
 import traceback
+from multiprocessing import util as _mp_util
 
 #: The CUDA sources a rank's probe may launch.
 RANK_KERNELS = ("gj_probe", "gj_probe_fused_panel")
@@ -63,6 +71,50 @@ def rank_context():
     ctx = mp.get_context("forkserver")
     ctx.set_forkserver_preload(list(RANK_PRELOAD))
     return ctx
+
+
+def _reap(pid: int, timeout_s: float) -> None:
+    """Wait for child ``pid`` to exit, killing it after ``timeout_s``."""
+    deadline = time.monotonic() + timeout_s
+    with contextlib.suppress(ChildProcessError):
+        while os.waitpid(pid, os.WNOHANG)[0] == 0:
+            if time.monotonic() > deadline:
+                os.kill(pid, signal.SIGKILL)
+                os.waitpid(pid, 0)
+                return
+            time.sleep(0.01)
+
+
+def stop_rank_server(timeout_s: float = 30.0) -> None:
+    """End this process's fork server (:func:`rank_context`) and the
+    resource tracker it shares with the ranks, and reap both.  Closing
+    each one's pipe asks it to exit; either is killed after ``timeout_s``.
+    The next world starts a new server.  Registered to run at exit, last
+    of multiprocessing's finalizers (the semaphores' clean-up before it
+    may talk to the tracker)."""
+    from multiprocessing import forkserver, resource_tracker
+
+    server = forkserver._forkserver
+    with server._lock:
+        if server._forkserver_pid is not None:
+            os.close(server._forkserver_alive_fd)
+            _reap(server._forkserver_pid, timeout_s)
+            address = server._forkserver_address
+            server._forkserver_alive_fd = server._forkserver_pid = None
+            server._forkserver_address = None
+            if address and not _mp_util.is_abstract_socket_namespace(
+                    address):
+                with contextlib.suppress(OSError):
+                    os.unlink(address)
+    tracker = resource_tracker._resource_tracker
+    with tracker._lock:
+        if tracker._pid is not None:
+            os.close(tracker._fd)
+            _reap(tracker._pid, timeout_s)
+            tracker._fd = tracker._pid = None
+
+
+_mp_util.Finalize(None, stop_rank_server, exitpriority=-100)
 
 
 def last_world() -> dict:
