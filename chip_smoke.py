@@ -140,11 +140,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 7. ``telemetry``: the observability layer on the card
    (``phase_telemetry``): the 8192/m384 in-place solve traced
    (``Telemetry()``, ``numerics="trace"``) in turns with the same solve
-   untraced (the trace's cost; the untraced launches unchanged, no
-   bracket; pivots equal; ``elapsed`` equal to the execute span's
-   duration), the ``grouped_pallas`` 8192/m128 solve traced (measured
-   phase children from kernel brackets: 2 probe and 2 update launches
-   above the engine's own), a traced solve and a summary-mode update,
+   untraced (the trace's cost; the launches unchanged; pivots equal;
+   ``elapsed`` equal to the execute span's duration; one measured step a
+   superstep), the ``grouped_pallas`` 8192/m128 solve traced (the
+   engine's measured steps, launching no kernel beyond the engine's
+   own), a traced solve and a summary-mode update,
    ``numerics_demo`` at DEMO_CASES through ``tools/check_numerics.py``,
    and the CLI with ``--numerics trace`` and every export through
    ``tools/check_telemetry.py`` (the capacity report's device watermark
@@ -2382,14 +2382,15 @@ def phase_telemetry(torch, counters):
     kernels' counts set to 0 just before it and read just after.
 
     (a) TELEMETRY_ROW through ``driver.solve`` (inplace), untraced and
-    with ``Telemetry()`` and ``numerics="trace"`` in turns: the untraced
-    run launches what the solve phase's rows launch (Nr panel probes, no
-    bracket), the traced one Nr records whose pivots equal an untraced
-    engine run's (recorded by its probe), and ``elapsed == execute``'s
-    duration exactly in both.  (b) TELEMETRY_PALLAS_ROW through
-    ``grouped_pallas``, traced: measured phase children, and the probe and
-    update counts rise by the brackets' 2 + 2 above the engine's Nr and
-    ceil(Nr/k); the bracket walls are printed.  (c) the solve K=1 at
+    with ``Telemetry()`` and ``numerics="trace"`` in turns: both runs
+    launch what the solve phase's rows launch (Nr panel probes), the
+    traced one Nr records whose pivots equal an untraced engine run's
+    (recorded by its probe) and Nr measured ``step`` spans, and
+    ``elapsed == execute``'s duration exactly in both.  (b)
+    TELEMETRY_PALLAS_ROW through ``grouped_pallas``, traced: one measured
+    step a superstep with its three phases, and the engine's own Nr probe
+    and ceil(Nr/k) update launches, no more; each phase's device ms
+    summed over the steps is printed.  (c) the solve K=1 at
     TELEMETRY_ROW with ``numerics="trace"`` (Nr records) and the update
     k=16 with telemetry and ``numerics="summary"``.  (d) ``numerics_demo``
     at DEMO_CASES, each walking its listed rungs, each report through
@@ -2408,7 +2409,6 @@ def phase_telemetry(torch, counters):
     from tpu_jordan_torch.obs import Telemetry
     from tpu_jordan_torch.obs.numerics import numerics_demo
     from tpu_jordan_torch.ops import block_jordan_invert_inplace, generate
-    from tpu_jordan_torch.ops import fused_update as update_mod
     from tpu_jordan_torch.ops import gj_probe as probe_mod
     from tpu_jordan_torch.profile_solve import update_factors
     from tpu_jordan_torch.resilience import ResidualGateError
@@ -2456,7 +2456,8 @@ def phase_telemetry(torch, counters):
                   and (mode == "untraced" or (
                       len(rep.pivot_block) == nr
                       and rep.pivot_block == picks
-                      and res.trace.find("pivot").attrs.get("modeled"))))
+                      and len([c for c in res.trace.find("execute").children
+                               if c.name == "step"]) == nr)))
             if not ok:
                 bad.append({"mode": mode, "launches": got,
                             "pivots": rep and rep.pivot_block})
@@ -2476,30 +2477,30 @@ def phase_telemetry(torch, counters):
     nr, k = -(-n // m), 2
     solve(n, m, generator=gen, dtype=dname, engine="grouped_pallas",
           device="cuda")
-    update_mod._PHASE_CACHE.clear()
     res, got = counted(lambda: solve(
         n, m, generator=gen, dtype=dname, engine="grouped_pallas",
         device="cuda", telemetry=Telemetry(), numerics="trace"))
     body = probe_mod.probe_body(m, getattr(torch, dname))
     expected = dict.fromkeys(counters, 0)
-    expected[body] = nr + 2
-    expected["fused_update"] = -(-nr // k) + 2
+    expected[body] = nr
+    expected["fused_update"] = -(-nr // k)
     esp = res.trace.find("execute")
-    phases = {c.name: dict(c.attrs) for c in esp.children}
+    steps = [c for c in esp.children if c.name == "step"]
+    phase_ms = {p: sum(sp.device_seconds for s in steps
+                       for sp in s.children if sp.name == p) * 1e3
+                for p in ("pivot", "permute", "eliminate")}
     row = {"phase": "telemetry", "row": "measured_phases", "n": n, "m": m,
            "engine": res.engine, "seconds": res.elapsed,
-           "phases": phases,
-           "bracket_ms": {p: a["bracket_seconds"] * 1e3
-                          for p, a in phases.items()
-                          if "bracket_seconds" in a},
+           "steps": len(steps), "phase_device_ms": phase_ms,
            "records": len(res.numerics.pivot_block),
            "rel_residual": res.rel_residual, "launches": got,
            "expected_launches": expected}
     emit(row)
     if not (got == expected and elapsed_is_execute(res)
-            and len(phases) == 3 and row["records"] == nr
-            and all(a.get("measured") and not a.get("modeled")
-                    for a in phases.values())):
+            and len(steps) == nr and row["records"] == nr
+            and all([c.name for c in s.children]
+                    == ["pivot", "permute", "eliminate"] for s in steps)
+            and not [sp for sp in esp.walk() if "modeled" in sp.attrs]):
         raise AssertionError(f"measured phases failed their checks: {row}")
     del res
     torch.cuda.empty_cache()

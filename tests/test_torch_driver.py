@@ -179,13 +179,16 @@ def test_solve_batch_singular_count_matches_jax(n, m, batch):
 
 def test_solve_batch_refuses_telemetry_and_needs_a_card(monkeypatch):
     """solve_batch records its span tree (the JAX package's names, less
-    compile) and still needs a card unless the CPU is asked for."""
+    compile, with the batched engine's measured steps under execute) and
+    still needs a card unless the CPU is asked for."""
     from tpu_jordan_torch.obs import Telemetry
 
     r = tdriver.solve_batch(8, 4, batch=2, generator="rand", device="cpu",
                             telemetry=Telemetry())
-    assert [sp.name for sp in r.trace.walk()] == [
-        "solve_batch", "load", "execute", "residual"]
+    assert [sp.name for sp in r.trace.children] == [
+        "load", "execute", "residual"]
+    assert [sp.name for sp in r.trace.find("execute").children] == [
+        "setup", "step", "step", "finalize"]
     assert r.elapsed == r.trace.find("execute").duration
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(DeviceUnavailableError):

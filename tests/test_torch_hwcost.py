@@ -2,9 +2,9 @@
 (``tpu_jordan_torch/obs/hwcost.py``, ``obs/capacity.py``) against the JAX
 package's, on the CPU.
 
-Eager PyTorch compiles no executable, so ``executable_cost`` is
-``UNAVAILABLE`` on every backend and nothing modeled stands in its place;
-the flop conventions, the attribute names of an execute span, the sticky
+Eager PyTorch compiles no executable, so the port carries no executable
+cost and nothing modeled stands in its place: an execute span has the
+analytical rate alone.  The flop conventions, the sticky
 device watermark (with an injected sampler) and the ledger's
 reconciliation ``created == live + evicted`` are the JAX package's, case
 for case.  The device watermark stays unavailable on the CPU.
@@ -50,16 +50,6 @@ def test_update_convention_is_the_update_modules():
         update_flops(8192, 16)
 
 
-@pytest.mark.parametrize("compiled", [None, object(), "anything"])
-def test_executable_cost_is_unavailable_never_modeled(compiled):
-    cost = thwcost.executable_cost(compiled)
-    assert cost is thwcost.UNAVAILABLE and cost.available is False
-    doc = cost.to_json()
-    assert all(doc[f] is None for f in (
-        "flops", "bytes_accessed", "argument_bytes", "output_bytes",
-        "temp_bytes", "hbm_bytes", "arithmetic_intensity"))
-
-
 @pytest.mark.parametrize("workload", ["invert", "solve", "update"])
 def test_solve_execute_span_has_the_analytical_rate_only(workload):
     """End to end on the CPU: the execute span of an invert, a solve and
@@ -93,28 +83,18 @@ def test_solve_execute_span_has_the_analytical_rate_only(workload):
 
 
 def test_attach_execute_cost_keeps_the_analytical_rate():
-    """An unavailable cost still puts the 2n³ rate on the span, and no
-    compiler attribute; the JAX package attaches nothing then."""
+    """The 2n³ rate goes on the span, and no compiler attribute; the JAX
+    package attaches nothing without its compiler's record."""
     sp = TSpan("execute", 0.0, 0.5)
-    thwcost.attach_execute_cost(sp, thwcost.UNAVAILABLE,
-                                analytical_flops=2.0 * 1000 ** 3)
+    thwcost.attach_execute_cost(sp, analytical_flops=2.0 * 1000 ** 3)
     assert sp.attrs == {"achieved_tflops_analytical": 0.004}
     js = JSpan("execute", 0.0, 0.5)
     jhwcost.attach_execute_cost(js, jhwcost.UNAVAILABLE,
                                 analytical_flops=2.0 * 1000 ** 3)
     assert js.attrs == {}
-
-
-def test_attach_execute_cost_with_a_cost_matches_jax():
-    """Given the same available record, the span attributes are the JAX
-    package's."""
-    kw = dict(available=True, flops=3.2e9, bytes_accessed=4.0e8,
-              argument_bytes=100, output_bytes=50, temp_bytes=7)
-    sp, js = TSpan("execute", 1.0, 1.25), JSpan("execute", 1.0, 1.25)
-    thwcost.attach_execute_cost(sp, thwcost.ExecutableCost(**kw), 2.0e9)
-    jhwcost.attach_execute_cost(js, jhwcost.ExecutableCost(**kw), 2.0e9)
-    assert sp.attrs == js.attrs
-    assert thwcost.ExecutableCost(**kw).hbm_bytes == 157
+    empty = TSpan("execute", 1.0, 1.0)
+    thwcost.attach_execute_cost(empty, analytical_flops=2.0e9)
+    assert empty.attrs == {}
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)

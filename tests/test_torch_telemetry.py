@@ -2,11 +2,12 @@
 ``obs/export.py``) and the telemetry of its entry points, against the JAX
 package's, on the CPU.
 
-A fake clock drives both packages' ``Telemetry`` to equal trees; the
-modeled phase fractions equal the JAX package's to 1e-12.  A solve's span
-names are the JAX package's less ``compile`` (torch compiles nothing),
-the fused engine's execute span has measured children and the others
-modeled ones, and ``elapsed`` is the execute span's duration exactly.
+A fake clock drives both packages' ``Telemetry`` to equal trees.  A
+solve's span names outside ``execute`` are the JAX package's less
+``compile`` (torch compiles nothing); under ``execute`` the port records
+its engines' measured steps (``tests/test_torch_engine_spans.py``) where
+the JAX package models the phases, and ``elapsed`` is the execute span's
+duration exactly.
 The Prometheus text and the Chrome trace of a solve, an lstsq and an
 update pass ``tools/check_telemetry.py`` unchanged.
 """
@@ -51,7 +52,7 @@ def _drive(pkg):
             pass
         with tel.span("execute", engine="inplace") as esp:
             pass
-        pkg.attribute_phases(esp, 64, 8, lookahead=True)
+        esp.child("pivot", esp.t_start, esp.t_end, t=0)
         with tel.span("residual"):
             pass
     with tel.span("solve_batch", batch=2):
@@ -64,31 +65,7 @@ def test_span_tree_matches_jax_with_a_fake_clock():
     jt, jroot = _drive(jspans)
     assert troot.to_dict() == jroot.to_dict()
     assert [r.to_dict() for r in tt.roots] == [r.to_dict() for r in jt.roots]
-    assert tt.find("probe_ahead").to_dict() == \
-        jt.find("probe_ahead").to_dict()
-
-
-@pytest.mark.parametrize("lookahead", [False, True])
-@pytest.mark.parametrize("n,m", [(64, 8), (96, 16), (1000, 50),
-                                 (8192, 384)])
-def test_modeled_phases_match_jax(n, m, lookahead):
-    ts, js = tspans.Span("execute", 2.0, 5.5), jspans.Span("execute", 2.0,
-                                                             5.5)
-    tspans.attribute_phases(ts, n, m, lookahead=lookahead)
-    jspans.attribute_phases(js, n, m, lookahead=lookahead)
-    for a, b in zip(ts.walk(), js.walk()):
-        assert a.name == b.name and a.attrs == b.attrs
-        assert abs(a.t_start - b.t_start) <= 1e-12
-        assert abs(a.t_end - b.t_end) <= 1e-12
-
-
-def test_measured_phases_match_jax():
-    fr = {"pivot": 0.3, "permute": 0.05, "eliminate": 0.9}
-    ts, js = tspans.Span("execute", 0.0, 2.0), jspans.Span("execute", 0.0,
-                                                             2.0)
-    tspans.attribute_phases_measured(ts, fr)
-    jspans.attribute_phases_measured(js, fr)
-    assert ts.to_dict() == js.to_dict()
+    assert tt.find("pivot").to_dict() == jt.find("pivot").to_dict()
 
 
 def test_null_telemetry_retains_nothing_and_roots_are_bounded():
@@ -114,7 +91,17 @@ def test_timed_blocking_on_the_cpu_uses_the_telemetry_clock():
 def _jax_names(engine):
     tel = jspans.Telemetry()
     jsolve(64, 8, generator="rand", engine=engine, telemetry=tel)
-    return [sp.name for sp in tel.spans() if sp.name != "compile"]
+    return _outside_execute(tel.roots[-1])
+
+
+def _outside_execute(root):
+    """The span names of a solve tree, less ``compile`` and less what
+    lies under ``execute``."""
+    out = [root.name] if root.name != "compile" else []
+    if root.name != "execute":
+        for c in root.children:
+            out += _outside_execute(c)
+    return out
 
 
 @pytest.mark.parametrize("engine", ["inplace", "grouped", "lookahead",
@@ -123,18 +110,19 @@ def test_solve_spans_are_the_jax_names_less_compile(engine):
     tel = tspans.Telemetry()
     r = tsolve(64, 8, generator="rand", engine=engine, telemetry=tel,
                device="cpu")
-    assert [sp.name for sp in tel.spans()] == _jax_names(engine)
+    assert _outside_execute(r.trace) == _jax_names(engine)
     esp = r.trace.find("execute")
     assert r.elapsed == esp.duration
     assert esp.attrs["engine"] == engine
     assert esp.attrs["achieved_tflops_analytical"] > 0
-    phases = [c for c in esp.children]
-    assert [c.name for c in phases] == ["pivot", "permute", "eliminate"]
-    if engine == "grouped_pallas":
-        assert all(c.attrs["measured"] and "modeled" not in c.attrs
-                   and c.attrs["bracket_seconds"] > 0 for c in phases)
+    steps = [c for c in esp.children if c.name == "step"]
+    assert not [sp for sp in esp.walk() if "modeled" in sp.attrs]
+    if engine == "augmented":
+        assert esp.children == []
     else:
-        assert all(c.attrs["modeled"] for c in phases)
+        assert len(steps) == 8 and all(
+            [c.name for c in s.children] == ["pivot", "permute", "eliminate"]
+            for s in steps)
     if engine == "lookahead":
         assert esp.attrs["probe_overlap_headroom"] > 0
 
@@ -150,33 +138,33 @@ def test_auto_solve_has_a_select_span():
 
 
 def test_untraced_solve_runs_no_bracket(monkeypatch):
-    """Without telemetry (or with the discard-only sink) a fused solve
-    times nothing beyond its own bracket."""
+    """A fused solve, untraced, with the discard-only sink or with a
+    retaining telemetry, runs the engine's own group closes and nothing
+    beside them: its phases are the engine's measured steps, no bracket
+    launches kernels of its own."""
     from tpu_jordan_torch.ops import fused_update
 
-    def boom(*a, **k):
-        raise AssertionError("a phase bracket ran")
+    closes = []
+    plain = fused_update.fused_normalize_eliminate_plain
 
-    monkeypatch.setattr(fused_update, "measured_phase_fractions", boom)
+    def counted(*a, **k):
+        closes.append(1)
+        return plain(*a, **k)
+
+    monkeypatch.setattr(fused_update, "fused_normalize_eliminate_plain",
+                        counted)
     r = tsolve(32, 8, generator="rand", engine="grouped_pallas",
                device="cpu")
     assert r.trace is None and r.numerics is None
     r = tsolve(32, 8, generator="rand", engine="grouped_pallas",
                device="cpu", telemetry=tspans.NULL)
     assert r.trace is not None and r.trace.children == []
-
-
-def test_phase_brackets_are_cached_per_configuration():
-    from tpu_jordan_torch.ops import fused_update
-
-    fused_update._PHASE_CACHE.clear()
-    f1, s1 = fused_update.measured_phase_fractions(64, 8, 2, "fp32",
-                                                   device="cpu")
-    f2, s2 = fused_update.measured_phase_fractions(64, 8, 2, "fp32",
-                                                   device="cpu")
-    assert f1 == f2 and s1 == s2 and abs(sum(f1.values()) - 1) < 1e-12
-    assert set(s1) == {"pivot", "permute", "eliminate"}
-    assert list(fused_update._PHASE_CACHE) == [(64, 8, 2, "fp32", "cpu")]
+    tel = tspans.Telemetry()
+    r = tsolve(32, 8, generator="rand", engine="grouped_pallas",
+               device="cpu", telemetry=tel)
+    assert len(closes) == 3 * 2            # Nr = 4 at group 2, each solve
+    assert [c.name for c in r.trace.find("execute").children] == [
+        "setup", "step", "step", "step", "step", "finalize"]
 
 
 def _ladder_names(tel):
@@ -292,7 +280,7 @@ def test_a_modeled_fused_phase_fails_the_checker(tmp_path):
     tel = tspans.Telemetry()
     with tel.span("execute", engine="grouped_pallas") as esp:
         pass
-    tspans.attribute_phases(esp, 64, 8)
+    esp.child("pivot", esp.t_start, esp.t_end, modeled=True, fraction=0.1)
     trace = tmp_path / "t.json"
     export.write_chrome_trace(str(trace), tel)
     assert _check(trace).returncode == 1

@@ -424,9 +424,8 @@ def _parser() -> argparse.ArgumentParser:
                          "gauges) as Prometheus text format on exit")
     ap.add_argument("--trace-json", default=None, metavar="PATH",
                     help="record the run's span tree (solve: select/load/"
-                         "execute/residual, the hot-loop phases under "
-                         "execute — measured kernel brackets for the "
-                         "fused engines, modeled otherwise — and the "
+                         "execute/residual, the engine's measured steps "
+                         "and hot-loop phases under execute, and the "
                          "ladder's recover rungs) and write it as Chrome "
                          "trace-event JSON — open in Perfetto "
                          "(ui.perfetto.dev) or chrome://tracing")

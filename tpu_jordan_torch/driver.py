@@ -15,14 +15,14 @@ counterpart of the JAX package's ``Precision.HIGHEST``.
 
 With ``telemetry`` (an ``obs.Telemetry``) the solve is a span tree on
 ``SolveResult.trace``: ``solve`` → ``select`` (the tuner) / ``load`` /
-``execute`` (with the hot-loop phases: measured kernel brackets for the
-fused engines, modeled otherwise) / ``residual`` / ``recover``.  The
-execute span's duration IS ``elapsed``.  ``numerics="summary"|"trace"``
+``execute`` (with the engine's measured steps and hot-loop phases,
+``obs/spans.py``) / ``residual`` / ``recover``.  The execute span's
+duration IS ``elapsed``.  ``numerics="summary"|"trace"``
 puts an ``obs.numerics.NumericsReport`` on ``SolveResult.numerics``,
 mirrored into the metrics and spiked into the flight recorder before any
 ladder rung.  With ``telemetry=None`` and ``numerics="off"`` (the
-defaults) a solve launches what it launches without them: no bracket, no
-statistics, no synchronize but the timing's own.
+defaults) a solve launches what it launches without them: no statistics,
+no synchronize but the timing's own.
 
 With a ``policy`` (auto-attached for ``grouped_pallas_bf16``), the engine
 call runs under the policy's retry and the result must pass the residual
@@ -87,7 +87,7 @@ from .ops import (
 from .obs import hwcost as _hwcost
 from .obs import metrics as _obs_metrics
 from .obs.spans import NULL as _NULL_TEL
-from .obs.spans import attribute_phases, timed_blocking
+from .obs.spans import timed_blocking
 from .ops.refine import resolve_precision
 from .resilience import faults as _faults
 from .resilience.degrade import maybe_recover
@@ -330,29 +330,11 @@ def check_entry_options(workers, gather, policy, dtype):
                          "ResiliencePolicy")
 
 
-def _attribute_solve_phases(tel, esp, engine: str, n: int,
-                            block_size: int, group: int, dev) -> None:
-    """The hot-loop phases under a single-device ``execute`` span: the
-    fused-update engines get MEASURED children from their kernels' own
-    brackets (``ops/fused_update.measured_phase_fractions``, with each
-    timed bracket's seconds as ``bracket_seconds``), the others modeled
-    children.  The brackets run only when ``tel`` retains spans, so a
-    ``NullTelemetry`` solve launches none; a lookahead span carries the
-    cost model's ``probe_overlap_headroom``."""
-    if engine in PALLAS_ENGINES and getattr(tel, "retain", False):
-        from .obs.spans import attribute_phases_measured
-        from .ops.fused_update import measured_phase_fractions
-
-        fractions, seconds = measured_phase_fractions(
-            n, block_size, group or 2,
-            mode="bf16" if engine.endswith("bf16") else "fp32",
-            device=dev)
-        for sp in attribute_phases_measured(esp, fractions,
-                                            source="kernel_bracket"):
-            sp.attrs["bracket_seconds"] = seconds[sp.name]
-        return
-    attribute_phases(esp, n, block_size, lookahead=engine == "lookahead")
-    if engine == "lookahead" and getattr(tel, "retain", False):
+def _lookahead_headroom(tel, esp, engine: str, n: int, block_size: int,
+                        dev) -> None:
+    """A retained lookahead ``execute`` span carries the cost model's
+    ``probe_overlap_headroom`` beside its measured steps."""
+    if engine == "lookahead" and tel.retain:
         from .tuning.registry import TunePoint, probe_overlap_headroom
 
         pt = TunePoint.create(n, block_size, device=dev)
@@ -796,10 +778,9 @@ def _solve_impl(n, block_size, load, dtype, refine, dev, verbose,
     inv, singular = out[:2]
     nstats = out[2] if collect else None
     elapsed = esp.duration
-    _attribute_solve_phases(tel, esp, engine, n, block_size, group, dev)
+    _lookahead_headroom(tel, esp, engine, n, block_size, dev)
     _solve_metrics(n, elapsed, esp, singular=bool(singular))
-    _hwcost.attach_execute_cost(esp, _hwcost.executable_cost(),
-                                analytical_flops=2.0 * float(n) ** 3)
+    _hwcost.attach_execute_cost(esp, analytical_flops=2.0 * float(n) ** 3)
     if _faults.corrupt("result_corrupt_nan"):
         # Silent corruption: the residual on a fresh A goes NaN, so the
         # policy's gate, not a lucky caller, must catch it.
@@ -963,8 +944,7 @@ def solve_batch(
         nsing = int(singular.sum())
         _solve_metrics(n, elapsed, esp, singular=bool(nsing), batch=batch)
         _hwcost.attach_execute_cost(
-            esp, _hwcost.executable_cost(),
-            analytical_flops=2.0 * float(n) ** 3 * batch)
+            esp, analytical_flops=2.0 * float(n) ** 3 * batch)
         if nsing:
             raise SingularMatrixError(
                 f"singular matrix ({nsing}/{batch} elements flagged)")

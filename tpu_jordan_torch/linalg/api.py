@@ -388,8 +388,7 @@ def _solve_system_impl(a, b2, n, k, m, dtype, engine, workload, plan, tel,
     flops = _hwcost.baseline_workload_flops(n, workload, k=k)
     if elapsed > 0:
         esp.attrs["gflops"] = round(flops / elapsed / 1e9, 3)
-    _hwcost.attach_execute_cost(esp, _hwcost.executable_cost(),
-                                analytical_flops=flops)
+    _hwcost.attach_execute_cost(esp, analytical_flops=flops)
     _obs_metrics.histogram(
         "tpu_jordan_torch_solve_seconds",
         "timed elimination seconds (the glob_time analog)",
@@ -533,8 +532,7 @@ def _solve_system_dist_impl(a, b2, n, k, m, dtype, workers, gather, engine,
     flops = _hwcost.baseline_workload_flops(n, workload, k=k)
     if elapsed > 0:
         esp.attrs["gflops"] = round(flops / elapsed / 1e9, 3)
-    _hwcost.attach_execute_cost(esp, _hwcost.executable_cost(),
-                                analytical_flops=flops)
+    _hwcost.attach_execute_cost(esp, analytical_flops=flops)
     _obs_metrics.histogram(
         "tpu_jordan_torch_solve_seconds",
         "timed elimination seconds (the glob_time analog)",

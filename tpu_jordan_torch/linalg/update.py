@@ -291,8 +291,7 @@ def _solve_update_impl(a, inv, u, v, n, k, dtype, drift, tel, policy,
         if policy is not None else execute())
     elapsed = esp.duration
     flops = update_flops(n, k)
-    _hwcost.attach_execute_cost(esp, _hwcost.executable_cost(),
-                                analytical_flops=flops)
+    _hwcost.attach_execute_cost(esp, analytical_flops=flops)
     if _faults.corrupt("result_corrupt_nan"):
         rel = float("nan")
     if bool(singular):

@@ -39,6 +39,7 @@ import torch
 from ..config import default_block_size
 from ..errors import UsageError
 from ..interop import from_numpy, resolve_device, resolve_dtype
+from ..obs import spans as _spans
 from ..ops import residual_inf_norm
 from ..ops.jordan_inplace import _SUB_FP32
 from ..resilience import faults as _faults
@@ -76,9 +77,14 @@ class JordanSolver:
     measurement with ``tune=True``; complex: "augmented"), the plan kept
     on ``plan``; ``policy`` a ``resilience.ResiliencePolicy`` whose retry
     wraps every engine call; ``telemetry`` an ``obs.Telemetry``: the
-    construction's ``select`` span (engine="auto"), and an ``execute``
-    span for every :meth:`invert` with its analytical rate (2n³); without
-    it ``invert`` is timed by nothing; ``device`` the card unless "cpu".
+    construction's ``select`` span (engine="auto"), and an ``invert``
+    (``invert_batch``) root for every call, its ``execute`` child timed
+    by ``obs.spans.timed_blocking`` with the engine's measured steps
+    under it, its rates and the registry's solve counters (as
+    ``driver.solve`` keeps them); without it a call is timed by nothing,
+    and while a ``torch.profiler`` collects its spans go to
+    ``obs.spans.PROFILED``, timed by CUDA events with no synchronisation
+    of their own; ``device`` the card unless "cpu".
     Counterpart of the JAX package's ``models.JordanSolver``."""
 
     n: int
@@ -218,9 +224,16 @@ class JordanSolver:
         """Invert one (n, n) matrix (a numpy array or a tensor); returns
         ``(inverse, singular)``, the inverse in the storage dtype and
         ``singular`` a 0-d bool tensor.  Distributed with ``gather=False``
-        the first element is a :class:`DistributedInverse`.  With
-        ``telemetry`` the engine call is an ``execute`` span
-        (``obs.spans.timed_blocking``)."""
+        the first element is a :class:`DistributedInverse`.  While spans
+        are on the call is an ``invert`` span around an ``execute``
+        child (class docstring)."""
+        tel = _spans.active(self.telemetry)
+        if tel is None:
+            return self._invert(a, None)
+        with tel.span("invert", n=self.n, engine=self.engine):
+            return self._invert(a, tel)
+
+    def _invert(self, a, tel):
         a = self._matrix(a, (self.n, self.n))
         if not self._compiled:
             self._compile()
@@ -229,21 +242,32 @@ class JordanSolver:
 
         def run():
             _faults.fire("execute")
-            if self.telemetry is None:
-                return self._run(a)
-            from ..obs import hwcost as _hwcost
-            from ..obs.spans import timed_blocking
-
-            out, esp = timed_blocking(self._run, a, telemetry=self.telemetry,
-                                      name="execute", device=self._device,
-                                      engine=self.engine)
-            _hwcost.attach_execute_cost(
-                esp, _hwcost.executable_cost(),
-                analytical_flops=2.0 * float(self.n) ** 3)
-            return out
+            return self._engine_call(tel, self._run, a, 1)
 
         inv, singular = self._execute(run)
         return inv.to(self.dtype), singular
+
+    def _engine_call(self, tel, fn, a, batch: int):
+        """``fn(a)``, in an ``execute`` span while spans are on: with the
+        solver's own telemetry timed by ``timed_blocking`` and counted in
+        the registry (``driver._solve_metrics``, no read of the singular
+        flag), else timed on the device without a synchronisation."""
+        if tel is None:
+            return fn(a)
+        if tel is not self.telemetry:
+            with tel.span("execute", device=self._device,
+                          engine=self.engine, batch=batch):
+                return fn(a)
+        from ..driver import _solve_metrics
+        from ..obs import hwcost as _hwcost
+
+        out, esp = _spans.timed_blocking(
+            fn, a, telemetry=tel, name="execute", device=self._device,
+            engine=self.engine, batch=batch)
+        _solve_metrics(self.n, esp.duration, esp, batch=batch)
+        _hwcost.attach_execute_cost(
+            esp, analytical_flops=2.0 * float(self.n) ** 3 * batch)
+        return out
 
     def _record(self):
         from ..obs.comm import recording_active
@@ -314,9 +338,8 @@ class JordanSolver:
         (``ops/batched.py``, one probe call a superstep for the whole
         stack); returns ``(inverses, singular_flags)`` of shapes (B, n, n)
         and (B,).  Real dtypes on one device only: the batched engine is
-        the in-place one."""
-        from ..ops import batched_jordan_invert
-
+        the in-place one.  Spanned as :meth:`invert` is, the root named
+        ``invert_batch``."""
         if self._distributed:
             raise UsageError(
                 "invert_batch is single-device; for distributed batches "
@@ -325,9 +348,20 @@ class JordanSolver:
             raise UsageError("invert_batch runs the batched in-place "
                              "engine, a real-dtype engine; invert complex "
                              "matrices one at a time")
+        tel = _spans.active(self.telemetry)
+        if tel is None:
+            return self._invert_batch(stack, None)
+        with tel.span("invert_batch", n=self.n, engine="batched"):
+            return self._invert_batch(stack, tel)
+
+    def _invert_batch(self, stack, tel):
+        from ..ops import batched_jordan_invert
+
         a = self._matrix(stack, (-1, self.n, self.n))
-        inv, sing = self._execute(lambda: batched_jordan_invert(
-            a, block_size=self.block_size, refine=self.refine))
+        run = partial(batched_jordan_invert, block_size=self.block_size,
+                      refine=self.refine)
+        inv, sing = self._execute(
+            lambda: self._engine_call(tel, run, a, a.shape[0]))
         return inv.to(self.dtype), sing
 
     def residual(self, a, inv) -> float:

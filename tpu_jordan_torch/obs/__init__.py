@@ -1,17 +1,18 @@
 """Observability of the port.  Counterpart of the JAX package's ``obs/``:
 
-  * ``spans``: the span tree with an injectable clock (``solve`` roots
-    with select/load/execute/residual children, the hot-loop phases under
-    ``execute``), and ``timed_blocking``, the one timing bracket;
+  * ``spans``: the span tree with an injectable clock (``solve`` and
+    ``invert`` roots with select/load/execute/residual children, the
+    engines' measured steps and hot-loop phases under ``execute``), on
+    the profiler's timeline while one collects, and ``timed_blocking``,
+    the one synchronising timing bracket;
   * ``metrics``: the process-wide registry of ``tpu_jordan_torch_*``
     counters, gauges and reservoir histograms (p50/p95/p99);
   * ``export``: Prometheus text and Chrome trace-event JSON (Perfetto);
   * ``numerics``: per-superstep numerical health behind ``numerics=``
     (off/summary/trace), with ``numerics_spike`` events recorded before
     any recovery rung (``tools/check_numerics.py``);
-  * ``hwcost``: the flop conventions, the executable-cost record
-    (unavailable in eager PyTorch, never modeled) and the CUDA
-    allocator's watermark;
+  * ``hwcost``: the flop conventions, the analytical rate of an execute
+    span and the CUDA allocator's watermark;
   * ``capacity``: the ledger of resident bytes per class;
   * ``recorder``: the always-on bounded flight recorder;
   * ``journey``: per-request journeys of the serving stack, their outcome
@@ -32,8 +33,7 @@ from .comm import (CommReport, DriftPolicy, ReconciliationError,
                    comm_demo, recording, set_drift_policy)
 from .export import (to_chrome_trace, to_json_line, to_prometheus,
                      write_chrome_trace, write_metrics)
-from .hwcost import (ExecutableCost, attach_execute_cost, executable_cost,
-                     runtime_env)
+from .hwcost import attach_execute_cost, runtime_env
 from .journey import JourneyLog, RequestContext, outcome_ledger
 from .metrics import (NAME_RE, REGISTRY, Counter, Gauge, Histogram,
                       MetricsRegistry, Reservoir, counter, gauge, histogram,
@@ -42,8 +42,7 @@ from .numerics import (NumericsReport, SpikeThresholds, numerics_demo,
                        record_spikes)
 from .recorder import RECORDER, FlightRecorder, record
 from .slo import SLOMonitor, SLOSpec, bucket_specs
-from .spans import (NULL, NullTelemetry, Span, Telemetry, attribute_phases,
-                    attribute_phases_measured, timed_blocking)
+from .spans import NULL, NullTelemetry, Span, Telemetry, timed_blocking
 from .work import (FleetSkewJudge, WorkReport, expected_latency_factor,
                    work_demo)
 
@@ -55,14 +54,13 @@ __all__ = [
     "FleetSkewJudge", "WorkReport", "expected_latency_factor", "work_demo",
     "to_chrome_trace", "to_json_line", "to_prometheus",
     "write_chrome_trace", "write_metrics",
-    "ExecutableCost", "attach_execute_cost", "executable_cost",
-    "runtime_env", "JourneyLog", "RequestContext", "outcome_ledger",
+    "attach_execute_cost", "runtime_env",
+    "JourneyLog", "RequestContext", "outcome_ledger",
     "NumericsReport", "SpikeThresholds", "numerics_demo", "record_spikes",
     "NAME_RE", "REGISTRY", "Counter", "Gauge", "Histogram",
     "MetricsRegistry", "Reservoir", "counter", "gauge", "histogram",
     "percentiles",
     "RECORDER", "FlightRecorder", "record",
     "SLOMonitor", "SLOSpec", "bucket_specs",
-    "NULL", "NullTelemetry", "Span", "Telemetry", "attribute_phases",
-    "attribute_phases_measured", "timed_blocking",
+    "NULL", "NullTelemetry", "Span", "Telemetry", "timed_blocking",
 ]

@@ -159,8 +159,8 @@ def write_chrome_trace(path: str, telemetry, journey_events=None) -> None:
 def profiler_trace(log_dir: str | None = None):
     """Capture a ``torch.profiler`` trace of the block into ``log_dir``
     (``<tmp>/tpu_jordan_torch_trace`` by default) as ``trace.json``;
-    yields the directory.  The device tier: real kernel times, the ground
-    truth the modeled phase spans approximate."""
+    yields the directory.  The device tier: real kernel times, with the
+    program's spans as ``tj::<name>`` host ranges beside them."""
     import tempfile
 
     import torch

@@ -32,6 +32,11 @@ The probe-ahead (``lookahead``) twins launch step t+1's probe before step
 t's trailing eliminate.  On the card that probe runs on a side CUDA stream
 of high priority (:class:`_ProbeAhead`), so it overlaps the GEMMs that
 follow it on the main stream; on the CPU the same schedule runs in order.
+
+While spans are on (``obs.spans.sink``) the loops record ``setup``, one
+``step`` a superstep with its ``pivot``/``permute``/``eliminate``, and
+``finalize`` (with ``readback``) and ``refine``, each timed on the stream
+its work launches on; with spans off each site is one test of ``tel``.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from ..config import default_block_size, eps_for
+from ..obs.spans import NOSPAN, sink
 from .block_inverse import probe_blocks
 from .fused_update import MODES, fused_normalize_eliminate
 from .norms import block_inf_norms
@@ -142,9 +148,11 @@ def _setup(a, block_size, eps):
         eps = eps_for(a.dtype)
     Nr = -(-n // m)
     N = Nr * m
-    V = pad_with_identity(a, N)
-    if V is a:
-        V = a.clone()
+    tel = sink()
+    with tel.span("setup", device=a.device) if tel else NOSPAN:
+        V = pad_with_identity(a, N)
+        if V is a:
+            V = a.clone()
     return n, m, eps, Nr, N, V
 
 
@@ -172,10 +180,13 @@ class _ProbeAhead:
     the main stream does not write before :meth:`take`.  Tensors cross the
     streams with ``record_stream``, so the caching allocator does not hand
     their memory out while the other stream may still use it.  On the CPU
-    :meth:`launch` runs in order and :meth:`take` only returns."""
+    :meth:`launch` runs in order and :meth:`take` only returns.  With a
+    span sink ``tel`` each launch is a ``pivot`` span with
+    ``overlapped=True``, timed on the stream it runs on."""
 
-    def __init__(self, device, probe, eps):
-        self.probe, self.eps = probe, eps
+    def __init__(self, device, probe, eps, tel=None):
+        self.probe, self.eps, self.tel = probe, eps, tel
+        self.device = device
         self.main = self.side = None
         if device.type == "cuda":
             self.main = torch.cuda.current_stream(device)
@@ -183,8 +194,11 @@ class _ProbeAhead:
         self._out = None
 
     def _run(self, cands, t):
-        invs, sing = self.probe(cands, self.eps)
-        H, piv, key = _select(invs, sing, t)
+        tel = self.tel
+        with (tel.span("pivot", device=self.device, t=t, overlapped=True)
+              if tel else NOSPAN):
+            invs, sing = self.probe(cands, self.eps)
+            H, piv, key = _select(invs, sing, t)
         return H, piv, key, sing
 
     def launch(self, cands, t: int) -> None:
@@ -229,12 +243,24 @@ def invert_finalize(V, swaps, *, n: int, Nr: int, m: int):
     gather, strip the identity padding.  Runs once, after the last
     superstep (or segment).  Counterpart of the JAX package's
     ``invert_finalize``."""
-    V = apply_col_perm(V, compose_swap_perm(swaps.tolist(), Nr), m)
-    return unpad(V, n).contiguous()
+    tel = sink()
+    with tel.span("finalize", device=V.device) if tel else NOSPAN:
+        with tel.span("readback") if tel else NOSPAN:
+            history = swaps.tolist()
+        V = apply_col_perm(V, compose_swap_perm(history, Nr), m)
+        return unpad(V, n).contiguous()
+
+
+def refine_span(a, x, refine: int):
+    """``newton_schulz(a, x, refine)``, a ``refine`` span while spans
+    are on and there are steps to run."""
+    tel = sink() if refine else None
+    with tel.span("refine", device=x.device, steps=refine) if tel else NOSPAN:
+        return newton_schulz(a, x, refine)
 
 
 def _finish(V, swaps, Nr, n, m, a, refine, stats, singular):
-    x = newton_schulz(a, invert_finalize(V, swaps, n=n, Nr=Nr, m=m), refine)
+    x = refine_span(a, invert_finalize(V, swaps, n=n, Nr=Nr, m=m), refine)
     if stats is not None:
         return x, singular, stats.stacked()
     return x, singular
@@ -317,55 +343,62 @@ def _inplace_steps(V, singular, swaps, t_start, t_end, *, Nr, m, eps,
     launch of the next step's probe (:class:`_ProbeAhead`)."""
     N = Nr * m
     Vb = V.view(Nr, m, N)
-    ahead = _ProbeAhead(V.device, probe, eps) if lookahead else None
+    tel, dev = sink(), V.device
+    ahead = _ProbeAhead(dev, probe, eps, tel) if lookahead else None
     if ahead is not None:
         # --- PROLOGUE: the first step's probe on its untouched column.
         t, c = t_start, slice(t_start * m, (t_start + 1) * m)
         ahead.launch(V[t * m:, c].reshape(Nr - t, m, m).contiguous(), t)
     for t in range(t_start, t_end):
-        s = slice(t * m, (t + 1) * m)
-        if ahead is None:
-            # --- PROBE the live candidate blocks of column t
-            # (main.cpp:1039).
-            cands = V[t * m:, s].reshape(Nr - t, m, m).contiguous()
-            invs, sing = probe(cands, eps)
-            H, piv, key = _select(invs, sing, t, out=swaps[t])
-        else:
-            # --- PROBE-AHEAD: launched before the previous trailing
-            # eliminate.
-            H, piv, key, sing = ahead.take()
-            swaps[t] = piv
-        singular |= sing.all()
-        if stats is not None:
-            stats.probe(piv, key, sing)
+        with tel.span("step", device=dev, t=t) if tel else NOSPAN:
+            s = slice(t * m, (t + 1) * m)
+            with tel.span("pivot", device=dev) if tel else NOSPAN:
+                if ahead is None:
+                    # --- PROBE the live candidate blocks of column t
+                    # (main.cpp:1039).
+                    cands = V[t * m:, s].reshape(Nr - t, m, m).contiguous()
+                    invs, sing = probe(cands, eps)
+                    H, piv, key = _select(invs, sing, t, out=swaps[t])
+                else:
+                    # --- PROBE-AHEAD: launched before the previous
+                    # trailing eliminate.
+                    H, piv, key, sing = ahead.take()
+                    swaps[t] = piv
+                singular |= sing.all()
+                if stats is not None:
+                    stats.probe(piv, key, sing)
 
-        # --- SWAP block rows t <-> piv (main.cpp:1093-1131).
-        rows_p = _swap_rows(Vb, t, piv)
+            # --- SWAP block rows t <-> piv (main.cpp:1093-1131).
+            with tel.span("permute", device=dev) if tel else NOSPAN:
+                rows_p = _swap_rows(Vb, t, piv)
 
-        # --- NORMALIZE + ELIMINATE, in place: prow's t-block is H and V's
-        # t-column is zeroed first, so the one product leaves −E·H there.
-        prow = H @ rows_p                                     # (m, N)
-        prow[:, s] = H
-        E = V[:, s].clone()                                   # (N, m)
-        E[s] = 0
-        V[:, s] = 0
-        c0 = (t + 1) * m
-        if ahead is not None and t < t_end - 1:
-            # --- CRITICAL PANEL first, then step t+1's probe on its live
-            # window (rows below the pivot-row write), copied so that the
-            # probe reads no column the trailing update writes; the
-            # TRAILING ELIMINATE is launched after the probe.
-            V[:, c0:c0 + m].addmm_(E, prow[:, c0:c0 + m], alpha=-1)
-            ahead.launch(V[c0:, c0:c0 + m].reshape(Nr - t - 1, m, m)
-                         .contiguous(), t + 1)
-            V[:, :c0].addmm_(E, prow[:, :c0], alpha=-1)
-            if c0 + m < N:
-                V[:, c0 + m:].addmm_(E, prow[:, c0 + m:], alpha=-1)
-        else:
-            V.addmm_(E, prow, alpha=-1)
-        V[s] = prow
-        if stats is not None:
-            stats.sample_growth(V)
+            # --- NORMALIZE + ELIMINATE, in place: prow's t-block is H and
+            # V's t-column is zeroed first, so the one product leaves −E·H
+            # there.
+            with tel.span("eliminate", device=dev) if tel else NOSPAN:
+                prow = H @ rows_p                             # (m, N)
+                prow[:, s] = H
+                E = V[:, s].clone()                           # (N, m)
+                E[s] = 0
+                V[:, s] = 0
+                c0 = (t + 1) * m
+                if ahead is not None and t < t_end - 1:
+                    # --- CRITICAL PANEL first, then step t+1's probe on
+                    # its live window (rows below the pivot-row write),
+                    # copied so that the probe reads no column the
+                    # trailing update writes; the TRAILING ELIMINATE is
+                    # launched after the probe.
+                    V[:, c0:c0 + m].addmm_(E, prow[:, c0:c0 + m], alpha=-1)
+                    ahead.launch(V[c0:, c0:c0 + m].reshape(Nr - t - 1, m, m)
+                                 .contiguous(), t + 1)
+                    V[:, :c0].addmm_(E, prow[:, :c0], alpha=-1)
+                    if c0 + m < N:
+                        V[:, c0 + m:].addmm_(E, prow[:, c0 + m:], alpha=-1)
+                else:
+                    V.addmm_(E, prow, alpha=-1)
+                V[s] = prow
+                if stats is not None:
+                    stats.sample_growth(V)
 
 
 def invert_segment(V, singular, swaps, *, t0: int, t1: int, Nr: int,
@@ -530,9 +563,10 @@ def _grouped_steps(V, singular, swaps, t_start, t_end, *, Nr, m, group,
             f"grouped segment bounds must sit on group boundaries: "
             f"[{t_start}, {t_end}) with group={k}")
     Vb = V.view(Nr, m, N)
+    tel, dev = sink(), V.device
     ahead = None
     if lookahead:
-        ahead = _ProbeAhead(V.device, probe, eps)
+        ahead = _ProbeAhead(dev, probe, eps, tel)
         # --- PROLOGUE: the first group's first probe on its untouched
         # column.
         col_ahead = V[:, t_start * m:(t_start + 1) * m].clone()
@@ -546,72 +580,99 @@ def _grouped_steps(V, singular, swaps, t_start, t_end, *, Nr, m, group,
         for j in range(kg):
             t = t0 + j
             s = slice(t * m, (t + 1) * m)
-            if ahead is not None and j == 0:
-                # --- PROBE-AHEAD: this group's first decision was
-                # launched before the previous group-end update.
-                H, piv, key, sing = ahead.take()
-                swaps[t] = piv
-                col = col_ahead
-            else:
-                # --- EAGER CANDIDATE COLUMN: V[:, t] minus pending
-                # panels.
-                col = V[:, s].clone()
-                if j:
-                    col.addmm_(U[:, :j * m], P[:j * m, s], alpha=-1)
-                # --- PROBE the live window (main.cpp:1039).
-                invs, sing = probe(col[t * m:].view(Nr - t, m, m), eps)
-                H, piv, key = _select(invs, sing, t, out=swaps[t])
-            singular |= sing.all()
-            if stats is not None:
-                stats.probe(piv, key, sing)
+            with tel.span("step", device=dev, t=t) if tel else NOSPAN:
+                with tel.span("pivot", device=dev) if tel else NOSPAN:
+                    if ahead is not None and j == 0:
+                        # --- PROBE-AHEAD: this group's first decision was
+                        # launched before the previous group-end update.
+                        H, piv, key, sing = ahead.take()
+                        swaps[t] = piv
+                        col = col_ahead
+                    else:
+                        # --- EAGER CANDIDATE COLUMN: V[:, t] minus
+                        # pending panels.
+                        col = V[:, s].clone()
+                        if j:
+                            col.addmm_(U[:, :j * m], P[:j * m, s], alpha=-1)
+                        # --- PROBE the live window (main.cpp:1039).
+                        invs, sing = probe(col[t * m:].view(Nr - t, m, m),
+                                           eps)
+                        H, piv, key = _select(invs, sing, t, out=swaps[t])
+                    singular |= sing.all()
+                    if stats is not None:
+                        stats.probe(piv, key, sing)
 
-            # --- SWAP rows t <-> piv in V and U (pending panel
-            # contributions follow the physical row).
-            rows_p = _swap_rows(Vb, t, piv)
-            u_p = _swap_rows(Ub, t, piv)
+                # --- SWAP rows t <-> piv in V and U (pending panel
+                # contributions follow the physical row).
+                with tel.span("permute", device=dev) if tel else NOSPAN:
+                    rows_p = _swap_rows(Vb, t, piv)
+                    u_p = _swap_rows(Ub, t, piv)
 
-            # --- EAGER PIVOT ROW: old piv row minus pending panels.
-            if j:
-                rows_p.addmm_(u_p[:, :j * m], P[:j * m], alpha=-1)
+                with tel.span("eliminate", device=dev) if tel else NOSPAN:
+                    _grouped_eliminate(
+                        V, U, P, H, rows_p, u_p, col, piv, t, j, kg, m,
+                        stats, close)
+                    if j == kg - 1:
+                        col_ahead = _group_end(V, U, P, t0 + kg, t_end, m,
+                                               stats, close, ahead)
 
-            # --- RECORD the panel: E = eager column, blocks t/piv
-            # exchanged, pivot-row block zeroed.
-            colb = col.view(Nr, m, m)
-            colb.index_copy_(0, piv.view(1), colb[t:t + 1].clone())
-            colb[t] = 0
-            # --- BOOKKEEPING WRITES (the invariants above).  Zeroing V's
-            # column t also cancels the pending panels' contributions.
-            if j:
-                P[:j * m, s] = 0
-            U[s] = 0
-            U[:, j * m:(j + 1) * m] = col
-            if close is not None and j == kg - 1:
-                # --- GROUP-CLOSING STEP: normalize, zero the pivot
-                # column, write the pivot row and retire the group.
-                close(V, U, P, H, rows_p, t, j, m)
-                continue
-            prow = H @ rows_p                                 # (m, N)
-            prow[:, s] = H
-            V[:, s] = 0
-            V[s] = prow
-            P[j * m:(j + 1) * m] = prow
-            if stats is not None:
-                stats.sample_growth(V, U)
 
-        tn = t0 + kg
-        if ahead is not None and tn < t_end:
-            # --- CRITICAL PANEL + PROBE-AHEAD: the next group's first
-            # eager column is the column slice of the group-end product;
-            # its probe is launched before that product.
-            sn = slice(tn * m, (tn + 1) * m)
-            col_ahead = V[:, sn].clone()
-            col_ahead.addmm_(U, P[:, sn], alpha=-1)
-            ahead.launch(col_ahead[tn * m:].view(Nr - tn, m, m), tn)
-        if close is None:
-            # --- GROUP-END TRAILING UPDATE: one fat product.
-            V.addmm_(U, P, alpha=-1)
-            if stats is not None:
-                stats.refresh(V)
+def _grouped_eliminate(V, U, P, H, rows_p, u_p, col, piv, t, j, kg, m,
+                       stats, close):
+    """A grouped superstep's eliminate: the eager pivot row, the panel
+    record, the bookkeeping writes, then the normalized pivot row written
+    (or, on a fused group's closing step, ``close``)."""
+    s = slice(t * m, (t + 1) * m)
+    Nr = V.shape[0] // m
+    # --- EAGER PIVOT ROW: old piv row minus pending panels.
+    if j:
+        rows_p.addmm_(u_p[:, :j * m], P[:j * m], alpha=-1)
+
+    # --- RECORD the panel: E = eager column, blocks t/piv exchanged,
+    # pivot-row block zeroed.
+    colb = col.view(Nr, m, m)
+    colb.index_copy_(0, piv.view(1), colb[t:t + 1].clone())
+    colb[t] = 0
+    # --- BOOKKEEPING WRITES (the invariants above).  Zeroing V's column
+    # t also cancels the pending panels' contributions.
+    if j:
+        P[:j * m, s] = 0
+    U[s] = 0
+    U[:, j * m:(j + 1) * m] = col
+    if close is not None and j == kg - 1:
+        # --- GROUP-CLOSING STEP: normalize, zero the pivot column, write
+        # the pivot row and retire the group.
+        close(V, U, P, H, rows_p, t, j, m)
+        return
+    prow = H @ rows_p                                         # (m, N)
+    prow[:, s] = H
+    V[:, s] = 0
+    V[s] = prow
+    P[j * m:(j + 1) * m] = prow
+    if stats is not None:
+        stats.sample_growth(V, U)
+
+
+def _group_end(V, U, P, tn, t_end, m, stats, close, ahead):
+    """The end of a group, inside its last step's eliminate: with
+    probe-ahead the next group's first eager column (the column slice of
+    the group-end product, returned) and its probe, launched before that
+    product; then, unless the fused update closed the group, the
+    group-end trailing update."""
+    col_ahead = None
+    if ahead is not None and tn < t_end:
+        # --- CRITICAL PANEL + PROBE-AHEAD.
+        Nr = V.shape[0] // m
+        sn = slice(tn * m, (tn + 1) * m)
+        col_ahead = V[:, sn].clone()
+        col_ahead.addmm_(U, P[:, sn], alpha=-1)
+        ahead.launch(col_ahead[tn * m:].view(Nr - tn, m, m), tn)
+    if close is None:
+        # --- GROUP-END TRAILING UPDATE: one fat product.
+        V.addmm_(U, P, alpha=-1)
+        if stats is not None:
+            stats.refresh(V)
+    return col_ahead
 
 
 def invert_segment_grouped(V, singular, swaps, *, t0: int, t1: int, Nr: int,

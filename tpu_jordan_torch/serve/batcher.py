@@ -554,7 +554,7 @@ class MicroBatcher:
                     device=ex.device, bucket=bucket, occupancy=len(batch),
                     workload=workload)
                 _hwcost.attach_execute_cost(
-                    esp, ex.cost,
+                    esp,
                     analytical_flops=_hwcost.baseline_workload_flops(
                         bucket, workload, k=rhs) * self.batch_cap)
                 res, sing, kappa, rel = out
@@ -665,7 +665,7 @@ class MicroBatcher:
                     workload=workload, mesh=mesh)
                 res, sing, outcomes = out
                 _hwcost.attach_execute_cost(
-                    esp, ex.cost,
+                    esp,
                     analytical_flops=_hwcost.baseline_workload_flops(
                         bucket, workload, k=rhs))
                 ex.comm_report(outcomes, esp.duration, span=esp)
@@ -879,7 +879,7 @@ class MicroBatcher:
             device=ex.device, bucket=bucket, occupancy=slots,
             workload="update")
         _hwcost.attach_execute_cost(
-            esp, ex.cost,
+            esp,
             analytical_flops=slots * _hwcost.baseline_workload_flops(
                 bucket, "update", k=ex.key.rhs))
         a_new, inv_new, sing, kappa, rel = out

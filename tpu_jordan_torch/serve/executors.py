@@ -32,7 +32,6 @@ import torch
 from ..config import default_block_size
 from ..errors import UsageError
 from ..interop import resolve_device, resolve_dtype
-from ..obs import hwcost as _hwcost
 from ..obs.spans import NULL
 from ..resilience import faults as _faults
 from ..resilience.policy import CircuitBreaker
@@ -177,9 +176,6 @@ class BucketExecutor:
         self.plan = plan          # tuning.Plan (None for explicit engines)
         self.device = device
         self._fn = self._build()
-        # The compiler's accounting of the JAX executable: eager PyTorch
-        # has none (hwcost.UNAVAILABLE).
-        self.cost = _hwcost.executable_cost()
 
     def _build(self):
         _faults.fire("compile")
@@ -518,7 +514,6 @@ class ExecutorCache:
                 self.stats.compile(label, workload=workload)
             else:
                 self.stats.cache_hit(label, workload=workload)
-            self.stats.executable_cost(label, ex.cost)
         return ex, ("compiled" if built else "shared_store")
 
     def entries(self):

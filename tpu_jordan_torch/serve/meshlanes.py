@@ -182,7 +182,6 @@ class MeshLaneExecutor:
         self.work_dtype = (torch.float32 if in_dtype.itemsize < 4
                            else in_dtype)
         _faults.fire("compile")
-        from ..obs import hwcost as _hwcost
         from ..parallel.layout import CyclicLayout, CyclicLayout2D
         from ..parallel.world import World
 
@@ -194,7 +193,6 @@ class MeshLaneExecutor:
         self.engine = ("inplace" if key.engine in ("inplace", "auto")
                        else key.engine)
         self._spec = self._make_spec(mesh)
-        self.cost = _hwcost.executable_cost()
         #: The kernel launches the ranks reported, summed over every run,
         #: and the recent runs' pivots, singular flags and engine seconds.
         self.launches: dict = {}

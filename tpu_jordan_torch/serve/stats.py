@@ -80,7 +80,6 @@ class _BucketStats:
         self.singular = 0
         self.queue_s = Reservoir(MAX_LATENCY_SAMPLES)
         self.exec_s = Reservoir(MAX_LATENCY_SAMPLES)
-        self.executable = None     # hwcost.ExecutableCost json, if any
 
     def to_json(self) -> dict:
         occ = (self.elements / self.batches) if self.batches else 0.0
@@ -97,8 +96,6 @@ class _BucketStats:
             "queue_ms": _percentiles(self.queue_s.samples),
             "execute_ms": _percentiles(self.exec_s.samples),
         }
-        if self.executable is not None:
-            doc["executable"] = self.executable
         return doc
 
 
@@ -157,17 +154,6 @@ class ServeStats:
         with self._lock:
             self._b(bucket, workload).cache_hits += 1
         _M_CACHE_HITS.inc(**self._mirror(bucket))
-
-    def executable_cost(self, bucket, cost) -> None:
-        """A lane executor's compiler cost: the snapshot's ``executable``
-        block and the ``tpu_jordan_torch_executable_*`` gauges.  Eager
-        PyTorch has none (``hwcost.UNAVAILABLE``), which records nothing:
-        absent, never zeroed."""
-        if cost is None or not cost.available:
-            return
-        with self._lock:
-            self._b(bucket).executable = cost.to_json()
-        _hwcost.observe_cost(cost, bucket=bucket, **self._labels)
 
     def batch(self, bucket, occupancy: int, exec_seconds: float,
               queue_seconds, singular: int = 0,
