@@ -22,7 +22,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    body is also held against its twin ``gj_fused_panel_plain`` by the same
    rules, and its residual on every regular block to RESIDUAL_RATIO_LIMIT
    times that of ``gj_probe.cu`` on the same stack; its rows split one
-   traced call's device time over its three kernels.  The fused update, at
+   traced call's device time over its kernels.  Its look-ahead schedule is
+   held to its serial one bit for bit (inverses, flags, perm and piv; the
+   C entry called with each flag) at every LOOKAHEAD_CASES stack, both
+   timed, with the schedule the wrapper's rule takes.  The fused update, at
    every UPDATE_CASES shape, t in {0, mid, last} and j in {0, k−1}, in both
    modes: the H block exact, and elsewhere max|kernel − plain| /
    (KM·max|U|·max|P_eff|) below UPDATE_LIMIT.  Each row prints the
@@ -480,6 +483,17 @@ PROBE_CASES = (
 # the kernels line.  m = 300 (6000/m300 and 3000/m300) is its cluster
 # schedule, m = 1100 its global one.
 RANK1_CASE = (50, 20, "float32")
+
+# (nc, m, dtype, mixed): the stacks at which the panel body's two schedules
+# are held to each other bit for bit, the C entry called with each flag, and
+# timed.  (22, 384) is 8192/m384's first superstep and (1, 384) its last full
+# one; (32, 128) fp32 is 4096/m128's, where panel_lookahead declines (four
+# panels).  A mixed stack is make_stack's (a zero block, a rank-deficient
+# block and a NaN); the others are standard normal.
+LOOKAHEAD_CASES = ((22, 384, "float64", False), (22, 384, "float64", True),
+                   (1, 384, "float64", False), (22, 384, "float32", False),
+                   (1, 384, "float32", False), (8, 512, "float64", False),
+                   (32, 128, "float32", False))
 
 # (m, nc, dtype): the probe variants' stacks: every fp32 PROBE_CASES stack
 # with a panel width (the same seeded stack as its gj_probe row), m=48,
@@ -1155,7 +1169,7 @@ def phase_kernel_vs_plain(torch):
                    "mean": float(twin_ratio.mean())},
                "split_ms": split_ms(torch, lambda: launch_fused_panel(
                    blocks, eps), "gj_probe_fused_panel_",
-                   ("micro", "update", "store"))}
+                   ("micro", "update", "strip", "gather", "store"))}
         emit(row)
         rows["gj_probe_fused_panel"].append(row)
         if not (ok and twin_ok
@@ -1170,6 +1184,92 @@ def phase_kernel_vs_plain(torch):
         raise AssertionError(f"gj_probe.cu ran only the schedules "
                              f"{sorted(served)}")
     return rows
+
+
+def panel_entry(torch, blocks, eps: float, lookahead: int):
+    """One call of the panel body's C entry on the schedule ``lookahead``
+    (0 serial, 1 look-ahead), whatever ``panel_lookahead`` would pick:
+    (inv, sing, perm, piv), each step's pivot row and raw pivot read from
+    the scratch."""
+    from tpu_jordan_torch.ops import gj_fused_panel as fp
+
+    lib = fp._lib()
+    nc, m, _ = blocks.shape
+    b = fp.panel_width(m)
+    inv = torch.empty_like(blocks)
+    sing = torch.empty(nc, dtype=torch.uint8, device="cuda")
+    work = torch.empty(lib.gj_probe_fused_panel_work_bytes(nc, m, b),
+                       dtype=torch.uint8, device="cuda")
+    fn = (lib.gj_probe_fused_panel_f64 if blocks.dtype == torch.float64
+          else lib.gj_probe_fused_panel_f32)
+    err = fn(blocks.data_ptr(), inv.data_ptr(), sing.data_ptr(),
+             work.data_ptr(), nc, m, b, eps, lookahead,
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise AssertionError(f"gj_probe_fused_panel (lookahead={lookahead}) "
+                             f"failed with CUDA error {err} at {(nc, m)}")
+
+    def region(r, dtype):
+        at = lib.gj_probe_fused_panel_work_offset(nc, m, b, r)
+        size = nc * m * torch.empty((), dtype=dtype).element_size()
+        return work[at:at + size].view(dtype).view(nc, m)
+
+    return (inv, sing, region(fp.WORK_PERM, torch.int32),
+            region(fp.WORK_PIV, torch.float64))
+
+
+def phase_lookahead_vs_serial(torch):
+    """The panel body's look-ahead schedule against its serial one at every
+    LOOKAHEAD_CASES stack: inverses, flags, perm and piv equal bit for bit;
+    both schedules timed (serial, look-ahead, look-ahead, serial), and the
+    schedule the wrapper's rule takes, by ``lookahead_launches``.  Emits
+    every row, then fails if any differs."""
+    import numpy as np
+
+    from tpu_jordan_torch.config import eps_for
+    from tpu_jordan_torch.ops import gj_fused_panel as fp
+
+    bad = []
+    for i, (nc, m, dname, mixed) in enumerate(LOOKAHEAD_CASES):
+        dtype = getattr(torch, dname)
+        eps = eps_for(dtype)
+        if mixed:
+            blocks = make_stack(torch, nc, m, dtype, seed=900 + i)
+        else:
+            rng = np.random.default_rng(900 + i)
+            blocks = torch.from_numpy(rng.standard_normal((nc, m, m))).to(
+                device="cuda", dtype=dtype)
+        serial = panel_entry(torch, blocks, eps, 0)
+        ahead = panel_entry(torch, blocks, eps, 1)
+        torch.cuda.synchronize()
+        equal = {name: (bits_equal(torch, x, y) if x.is_floating_point()
+                        else bool(torch.equal(x, y)))
+                 for name, x, y in zip(("inv", "sing", "perm", "piv"),
+                                       serial, ahead)}
+        reps = 20 if nc * m * m <= 22 * 384 * 384 else 5
+        ms = {"serial": [], "lookahead": []}
+        for flag in (0, 1, 1, 0):
+            ms["lookahead" if flag else "serial"].append(cuda_ms(
+                torch, lambda: panel_entry(torch, blocks, eps, flag), reps))
+        fp.reset_launches()
+        fp.launch_fused_panel(blocks, eps)
+        torch.cuda.synchronize()
+        row = {"phase": "lookahead_vs_serial", "nc": nc, "m": m,
+               "dtype": dname, "mixed": mixed, "equal": equal,
+               "flags": int(serial[1].sum()),
+               "ms": {k: sum(v) / len(v) for k, v in ms.items()},
+               "ms_runs": ms,
+               "rule": bool(fp.panel_lookahead(
+                   nc, m, fp.panel_width(m), torch.cuda.get_device_properties(
+                       0).multi_processor_count)),
+               "launches": fp.launches,
+               "lookahead_launches": fp.lookahead_launches}
+        emit(row)
+        if not all(equal.values()) or row["lookahead_launches"] != int(
+                row["rule"]) or (mixed and row["flags"] != 3):
+            bad.append(row)
+    if bad:
+        raise AssertionError(f"the panel body's schedules disagree: {bad}")
 
 
 def phase_scaled_vs_plain(torch):
@@ -6378,6 +6478,7 @@ def run_phases(torch, phases: list) -> int:
     rows = {name: [] for name in KERNELS}
     if "kernel_vs_plain" in phases:
         rows.update(phase_kernel_vs_plain(torch))
+        phase_lookahead_vs_serial(torch)
         rows["gj_probe"] += phase_scaled_vs_plain(torch)
         rows.update(phase_complex_vs_plain(torch))
         rows["fused_update"] = phase_update_vs_plain(torch)

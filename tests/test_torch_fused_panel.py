@@ -18,10 +18,17 @@ not; v2's normalized algebra reads 2.7–4.0× on the card.  The test holds
 the mean ratio of a stack to 1.5 and every block to 2.5×.
 
 The route, and one inplace-engine run with the twin as ``probe=``, whose
-pivot sequence must equal the JAX engine's.
+pivot sequence must equal the JAX engine's.  The CUDA body's schedule rule
+(``panel_lookahead``), its counter on a CPU stack, and the C entries'
+signatures against their ctypes declaration (the kernels themselves run on
+the card only: ``chip_smoke.py`` holds the two schedules bit for bit).
 """
 
+import ctypes
 import functools
+import re
+import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -117,6 +124,54 @@ def test_cpu_probe_counts_no_launch_of_either_body():
     assert torch.equal(sing, sing_p)
     assert torch.equal(inv.nan_to_num(), inv_p.nan_to_num())
     assert probe_mod.launches == 0 and fp.launches == 0
+
+
+@pytest.mark.parametrize("nc,m,sms,engaged", [
+    (1, 384, 132, True), (22, 384, 132, True),
+    (32, 128, 132, False), (512, 128, 132, False), (2048, 128, 132, False)])
+def test_panel_lookahead_by_shape(nc, m, sms, engaged):
+    """The look-ahead schedule where the micro grid leaves most SMs idle
+    and the block has panels enough; the serial one where a folded batch
+    fills the card, or at four panels (m = 128)."""
+    assert fp.panel_lookahead(nc, m, fp.panel_width(m), sms) is engaged
+
+
+def test_cpu_stack_counts_no_lookahead_launch():
+    """A stack the rule would take ahead on an H100 runs the plain probe
+    on the CPU, and counts no launch of either schedule."""
+    assert fp.panel_lookahead(6, 256, 32, 132)
+    fp.reset_launches()
+    b = torch.from_numpy(_stack(6, 256, np.float64, seed=9))
+    probe_mod.gj_probe(b)
+    assert fp.launches == 0 and fp.lookahead_launches == 0
+
+
+def _c_params(name):
+    """The parameter types of C entry ``name`` in the kernel's source."""
+    src = (Path(fp.__file__).parents[1] / "csrc"
+           / "gj_probe_fused_panel.cu").read_text()
+    params = re.search(rf"\bint {name}\(([^)]*)\)", src).group(1)
+    return [" ".join(p.split()[:-1]) for p in params.split(",")]
+
+
+def test_entry_signatures_carry_the_schedule_flag():
+    """Both C entries take the schedule as an int between eps and the
+    stream, in the source and in the ctypes declaration."""
+    lib = types.SimpleNamespace(**{
+        name: types.SimpleNamespace() for name in (
+            "gj_probe_fused_panel_f32", "gj_probe_fused_panel_f64",
+            "gj_probe_fused_panel_work_bytes",
+            "gj_probe_fused_panel_work_offset")})
+    fp.declare(lib)
+    ctypes_of = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+                 "int": ctypes.c_int, "float": ctypes.c_float,
+                 "double": ctypes.c_double}
+    for name, eps in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+        entry = f"gj_probe_fused_panel_{name}"
+        argtypes = getattr(lib, entry).argtypes
+        assert argtypes[7:] == [eps, ctypes.c_int, ctypes.c_void_p]
+        assert [ctypes_of[t] for t in _c_params(entry)] == argtypes
+        assert _c_params(entry)[8] == "int"
 
 
 def test_launch_refuses_a_cpu_stack():

@@ -34,7 +34,13 @@ layout and of the TPU's VMEM, not semantics, and have no counterpart here.
 This card's own limit is :data:`MAX_M`: the kernel runs one thread per
 matrix row, and a thread block holds at most 1024 threads.
 
-``launches`` counts the kernel's launches (one a call) and nothing else.
+The CUDA body runs one of two schedules of the same arithmetic, with the
+same bits: serial, or look-ahead, where a panel's micro-steps run beside
+the previous panel's trailing update.  :func:`panel_lookahead` picks one
+from the stack's shape and the card's SM count (the source says how).
+
+``launches`` counts the kernel's calls (one a call) and nothing else;
+``lookahead_launches`` those of them that took the look-ahead schedule.
 """
 
 from __future__ import annotations
@@ -50,12 +56,23 @@ from .norms import block_inf_norms
 # Largest block size the CUDA body takes: one thread per row.
 MAX_M = 1024
 
+# Where the look-ahead schedule pays, from both schedules timed alone on an
+# H100 (132 SMs) at m in {128, 256, 384, 512} and nc from 1 to 512: from 8
+# panels on it gained in fp32 and fp64 at every nc up to half the SMs
+# (+3 to +35 %), and read -14 to +10 % beyond, where the micro grid (one SM
+# a candidate) takes more of the card from the update.  At 4 panels
+# (m = 128) the update it hides is short: fp64 gained, fp32 read -12 to +7 %.
+LOOKAHEAD_MIN_PANELS = 8
+LOOKAHEAD_MAX_SM_SHARE = 1 / 2
+
 launches = 0
+lookahead_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, lookahead_launches
     launches = 0
+    lookahead_launches = 0
 
 
 def panel_width(m: int) -> int | None:
@@ -72,6 +89,21 @@ def require_panel_width(m: int) -> int:
     if b is None:
         raise ValueError(f"no panel width divides m={m}")
     return b
+
+
+def panel_lookahead(nc: int, m: int, b: int, sms: int) -> bool:
+    """Whether a call on an (nc, m, m) stack with panel width b takes the
+    look-ahead schedule on a card of ``sms`` SMs: where the micro grid (one
+    block a candidate) leaves most SMs idle and the block has enough panels
+    to overlap.  Where it fills the card (a folded batch), the serial
+    schedule runs."""
+    return (m >= LOOKAHEAD_MIN_PANELS * b
+            and nc <= LOOKAHEAD_MAX_SM_SHARE * sms)
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def takes_panel_body(m: int) -> bool:
@@ -136,22 +168,33 @@ def gj_fused_panel_plain(blocks: torch.Tensor, eps: float):
     return inv, sing
 
 
+# Regions of the kernel's scratch, in the order of
+# ``gj_probe_fused_panel_work_offset``.
+WORK_PERM, WORK_PIV = 6, 4
+
+
+def declare(lib):
+    """Set the C entries' ctypes signatures on ``lib``; returns it.  The
+    entries take (blocks, inv, sing, work, nc, m, b, eps, lookahead,
+    stream)."""
+    ptrs = [ctypes.c_void_p] * 4
+    ints = [ctypes.c_int] * 3
+    for name, eps in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+        fn = getattr(lib, f"gj_probe_fused_panel_{name}")
+        fn.argtypes = ptrs + ints + [eps, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.gj_probe_fused_panel_work_bytes.argtypes = [ctypes.c_int] * 3
+    lib.gj_probe_fused_panel_work_bytes.restype = ctypes.c_size_t
+    lib.gj_probe_fused_panel_work_offset.argtypes = [ctypes.c_int] * 4
+    lib.gj_probe_fused_panel_work_offset.restype = ctypes.c_size_t
+    return lib
+
+
 @functools.cache
 def _lib():
     from .._build import load
 
-    lib = load("gj_probe_fused_panel")
-    ptrs = [ctypes.c_void_p] * 4
-    ints = [ctypes.c_int] * 3
-    lib.gj_probe_fused_panel_f32.argtypes = ptrs + ints + [ctypes.c_float,
-                                                           ctypes.c_void_p]
-    lib.gj_probe_fused_panel_f64.argtypes = ptrs + ints + [ctypes.c_double,
-                                                           ctypes.c_void_p]
-    lib.gj_probe_fused_panel_f32.restype = ctypes.c_int
-    lib.gj_probe_fused_panel_f64.restype = ctypes.c_int
-    lib.gj_probe_fused_panel_work_bytes.argtypes = [ctypes.c_int] * 3
-    lib.gj_probe_fused_panel_work_bytes.restype = ctypes.c_size_t
-    return lib
+    return declare(load("gj_probe_fused_panel"))
 
 
 def launch_fused_panel(blocks: torch.Tensor, eps: float):
@@ -174,17 +217,20 @@ def launch_fused_panel(blocks: torch.Tensor, eps: float):
     lib = _lib()
     f64 = blocks.dtype == torch.float64
     with torch.cuda.device(blocks.device):
+        ahead = panel_lookahead(nc, m, b,
+                                _sm_count(torch.cuda.current_device()))
         work = torch.empty(lib.gj_probe_fused_panel_work_bytes(nc, m, b),
                            dtype=torch.uint8, device=blocks.device)
         fn = lib.gj_probe_fused_panel_f64 if f64 else \
             lib.gj_probe_fused_panel_f32
         err = fn(blocks.data_ptr(), inv.data_ptr(), sing.data_ptr(),
-                 work.data_ptr(), nc, m, b, eps,
+                 work.data_ptr(), nc, m, b, eps, int(ahead),
                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise KernelLaunchError(
             f"gj_probe_fused_panel launch failed with CUDA error {err} "
             f"(nc={nc}, m={m}, b={b}, {blocks.dtype})")
-    global launches
+    global launches, lookahead_launches
     launches += 1
+    lookahead_launches += ahead
     return inv, sing.bool()
